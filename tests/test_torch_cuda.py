@@ -1,0 +1,164 @@
+"""The port's CUDA kernels on the card: each kernel against its plain
+PyTorch version for every activation, the wrappers' checks and launch
+counts, and the fused GNN-FiLM layer on the card against the CPU.
+
+Marked `cuda`; every test skips without a GPU. This file imports no JAX,
+so it runs where JAX is absent (the repository's conftest imports it):
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import check_kernel
+from tf_gnn_samples_torch.nn import layers
+from tf_gnn_samples_torch.ops import ranked_segment as rs
+from tf_gnn_samples_torch.ops.graph import graph_to_device, pad_graph_batch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def graph(dev):
+    """A random 4-type graph (plus self loops) of 3,000 nodes on the card."""
+    rng = np.random.default_rng(0)
+    n = 3000
+    adj = [np.stack([np.arange(n)] * 2, 1).astype(np.int32)]
+    for _ in range(4):
+        e = int(rng.integers(2 * n, 4 * n))
+        adj.append(rng.integers(0, n, size=(e, 2)).astype(np.int32))
+    feats = rng.standard_normal((n, 8)).astype(np.float32)
+    g = pad_graph_batch(feats, adj, np.zeros(n, np.int32), 1)
+    return graph_to_device(g, dev)
+
+
+def _terms_and_counts(kernel, act, args, flat, dev):
+    """Per-edge bf16 terms of a kernel (for the order bound) and the
+    number of terms of each output row."""
+    fn, dact = rs._ACTS[act]
+    if kernel == "film_src_bwd":
+        gcb, t, ranks, rows = args
+        d = t.shape[1]
+        m = t.float().index_select(0, ranks)
+        g = gcb.float()
+        terms = rs._bf16_terms(dact(g[:, :d] * m + g[:, d:2 * d]) * g[:, 2 * d:])
+    else:
+        msgs, table, ranks = args
+        rows, d = table.shape[0], msgs.shape[1]
+        v = table.float().index_select(0, ranks)
+        m = msgs.float()
+        z = v[:, :d] * m + v[:, d:2 * d]
+        if kernel == "film_fwd":
+            terms = rs._bf16_terms(fn(z))
+        else:
+            dz = dact(z) * v[:, 2 * d:]
+            terms = torch.cat([rs._bf16_terms(m * dz), rs._bf16_terms(dz)], 1)
+    abs_sums = torch.zeros((rows, terms.shape[1]), device=dev).index_add_(
+        0, ranks, terms.abs())
+    counts = torch.zeros(rows, device=dev).index_add_(
+        0, ranks, torch.ones(ranks.shape[0], device=dev))
+    return abs_sums, counts
+
+
+def _inputs(kernel, flat, d, dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return (2 * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
+
+    e = flat.tgt_rank.shape[0]
+    if kernel == "film_fwd":
+        return randn(e, d), randn(flat.fine_to_flat.shape[0], 2 * d), flat.tgt_rank
+    if kernel == "film_bwd_dgb":
+        return randn(e, d), randn(flat.fine_to_flat.shape[0], 3 * d), flat.tgt_rank
+    rows = flat.src_from_rank.shape[0]
+    return randn(e, 3 * d), randn(rows, d), flat.src_sorted_rank, rows
+
+
+def _run(kernel, args, act, plain):
+    if kernel == "film_fwd":
+        return (rs._film_fwd_plain(*args, act) if plain
+                else rs._film_fwd_impl(*args, act=act))
+    if kernel == "film_bwd_dgb":
+        return (rs._film_bwd_dgb_plain(*args, act) if plain
+                else rs._film_bwd_dgb_impl(*args, act=act))
+    gcb, t, ranks, rows = args
+    return (rs._film_src_bwd_plain(gcb, t, ranks, rows, act) if plain
+            else rs._film_src_bwd_impl(gcb, t, ranks, table_rows=rows, act=act))
+
+
+@pytest.mark.parametrize("d", [200, 48])
+@pytest.mark.parametrize("act", sorted(rs.ACT_IDS))
+@pytest.mark.parametrize("kernel", ["film_fwd", "film_bwd_dgb",
+                                    "film_src_bwd"])
+def test_kernel_matches_plain_on_card(dev, graph, kernel, act, d):
+    """Kernel and plain version sum the same bf16 terms in two orders; each
+    row must agree within the f32 summation-order bound (exactly for a
+    single normal term; see chip_smoke.check_kernel). D = 200 spans two column passes of a 128-thread block;
+    D = 48 a partly filled warp."""
+    args = _inputs(kernel, graph.flat, d, dev)
+    before = rs.LAUNCHES[kernel]
+    got = _run(kernel, args, act, plain=False)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES[kernel] == before + 1
+    want = _run(kernel, args, act, plain=True)
+    abs_sums, counts = _terms_and_counts(kernel, act, args, graph.flat, dev)
+    check_kernel(kernel, got, want, abs_sums, counts, torch)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev, graph):
+    msgs, table, ranks = _inputs("film_fwd", graph.flat, 64, dev)
+    with pytest.raises(TypeError):
+        rs._film_fwd_impl(msgs.float(), table, ranks, act="elu")
+    with pytest.raises(TypeError):
+        rs._film_fwd_impl(msgs, table, ranks.long(), act="elu")
+    with pytest.raises(ValueError):
+        rs._film_fwd_impl(msgs.t().contiguous().t(), table, ranks, act="elu")
+    with pytest.raises(ValueError):
+        rs._film_fwd_impl(msgs, table.cpu(), ranks, act="elu")
+
+
+def test_fused_layer_on_card_matches_cpu(dev, graph):
+    """One GNN-FiLM layer, forward and gradients, through K1-K3 on the card
+    and through the plain versions on the CPU."""
+    rng = np.random.default_rng(1)
+    num_types, d = graph.num_edge_types, 64
+    params = {
+        "W": (0.2 * rng.standard_normal((num_types, d, d))).astype(np.float32),
+        "W_film": (0.2 * rng.standard_normal((num_types, d, 2 * d))).astype(
+            np.float32),
+        "ln": {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)},
+    }
+    h = rng.standard_normal((graph.n_pad, d)).astype(np.float32)
+    w = rng.standard_normal((graph.n_pad, d)).astype(np.float32)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        g = graph_to_device(graph, device)
+        p = {"W": torch.tensor(params["W"], device=device, requires_grad=True),
+             "W_film": torch.tensor(params["W_film"], device=device,
+                                    requires_grad=True),
+             "ln": {k: torch.tensor(v, device=device)
+                    for k, v in params["ln"].items()}}
+        hh = torch.tensor(h, device=device, requires_grad=True)
+        launches = dict(rs.LAUNCHES)
+        out = layers.gnn_film_apply(p, g, hh, activation_function="elu")
+        (out * torch.tensor(w, device=device)).sum().backward()
+        if device.type == "cuda":
+            assert all(rs.LAUNCHES[k] == launches[k] + 1 for k in launches)
+        results.append([x.detach().cpu().numpy()
+                        for x in (out, hh.grad, p["W"].grad, p["W_film"].grad)])
+    for card, cpu in zip(*results):
+        # f32 matmul and sum orders differ between the devices, so a few
+        # streamed values round to the neighbouring bf16 number (2^-8
+        # relative each); over the whole tensor that stays far below 1e-3.
+        rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
+        assert rel < 1e-3, rel

@@ -1,0 +1,92 @@
+"""Builds and loads the port's CUDA kernels (csrc/*.cu).
+
+Each source compiles with nvcc into its own shared library with a plain C
+interface, loaded with ctypes. Libraries are named by a hash of the
+sources, the header and the flags, under `build/torch_kernels/` at the
+repository root (listed in .gitignore), so a changed source rebuilds and
+an unchanged one is reused. Nothing is built at import time: the first
+wrapper call on a CUDA tensor builds what it needs; `build_all()` builds
+every kernel at once, one nvcc process per source, all started together.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, Iterable
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
+                         "torch_kernels")
+HEADERS = ("film_common.cuh",)
+KERNELS = ("film_fwd", "film_bwd_dgb", "film_src_bwd")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# ptxas report (registers, shared memory, spills) of each kernel built by
+# this process; empty for a library found already built.
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (name + ".cu",) + HEADERS:
+        with open(os.path.join(CSRC, f), "rb") as src:
+            h.update(src.read())
+    return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))
+
+
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every kernel of `names` not built yet, in parallel.
+    Returns {name: library path}; raises with nvcc's output on failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {n: _lib_path(n) for n in names}
+    jobs = {}
+    for name, path in paths.items():
+        if os.path.exists(path):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
+        jobs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[name] = out
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append("%s (nvcc exit %d):\n%s" % (name, proc.returncode,
+                                                      out))
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed. Its
+    `<name>_launch` entry point takes (4 pointers, num_edges, dim, act id,
+    stream) and returns the CUDA error code of the launch."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build_all([name])[name])
+        fn = getattr(lib, name + "_launch")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,489 @@
+"""Training runtime (counterpart of the core of
+tf_gnn_samples_tpu/runtime/model.py): model assembly (task input model ->
+shared propagation stack -> task output model), per-tensor gradient
+clipping and TF1 optimizers, a per-batch epoch driver with throughput
+telemetry, patience-based early stopping with best-checkpoint pickling,
+and weight save/load with fresh-init of unmatched entries. Log lines are
+the JAX package's, verbatim (run_qm9_benchs.py regexes them).
+
+Parameters are a nested dict/list tree of tensors shaped as the JAX
+package's pytree, and checkpoints key them by the same `flatten_params`
+names (e.g. `prop/layers/0/gnn/W_film`), so a pickle written by either
+package loads into the other.
+
+Entry points run on CUDA unless the caller asks for the CPU; a missing
+GPU raises instead of falling back.
+"""
+
+import os
+import pickle
+import random
+import time
+from abc import ABC
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..nn.propagation import propagation_apply, propagation_init
+from ..ops.graph import graph_to_device
+from ..tasks.base import DataFold, SparseGraphTask, TaskBatch
+from .optimizers import clip_grads_per_tensor, make_optimizer
+
+# Consecutive flagged validation epochs before the degenerate-basin
+# warning fires.
+COLLAPSE_WARN_EPOCHS = 5
+
+
+def resolve_device(name: Optional[str] = None) -> torch.device:
+    """'cuda' (the default) or 'cpu'. Asking for CUDA without a GPU raises:
+    the port never carries on quietly on the CPU."""
+    device = torch.device(name or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("No CUDA device is available; pass device 'cpu' "
+                           "(--device cpu) to run on the CPU.")
+    return device
+
+
+def flatten_params(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dict/list tree -> {path: leaf}, paths joined by '/' with dict
+    keys sorted (the JAX package's checkpoint names)."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return {prefix: tree}
+    flat = {}
+    for k, v in items:
+        flat.update(flatten_params(v, "%s/%s" % (prefix, k) if prefix
+                                   else str(k)))
+    return flat
+
+
+def _unflatten(flat: Dict[str, Any]):
+    """Inverse of flatten_params: dicts whose keys are all digits are
+    lists."""
+    root: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = root
+        *parents, last = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
+
+
+def params_from_jax(flat: Dict[str, np.ndarray], device=None):
+    """The JAX package's `flatten_params` dict -> the port's parameter tree
+    (float32 tensors on `device`). The port keeps the JAX layouts (e.g.
+    W [L, D_in, D_out], W_film [L, D, 2D]), so the map is name for name."""
+    return _unflatten({k: torch.tensor(np.asarray(v, dtype=np.float32),
+                                       device=device)
+                       for k, v in flat.items()})
+
+
+def params_to_jax(tree) -> Dict[str, np.ndarray]:
+    """Inverse of params_from_jax: {flatten_params name: float32 array}."""
+    return {k: v.detach().cpu().numpy()
+            for k, v in flatten_params(tree).items()}
+
+
+def batch_to_device(batch: TaskBatch, device) -> TaskBatch:
+    return batch._replace(
+        graph=graph_to_device(batch.graph, device),
+        aux={k: v.to(device, non_blocking=True) for k, v in batch.aux.items()},
+    )
+
+
+class SparseGraphModel(ABC):
+    """Abstract model: training loop + propagation stack around task heads."""
+
+    layer_name: str = ""  # key into nn.layers.LAYERS
+
+    @classmethod
+    def default_params(cls):
+        # Reference defaults: models/sparse_graph_model.py:22-45.
+        return {
+            "max_nodes_in_batch": 50000,
+            "graph_num_layers": 8,
+            "graph_num_timesteps_per_layer": 1,
+            "graph_layer_input_dropout_keep_prob": 0.8,
+            "graph_dense_between_every_num_gnn_layers": 1,
+            "graph_model_activation_function": "tanh",
+            "graph_residual_connection_every_num_layers": 2,
+            "graph_inter_layer_norm": False,
+            "max_epochs": 10000,
+            "patience": 25,
+            "optimizer": "Adam",
+            "learning_rate": 0.001,
+            "learning_rate_decay": 0.98,
+            "lr_for_num_graphs_per_batch": None,
+            "momentum": 0.85,
+            "clamp_gradient_norm": 1.0,
+            "random_seed": 0,
+            # Recompute each GNN layer in the backward pass instead of
+            # keeping its activations (nn/propagation.py).
+            "remat_layers": False,
+        }
+
+    @staticmethod
+    def name(params: Dict[str, Any]) -> str:
+        raise NotImplementedError()
+
+    def layer_kwargs(self) -> Dict[str, Any]:
+        return {}
+
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        task: SparseGraphTask,
+        run_id: str,
+        result_dir: str,
+        device=None,
+    ) -> None:
+        for key in ("num_model_replicas", "graph_parallel"):
+            if int(params.get(key) or 1) > 1:
+                raise NotImplementedError(
+                    "%s > 1 is not yet ported to the PyTorch package." % key)
+        self.params = params
+        self.task = task
+        self.run_id = run_id
+        self.result_dir = result_dir
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # The typed transforms are f32 matmuls in the reference: keep
+            # them in full f32 (no TF32) on the card.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+        seed = params["random_seed"]
+        random.seed(seed)
+        np.random.seed(seed)
+        self._init_gen = torch.Generator().manual_seed(seed)
+        self._dropout_gen = torch.Generator(device=self.device)
+        self._optimizer = make_optimizer(params)
+        self._step_rng = np.random.RandomState(seed)
+
+        self.model_params_tree = self._init_params()
+        self.opt_state = self._optimizer.init(self._leaves())
+        # Batches run per fold (host telemetry: lets a caller check that
+        # every batch went through the expected kernels).
+        self.batches_run = {fold: 0 for fold in DataFold}
+
+    # -------------------- files --------------------
+
+    @property
+    def log_file(self):
+        return os.path.join(self.result_dir, "%s.log" % self.run_id)
+
+    @property
+    def best_model_file(self):
+        return os.path.join(self.result_dir, "%s_best_model.pickle" % self.run_id)
+
+    # -------------------- parameters --------------------
+
+    def _init_params(self):
+        gen = self._init_gen
+        tree = {
+            "input": self.task.input_init(gen),
+            "prop": propagation_init(
+                gen, self.params, self.task.num_edge_types,
+                self.task.initial_node_feature_size, self.layer_name,
+                self.layer_kwargs(),
+            ),
+            "output": self.task.output_init(gen, self.params["hidden_size"]),
+        }
+        return self._as_leaves(flatten_params(tree))
+
+    def _as_leaves(self, flat: Dict[str, torch.Tensor]):
+        return _unflatten({
+            k: v.detach().to(self.device, torch.float32).requires_grad_(True)
+            for k, v in flat.items()
+        })
+
+    def _leaves(self) -> List[torch.Tensor]:
+        return list(flatten_params(self.model_params_tree).values())
+
+    # -------------------- forward and steps --------------------
+
+    def _forward(self, params, batch: TaskBatch, gen):
+        """Task input model -> propagation stack -> task output model.
+        gen=None means eval (no dropout)."""
+        # A task without input parameters has no "input" entry (no leaves).
+        feats = self.task.input_apply(params.get("input", {}), batch, gen)
+        final_h = propagation_apply(
+            params["prop"], self.params, batch.graph, feats,
+            self.layer_name, self.layer_kwargs(), gen=gen,
+        )
+        return self.task.output_apply(params["output"], batch, final_h,
+                                      feats, gen)
+
+    def _effective_lr(self, num_graphs: int) -> float:
+        lr = self.params["learning_rate"]
+        per_batch = self.params.get("lr_for_num_graphs_per_batch")
+        if per_batch is not None:
+            lr = lr * float(num_graphs) / float(per_batch)
+        return lr
+
+    def _train_step(self, batch: TaskBatch):
+        self._dropout_gen.manual_seed(
+            int(self._step_rng.randint(0, 2**31 - 1)))
+        leaves = self._leaves()
+        loss, metrics = self._forward(self.model_params_tree, batch,
+                                      self._dropout_gen)
+        grads = torch.autograd.grad(loss, leaves)
+        grads = clip_grads_per_tensor(grads, self.params["clamp_gradient_norm"])
+        self.opt_state = self._optimizer.update(
+            grads, self.opt_state, leaves,
+            self._effective_lr(batch.num_graphs))
+        return {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def _eval_step(self, batch: TaskBatch):
+        _, metrics = self._forward(self.model_params_tree, batch, None)
+        return metrics
+
+    # -------------------- save / load --------------------
+
+    def save_model(self, path: str) -> None:
+        data_to_save = {
+            "model_class": self.name(self.params),
+            "task_class": self.task.name(),
+            "model_params": self.params,
+            "task_params": self.task.params,
+            "task_metadata": self.task.get_metadata(),
+            "weights": params_to_jax(self.model_params_tree),
+        }
+        with open(path, "wb") as f:
+            pickle.dump(data_to_save, f, pickle.HIGHEST_PROTOCOL)
+
+    def load_weights(self, weights: Dict[str, np.ndarray]) -> None:
+        """Partial restore by flatten_params name: entries missing from
+        `weights` keep their fresh initialization (reference
+        sparse_graph_model.py:109-126)."""
+        saved = flatten_params(params_from_jax(weights))
+        current = flatten_params(self.model_params_tree)
+        for key, leaf in current.items():
+            if key in saved:
+                assert saved[key].shape == leaf.shape, (
+                    key, tuple(saved[key].shape), tuple(leaf.shape))
+                current[key] = saved[key]
+            else:
+                print("Freshly initializing %s since no saved value was "
+                      "found." % key)
+        for key in saved:
+            if key not in current:
+                print("Saved weights for %s not used by model." % key)
+        self.model_params_tree = self._as_leaves(current)
+        self.opt_state = self._optimizer.init(self._leaves())
+
+    # -------------------- epoch driver --------------------
+
+    def log_line(self, msg: str) -> None:
+        os.makedirs(self.result_dir, exist_ok=True)
+        with open(self.log_file, "a") as f:
+            f.write(msg + "\n")
+        print(msg)
+
+    def _run_epoch(
+        self,
+        epoch_name: str,
+        data: Iterable[Any],
+        data_fold: DataFold,
+        quiet: bool = False,
+    ) -> Tuple[float, List[Dict[str, Any]], int, float, float, float]:
+        batch_iterator = self.task.make_minibatch_iterator(
+            data, data_fold, self.params["max_nodes_in_batch"])
+        start_time = time.time()
+        processed_graphs = processed_nodes = processed_edges = 0
+        device_metrics: List[Dict[str, Any]] = []
+        batch_graph_counts: List[int] = []
+        for step_i, batch in enumerate(batch_iterator):
+            processed_graphs += int(batch.num_graphs)
+            processed_nodes += int(batch.num_nodes)
+            processed_edges += int(batch.num_edges)
+            dev_batch = batch_to_device(batch, self.device)
+            if data_fold == DataFold.TRAIN:
+                metrics = self._train_step(dev_batch)
+            else:
+                metrics = self._eval_step(dev_batch)
+            self.batches_run[data_fold] += 1
+            device_metrics.append(metrics)
+            batch_graph_counts.append(batch.num_graphs)
+            if not quiet and step_i % 16 == 0:
+                print(
+                    "Running %s, batch %i (has %i graphs)."
+                    % (epoch_name, step_i, batch.num_graphs),
+                    end="\r",
+                )
+
+        assert processed_graphs > 0, "Can't run epoch over empty dataset."
+        # One host sync at epoch end: the device runs ahead of the host
+        # until the metrics are fetched.
+        task_metric_results = [
+            {k: np.asarray(v.cpu()) for k, v in m.items()}
+            for m in device_metrics
+        ]
+        epoch_loss = float(sum(
+            float(m["loss"]) * n
+            for m, n in zip(task_metric_results, batch_graph_counts)
+        ))
+        epoch_time = time.time() - start_time
+        return (
+            epoch_loss / processed_graphs,
+            task_metric_results,
+            processed_graphs,
+            processed_graphs / epoch_time,
+            processed_nodes / epoch_time,
+            processed_edges / epoch_time,
+        )
+
+    def train(self, quiet: bool = False):
+        """Patience-based early-stopped training; log format kept verbatim
+        (the bench scripts regex these lines)."""
+        total_time_start = time.time()
+        best_valid_metric, best_val_metric_epoch, best_val_metric_descr = (
+            float("+inf"), 0, "",
+        )
+        collapse_streak, collapse_warned = 0, False
+        for epoch in range(1, self.params["max_epochs"] + 1):
+            self.log_line("== Epoch %i" % epoch)
+            (train_loss, train_task_metrics, train_num_graphs,
+             train_graphs_p_s, train_nodes_p_s, train_edges_p_s) = self._run_epoch(
+                "epoch %i (training)" % epoch,
+                self.task._loaded_data[DataFold.TRAIN],
+                DataFold.TRAIN,
+                quiet=quiet,
+            )
+            if not quiet:
+                print("\r\x1b[K", end="")
+            self.log_line(
+                " Train: loss: %.5f || %s || graphs/sec: %.2f | nodes/sec: %.0f | edges/sec: %.0f"
+                % (
+                    train_loss,
+                    self.task.pretty_print_epoch_task_metrics(
+                        train_task_metrics, train_num_graphs
+                    ),
+                    train_graphs_p_s, train_nodes_p_s, train_edges_p_s,
+                )
+            )
+
+            (valid_loss, valid_task_metrics, valid_num_graphs,
+             valid_graphs_p_s, valid_nodes_p_s, valid_edges_p_s) = self._run_epoch(
+                "epoch %i (validation)" % epoch,
+                self.task._loaded_data[DataFold.VALIDATION],
+                DataFold.VALIDATION,
+                quiet=quiet,
+            )
+            if not quiet:
+                print("\r\x1b[K", end="")
+            early_stopping_metric = self.task.early_stopping_metric(
+                valid_task_metrics, valid_num_graphs
+            )
+            valid_metric_descr = self.task.pretty_print_epoch_task_metrics(
+                valid_task_metrics, valid_num_graphs
+            )
+            self.log_line(
+                " Valid: loss: %.5f || %s || graphs/sec: %.2f | nodes/sec: %.0f | edges/sec: %.0f"
+                % (valid_loss, valid_metric_descr,
+                   valid_graphs_p_s, valid_nodes_p_s, valid_edges_p_s)
+            )
+
+            # Degenerate-basin guard: warn loudly when the task reports the
+            # validation fold stuck in a known collapsed basin.
+            collapse_msg = self.task.collapse_diagnostic(
+                valid_loss, valid_task_metrics, valid_num_graphs
+            )
+            if collapse_msg is None:
+                collapse_streak = 0
+            else:
+                collapse_streak += 1
+                if collapse_streak == COLLAPSE_WARN_EPOCHS and not collapse_warned:
+                    collapse_warned = True
+                    self.log_line(
+                        "WARNING: collapsed-optimization basin suspected — %s "
+                        "for %i consecutive epochs. The model is likely stuck "
+                        "predicting a constant. If training on a small fold with "
+                        "hypers tuned for a larger one, reduce the step size "
+                        "(small-fold recipe: Adam, learning_rate 1e-4, "
+                        "max_nodes_in_batch 10000 — see docs/PARITY.md)."
+                        % (collapse_msg, COLLAPSE_WARN_EPOCHS)
+                    )
+
+            if early_stopping_metric < best_valid_metric:
+                self.save_model(self.best_model_file)
+                self.log_line(
+                    "  (Best epoch so far, target metric decreased to %.5f from %.5f. Saving to '%s')"
+                    % (early_stopping_metric, best_valid_metric, self.best_model_file)
+                )
+                best_valid_metric = early_stopping_metric
+                best_val_metric_epoch = epoch
+                best_val_metric_descr = valid_metric_descr
+            elif epoch - best_val_metric_epoch >= self.params["patience"]:
+                total_time = time.time() - total_time_start
+                self.log_line(
+                    "Stopping training after %i epochs without improvement on validation loss."
+                    % self.params["patience"]
+                )
+                self.log_line(
+                    "Training took %is. Best validation results: %s"
+                    % (total_time, best_val_metric_descr)
+                )
+                break
+
+    def test(self, path: Optional[str], quiet: bool = False):
+        self.log_line("== Running Test on %s ==" % (path,))
+        data = self.task._loaded_data.get(DataFold.TEST)
+        if data is None:
+            data = self.task.load_eval_data_from_path(path)
+        test_loss, test_task_metrics, test_num_graphs, _, _, _ = self._run_epoch(
+            "Test", data, DataFold.TEST, quiet=quiet
+        )
+        if not quiet:
+            print("\r\x1b[K", end="")
+        self.log_line("Loss %.5f on %i graphs" % (test_loss, test_num_graphs))
+        self.log_line(
+            "Metrics: %s"
+            % self.task.pretty_print_epoch_task_metrics(
+                test_task_metrics, test_num_graphs
+            )
+        )
+
+
+class GNN_FiLM_Model(SparseGraphModel):
+    layer_name = "gnn_film"
+
+    @classmethod
+    def default_params(cls):
+        params = super().default_params()
+        params.update({
+            "hidden_size": 128,
+            "graph_activation_function": "ReLU",
+            "message_aggregation_function": "sum",
+            "normalize_messages_by_num_incoming": False,
+        })
+        return params
+
+    @staticmethod
+    def name(params):
+        return "GNN-FiLM"
+
+    def layer_kwargs(self):
+        return {
+            "aggregation_strategy": self.params.get("aggregation_strategy", "auto"),
+            "activation_function": self.params["graph_activation_function"],
+            "message_aggregation_function": self.params["message_aggregation_function"],
+            "normalize_by_num_incoming": self.params[
+                "normalize_messages_by_num_incoming"
+            ],
+        }
