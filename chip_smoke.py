@@ -4,21 +4,21 @@
 Phases, each of which raises on failure (no phase's failure is caught):
  1. the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels from tf_gnn_samples_torch/csrc/ with nvcc;
- 3. each kernel (K1 film_fwd, K2 film_bwd_dgb, K3 film_src_bwd) at the
-    shapes of a real training batch of the tuned QM9 GNN-FiLM config,
-    held against its plain PyTorch version on the card, and timed;
- 4. the main path: `tf_gnn_samples_torch.train` trains GNN-FiLM on the
-    bundled QM9 data at the tuned config for 2 epochs, then
-    `tf_gnn_samples_torch.test` evaluates the written checkpoint; the
-    kernel launch counters must show that every FiLM layer of every batch
-    went through K1 (and K2, K3 in training);
- 5. a reference check: loss and gradients of the full-width model on a
-    small QM9 batch on the card (kernels) against the same model on the
-    CPU (the kernels' plain versions).
-The last lines are the card line, a `kernels` JSON line and the `ok` JSON
-line. Exits non-zero, with no `ok` line, if there is no CUDA device or if
-the package is not beside this script.
-
+ 3. each kernel (K1 film_fwd, K2 film_bwd_dgb, K3 film_src_bwd, K5a
+    segsum, K5b expand) at the shapes of the first training batch of the
+    tuned QM9 configs (50,000-node packs), held against its plain PyTorch
+    version on the card, and timed beside its bound and, where one PyTorch
+    call computes the same function, that call;
+ 4. the main paths: `tf_gnn_samples_torch.train` trains GNN-FiLM, RGCN
+    and GGNN on the bundled QM9 data at their tuned configs for 2 epochs
+    each, then `tf_gnn_samples_torch.test` evaluates each written
+    checkpoint; the kernel launch counters, set to 0 before each run and
+    read after it, must show that every layer of every batch went through
+    its kernels (K1-K3 for GNN-FiLM, K5a forward and K5b backward for
+    RGCN and GGNN) and through no other;
+ 5. a reference check per model: loss and gradients of the full-width
+    model on a small QM9 batch on the card (kernels) against the same
+    model on the CPU (the kernels' plain versions).
 Usage: python3 chip_smoke.py
 """
 
@@ -36,11 +36,15 @@ DATA = os.path.join(ROOT, "data", "qm9")
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-TUNED_OVERRIDES = {"max_epochs": 2}  # everything else: QM9_GNN-FiLM.json
+TUNED_OVERRIDES = {"max_epochs": 2}  # everything else: QM9_<model>.json
+MODELS = ("GNN-FiLM", "RGCN", "GGNN")
+FILM_KERNELS = ("film_fwd", "film_bwd_dgb", "film_src_bwd")
 REPLACES = {  # TPU kernel each CUDA kernel replaces
     "film_fwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:333",
     "film_bwd_dgb": "tf_gnn_samples_tpu/ops/ranked_segment.py:433",
     "film_src_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:493",
+    "segsum": "tf_gnn_samples_tpu/ops/ranked_segment.py:238",
+    "expand": "tf_gnn_samples_tpu/ops/ranked_segment.py:259",
 }
 
 
@@ -103,16 +107,20 @@ def kernel_phase(torch, rs, dev):
     from tf_gnn_samples_torch.runtime.model import batch_to_device
 
     _, batch = first_batch(50000, "TRAIN")
-    flat = batch_to_device(batch, dev).graph.flat
+    graph = batch_to_device(batch, dev).graph
+    flat = graph.flat
     e = int(flat.tgt_rank.numel())
     d = 128
     rpad = int(flat.fine_to_flat.numel())
     rsrc = int(flat.src_from_rank.numel())
-    fine, src = flat.tgt_rank, flat.src_sorted_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    fine, src, rcv = flat.tgt_rank, flat.src_sorted_rank, flat.rcv_rank
     n_fine = int(fine[-1]) + 1
     n_src = int(src[-1]) + 1
-    print("main-path shapes: E=%d D=%d RPAD=%d R_src=%d; fine groups %d, "
-          "src groups %d" % (e, d, rpad, rsrc, n_fine, n_src))
+    n_rcv = int(rcv[-1]) + 1
+    print("main-path shapes: E=%d D=%d n_pad=%d RPAD=%d R_src=%d rows=%d; "
+          "fine groups %d, src groups %d, receiver groups %d"
+          % (e, d, graph.n_pad, rpad, rsrc, rows, n_fine, n_src, n_rcv))
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
@@ -121,17 +129,38 @@ def kernel_phase(torch, rs, dev):
     act = "elu"
     dact = rs._ACTS[act][1]
     ones = torch.ones(e, device=dev)
-    fine_counts = torch.zeros(rpad, device=dev).index_add_(0, fine, ones)
-    src_counts = torch.zeros(rsrc, device=dev).index_add_(0, src, ones)
 
-    def abs_sums(rows, ranks, terms):
-        return torch.zeros((rows, terms.shape[1]), device=dev).index_add_(
+    def counts(n, ranks):
+        return torch.zeros(n, device=dev).index_add_(0, ranks, ones)
+
+    def abs_sums(n, ranks, terms):
+        return torch.zeros((n, terms.shape[1]), device=dev).index_add_(
             0, ranks, terms.abs())
+
+    def order_check(name, n, ranks, terms):
+        return lambda got, want: check_kernel(
+            name, got, want, abs_sums(n, ranks, terms), counts(n, ranks),
+            torch)
+
+    def exact_check(name):
+        def check(got, want):
+            max_err = float((got - want).abs().max())
+            print("  %s: max |kernel - plain| = %.3e (must be 0)"
+                  % (name, max_err))
+            if not torch.equal(got, want):
+                raise AssertionError("%s disagrees with its plain version"
+                                     % name)
+            return max_err
+        return check
+
+    def index_add(n, ranks, terms):
+        return lambda: torch.zeros((n, terms.shape[1]), device=dev).index_add_(
+            0, ranks, terms)
 
     msgs, gb, gbg = randn(e, d), randn(rpad, 2 * d), randn(rpad, 3 * d)
     gcb, t = randn(e, 3 * d), randn(rsrc, d)
-    # Per-edge bf16 terms of each kernel (for the order bound and for the
-    # index_add_ yardstick, which sums precomputed terms only).
+    # Per-edge bf16 terms of each FiLM kernel (for the order bound and for
+    # the index_add_ yardstick, which sums precomputed terms only).
     g32 = gb.float().index_select(0, fine)
     k1_terms = rs._bf16_terms(rs._ACTS[act][0](g32[:, :d] * msgs.float()
                                                + g32[:, d:]))
@@ -142,48 +171,66 @@ def kernel_phase(torch, rs, dev):
     m = t.float().index_select(0, src)
     k3_terms = rs._bf16_terms(dact(gcb.float()[:, :d] * m + gcb.float()[:, d:2 * d])
                               * gcb.float()[:, 2 * d:])
+    # K5 inputs: f32, as RGCN/GGNN messages (and table cotangents) are.
+    m5 = torch.randn((e, d), generator=gen, device=dev)
+    table5 = torch.randn((rows, d), generator=gen, device=dev)
+    film_yardstick = ("torch.Tensor.index_add_ of the precomputed terms "
+                      "(leaves out the row gathers, the modulation and the "
+                      "activation)")
     specs = [
-        ("film_fwd",
-         lambda: rs._film_fwd_impl(msgs, gb, fine, act=act),
-         lambda: rs._film_fwd_plain(msgs, gb, fine, act),
-         (rpad, fine, k1_terms, fine_counts),
-         e * d * 2 + e * 4 + n_fine * 2 * d * 2 + rpad * d * 4,
-         4 * e * d),
-        ("film_bwd_dgb",
-         lambda: rs._film_bwd_dgb_impl(msgs, gbg, fine, act=act),
-         lambda: rs._film_bwd_dgb_plain(msgs, gbg, fine, act),
-         (rpad, fine, k2_terms, fine_counts),
-         e * d * 2 + e * 4 + n_fine * 3 * d * 2 + rpad * 2 * d * 4,
-         7 * e * d),
-        ("film_src_bwd",
-         lambda: rs._film_src_bwd_impl(gcb, t, src, table_rows=rsrc, act=act),
-         lambda: rs._film_src_bwd_plain(gcb, t, src, rsrc, act),
-         (rsrc, src, k3_terms, src_counts),
-         e * 3 * d * 2 + e * 4 + n_src * d * 2 + rsrc * d * 4,
-         5 * e * d),
+        dict(name="film_fwd",
+             kern=lambda: rs._film_fwd_impl(msgs, gb, fine, act=act),
+             plain=lambda: rs._film_fwd_plain(msgs, gb, fine, act),
+             check=order_check("film_fwd", rpad, fine, k1_terms),
+             nbytes=e * d * 2 + e * 4 + n_fine * 2 * d * 2 + rpad * d * 4,
+             nops=4 * e * d,
+             yardstick=(film_yardstick, index_add(rpad, fine, k1_terms))),
+        dict(name="film_bwd_dgb",
+             kern=lambda: rs._film_bwd_dgb_impl(msgs, gbg, fine, act=act),
+             plain=lambda: rs._film_bwd_dgb_plain(msgs, gbg, fine, act),
+             check=order_check("film_bwd_dgb", rpad, fine, k2_terms),
+             nbytes=e * d * 2 + e * 4 + n_fine * 3 * d * 2 + rpad * 2 * d * 4,
+             nops=7 * e * d,
+             yardstick=(film_yardstick, index_add(rpad, fine, k2_terms))),
+        dict(name="film_src_bwd",
+             kern=lambda: rs._film_src_bwd_impl(gcb, t, src, table_rows=rsrc,
+                                                act=act),
+             plain=lambda: rs._film_src_bwd_plain(gcb, t, src, rsrc, act),
+             check=order_check("film_src_bwd", rsrc, src, k3_terms),
+             nbytes=e * 3 * d * 2 + e * 4 + n_src * d * 2 + rsrc * d * 4,
+             nops=5 * e * d,
+             yardstick=(film_yardstick, index_add(rsrc, src, k3_terms))),
+        # K5a reads the f32 stream and the ranks and writes the table; one
+        # add per element. Library: index_add_ of the unrounded stream.
+        dict(name="segsum",
+             kern=lambda: rs._segsum_table_impl(m5, rcv, table_rows=rows),
+             plain=lambda: rs._segsum_plain(m5, rcv, rows),
+             check=order_check("segsum", rows, rcv, rs._bf16_terms(m5)),
+             nbytes=e * d * 4 + e * 4 + rows * d * 4, nops=e * d,
+             library=("torch.Tensor.index_add_",
+                      index_add(rows, rcv, m5))),
+        # K5b reads the used table rows and the ranks and writes [E, D] f32;
+        # one rounding per element. Library: index_select, unrounded.
+        dict(name="expand",
+             kern=lambda: rs._expand_impl(table5, rcv),
+             plain=lambda: rs._expand_plain(table5, rcv),
+             check=exact_check("expand"),
+             nbytes=n_rcv * d * 4 + e * 4 + e * d * 4, nops=e * d,
+             library=("torch.Tensor.index_select",
+                      lambda: table5.index_select(0, rcv))),
     ]
     results = []
-    for name, kern, plain, (rows, ranks, terms, counts), nbytes, nops in specs:
-        got = kern()
+    for spec in specs:
+        name = spec["name"]
+        got = spec["kern"]()
         torch.cuda.synchronize()
-        want = plain()
-        max_err = check_kernel(name, got, want, abs_sums(rows, ranks, terms),
-                               counts, torch)
-        ms = cuda_ms(kern, torch)
-        plain_ms = cuda_ms(plain, torch)
-        yardstick_ms = cuda_ms(lambda: torch.zeros(
-            (rows, terms.shape[1]), device=dev).index_add_(0, ranks, terms),
-            torch)
-        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms = nops / F32_FLOPS * 1e3
+        max_err = spec["check"](got, spec["plain"]())
+        ms = cuda_ms(spec["kern"], torch)
+        plain_ms = cuda_ms(spec["plain"], torch)
+        bound_bytes_ms = spec["nbytes"] / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = spec["nops"] / F32_FLOPS * 1e3
         bound_ms = max(bound_bytes_ms, bound_ops_ms)
-        print("  %s: kernel %.4f ms, plain %.4f ms; bound %.4f ms (%d bytes "
-              "at 3.35 TB/s; %d f32 ops at 67 TFLOP/s); no single PyTorch "
-              "call computes this function, yardstick: index_add_ of the "
-              "precomputed bf16 terms %.4f ms (leaves out the row gathers, "
-              "the modulation and the activation)"
-              % (name, ms, plain_ms, bound_ms, nbytes, nops, yardstick_ms))
-        results.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "tf_gnn_samples_torch/csrc/%s.cu" % name,
             "replaces": REPLACES[name], "launches": 0,
@@ -191,9 +238,22 @@ def kernel_phase(torch, rs, dev):
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
             "library_ms": None,
-            "yardstick_ms": yardstick_ms,
-            "yardstick": "torch.Tensor.index_add_ of the precomputed terms",
-        })
+        }
+        if "library" in spec:
+            what, fn = spec["library"]
+            row["library_ms"] = cuda_ms(fn, torch)
+            other = "library (%s) %.4f ms" % (what, row["library_ms"])
+        else:
+            what, fn = spec["yardstick"]
+            row["yardstick_ms"] = cuda_ms(fn, torch)
+            row["yardstick"] = what
+            other = ("no single PyTorch call computes this function; "
+                     "yardstick: %s %.4f ms" % (what, row["yardstick_ms"]))
+        print("  %s: kernel %.4f ms, plain %.4f ms; bound %.4f ms (%d bytes "
+              "at 3.35 TB/s; %d f32 ops at 67 TFLOP/s); %s"
+              % (name, ms, plain_ms, bound_ms, spec["nbytes"], spec["nops"],
+                 other))
+        results.append(row)
     return results
 
 
@@ -207,27 +267,45 @@ def finite_log_values(path, pattern):
     return vals
 
 
-def main_path_phase(rs):
+def expected_launches(model_name, layers, n_fwd, n_bwd):
+    """Kernel launches of `n_fwd` forward passes, `n_bwd` of them with a
+    backward pass, through `layers` message-passing layers: GNN-FiLM runs
+    K1 forward and K2 + K3 backward, RGCN and GGNN K5a forward and K5b
+    backward; no kernel of the other family runs."""
+    want = {k: 0 for k in FILM_KERNELS + ("segsum", "expand")}
+    if model_name == "GNN-FiLM":
+        want.update(film_fwd=layers * n_fwd, film_bwd_dgb=layers * n_bwd,
+                    film_src_bwd=layers * n_bwd)
+    else:
+        want.update(segsum=layers * n_fwd, expand=layers * n_bwd)
+    return want
+
+
+def main_path_phase(rs, model_name):
+    """Train `model_name` at its tuned QM9 config for 2 epochs, test its
+    checkpoint; returns the training run's launches and step times."""
     from tf_gnn_samples_torch import train as train_cli
     from tf_gnn_samples_torch import test as test_cli
     from tf_gnn_samples_torch.tasks.base import DataFold
 
-    os.makedirs(OUT, exist_ok=True)
+    out = os.path.join(OUT, model_name)
+    os.makedirs(out, exist_ok=True)
     args = train_cli.get_train_args([
-        "GNN-FiLM", "QM9", "--data-path", DATA, "--result-dir", OUT,
+        model_name, "QM9", "--data-path", DATA, "--result-dir", out,
         "--quiet", "--model-param-overrides", json.dumps(TUNED_OVERRIDES)])
     rs.reset_launches()
     t0 = time.time()
     (model,) = train_cli.run(args)
     launches = dict(rs.LAUNCHES)
     train_s = time.time() - t0
-    layers = model.params["graph_num_layers"]
+    layers = (model.params["graph_num_layers"]
+              * model.params["graph_num_timesteps_per_layer"])
     n_train = model.batches_run[DataFold.TRAIN]
     n_valid = model.batches_run[DataFold.VALIDATION]
-    want = {"film_fwd": layers * (n_train + n_valid),
-            "film_bwd_dgb": layers * n_train, "film_src_bwd": layers * n_train}
-    print("main path: %d train and %d valid batches in %.1f s; launches %s, "
-          "expected %s" % (n_train, n_valid, train_s, launches, want))
+    want = expected_launches(model_name, layers, n_train + n_valid, n_train)
+    print("%s main path: %d train and %d valid batches in %.1f s; launches "
+          "%s, expected %s" % (model_name, n_train, n_valid, train_s,
+                               launches, want))
     if launches != want:
         raise AssertionError("kernel launches %s != expected %s"
                              % (launches, want))
@@ -237,13 +315,12 @@ def main_path_phase(rs):
 
     rs.reset_launches()
     tmodel = test_cli.test(model.best_model_file,
-                           os.path.join(DATA, "test.jsonl.gz"), OUT, quiet=True)
+                           os.path.join(DATA, "test.jsonl.gz"), out, quiet=True)
     n_test = tmodel.batches_run[DataFold.TEST]
     test_launches = dict(rs.LAUNCHES)
-    want_test = {"film_fwd": layers * n_test, "film_bwd_dgb": 0,
-                 "film_src_bwd": 0}
-    print("test: %d batches; launches %s, expected %s"
-          % (n_test, test_launches, want_test))
+    want_test = expected_launches(model_name, layers, n_test, 0)
+    print("%s test: %d batches; launches %s, expected %s"
+          % (model_name, n_test, test_launches, want_test))
     if test_launches != want_test:
         raise AssertionError("test launches %s != expected %s"
                              % (test_launches, want_test))
@@ -271,41 +348,53 @@ def step_times(model):
                                       torch, warmup=2, iters=5),
              "eval_step_ms": cuda_ms(lambda: model._eval_step(dev_batch),
                                      torch, warmup=2, iters=5)}
-    print("one batch of %d graphs: host packing %.1f ms, train step %.2f ms, "
-          "eval step %.2f ms (device)" % (batch.num_graphs, times["pack_ms"],
-                                          times["train_step_ms"],
-                                          times["eval_step_ms"]))
+    print("%s: one batch of %d graphs: host packing %.1f ms, train step "
+          "%.2f ms, eval step %.2f ms (device)"
+          % (model.name(model.params), batch.num_graphs, times["pack_ms"],
+             times["train_step_ms"], times["eval_step_ms"]))
     return times
 
 
-def reference_phase(torch):
+def reference_phase(torch, rs, model_name, card="cuda"):
     """Full-width model (tuned config) on a small QM9 batch: the card's
-    kernels against the CPU's plain versions, same weights, no dropout."""
+    kernels against the CPU's plain versions, same weights, no dropout.
+    At 600 nodes RGCN and GGNN would take the dense strategy ("auto"), so
+    they are set to the ranked one ("pallas") and must launch K5."""
     import numpy as np
 
-    from tf_gnn_samples_torch.runtime.model import (
-        GNN_FiLM_Model, batch_to_device, params_to_jax)
+    from tf_gnn_samples_torch.runtime.model import batch_to_device, params_to_jax
     from tf_gnn_samples_torch.train import HYPERS_DIR
+    from tf_gnn_samples_torch.utils.registry import name_to_model_class
 
-    with open(os.path.join(HYPERS_DIR, "QM9_GNN-FiLM.json")) as f:
+    cls, _ = name_to_model_class(model_name)
+    with open(os.path.join(HYPERS_DIR, "QM9_%s.json" % model_name)) as f:
         hypers = json.load(f)["model_params"]
-    params = GNN_FiLM_Model.default_params()
+    params = cls.default_params()
     params.update(hypers)
     params["graph_layer_input_dropout_keep_prob"] = 1.0
+    if model_name != "GNN-FiLM":
+        params["aggregation_strategy"] = "pallas"
     task, batch = first_batch(600, "VALIDATION")
-    weights = params_to_jax(GNN_FiLM_Model(
-        dict(params), task, "ref", OUT, device="cpu").model_params_tree)
+    out = os.path.join(OUT, model_name)
+    weights = params_to_jax(cls(dict(params), task, "ref", out,
+                                device="cpu").model_params_tree)
 
     def loss_and_grads(dev, w):
-        model = GNN_FiLM_Model(dict(params), task, "ref", OUT, device=dev)
+        model = cls(dict(params), task, "ref", out, device=dev)
         model.load_weights(w)
         loss, _ = model._forward(model.model_params_tree,
                                  batch_to_device(batch, model.device), None)
         grads = torch.autograd.grad(loss, model._leaves())
         return float(loss.detach()), [g.cpu().double() for g in grads]
 
-    (lc, gc), (lp, gp) = loss_and_grads("cuda", weights), loss_and_grads(
-        "cpu", weights)
+    rs.reset_launches()
+    lc, gc = loss_and_grads(card, weights)
+    launches = dict(rs.LAUNCHES)
+    used = FILM_KERNELS if model_name == "GNN-FiLM" else ("segsum", "expand")
+    if not all(launches[k] > 0 for k in used):
+        raise AssertionError("%s reference: launches %s" % (model_name,
+                                                            launches))
+    lp, gp = loss_and_grads("cpu", weights)
     rel_loss = abs(lc - lp) / abs(lp)
     rel_grad = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
                    for a, b in zip(gc, gp))
@@ -318,11 +407,13 @@ def reference_phase(torch):
     nudged = {k: v * (1 + 1e-6 * rng.standard_normal(v.shape)).astype(
         np.float32) for k, v in weights.items()}
     sensitivity = abs(loss_and_grads("cpu", nudged)[0] - lp) / abs(lp)
-    print("reference: loss card %.7f cpu %.7f (rel %.2e); max per-tensor "
+    print("%s reference: loss card %.7f cpu %.7f (rel %.2e); max per-tensor "
           "relative gradient difference %.2e; CPU loss moved %.2e by a 1e-6 "
-          "relative weight nudge" % (lc, lp, rel_loss, rel_grad, sensitivity))
+          "relative weight nudge; card launches %s"
+          % (model_name, lc, lp, rel_loss, rel_grad, sensitivity, launches))
     if not (np.isfinite(lc) and rel_loss < 1e-2 and rel_grad < 5e-2):
-        raise AssertionError("card and CPU disagree on the small batch")
+        raise AssertionError("%s: card and CPU disagree on the small batch"
+                             % model_name)
 
 
 def main() -> int:
@@ -354,14 +445,22 @@ def main() -> int:
                 print("  %s: %s" % (name, line.strip()))
 
     kernels = kernel_phase(torch, rs, torch.device("cuda"))
-    launches, times = main_path_phase(rs)
-    kernel_ms = times["layers"] * sum(k["ms"] for k in kernels)
-    print("K1-K3 at %d launches each: %.2f ms, %.1f%% of the train step"
-          % (times["layers"], kernel_ms,
-             100 * kernel_ms / times["train_step_ms"]))
+    kernel_ms = {k["name"]: k["ms"] for k in kernels}
+    total = {k["name"]: 0 for k in kernels}
+    for model_name in MODELS:
+        launches, times = main_path_phase(rs, model_name)
+        for name, n in launches.items():
+            total[name] += n
+        used = [k for k in kernel_ms if launches[k]]
+        share = times["layers"] * sum(kernel_ms[k] for k in used)
+        print("%s: %s at %d launches each per train step: %.2f ms, %.1f%% "
+              "of the train step" % (model_name, "+".join(used),
+                                     times["layers"], share,
+                                     100 * share / times["train_step_ms"]))
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    reference_phase(torch)
+        k["launches"] = total[k["name"]]
+    for model_name in MODELS:
+        reference_phase(torch, rs, model_name)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

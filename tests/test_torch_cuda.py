@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version for every activation, the wrappers' checks and launch
-counts, and the fused GNN-FiLM layer on the card against the CPU.
+PyTorch version (the FiLM kernels for every activation, the ranked
+segment-sum for an f32 and a bf16 stream, the ranked expand exactly), the
+wrappers' checks and launch counts, and the fused GNN-FiLM, RGCN and GGNN
+layers on the card against the CPU.
 
 Marked `cuda`; every test skips without a GPU. This file imports no JAX,
 so it runs where JAX is absent (the repository's conftest imports it):
@@ -153,12 +155,131 @@ def test_fused_layer_on_card_matches_cpu(dev, graph):
         out = layers.gnn_film_apply(p, g, hh, activation_function="elu")
         (out * torch.tensor(w, device=device)).sum().backward()
         if device.type == "cuda":
-            assert all(rs.LAUNCHES[k] == launches[k] + 1 for k in launches)
+            assert all(rs.LAUNCHES[k] == launches[k] + (k.startswith("film"))
+                       for k in launches)
         results.append([x.detach().cpu().numpy()
                         for x in (out, hh.grad, p["W"].grad, p["W_film"].grad)])
     for card, cpu in zip(*results):
         # f32 matmul and sum orders differ between the devices, so a few
         # streamed values round to the neighbouring bf16 number (2^-8
         # relative each); over the whole tensor that stays far below 1e-3.
+        rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
+        assert rel < 1e-3, rel
+
+
+# ---- K5: the ranked segment-sum / expand pair -----------------------------
+
+@pytest.fixture(scope="module")
+def ranked_graph(dev):
+    """The random graph of `graph`, with every edge block padded to a
+    multiple of 2048 edges, as tasks/base.py pads them (ranked_supported)."""
+    rng = np.random.default_rng(0)
+    n = 3000
+    adj = [np.stack([np.arange(n)] * 2, 1).astype(np.int32)]
+    for _ in range(4):
+        e = int(rng.integers(2 * n, 4 * n))
+        adj.append(rng.integers(0, n, size=(e, 2)).astype(np.int32))
+    feats = rng.standard_normal((n, 8)).astype(np.float32)
+    g = pad_graph_batch(feats, adj, np.zeros(n, np.int32), 1,
+                        e_pads=[-(-a.shape[0] // 2048) * 2048 for a in adj])
+    return graph_to_device(g, dev)
+
+
+@pytest.mark.parametrize("d", [200, 128, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segsum_matches_plain_on_card(dev, graph, dtype, d):
+    """K5a and its plain version sum the same bf16-rounded terms in two
+    orders: each row within the f32 summation-order bound."""
+    ranks = graph.flat.rcv_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    msgs = (3 * torch.randn((ranks.shape[0], d), generator=gen,
+                            device=dev)).to(dtype)
+    before = rs.LAUNCHES["segsum"]
+    got = rs._segsum_table_impl(msgs, ranks, table_rows=rows)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["segsum"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (rows, d)
+    want = rs._segsum_plain(msgs, ranks, rows)
+    terms = rs._bf16_terms(msgs)
+    abs_sums = torch.zeros((rows, d), device=dev).index_add_(0, ranks,
+                                                             terms.abs())
+    counts = torch.zeros(rows, device=dev).index_add_(
+        0, ranks, torch.ones(ranks.shape[0], device=dev))
+    check_kernel("segsum", got, want, abs_sums, counts, torch)
+
+
+@pytest.mark.parametrize("d,offset", [(200, 0), (128, 0), (130, 0), (128, 1)])
+def test_expand_matches_plain_exactly_on_card(dev, graph, d, offset):
+    """K5b rounds each table row to bf16 and copies it: exact. D = 130 and
+    a table one float past an aligned address take the 4-byte path."""
+    ranks = graph.flat.rcv_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    base = torch.randn(rows * d + offset, generator=gen, device=dev)
+    table = base[offset:].view(rows, d)
+    before = rs.LAUNCHES["expand"]
+    got = rs._expand_impl(table, ranks)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["expand"] == before + 1
+    assert torch.equal(got, rs._expand_plain(table, ranks))
+
+
+def test_k5_wrappers_refuse_what_the_kernels_do_not_take(dev, graph):
+    ranks = graph.flat.rcv_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    msgs = torch.zeros((ranks.shape[0], 16), device=dev)
+    table = torch.zeros((rows, 16), device=dev)
+    with pytest.raises(TypeError):
+        rs._segsum_table_impl(msgs.half(), ranks, table_rows=rows)
+    with pytest.raises(TypeError):
+        rs._segsum_table_impl(msgs, ranks.long(), table_rows=rows)
+    with pytest.raises(ValueError):
+        rs._segsum_table_impl(msgs, ranks.cpu(), table_rows=rows)
+    with pytest.raises(TypeError):
+        rs._expand_impl(table.to(torch.bfloat16), ranks)
+    with pytest.raises(ValueError):
+        rs._expand_impl(table.t().contiguous().t()[:, :8], ranks)
+
+
+@pytest.mark.parametrize("layer", ["rgcn", "ggnn"])
+def test_ranked_layer_on_card_matches_cpu(dev, ranked_graph, layer):
+    """One RGCN / GGNN layer on the ranked path ("pallas"), forward and
+    gradients: K5a forward and K5b backward on the card, their plain
+    versions on the CPU."""
+    rng = np.random.default_rng(2)
+    num_types, d = ranked_graph.num_edge_types, 64
+    params = {"W": (0.2 * rng.standard_normal((num_types, d, d))).astype(
+        np.float32)}
+    if layer == "ggnn":
+        params["cell"] = {
+            "kernel": (0.2 * rng.standard_normal((d, d))).astype(np.float32),
+            "recurrent_kernel": (0.2 * rng.standard_normal((d, d))).astype(
+                np.float32),
+            "bias": np.zeros(d, np.float32)}
+    kw = ({"gated_unit_type": "rnn", "activation_function": "relu"}
+          if layer == "ggnn" else {"activation_function": "leaky_relu"})
+    apply = getattr(layers, layer + "_apply")
+    h = rng.standard_normal((ranked_graph.n_pad, d)).astype(np.float32)
+    w = rng.standard_normal((ranked_graph.n_pad, d)).astype(np.float32)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        g = graph_to_device(ranked_graph, device)
+        p = {"W": torch.tensor(params["W"], device=device, requires_grad=True)}
+        if "cell" in params:
+            p["cell"] = {k: torch.tensor(v, device=device)
+                         for k, v in params["cell"].items()}
+        hh = torch.tensor(h, device=device, requires_grad=True)
+        launches = dict(rs.LAUNCHES)
+        out = apply(p, g, hh, aggregation_strategy="pallas", **kw)
+        (out * torch.tensor(w, device=device)).sum().backward()
+        if device.type == "cuda":
+            assert {k: rs.LAUNCHES[k] - launches[k] for k in launches} == dict(
+                {k: 0 for k in launches}, segsum=1, expand=1)
+        results.append([x.detach().cpu().numpy()
+                        for x in (out, hh.grad, p["W"].grad)])
+    for card, cpu in zip(*results):
+        # As for the FiLM layer: a few streamed values round to the
+        # neighbouring bf16 number on one device (2^-8 relative each).
         rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
         assert rel < 1e-3, rel

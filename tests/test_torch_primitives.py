@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tf_gnn_samples_tpu.nn import activations as j_act
@@ -38,6 +39,19 @@ def test_activations_match_jax(name):
     got = t_act.get_activation(name)(torch.from_numpy(x)).numpy()
     want = np.asarray(j_act.get_activation(name)(jnp.asarray(x)))
     np.testing.assert_allclose(got, want, **F32_ULPS)
+
+
+@pytest.mark.parametrize("name", sorted(j_act._ACTIVATIONS))
+def test_activation_gradients_match_jax(name):
+    """Derivatives, including at exactly +-0, where the ranked aggregation's
+    sums of bf16-rounded terms often land (leaky_relu's is 1 there)."""
+    x = _x(1).reshape(-1)
+    x[:8] = [0.0, -0.0, 0.0, -0.0, 1e-30, -1e-30, 0.0, 0.0]
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (got,) = torch.autograd.grad(t_act.get_activation(name)(tx).sum(), tx)
+    want = jax.grad(lambda a: jnp.sum(j_act.get_activation(name)(a)))(
+        jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_ULPS)
 
 
 def test_unknown_activation_raises():

@@ -7,8 +7,8 @@ are CUDA C++ kernels for Hopper (sm_90a) under csrc/, built at first use
 (ops/cuda_build.py). The package imports torch and numpy only, never jax
 and nothing of tf_gnn_samples_tpu.
 
-Ported so far: GNN-FiLM on QM9 (train and test CLIs:
-`python -m tf_gnn_samples_torch.train GNN-FiLM QM9`,
+Ported so far: GGNN, RGCN and GNN-FiLM on QM9 (train and test CLIs:
+`python -m tf_gnn_samples_torch.train {GGNN,RGCN,GNN-FiLM} QM9`,
 `python -m tf_gnn_samples_torch.test CKPT`).
 """
 

@@ -17,7 +17,10 @@ def _gelu_erf(x):
 
 
 def _leaky_relu_02(x):
-    return F.leaky_relu(x, negative_slope=0.2)
+    # jax.nn.leaky_relu's form: its gradient at exactly 0 is 1, where
+    # F.leaky_relu's is the slope. Sums of bf16-rounded messages (the
+    # ranked aggregation) cancel to exact zeros often enough to matter.
+    return torch.where(x >= 0, x, 0.2 * x)
 
 
 _ACTIVATIONS = {

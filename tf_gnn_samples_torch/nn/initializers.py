@@ -19,6 +19,22 @@ def glorot_uniform(gen: torch.Generator, shape):
     return (2.0 * u - 1.0) * limit
 
 
+def orthogonal(gen: torch.Generator, shape):
+    """A matrix with orthonormal rows or columns, whichever side is smaller
+    (the last axis holds the columns), drawn uniformly over such matrices:
+    QR of a standard normal draw with the signs of R's diagonal folded into
+    Q, as jax.nn.initializers.orthogonal does."""
+    n_cols = shape[-1]
+    n_rows = math.prod(shape) // n_cols
+    a = torch.randn((max(n_rows, n_cols), min(n_rows, n_cols)),
+                    generator=gen, dtype=torch.float32)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if n_rows < n_cols:
+        q = q.T
+    return q.reshape(shape).contiguous()
+
+
 def zeros(shape):
     return torch.zeros(shape, dtype=torch.float32)
 

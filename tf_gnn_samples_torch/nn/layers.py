@@ -1,5 +1,5 @@
 """Relational message-passing layers (counterpart of
-tf_gnn_samples_tpu/nn/layers.py). Ported so far: GNN-FiLM.
+tf_gnn_samples_tpu/nn/layers.py). Ported so far: GGNN, RGCN, GNN-FiLM.
 
 Each layer is a pair of functions over plain dicts of tensors:
     <name>_init(gen, num_edge_types, state_dim, **cfg) -> params
@@ -11,13 +11,17 @@ import torch
 from ..ops import ranked_segment as rs
 from ..ops.edge_ops import (
     aggregate_flat,
+    aggregate_flat_ranked,
+    dense_aggregate_linear,
     fine_table_to_nodes,
     gather_flat_src,
     gather_flat_tgt,
+    ranked_aggregation_ok,
     take_by_fine_rank,
 )
 from ..ops.graph import GraphBatch
 from .activations import get_activation
+from .cells import cell_apply, cell_init
 from .initializers import stacked_glorot_uniform
 from .normalization import layer_norm, layer_norm_init
 
@@ -31,6 +35,138 @@ def typed_transform(h, W):
 def _flat(t):
     """[L, N, D] -> [L * N, D] type-stacked node table."""
     return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+def use_dense_strategy(graph: GraphBatch, aggregation: str,
+                       strategy: str) -> bool:
+    """Whether a LINEAR-message layer aggregates through per-type dense
+    adjacency matmuls (ops/edge_ops.py dense_aggregate_linear) instead of
+    the flat edge stream. "dense" and "segment"/"pallas" force the choice;
+    "auto" takes the dense path up to n_pad 16,384 and L dense f32
+    matrices of at most 3 * 16,384^2 entries. These thresholds are the
+    JAX package's heuristic, kept so both packages pick the same path at
+    the same shape; they are still to be measured on the H100."""
+    if aggregation not in ("sum", "unsorted_segment_sum"):
+        return False
+    if strategy == "dense":
+        return True
+    if strategy in ("segment", "pallas"):
+        return False
+    adj_bytes = graph.num_edge_types * graph.n_pad * graph.n_pad * 4
+    return graph.n_pad <= 16384 and adj_bytes <= 3 * 16384 * 16384 * 4
+
+
+def aggregate_flat_auto(messages, graph: GraphBatch, aggregation: str,
+                        strategy: str):
+    """Flat-stream aggregation: the ranked segment-sum (K5a) when the shape
+    qualifies and the strategy allows it ('auto' or 'pallas', the JAX
+    configs' name for the kernel path), else plain segment ops."""
+    if strategy in ("auto", "pallas") and ranked_aggregation_ok(graph,
+                                                               aggregation):
+        return aggregate_flat_ranked(messages, graph, aggregation)
+    return aggregate_flat(messages, graph.flat, graph.n_pad, aggregation)
+
+
+def _flat_linear_messages(h, W, graph, concat_target=False):
+    """Per-edge linear messages of the whole flat stream: the type-l
+    message along u -> v is (h @ W_l)[u], or with concat_target
+    Dense(concat(h_u, h_v)), split into source and target halves of W so
+    both products stay node-sided."""
+    if concat_target:
+        d = h.shape[-1]
+        t_src = _flat(typed_transform(h, W[:, :d, :]))
+        t_tgt = _flat(typed_transform(h, W[:, d:, :]))
+        return (gather_flat_src(t_src, graph.flat)
+                + gather_flat_tgt(t_tgt, graph.flat))
+    return gather_flat_src(_flat(typed_transform(h, W)), graph.flat)
+
+
+# --------------------------------------------------------------------------
+# GGNN (reference: gnns/ggnn.py)
+# --------------------------------------------------------------------------
+
+def ggnn_init(gen, num_edge_types, state_dim, gated_unit_type="gru", **_):
+    return {
+        "W": stacked_glorot_uniform(gen, num_edge_types,
+                                    (state_dim, state_dim)),
+        "cell": cell_init(gen, gated_unit_type, state_dim),
+    }
+
+
+def ggnn_apply(
+    params,
+    graph: GraphBatch,
+    h,
+    *,
+    num_timesteps=1,
+    gated_unit_type="gru",
+    activation_function="tanh",
+    message_aggregation_function="sum",
+    aggregation_strategy="auto",
+    **_,
+):
+    """h' = Cell(input=aggregated messages, state=h): the reference feeds
+    messages as the cell *input* and node state as the *hidden state*
+    (gnns/ggnn.py:92)."""
+    dense = use_dense_strategy(graph, message_aggregation_function,
+                               aggregation_strategy)
+    c = None
+    for _step in range(num_timesteps):
+        if dense:
+            t = typed_transform(h, params["W"])
+            agg = dense_aggregate_linear(t, graph, normalize=False)
+        else:
+            msgs = _flat_linear_messages(h, params["W"], graph)
+            agg = aggregate_flat_auto(msgs, graph,
+                                      message_aggregation_function,
+                                      aggregation_strategy)
+        h, c = cell_apply(params["cell"], gated_unit_type, agg, h,
+                          activation_function, c)
+    return h
+
+
+# --------------------------------------------------------------------------
+# RGCN (reference: gnns/rgcn.py)
+# --------------------------------------------------------------------------
+
+def rgcn_init(gen, num_edge_types, state_dim,
+              use_both_source_and_target=False, **_):
+    in_dim = 2 * state_dim if use_both_source_and_target else state_dim
+    return {"W": stacked_glorot_uniform(gen, num_edge_types,
+                                        (in_dim, state_dim))}
+
+
+def rgcn_apply(
+    params,
+    graph: GraphBatch,
+    h,
+    *,
+    num_timesteps=1,
+    activation_function="tanh",
+    message_aggregation_function="sum",
+    normalize_by_num_incoming=True,
+    use_both_source_and_target=False,
+    aggregation_strategy="auto",
+    **_,
+):
+    act = get_activation(activation_function)
+    # The dense strategy needs source-only linear messages (1/c depends
+    # only on (receiver, type), so it applies after the product).
+    dense = not use_both_source_and_target and use_dense_strategy(
+        graph, message_aggregation_function, aggregation_strategy)
+    for _step in range(num_timesteps):
+        if dense:
+            t = typed_transform(h, params["W"])
+            h = act(dense_aggregate_linear(t, graph,
+                                           normalize_by_num_incoming))
+            continue
+        msgs = _flat_linear_messages(
+            h, params["W"], graph, concat_target=use_both_source_and_target)
+        if normalize_by_num_incoming:
+            msgs = msgs * graph.flat.norm_scale[:, None]
+        h = act(aggregate_flat_auto(msgs, graph, message_aggregation_function,
+                                    aggregation_strategy))
+    return h
 
 
 # --------------------------------------------------------------------------
@@ -116,5 +252,7 @@ def gnn_film_apply(
 
 
 LAYERS = {
+    "ggnn": (ggnn_init, ggnn_apply),
+    "rgcn": (rgcn_init, rgcn_apply),
     "gnn_film": (gnn_film_init, gnn_film_apply),
 }

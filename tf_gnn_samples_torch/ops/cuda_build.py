@@ -1,8 +1,10 @@
 """Builds and loads the port's CUDA kernels (csrc/*.cu).
 
 Each source compiles with nvcc into its own shared library with a plain C
-interface, loaded with ctypes. Libraries are named by a hash of the
-sources, the header and the flags, under `build/torch_kernels/` at the
+interface, loaded with ctypes. Each kernel declares the headers its
+source includes and the C signature of its `<name>_launch` entry point
+(`KERNELS`). Libraries are named by a hash of the source, its headers and
+the flags, under `build/torch_kernels/` at the
 repository root (listed in .gitignore), so a changed source rebuilds and
 an unchanged one is reused. Nothing is built at import time: the first
 wrapper call on a CUDA tensor builds what it needs; `build_all()` builds
@@ -15,14 +17,27 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "torch_kernels")
-HEADERS = ("film_common.cuh",)
-KERNELS = ("film_fwd", "film_bwd_dgb", "film_src_bwd")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The FiLM kernels' entry point: (two inputs, ranks, out, num_edges, dim,
+# act id, stream).
+_FILM_ARGS = (_P,) * 4 + (_I,) * 3 + (_P,)
+# name -> (headers the source includes, argument types of <name>_launch);
+# every entry point returns the CUDA error code of its launch.
+KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
+    # msgs, ranks, out, num_edges, dim, stream type id, stream
+    "segsum": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
+    # table, ranks, out, num_edges, dim, stream
+    "expand": ((), (_P,) * 3 + (_I,) * 2 + (_P,)),
+    "film_fwd": (("film_common.cuh",), _FILM_ARGS),
+    "film_bwd_dgb": (("film_common.cuh",), _FILM_ARGS),
+    "film_src_bwd": (("film_common.cuh",), _FILM_ARGS),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +56,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (name + ".cu",) + HEADERS:
+    for f in (name + ".cu",) + KERNELS[name][0]:
         with open(os.path.join(CSRC, f), "rb") as src:
             h.update(src.read())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))
@@ -78,15 +93,13 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed. Its
-    `<name>_launch` entry point takes (4 pointers, num_edges, dim, act id,
-    stream) and returns the CUDA error code of the launch."""
+    """The loaded library of kernel `name`, built first if needed, with the
+    argument types of its `<name>_launch` entry point set from `KERNELS`."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(build_all([name])[name])
         fn = getattr(lib, name + "_launch")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = list(KERNELS[name][1])
         fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -11,7 +11,9 @@ are zero.
 
 import torch
 
-from .segment import segment_sum
+from .. import SMALL_NUMBER
+from . import ranked_segment as rs
+from .segment import segment_max, segment_sum
 
 
 def _take_clip(table, idx):
@@ -28,12 +30,99 @@ def gather_flat_tgt(table_flat, flat):
     return _take_clip(table_flat, flat.tgt_flat)
 
 
+def _per_node(count, like):
+    """[n] -> [n, 1, ...] broadcastable against `like` [n, ...]."""
+    return count.reshape(count.shape + (1,) * (like.dim() - 1))
+
+
 def aggregate_flat(messages, flat, n_pad: int, aggregation: str):
-    """Sum per-edge messages into receiver rows over the whole stream; the
-    dump row n_pad (padded edges) is sliced off."""
+    """Named aggregation (reference utils/utils.py:23-33) of per-edge
+    messages into receiver rows over the whole stream; the dump row n_pad
+    (padded edges) is sliced off."""
     if aggregation in ("sum", "unsorted_segment_sum"):
         return segment_sum(messages, flat.receivers, n_pad + 1)[:n_pad]
-    raise ValueError("Aggregation '%s' is not yet ported." % aggregation)
+    if aggregation in ("mean", "unsorted_segment_mean",
+                       "sqrt_n", "unsorted_segment_sqrt_n"):
+        total = segment_sum(messages, flat.receivers, n_pad + 1)[:n_pad]
+        count = segment_sum(flat.mask, flat.receivers, n_pad + 1)[:n_pad]
+        count = count.clamp(min=1.0)
+        if aggregation.endswith("sqrt_n"):
+            count = torch.sqrt(count)
+        return total / _per_node(count, total)
+    if aggregation in ("max", "unsorted_segment_max"):
+        return segment_max(messages, flat.receivers, n_pad + 1)[:n_pad]
+    raise ValueError("Unknown aggregation function '%s'!" % aggregation)
+
+
+def ranked_aggregation_ok(graph, aggregation: str) -> bool:
+    """Whether aggregation takes the ranked segment-sum (K5a): the JAX
+    package's gate without its device and VMEM terms (the CUDA kernels keep
+    no table on chip), so it is the same on every device and the CPU runs
+    the plain K5a. Max has no ranked form."""
+    if aggregation in ("max", "unsorted_segment_max"):
+        return False
+    return rs.ranked_supported(graph.flat.rcv_rank.shape[0])
+
+
+def ranked_table_to_nodes(table, graph):
+    """Map a COARSE rank table [RPAD, D] back to node rows [n_pad, D]."""
+    out = _take_clip(table, graph.node_to_rank)
+    return out * graph.node_has_incoming[:, None]
+
+
+def aggregate_flat_ranked(messages, graph, aggregation: str):
+    """Named sum-family aggregation through the ranked segment-sum (K5a,
+    whose VJP is K5b); the caller checked ranked_aggregation_ok."""
+    n_pad = graph.n_pad
+    table = rs.ranked_segment_sum_table(
+        messages.reshape(messages.shape[0], -1), graph.flat.rcv_rank,
+        rs.rank_table_rows(n_pad, 256))
+    out = ranked_table_to_nodes(table, graph).reshape(
+        (n_pad,) + tuple(messages.shape[1:]))
+    if aggregation in ("sum", "unsorted_segment_sum"):
+        return out
+    count = graph.typed_incoming_counts.sum(0).clamp(min=1.0)
+    if aggregation.endswith("sqrt_n"):
+        count = torch.sqrt(count)
+    return out / _per_node(count, out)
+
+
+def dense_adjacency(graph):
+    """Per-type dense adjacency [L, n_pad, n_pad] f32 with A[l, v, u] = the
+    number of type-l edges u -> v, built from the flat stream (sender u =
+    src_flat - type * n_pad). Padded edges (receiver n_pad) land in one
+    dump slot past the matrices, as the JAX package's out-of-bounds
+    scatter drops them."""
+    flat = graph.flat
+    n_pad, num_types = graph.n_pad, graph.num_edge_types
+    size = num_types * n_pad * n_pad
+    et = flat.edge_type.long()
+    idx = (et * n_pad + flat.receivers.long()) * n_pad + (
+        flat.src_flat.long() - et * n_pad)
+    idx = torch.where(flat.receivers < n_pad, idx, size)
+    adj = torch.zeros(size + 1, dtype=torch.float32, device=idx.device)
+    adj.index_add_(0, idx, flat.mask)
+    return adj[:size].reshape(num_types, n_pad, n_pad)
+
+
+def dense_aggregate_linear(transformed, graph, normalize: bool):
+    """Sum-aggregate per-type LINEAR messages through dense adjacency
+    matmuls: transformed [L, N, D] (the message along a type-l edge u -> v
+    is transformed[l, u]) -> [N, D]. The 1/c normalisation is applied per
+    receiver row after the product. Plain f32 matmuls, outside any kernel,
+    as the JAX package leaves them to XLA. Uses graph.dense_adj when the
+    runtime built it once for the step, else builds it."""
+    mats = graph.dense_adj
+    if mats is None:
+        mats = dense_adjacency(graph)
+    out = None
+    for l in range(mats.shape[0]):
+        part = torch.matmul(mats[l], transformed[l])
+        if normalize:
+            c = graph.typed_incoming_counts[l]
+            part = part * (1.0 / (c + SMALL_NUMBER))[:, None]
+        out = part if out is None else out + part
+    return out
 
 
 class _InjectiveTake(torch.autograd.Function):

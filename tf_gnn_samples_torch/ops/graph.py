@@ -79,6 +79,9 @@ class GraphBatch(NamedTuple):
     typed_incoming_counts: torch.Tensor  # [L, N] float32 (c_{v,l})
     graph_mask: torch.Tensor  # [G] float32; 1.0 = real graph
     num_graphs: int  # real graph count
+    # [L, N, N] f32 per-type adjacency, built once per step by the runtime
+    # for the dense strategy (ops/edge_ops.py dense_adjacency), else None.
+    dense_adj: Optional[torch.Tensor] = None
 
     @property
     def n_pad(self) -> int:

@@ -1,10 +1,14 @@
-"""Fused GNN-FiLM rank-table kernels (counterpart of the FiLM part of
-tf_gnn_samples_tpu/ops/ranked_segment.py).
+"""Rank-table kernels (counterpart of tf_gnn_samples_tpu/ops/ranked_segment.py:
+the ranked segment-sum / expand pair and the fused GNN-FiLM kernels).
 
 The flat edge stream (ops/graph.py FlatEdges) is receiver-sorted with
-gap-free fine (receiver, type) ranks; its src-sorted view has gap-free
-src ranks. Three CUDA kernels (csrc/) reduce over those sorted ranks:
+gap-free coarse (receiver) and fine (receiver, type) ranks; its src-sorted
+view has gap-free src ranks. Five CUDA kernels (csrc/) work over those
+sorted ranks:
 
+* K5a `_segsum_table_impl`: table[r] = sum bf16(m_e) (the ranked
+  segment-sum of RGCN/GGNN aggregation, and the VJP of K5b);
+* K5b `_expand_impl`: out[e] = bf16(table[rank_e]) (the VJP of K5a);
 * K1 `_film_fwd_impl`: table[r] = sum bf16(act(gamma[r] * m_e + beta[r]));
 * K2 `_film_bwd_dgb_impl`: d_gamma | d_beta of K1 in receiver order;
 * K3 `_film_src_bwd_impl`: dt over the src-sorted stream, recomputing z.
@@ -15,10 +19,11 @@ for tensors on the CPU. `LAUNCHES` counts kernel launches, one per wrapper
 call that reached its kernel.
 
 Numerics follow the TPU kernels' rounding points: z is computed in f32
-from bf16 operands, and every summed term (the activation in K1, m * dz
-and dz in K2, act'(z) * C in K3) is rounded to bf16 before its f32 sum.
-The kernels sum in stream order with atomics at chunk seams, so their sums
-differ from run to run in the last bits; the terms do not.
+from bf16 operands, and every summed term (the message in K5a, the
+activation in K1, m * dz and dz in K2, act'(z) * C in K3) is rounded to
+bf16 before its f32 sum; K5b rounds each table value to bf16. The kernels
+sum in stream order with atomics at chunk seams, so their sums differ from
+run to run in the last bits; the terms do not.
 """
 
 import math
@@ -31,6 +36,26 @@ from . import cuda_build
 
 def _ceil_mult(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+# Edges per grid row of the JAX package's kernels: the ranked paths take
+# streams of a whole number of rows (tasks/base.py pads edge blocks to it).
+STEP = 2048
+
+
+def rank_table_rows(n_pad: int, block_edges: int) -> int:
+    """Static COARSE rank-table height: receiver ranks are gap-free over
+    distinct receivers (<= n_pad real + 1 dump), plus the JAX package's
+    window slack rows (kept so both packages index alike)."""
+    return _ceil_mult(n_pad + 1, 8) + block_edges + 8
+
+
+def ranked_supported(num_edges: int) -> bool:
+    """Whether the ranked segment-sum / expand pair applies to a stream of
+    `num_edges`: the JAX package's condition of a whole number of STEP-edge
+    rows. Its VMEM budget term is dropped: the CUDA kernels keep no table
+    on chip, so neither the width nor the table height limits them."""
+    return num_edges >= STEP and num_edges % STEP == 0
 
 
 def fine_rank_table_rows(n_pad: int, num_edge_types: int, num_edges: int,
@@ -101,8 +126,8 @@ def film_act_supported(name: str) -> bool:
 
 # ---- kernels and their plain versions ---------------------------------
 
-LAUNCHES: Dict[str, int] = {"film_fwd": 0, "film_bwd_dgb": 0,
-                            "film_src_bwd": 0}
+LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
+                            "film_bwd_dgb": 0, "film_src_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -113,6 +138,16 @@ def reset_launches() -> None:
 def _bf16_terms(x):
     """Round per-edge terms to bf16, then widen for the f32 sum."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _segsum_plain(msgs, ranks, table_rows):
+    out = torch.zeros((table_rows, msgs.shape[1]), dtype=torch.float32,
+                      device=msgs.device)
+    return out.index_add_(0, ranks, _bf16_terms(msgs))
+
+
+def _expand_plain(table, ranks):
+    return _bf16_terms(table).index_select(0, ranks)
 
 
 def _film_fwd_plain(msgs, gb_table, ranks, act):
@@ -146,40 +181,98 @@ def _film_src_bwd_plain(gcb_src, t_ranked, ranks, table_rows, act):
                           _bf16_terms(_ACTS[act][1](z) * gcb[:, 2 * d:]))
 
 
-def _launch(kernel: str, inputs, out, num_edges: int, dim: int, act: str):
-    """Launch csrc/<kernel>.cu on PyTorch's current stream into the zeroed
-    `out`. Inputs must be contiguous bf16 tensors plus int32 ranks (last),
-    on out's device; the ranks must be nondecreasing, gap-free and below
-    the table height (the batch builder's contract, not checked here)."""
-    if num_edges == 0:
-        return out
-    dev = out.device
-    *streams, ranks = inputs
-    for x in streams:
-        if x.dtype != torch.bfloat16:
-            raise TypeError("%s: expected bfloat16, got %s" % (kernel,
-                                                               x.dtype))
-    if ranks.dtype != torch.int32:
-        raise TypeError("%s: ranks must be int32, got %s" % (kernel,
-                                                             ranks.dtype))
-    for x in inputs:
+def _call(kernel: str, tensors, ints):
+    """Launch csrc/<kernel>.cu on PyTorch's current stream: its entry point
+    takes the tensors' pointers, then `ints`, then the stream. Tensors must
+    be contiguous and on one device; the types and shapes are the
+    wrapper's to check."""
+    dev = tensors[-1].device
+    for x in tensors:
         if x.device != dev or not x.is_contiguous():
             raise ValueError("%s: inputs must be contiguous tensors on %s"
                              % (kernel, dev))
     fn = getattr(cuda_build.load(kernel), kernel + "_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(x.data_ptr() for x in inputs), out.data_ptr(), num_edges,
-                dim, ACT_IDS[act], stream)
+        rc = fn(*(x.data_ptr() for x in tensors), *ints, stream)
     if rc != 0:
         raise RuntimeError("%s: kernel launch failed with CUDA error %d"
                            % (kernel, rc))
     LAUNCHES[kernel] += 1
+
+
+def _check_ranks(kernel: str, ranks):
+    if ranks.dtype != torch.int32:
+        raise TypeError("%s: ranks must be int32, got %s" % (kernel,
+                                                             ranks.dtype))
+
+
+def _launch(kernel: str, inputs, out, num_edges: int, dim: int, act: str):
+    """Launch a FiLM kernel into the zeroed `out`. Inputs must be
+    contiguous bf16 tensors plus int32 ranks (last), on out's device; the
+    ranks must be nondecreasing, gap-free and below the table height (the
+    contract of pad_graph_batch, not checked here)."""
+    if num_edges == 0:
+        return out
+    *streams, ranks = inputs
+    for x in streams:
+        if x.dtype != torch.bfloat16:
+            raise TypeError("%s: expected bfloat16, got %s" % (kernel,
+                                                               x.dtype))
+    _check_ranks(kernel, ranks)
+    _call(kernel, (*inputs, out), (num_edges, dim, ACT_IDS[act]))
     return out
+
+
+# Stream types K5a takes, by the id of its `in_type` argument.
+SEGSUM_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # `block_edges` and `win` keep the JAX `_impl` signatures: the CUDA kernels
 # walk sorted ranks directly and need neither a step block nor a window.
+
+def _segsum_table_impl(msgs, rcv_rank, *, table_rows, block_edges=256,
+                       win=0):
+    """K5a: table[r] = sum_{rank_e = r} bf16(m_e) for an f32 or bf16
+    stream m [E, D] and nondecreasing gap-free int32 ranks [E]; f32
+    [table_rows, D] out. The kernel rounds each term as it loads it, so an
+    f32 stream needs no separate cast pass."""
+    e, dim = msgs.shape
+    if rcv_rank.shape != (e,):
+        raise ValueError("segsum: shapes %s, %s" % (tuple(msgs.shape),
+                                                    tuple(rcv_rank.shape)))
+    if msgs.device.type == "cpu":
+        return _segsum_plain(msgs, rcv_rank, table_rows)
+    if msgs.dtype not in SEGSUM_TYPES:
+        raise TypeError("segsum: expected float32 or bfloat16, got %s"
+                        % msgs.dtype)
+    _check_ranks("segsum", rcv_rank)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=msgs.device)
+    if e:
+        _call("segsum", (msgs, rcv_rank, out),
+              (e, dim, SEGSUM_TYPES[msgs.dtype]))
+    return out
+
+
+def _expand_impl(table, rcv_rank, *, block_edges=256, win=0):
+    """K5b: out[e] = bf16(table[rank_e]) widened to f32, [E, D], from an
+    f32 table [rows, D] and int32 ranks below `rows`."""
+    e = rcv_rank.shape[0]
+    dim = table.shape[1]
+    if rcv_rank.dim() != 1 or table.dim() != 2:
+        raise ValueError("expand: shapes %s, %s" % (tuple(table.shape),
+                                                    tuple(rcv_rank.shape)))
+    if table.device.type == "cpu":
+        return _expand_plain(table, rcv_rank)
+    if table.dtype != torch.float32:
+        raise TypeError("expand: expected float32, got %s" % table.dtype)
+    _check_ranks("expand", rcv_rank)
+    out = torch.empty((e, dim), dtype=torch.float32, device=table.device)
+    if e:
+        _call("expand", (table, rcv_rank, out), (e, dim))
+    return out
+
 
 def _film_fwd_impl(msgs, gb_table, ranks, *, block_edges=256, act, win=0):
     """K1: table[r] = sum_{rank_e = r} bf16(act(gamma[r] * m_e + beta[r]))
@@ -227,6 +320,56 @@ def _film_src_bwd_impl(gcb_src, t_ranked, ranks, *, table_rows, block_edges=256,
                       device=gcb_src.device)
     return _launch("film_src_bwd", (gcb_src, t_ranked, ranks), out, e, dim,
                    act)
+
+
+# ---- public segment-sum / expand, each the other's VJP ------------------
+
+class _RankedSegmentSum(torch.autograd.Function):
+    """K5a forward; its VJP is K5b of the table cotangent, cast to the
+    message dtype (the JAX package's _segsum_fwd / _segsum_bwd)."""
+
+    @staticmethod
+    def forward(ctx, msgs, ranks, table_rows):
+        ctx.save_for_backward(ranks)
+        ctx.msgs_dtype = msgs.dtype
+        return _segsum_table_impl(msgs, ranks, table_rows=table_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ranks,) = ctx.saved_tensors
+        d_msgs = _expand_impl(g.contiguous(), ranks)
+        return d_msgs.to(ctx.msgs_dtype), None, None
+
+
+class _RankedExpand(torch.autograd.Function):
+    """K5b forward; its VJP is K5a of the per-edge cotangent, cast to the
+    table dtype (the JAX package's _expand_fwd / _expand_bwd)."""
+
+    @staticmethod
+    def forward(ctx, table, ranks, table_rows):
+        ctx.save_for_backward(ranks)
+        ctx.table_dtype, ctx.table_rows = table.dtype, table_rows
+        return _expand_impl(table, ranks)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ranks,) = ctx.saved_tensors
+        d_table = _segsum_table_impl(g.contiguous(), ranks,
+                                     table_rows=ctx.table_rows)
+        return d_table.to(ctx.table_dtype), None, None
+
+
+def ranked_segment_sum_table(msgs, ranks, table_rows: int):
+    """Sum messages per rank: [E, D] -> [table_rows, D] f32. `ranks` are
+    nondecreasing gap-free group ids of the stream; VJP: d_msgs[e] =
+    bf16(d_table[rank_e])."""
+    return _RankedSegmentSum.apply(msgs, ranks, table_rows)
+
+
+def ranked_expand_table(table, ranks, table_rows: int):
+    """Per-edge value of a rank-indexed table, out[e] = bf16(table[rank_e])
+    as f32: the inverse of ranked_segment_sum_table and its VJP."""
+    return _RankedExpand.apply(table, ranks, table_rows)
 
 
 # ---- the gather-fused FiLM pass ---------------------------------------

@@ -25,7 +25,9 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..nn.layers import use_dense_strategy
 from ..nn.propagation import propagation_apply, propagation_init
+from ..ops.edge_ops import dense_adjacency
 from ..ops.graph import graph_to_device
 from ..tasks.base import DataFold, SparseGraphTask, TaskBatch
 from .optimizers import clip_grads_per_tensor, make_optimizer
@@ -85,8 +87,10 @@ def _unflatten(flat: Dict[str, Any]):
 
 def params_from_jax(flat: Dict[str, np.ndarray], device=None):
     """The JAX package's `flatten_params` dict -> the port's parameter tree
-    (float32 tensors on `device`). The port keeps the JAX layouts (e.g.
-    W [L, D_in, D_out], W_film [L, D, 2D]), so the map is name for name."""
+    (float32 tensors on `device`). The port keeps the JAX names and layouts
+    (W [L, D_in, D_out], W_film [L, D, 2D], a GGNN cell's kernel and
+    recurrent_kernel [D, G * D] and bias [G * D] under `.../gnn/cell/`), so
+    the map is name for name."""
     return _unflatten({k: torch.tensor(np.asarray(v, dtype=np.float32),
                                        device=device)
                        for k, v in flat.items()})
@@ -216,9 +220,23 @@ class SparseGraphModel(ABC):
 
     # -------------------- forward and steps --------------------
 
+    def _wants_dense_adj(self, graph) -> bool:
+        if self.layer_name not in ("rgcn", "ggnn"):
+            return False
+        return use_dense_strategy(
+            graph,
+            self.layer_kwargs().get("message_aggregation_function", "sum"),
+            self.params.get("aggregation_strategy", "auto"))
+
     def _forward(self, params, batch: TaskBatch, gen):
         """Task input model -> propagation stack -> task output model.
         gen=None means eval (no dropout)."""
+        # The dense strategy's adjacency is built once per step and shared
+        # by every layer (and the backward pass), as in the JAX package.
+        if batch.graph.dense_adj is None and self._wants_dense_adj(
+                batch.graph):
+            batch = batch._replace(graph=batch.graph._replace(
+                dense_adj=dense_adjacency(batch.graph)))
         # A task without input parameters has no "input" entry (no leaves).
         feats = self.task.input_apply(params.get("input", {}), batch, gen)
         final_h = propagation_apply(
@@ -486,4 +504,62 @@ class GNN_FiLM_Model(SparseGraphModel):
             "normalize_by_num_incoming": self.params[
                 "normalize_messages_by_num_incoming"
             ],
+        }
+
+
+class GGNN_Model(SparseGraphModel):
+    layer_name = "ggnn"
+
+    @classmethod
+    def default_params(cls):
+        params = super().default_params()
+        params.update({
+            "hidden_size": 128,
+            "graph_rnn_cell": "GRU",
+            "graph_activation_function": "tanh",
+            "message_aggregation_function": "sum",
+            "graph_layer_input_dropout_keep_prob": 1.0,
+            "graph_dense_between_every_num_gnn_layers": 10000,
+            "graph_residual_connection_every_num_layers": 10000,
+        })
+        return params
+
+    @staticmethod
+    def name(params):
+        return "GGNN"
+
+    def layer_kwargs(self):
+        return {
+            "gated_unit_type": self.params["graph_rnn_cell"].lower(),
+            "activation_function": self.params["graph_activation_function"],
+            "message_aggregation_function": self.params["message_aggregation_function"],
+            "aggregation_strategy": self.params.get("aggregation_strategy", "auto"),
+        }
+
+
+class RGCN_Model(SparseGraphModel):
+    layer_name = "rgcn"
+
+    @classmethod
+    def default_params(cls):
+        params = super().default_params()
+        params.update({
+            "hidden_size": 128,
+            "graph_activation_function": "ReLU",
+            "message_aggregation_function": "sum",
+            "graph_layer_input_dropout_keep_prob": 1.0,
+            "graph_dense_between_every_num_gnn_layers": 10000,
+            "graph_residual_connection_every_num_layers": 10000,
+        })
+        return params
+
+    @staticmethod
+    def name(params):
+        return "RGCN"
+
+    def layer_kwargs(self):
+        return {
+            "activation_function": self.params["graph_activation_function"],
+            "message_aggregation_function": self.params["message_aggregation_function"],
+            "aggregation_strategy": self.params.get("aggregation_strategy", "auto"),
         }

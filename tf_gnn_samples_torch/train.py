@@ -24,7 +24,8 @@ HYPERS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def get_train_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("MODEL_NAME", help="GNN-FiLM (the ported model)")
+    parser.add_argument("MODEL_NAME",
+                        help="GGNN, RGCN or GNN-FiLM (the ported models)")
     parser.add_argument("TASK_NAME", help="QM9 (the ported task)")
     parser.add_argument("--data-path", default=None)
     parser.add_argument("--result-dir", default="trained_models")
