@@ -54,6 +54,29 @@ def test_activation_gradients_match_jax(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_ULPS)
 
 
+def test_clamped_exp_gradient_matches_jax_at_the_clamp():
+    """The ranked softmaxes' exp(clip(x, -50, 50)): at exactly +-50
+    jnp.clip's derivative is 1/2 (a minimum of a maximum, ties split) and
+    torch.clamp's is 1, so the port's clip is written as the same minimum
+    of a maximum; beyond the clamp both give 0."""
+    from tf_gnn_samples_torch.ops.edge_ops import _clamped_exp
+
+    x = np.array([-50.0, 50.0, -50.000004, 50.000004, -49.999996, 49.999996,
+                  0.0, -80.0, 80.0, 3.5], np.float32)
+    want = np.asarray(jax.grad(
+        lambda a: jnp.sum(jnp.exp(jnp.clip(a, -50.0, 50.0))))(jnp.asarray(x)))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (got,) = torch.autograd.grad(_clamped_exp(tx, 50.0).sum(), tx)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    np.testing.assert_allclose(got.numpy()[:2],
+                               0.5 * np.exp(x[:2].astype(np.float64)),
+                               rtol=1e-6)
+    assert (got.numpy()[[2, 3, 7, 8]] == 0).all()
+    ty = torch.from_numpy(x).requires_grad_(True)
+    (clamp,) = torch.autograd.grad(torch.clamp(ty, -50.0, 50.0).sum(), ty)
+    assert (clamp.numpy()[:2] == 1).all()  # why torch.clamp is not used
+
+
 def test_unknown_activation_raises():
     with pytest.raises(ValueError):
         t_act.get_activation("swish")

@@ -1,10 +1,13 @@
 """Relational message-passing layers (counterpart of
-tf_gnn_samples_tpu/nn/layers.py). Ported so far: GGNN, RGCN, GNN-FiLM.
+tf_gnn_samples_tpu/nn/layers.py). Ported so far: GGNN, RGCN, RGAT (its
+streamed and plain branches), GNN-FiLM.
 
 Each layer is a pair of functions over plain dicts of tensors:
     <name>_init(gen, num_edge_types, state_dim, **cfg) -> params
     <name>_apply(params, graph: GraphBatch, h: [N, D], **cfg) -> [N, D]
 """
+
+import math
 
 import torch
 
@@ -15,12 +18,16 @@ from ..ops.edge_ops import (
     dense_aggregate_linear,
     fine_table_to_nodes,
     gather_flat_src,
+    gather_flat_src_ranked,
     gather_flat_tgt,
     ranked_aggregation_ok,
+    ranked_table_to_nodes,
+    segment_softmax_flat,
+    segment_softmax_flat_ranked_t,
     take_by_fine_rank,
 )
 from ..ops.graph import GraphBatch
-from .activations import get_activation
+from .activations import _leaky_relu_02, get_activation
 from .cells import cell_apply, cell_init
 from .initializers import stacked_glorot_uniform
 from .normalization import layer_norm, layer_norm_init
@@ -170,6 +177,122 @@ def rgcn_apply(
 
 
 # --------------------------------------------------------------------------
+# RGAT (reference: gnns/rgat.py)
+# --------------------------------------------------------------------------
+
+def rgat_init(gen, num_edge_types, state_dim, num_heads=4, **_):
+    # The reference declares the attention parameters as a flat (2 * D,)
+    # glorot-initialised vector per type, later reshaped to [K, 2 * D / K]
+    # (rgat.py:74-76, 110-111).
+    limit = math.sqrt(6.0 / (2 * 2 * state_dim))
+    w = stacked_glorot_uniform(gen, num_edge_types, (state_dim, state_dim))
+    u = torch.rand((num_edge_types, 2 * state_dim), generator=gen,
+                   dtype=torch.float32)
+    return {"W": w, "att": (2.0 * u - 1.0) * limit}
+
+
+def rgat_streamed_branch(graph: GraphBatch, state_dim: int, num_heads: int,
+                         aggregation_strategy: str) -> bool:
+    """Whether RGAT takes the head-major streamed pipeline (K6, K7): the
+    JAX package's gate (nn/layers.py rgat_apply) without its device and
+    VMEM terms. 'pallas' is the JAX configs' name for the kernel path;
+    'segment' forces the plain branch."""
+    return (aggregation_strategy in ("auto", "pallas")
+            and state_dim % num_heads == 0
+            and ranked_aggregation_ok(graph, "sum"))
+
+
+def rgat_apply(
+    params,
+    graph: GraphBatch,
+    h,
+    *,
+    num_timesteps=1,
+    num_heads=4,
+    activation_function="tanh",
+    aggregation_strategy="auto",
+    **_,
+):
+    state_dim = h.shape[-1]
+    head_dim = state_dim // num_heads
+    L = graph.num_edge_types
+    n_pad = graph.n_pad
+    flat = graph.flat
+    act = get_activation(activation_function)
+    # att[l] flat (2D,) -> per-head source/target halves [L, K, Dh]:
+    att = params["att"].reshape(L, num_heads, 2 * head_dim)
+    att_src, att_tgt = att[..., :head_dim], att[..., head_dim:]
+    # The JAX package has a third, fused branch (rgat_fused_pass: the
+    # backward recomputes the message cotangent in source order, kernels
+    # K8 and K9) that it prefers where its tables fit; it is not ported
+    # yet (ROADMAP.md, Queue 1 item 8), so every eligible shape takes the
+    # streamed branch here, as the JAX package does at the tuned QM9 size.
+    streamed = rgat_streamed_branch(graph, state_dim, num_heads,
+                                    aggregation_strategy)
+
+    for _step in range(num_timesteps):
+        t = typed_transform(h, params["W"])  # [L, N, D]
+        t_heads = t.reshape(L, n_pad, num_heads, head_dim)
+        # Node-side halves of the attention logits (linearity of the dot
+        # with concat(src, tgt) makes this exact):
+        logit_tgt = torch.einsum("lnkd,lkd->lnk", t_heads, att_tgt)
+
+        if streamed:
+            # The per-edge work runs on one bf16 [E, D] message stream and
+            # head-major [K, E] attention arrays. The gather's backward
+            # sums its bf16 cotangent in f32 through K5a.
+            m2 = gather_flat_src_ranked(_flat(t).to(torch.bfloat16), flat)
+            e_tot = m2.shape[0]
+            # Source logit half from the gathered stream: bf16-rounded
+            # operands, f32 products and sums (a plain matmul outside any
+            # kernel, upcast so that no device rounds the result to bf16).
+            # a_all[k * Dh + d, l * K + q] = att_src[l, k, d] if k == q
+            # else 0: every type's source attention vector, head-block-
+            # diagonal; each edge then keeps its own type's K logits.
+            eye = torch.eye(num_heads, dtype=att_src.dtype,
+                            device=att_src.device)
+            a_all = torch.einsum("lkd,kq->kdlq", att_src, eye).reshape(
+                state_dim, L * num_heads)
+            logits_all = torch.matmul(
+                m2.to(torch.float32),
+                a_all.to(torch.bfloat16).to(torch.float32))
+            pick = flat.edge_type.long()[:, None, None]
+            lsrc_t = logits_all.reshape(e_tot, L, num_heads).gather(
+                1, pick.expand(e_tot, 1, num_heads))[:, 0].t().contiguous()
+
+            # Target half: constant per (receiver, type) group, expanded
+            # from the FINE rank table (K6b).
+            lt_ranked_t = take_by_fine_rank(
+                _flat(logit_tgt), graph).t().contiguous()  # [K, RPAD]
+            ltgt_t = rs.ranked_expand_table_t(
+                lt_ranked_t, flat.tgt_rank, lt_ranked_t.shape[1])
+            # tf.nn.leaky_relu's default slope 0.2 (rgat.py:113).
+            logits_t = _leaky_relu_02(lsrc_t + ltgt_t)  # [K, E] f32
+            attn_t = segment_softmax_flat_ranked_t(logits_t, graph)
+            table = rs.ranked_weighted_segment_sum_t(
+                m2, attn_t, flat.rcv_rank, rs.rank_table_rows(n_pad, 256),
+                num_heads)
+            h = act(ranked_table_to_nodes(table, graph))
+            continue
+
+        logit_src = torch.einsum("lnkd,lkd->lnk", t_heads, att_src)
+        # Per-edge logits and messages over the flat stream (one gather
+        # each, regardless of the number of edge types):
+        logits = _leaky_relu_02(
+            gather_flat_src(_flat(logit_src), flat)
+            + gather_flat_tgt(_flat(logit_tgt), flat))  # [E, K]
+        msgs = gather_flat_src(_flat(t_heads), flat)  # [E, K, Dh]
+        # Softmax per (target node, head) over all incoming edges of all
+        # types (rgat.py:126-130):
+        attn = segment_softmax_flat(logits, flat, n_pad)
+        agg = aggregate_flat_auto(
+            (msgs * attn[..., None]).reshape(-1, state_dim), graph, "sum",
+            aggregation_strategy)
+        h = act(agg.reshape(n_pad, state_dim))
+    return h
+
+
+# --------------------------------------------------------------------------
 # GNN-FiLM (reference: gnns/gnn_film.py)
 # --------------------------------------------------------------------------
 
@@ -254,5 +377,6 @@ def gnn_film_apply(
 LAYERS = {
     "ggnn": (ggnn_init, ggnn_apply),
     "rgcn": (rgcn_init, rgcn_apply),
+    "rgat": (rgat_init, rgat_apply),
     "gnn_film": (gnn_film_init, gnn_film_apply),
 }

@@ -37,6 +37,14 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "film_fwd": (("film_common.cuh",), _FILM_ARGS),
     "film_bwd_dgb": (("film_common.cuh",), _FILM_ARGS),
     "film_src_bwd": (("film_common.cuh",), _FILM_ARGS),
+    # msgs_t, ranks, out, num_edges, rows, num_heads, stream
+    "segsum_t": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
+    # table_t, ranks, out, num_edges, rows, num_heads, stream
+    "expand_t": ((), (_P,) * 3 + (_I,) * 3 + (_P,)),
+    # msgs, w_t, ranks, out, num_edges, dim, dim_in, num_heads, stream
+    "wseg_t": (("film_common.cuh",), (_P,) * 4 + (_I,) * 4 + (_P,)),
+    # msgs, w_t, g16, ranks, dmsg, dw_t, num_edges, dim, num_heads, stream
+    "wseg_t_bwd": ((), (_P,) * 6 + (_I,) * 3 + (_P,)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

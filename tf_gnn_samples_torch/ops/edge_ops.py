@@ -1,6 +1,6 @@
-"""Edge-level gathers and aggregation over the flat edge stream
-(counterpart of the part of tf_gnn_samples_tpu/ops/edge_ops.py this slice
-uses).
+"""Edge-level gathers, aggregation and receiver softmaxes over the flat
+edge stream (counterpart of the part of tf_gnn_samples_tpu/ops/edge_ops.py
+the ported layers use).
 
 Gathers clamp their indices as `jnp.take(..., mode="clip")` does: padded
 edges carry src_flat / tgt_flat = L * n_pad, one row past the type-stacked
@@ -28,6 +28,52 @@ def gather_flat_src(table_flat, flat):
 def gather_flat_tgt(table_flat, flat):
     """table_flat[[L*N, ...]][tgt_flat]: per-edge target-side rows."""
     return _take_clip(table_flat, flat.tgt_flat)
+
+
+class _GatherRanked(torch.autograd.Function):
+    """table[idx] whose backward sums the per-edge cotangent through the
+    ranked segment-sum (K5a) instead of a scatter (the JAX package's
+    _gather_ranked): the cotangent is rounded to bf16 and permuted into
+    idx-sorted order, summed in f32 per gap-free rank of that order, and
+    rank rows are mapped back to table rows by one row take (`to_rank`,
+    -1 = no edge reads the row). On the card the sum is deterministic up
+    to K5a's seam atomics, where index_select's own backward would add
+    bf16 values atomically in a random order."""
+
+    @staticmethod
+    def forward(ctx, table, idx, perm, sorted_rank, to_rank):
+        ctx.save_for_backward(perm, sorted_rank, to_rank)
+        ctx.table_rows, ctx.table_dtype = table.shape[0], table.dtype
+        return _take_clip(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, sorted_rank, to_rank = ctx.saved_tensors
+        rows = rs.src_rank_table_rows(ctx.table_rows, perm.shape[0], 256)
+        g_perm = g.to(torch.bfloat16).index_select(0, perm)
+        rank_table = rs.ranked_segment_sum_table(g_perm, sorted_rank, rows)
+        d = rank_table.index_select(0, to_rank.clamp(min=0))
+        d = torch.where((to_rank >= 0)[:, None], d, 0.0).to(ctx.table_dtype)
+        # to_rank covers the L * n_pad node rows; a table may carry more.
+        pad = ctx.table_rows - d.shape[0]
+        if pad:
+            d = torch.nn.functional.pad(d, (0, 0, 0, pad))
+        return d, None, None, None, None
+
+
+def gather_flat_src_ranked(table_flat, flat):
+    """gather_flat_src of a 2-D table with the ranked backward (see
+    _GatherRanked). The JAX package takes this form where its on-chip
+    table budget allows; the CUDA kernel keeps no table on chip, so the
+    port's callers that stream bf16 rows take it at every size."""
+    return _GatherRanked.apply(table_flat, flat.src_flat, flat.perm_by_src,
+                               flat.src_sorted_rank, flat.src_to_rank)
+
+
+def gather_node_tgt(table, flat):
+    """table[[N, ...]][receivers]: per-edge row of a node table; padded
+    edges (receiver n_pad) read the last row."""
+    return _take_clip(table, flat.receivers)
 
 
 def _per_node(count, like):
@@ -85,6 +131,71 @@ def aggregate_flat_ranked(messages, graph, aggregation: str):
     if aggregation.endswith("sqrt_n"):
         count = torch.sqrt(count)
     return out / _per_node(count, out)
+
+
+def _edge_mask(flat, like):
+    """[E] stream mask broadcastable against `like` [E, ...]."""
+    return flat.mask.reshape(flat.mask.shape + (1,) * (like.dim() - 1))
+
+
+def segment_softmax_flat(logits, flat, n_pad: int):
+    """Softmax per receiver over all incoming edges of all types (reference
+    RGAT semantics, gnns/rgat.py:126-130) on the flat stream [E, ...]: one
+    segment max and one segment sum. Padded edges get weight 0."""
+    neg = torch.finfo(logits.dtype).min
+    mask = _edge_mask(flat, logits)
+    masked = torch.where(mask > 0, logits, neg)
+    gmax = segment_max(masked, flat.receivers, n_pad + 1)[:n_pad]
+    # exp over the MASKED logits: a padded edge sees neg minus a shift that
+    # is either neg (exp(0) * mask = 0) or finite (exp(-huge) = 0); the raw
+    # logits could overflow to inf there, and inf * 0 is NaN.
+    ex = torch.exp(masked - gather_node_tgt(gmax, flat)) * mask
+    denom = segment_sum(ex, flat.receivers, n_pad + 1)[:n_pad]
+    return ex / (gather_node_tgt(denom, flat) + SMALL_NUMBER)
+
+
+def _clamped_exp(logits, clamp: float):
+    """exp(clip(logits, -clamp, clamp)). The clip is a minimum of a maximum
+    so that its derivative is jnp.clip's: 1 inside, 0 outside and 1/2 at
+    exactly +-clamp (torch.clamp's is 1 there)."""
+    lo = torch.tensor(-clamp, dtype=logits.dtype, device=logits.device)
+    return torch.exp(torch.minimum(torch.maximum(logits, lo), -lo))
+
+
+def segment_softmax_flat_ranked(logits, graph, clamp: float = 50.0):
+    """Receiver softmax of [E, K] logits through the ranked segment-sum /
+    expand pair (K5a, K5b) over the coarse receiver ranks.
+
+    Uses a clamped exp instead of a max shift: softmax is shift-invariant,
+    and clamping |logit| at 50 only distorts segments whose logit SPREAD
+    exceeds 50 (attention weights below e^-50 are zero either way). A
+    segment whose logits all clamp low gets the weights e^-50 / (n e^-50 +
+    SMALL_NUMBER), which vanish, as in the JAX package. Padded edges get
+    weight 0 via the stream mask. The denominator reaches the edges
+    rounded to bf16 (K5b).
+
+    No layer calls this row-major variant, here or in the JAX package
+    (RGAT takes the head-major one below); it is the counterpart of that
+    package's function of the same name and is held against it by the
+    tests."""
+    flat = graph.flat
+    ex = _clamped_exp(logits, clamp) * _edge_mask(flat, logits)
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    den = rs.ranked_segment_sum_table(ex, flat.rcv_rank, rows)
+    return ex / (rs.ranked_expand_table(den, flat.rcv_rank, rows)
+                 + SMALL_NUMBER)
+
+
+def segment_softmax_flat_ranked_t(logits_t, graph, clamp: float = 50.0):
+    """Head-major variant of segment_softmax_flat_ranked: logits and the
+    returned attention weights are [K, E], and the denominator runs
+    through K6a and K6b."""
+    flat = graph.flat
+    ex = _clamped_exp(logits_t, clamp) * flat.mask[None, :]
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    den = rs.ranked_segment_sum_table_t(ex, flat.rcv_rank, rows)
+    return ex / (rs.ranked_expand_table_t(den, flat.rcv_rank, rows)
+                 + SMALL_NUMBER)
 
 
 def dense_adjacency(graph):

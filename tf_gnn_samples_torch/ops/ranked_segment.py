@@ -1,9 +1,10 @@
 """Rank-table kernels (counterpart of tf_gnn_samples_tpu/ops/ranked_segment.py:
-the ranked segment-sum / expand pair and the fused GNN-FiLM kernels).
+the ranked segment-sum / expand pair, the fused GNN-FiLM kernels and the
+head-major attention kernels of RGAT).
 
 The flat edge stream (ops/graph.py FlatEdges) is receiver-sorted with
 gap-free coarse (receiver) and fine (receiver, type) ranks; its src-sorted
-view has gap-free src ranks. Five CUDA kernels (csrc/) work over those
+view has gap-free src ranks. Nine CUDA kernels (csrc/) work over those
 sorted ranks:
 
 * K5a `_segsum_table_impl`: table[r] = sum bf16(m_e) (the ranked
@@ -11,7 +12,14 @@ sorted ranks:
 * K5b `_expand_impl`: out[e] = bf16(table[rank_e]) (the VJP of K5a);
 * K1 `_film_fwd_impl`: table[r] = sum bf16(act(gamma[r] * m_e + beta[r]));
 * K2 `_film_bwd_dgb_impl`: d_gamma | d_beta of K1 in receiver order;
-* K3 `_film_src_bwd_impl`: dt over the src-sorted stream, recomputing z.
+* K3 `_film_src_bwd_impl`: dt over the src-sorted stream, recomputing z;
+* K6a `_segsum_t_impl`: table_t[k, r] = sum bf16(m_t[k, e]), head-major
+  [K, E] -> [K, R] (the RGAT softmax denominator, and the VJP of K6b);
+* K6b `_expand_t_impl`: out[k, e] = bf16(table_t[k, rank_e]) (the VJP of
+  K6a);
+* K7a `_wseg_t_impl`: table[r] = sum bf16(m_e * rep(w_t[:, e])), the
+  attention-weighted aggregation with head-major [K, E] weights;
+* K7b `_wseg_t_bwd_impl`: d_msgs and d_w_t of K7a.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain PyTorch version beside it only
@@ -20,10 +28,12 @@ call that reached its kernel.
 
 Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
-activation in K1, m * dz and dz in K2, act'(z) * C in K3) is rounded to
-bf16 before its f32 sum; K5b rounds each table value to bf16. The kernels
-sum in stream order with atomics at chunk seams, so their sums differ from
-run to run in the last bits; the terms do not.
+activation in K1, m * dz and dz in K2, act'(z) * C in K3, the head-major
+term in K6a, the weighted message in K7a) is rounded to bf16 before its
+f32 sum; K5b and K6b round each table value to bf16; K7b writes d_msgs in
+bf16 and keeps d_w_t in f32. The kernels sum in stream order with atomics
+at chunk seams, so their sums differ from run to run in the last bits; the
+terms do not.
 """
 
 import math
@@ -127,7 +137,9 @@ def film_act_supported(name: str) -> bool:
 # ---- kernels and their plain versions ---------------------------------
 
 LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
-                            "film_bwd_dgb": 0, "film_src_bwd": 0}
+                            "film_bwd_dgb": 0, "film_src_bwd": 0,
+                            "segsum_t": 0, "expand_t": 0, "wseg_t": 0,
+                            "wseg_t_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -179,6 +191,40 @@ def _film_src_bwd_plain(gcb_src, t_ranked, ranks, table_rows, act):
                       device=gcb_src.device)
     return out.index_add_(0, ranks,
                           _bf16_terms(_ACTS[act][1](z) * gcb[:, 2 * d:]))
+
+
+def _segsum_t_plain(msgs_t, ranks, table_rows):
+    out = torch.zeros((msgs_t.shape[0], table_rows), dtype=torch.float32,
+                      device=msgs_t.device)
+    return out.index_add_(1, ranks, _bf16_terms(msgs_t))
+
+
+def _expand_t_plain(table_t, ranks):
+    return _bf16_terms(table_t).index_select(1, ranks)
+
+
+def _head_replicate(w_t, dim):
+    """[K, E] head-major per-head scalars -> [E, D] with each head's value
+    repeated over its D / K columns (what the JAX package's
+    _head_replicate_matrix contraction computes, exactly)."""
+    return w_t.t().repeat_interleave(dim // w_t.shape[0], dim=1)
+
+
+def _wseg_t_plain(msgs, w_t, ranks, table_rows, d_used=None):
+    dim = d_used or msgs.shape[1]
+    terms = _bf16_terms(msgs[:, :dim].to(torch.float32)
+                        * _head_replicate(w_t, dim))
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=msgs.device)
+    return out.index_add_(0, ranks, terms)
+
+
+def _wseg_t_bwd_plain(msgs, w_t, g16, ranks):
+    e, dim = msgs.shape
+    g_e = g16.index_select(0, ranks).to(torch.float32)
+    dmsg = (g_e * _head_replicate(w_t, dim)).to(torch.bfloat16)
+    dw = (msgs.to(torch.float32) * g_e).reshape(e, w_t.shape[0], -1).sum(-1)
+    return dmsg, dw.t().contiguous()
 
 
 def _call(kernel: str, tensors, ints):
@@ -322,6 +368,117 @@ def _film_src_bwd_impl(gcb_src, t_ranked, ranks, *, table_rows, block_edges=256,
                    act)
 
 
+# ---- the head-major attention kernels (K6, K7) ---------------------------
+
+# Most heads the wrappers of K7a and K7b accept. It is a round number well
+# above any config's 8, not either kernel's own limit: K7a stages K x 64
+# f32 weights in at most 48 KB of shared memory (K <= 192), K7b gives each
+# (edge, head) pair one of a block's 256 threads (K <= 256).
+MAX_HEADS = 128
+
+
+def _check_dtype(kernel: str, x, dtype):
+    if x.dtype != dtype:
+        raise TypeError("%s: expected %s, got %s" % (kernel, dtype, x.dtype))
+
+
+def _check_heads(kernel: str, dim: int, num_heads: int):
+    if not 0 < num_heads <= MAX_HEADS or dim % num_heads:
+        raise ValueError("%s: %d columns do not split into %d heads (at "
+                         "most %d)" % (kernel, dim, num_heads, MAX_HEADS))
+
+
+def _segsum_t_impl(msgs_t, ranks, *, table_rows, block_edges=256, win=0):
+    """K6a: table_t[k, r] = sum_{rank_e = r} bf16(m_t[k, e]) for an f32
+    head-major stream m_t [K, E] and nondecreasing gap-free int32 ranks
+    [E]; f32 [K, table_rows] out."""
+    k, e = msgs_t.shape
+    if ranks.shape != (e,):
+        raise ValueError("segsum_t: shapes %s, %s" % (tuple(msgs_t.shape),
+                                                      tuple(ranks.shape)))
+    if msgs_t.device.type == "cpu":
+        return _segsum_t_plain(msgs_t, ranks, table_rows)
+    _check_dtype("segsum_t", msgs_t, torch.float32)
+    _check_ranks("segsum_t", ranks)
+    out = torch.zeros((k, table_rows), dtype=torch.float32,
+                      device=msgs_t.device)
+    if e and k:
+        _call("segsum_t", (msgs_t, ranks, out), (e, table_rows, k))
+    return out
+
+
+def _expand_t_impl(table_t, ranks, *, block_edges=256, win=0):
+    """K6b: out[k, e] = bf16(table_t[k, rank_e]) widened to f32, [K, E],
+    from an f32 table [K, rows] and int32 ranks below `rows`."""
+    if ranks.dim() != 1 or table_t.dim() != 2:
+        raise ValueError("expand_t: shapes %s, %s" % (tuple(table_t.shape),
+                                                      tuple(ranks.shape)))
+    k, rows = table_t.shape
+    e = ranks.shape[0]
+    if table_t.device.type == "cpu":
+        return _expand_t_plain(table_t, ranks)
+    _check_dtype("expand_t", table_t, torch.float32)
+    _check_ranks("expand_t", ranks)
+    out = torch.empty((k, e), dtype=torch.float32, device=table_t.device)
+    if e and k:
+        _call("expand_t", (table_t, ranks, out), (e, rows, k))
+    return out
+
+
+def _wseg_t_impl(msgs, w_t, ranks, *, table_rows, num_heads, block_edges=256,
+                 win=0, d_used=None):
+    """K7a: table[r] = sum_{rank_e = r} bf16(m_e[:d] * rep(w_t[:, e])) for
+    a bf16 stream m [E, D (+ extra)], f32 head-major weights w_t [K, E]
+    (head k weighs columns k * D/K ... (k+1) * D/K) and int32 ranks; f32
+    [table_rows, D] out. `msgs` may carry extra trailing columns: with
+    `d_used` only the first d are aggregated, without a slicing copy."""
+    e, dim_in = msgs.shape
+    dim = d_used or dim_in
+    if (w_t.shape != (num_heads, e) or ranks.shape != (e,)
+            or dim > dim_in):
+        raise ValueError("wseg_t: shapes %s, %s, %s, d_used %s" % (
+            tuple(msgs.shape), tuple(w_t.shape), tuple(ranks.shape), d_used))
+    _check_heads("wseg_t", dim, num_heads)
+    if msgs.device.type == "cpu":
+        return _wseg_t_plain(msgs, w_t, ranks, table_rows, d_used)
+    _check_dtype("wseg_t", msgs, torch.bfloat16)
+    _check_dtype("wseg_t", w_t, torch.float32)
+    _check_ranks("wseg_t", ranks)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=msgs.device)
+    if e:
+        _call("wseg_t", (msgs, w_t, ranks, out), (e, dim, dim_in, num_heads))
+    return out
+
+
+def _wseg_t_bwd_impl(msgs, w_t, g16, ranks, *, num_heads, block_edges=256,
+                     win=0):
+    """K7b: with g_e = g16[rank_e], d_msgs[e] = bf16(g_e * rep(w_t[:, e]))
+    [E, D] bf16 and d_w_t[k, e] = sum over head k's columns of m_e * g_e
+    [K, E] f32, from the bf16 stream m [E, D], the f32 weights w_t [K, E]
+    and the bf16 table cotangent g16 [rows, D]."""
+    e, dim = msgs.shape
+    if (w_t.shape != (num_heads, e) or ranks.shape != (e,)
+            or g16.dim() != 2 or g16.shape[1] != dim):
+        raise ValueError("wseg_t_bwd: shapes %s, %s, %s, %s" % (
+            tuple(msgs.shape), tuple(w_t.shape), tuple(g16.shape),
+            tuple(ranks.shape)))
+    _check_heads("wseg_t_bwd", dim, num_heads)
+    if msgs.device.type == "cpu":
+        return _wseg_t_bwd_plain(msgs, w_t, g16, ranks)
+    _check_dtype("wseg_t_bwd", msgs, torch.bfloat16)
+    _check_dtype("wseg_t_bwd", g16, torch.bfloat16)
+    _check_dtype("wseg_t_bwd", w_t, torch.float32)
+    _check_ranks("wseg_t_bwd", ranks)
+    dmsg = torch.empty((e, dim), dtype=torch.bfloat16, device=msgs.device)
+    dw_t = torch.empty((num_heads, e), dtype=torch.float32,
+                       device=msgs.device)
+    if e:
+        _call("wseg_t_bwd", (msgs, w_t, g16, ranks, dmsg, dw_t),
+              (e, dim, num_heads))
+    return dmsg, dw_t
+
+
 # ---- public segment-sum / expand, each the other's VJP ------------------
 
 class _RankedSegmentSum(torch.autograd.Function):
@@ -370,6 +527,84 @@ def ranked_expand_table(table, ranks, table_rows: int):
     """Per-edge value of a rank-indexed table, out[e] = bf16(table[rank_e])
     as f32: the inverse of ranked_segment_sum_table and its VJP."""
     return _RankedExpand.apply(table, ranks, table_rows)
+
+
+class _RankedSegmentSumT(torch.autograd.Function):
+    """K6a forward; its VJP is K6b of the table cotangent, cast to the
+    stream dtype (the JAX package's _segsum_t_fwd / _segsum_t_bwd)."""
+
+    @staticmethod
+    def forward(ctx, msgs_t, ranks, table_rows):
+        ctx.save_for_backward(ranks)
+        ctx.msgs_dtype = msgs_t.dtype
+        return _segsum_t_impl(msgs_t, ranks, table_rows=table_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ranks,) = ctx.saved_tensors
+        d_msgs = _expand_t_impl(g.contiguous(), ranks)
+        return d_msgs.to(ctx.msgs_dtype), None, None
+
+
+class _RankedExpandT(torch.autograd.Function):
+    """K6b forward; its VJP is K6a of the per-edge cotangent, cast to the
+    table dtype (the JAX package's _expand_t_fwd / _expand_t_bwd)."""
+
+    @staticmethod
+    def forward(ctx, table_t, ranks, table_rows):
+        ctx.save_for_backward(ranks)
+        ctx.table_dtype, ctx.table_rows = table_t.dtype, table_rows
+        return _expand_t_impl(table_t, ranks)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ranks,) = ctx.saved_tensors
+        d_table = _segsum_t_impl(g.contiguous(), ranks,
+                                 table_rows=ctx.table_rows)
+        return d_table.to(ctx.table_dtype), None, None
+
+
+def ranked_segment_sum_table_t(msgs_t, ranks, table_rows: int):
+    """Head-major ranked segment-sum: [K, E] -> [K, table_rows] f32; VJP:
+    d_msgs_t[:, e] = bf16(d_table_t[:, rank_e])."""
+    return _RankedSegmentSumT.apply(msgs_t, ranks, table_rows)
+
+
+def ranked_expand_table_t(table_t, ranks, table_rows: int):
+    """Head-major ranked expand: out[:, e] = bf16(table_t[:, rank_e]) as
+    f32, the inverse of ranked_segment_sum_table_t and its VJP.
+    `table_rows` is table_t's width."""
+    return _RankedExpandT.apply(table_t, ranks, table_rows)
+
+
+class _RankedWeightedSegmentSumT(torch.autograd.Function):
+    """K7a forward; K7b backward on the table cotangent rounded to bf16,
+    each half cast back to its primal's dtype (the JAX package's
+    _wseg_t_vjp_fwd / _wseg_t_vjp_bwd)."""
+
+    @staticmethod
+    def forward(ctx, msgs, w_t, ranks, table_rows, num_heads):
+        ctx.save_for_backward(msgs, w_t, ranks)
+        ctx.num_heads = num_heads
+        return _wseg_t_impl(msgs, w_t, ranks, table_rows=table_rows,
+                            num_heads=num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        msgs, w_t, ranks = ctx.saved_tensors
+        d_msgs, d_wt = _wseg_t_bwd_impl(
+            msgs, w_t, g.to(torch.bfloat16).contiguous(), ranks,
+            num_heads=ctx.num_heads)
+        return d_msgs.to(msgs.dtype), d_wt.to(w_t.dtype), None, None, None
+
+
+def ranked_weighted_segment_sum_t(msgs, w_t, ranks, table_rows: int,
+                                  num_heads: int):
+    """Per-head weighted segment-sum with head-major weights: table[r] =
+    sum_{rank_e = r} m_e * rep(w_t[:, e]), [E, D] x [K, E] ->
+    [table_rows, D] f32. VJP: d_msgs (in msgs' dtype) and d_w_t."""
+    return _RankedWeightedSegmentSumT.apply(msgs, w_t, ranks, table_rows,
+                                            num_heads)
 
 
 # ---- the gather-fused FiLM pass ---------------------------------------

@@ -88,9 +88,9 @@ def _unflatten(flat: Dict[str, Any]):
 def params_from_jax(flat: Dict[str, np.ndarray], device=None):
     """The JAX package's `flatten_params` dict -> the port's parameter tree
     (float32 tensors on `device`). The port keeps the JAX names and layouts
-    (W [L, D_in, D_out], W_film [L, D, 2D], a GGNN cell's kernel and
-    recurrent_kernel [D, G * D] and bias [G * D] under `.../gnn/cell/`), so
-    the map is name for name."""
+    (W [L, D_in, D_out], W_film [L, D, 2D], RGAT's att [L, 2D], a GGNN
+    cell's kernel and recurrent_kernel [D, G * D] and bias [G * D] under
+    `.../gnn/cell/`), so the map is name for name."""
     return _unflatten({k: torch.tensor(np.asarray(v, dtype=np.float32),
                                        device=device)
                        for k, v in flat.items()})
@@ -561,5 +561,33 @@ class RGCN_Model(SparseGraphModel):
         return {
             "activation_function": self.params["graph_activation_function"],
             "message_aggregation_function": self.params["message_aggregation_function"],
+            "aggregation_strategy": self.params.get("aggregation_strategy", "auto"),
+        }
+
+
+class RGAT_Model(SparseGraphModel):
+    layer_name = "rgat"
+
+    @classmethod
+    def default_params(cls):
+        params = super().default_params()
+        params.update({
+            "hidden_size": 128,
+            "num_heads": 4,
+            "graph_activation_function": "tanh",
+            "graph_layer_input_dropout_keep_prob": 1.0,
+            "graph_dense_between_every_num_gnn_layers": 10000,
+            "graph_residual_connection_every_num_layers": 10000,
+        })
+        return params
+
+    @staticmethod
+    def name(params):
+        return "RGAT"
+
+    def layer_kwargs(self):
+        return {
+            "num_heads": self.params["num_heads"],
+            "activation_function": self.params["graph_activation_function"],
             "aggregation_strategy": self.params.get("aggregation_strategy", "auto"),
         }

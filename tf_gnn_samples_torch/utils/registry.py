@@ -1,7 +1,7 @@
 """Name -> class registries and checkpoint restore (counterpart of
-tf_gnn_samples_tpu/utils/registry.py). Ported so far: the GGNN, RGCN and
-GNN-FiLM models and the QM9 task; every other name the JAX package knows
-raises "not yet ported"."""
+tf_gnn_samples_tpu/utils/registry.py). Ported so far: the GGNN, RGCN, RGAT
+and GNN-FiLM models and the QM9 task; every other name the JAX package
+knows raises "not yet ported"."""
 
 import pickle
 from typing import Any, Dict, Tuple, Type
@@ -10,8 +10,8 @@ _UNPORTED_TASKS = ("ppi", "varmisuse", "citationnetwork", "citation_network",
                    "cora", "citeseer", "pubmed")
 _UNPORTED_MODELS = ("gnn_edge_mlp", "gnn-edge-mlp", "gnn_edge_mlp_model",
                     "gnn_edge_mlp0", "gnn-edge-mlp0", "gnn_edge_mlp1",
-                    "gnn-edge-mlp1", "rgat", "rgat_model", "rgdcn",
-                    "rgdcn_model", "rgin", "rgin_model")
+                    "gnn-edge-mlp1", "rgdcn", "rgdcn_model", "rgin",
+                    "rgin_model")
 
 
 def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
@@ -38,6 +38,10 @@ def name_to_model_class(name: str) -> Tuple[Type, Dict[str, Any]]:
         from ..runtime.model import RGCN_Model
 
         return RGCN_Model, {}
+    if name in ("rgat", "rgat_model"):
+        from ..runtime.model import RGAT_Model
+
+        return RGAT_Model, {}
     if name in ("gnn_film", "gnn-film", "gnn_film_model"):
         from ..runtime.model import GNN_FiLM_Model
 
