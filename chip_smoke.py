@@ -4,28 +4,32 @@
 Phases, each of which raises on failure (no phase's failure is caught):
  1. the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels from tf_gnn_samples_torch/csrc/ with nvcc;
- 3. each of the nine kernels (K1 film_fwd, K2 film_bwd_dgb, K3
-    film_src_bwd, K5a segsum, K5b expand, K6a segsum_t, K6b expand_t, K7a
-    wseg_t, K7b wseg_t_bwd) at the shapes of the first training batch of
-    the tuned QM9 configs (50,000-node packs; 8 attention heads), held
-    against its plain PyTorch version on the card, and timed beside its
-    bound and, where one PyTorch call computes the same function, that
-    call; K6a and K6b are also held against their plain versions on the
-    second table each meets on the RGAT path;
- 4. the main paths: `tf_gnn_samples_torch.train` trains GNN-FiLM, RGCN,
-    GGNN and RGAT on the bundled QM9 data at their tuned configs for 2
-    epochs each, then `tf_gnn_samples_torch.test` evaluates each written
-    checkpoint; the kernel launch counters, set to 0 before each run and
-    read after it, must show that every layer of every batch went through
-    its kernels (K1-K3 for GNN-FiLM; K5a forward and K5b backward for
-    RGCN and GGNN; K6a, K6b, K7a, K7b and, in the message gather's
-    backward, K5a for RGAT) and through no other;
- 5. a reference check per model: loss and gradients of the full-width
+ 3. each of the twelve kernels (K1 film_fwd, K2 film_bwd_dgb, K3
+    film_src_bwd, K4 film_bwd, K5a segsum, K5b expand, K6a segsum_t, K6b
+    expand_t, K7a wseg_t, K7b wseg_t_bwd, K8 wseg_t_dw, K9 rgat_src_bwd)
+    at the shapes of the first training batch of the tuned QM9 configs
+    (50,000-node packs; 8 attention heads), held against its plain
+    PyTorch version on the card, and timed beside its bound and, where
+    one PyTorch call computes the same function, that call; K6a and K6b
+    are also held against their plain versions on the second table each
+    meets on the RGAT path, and K3 and K9 on the DILUTED src stream of a
+    numpy-made graph of PPI-like degree (QM9's streams are undiluted);
+ 4. the main paths: `tf_gnn_samples_torch.train` trains GNN-FiLM (with
+    and without normalised messages), RGCN, GGNN and RGAT (on its fused
+    and on its streamed branch, one of the two through a forced gate) on
+    the bundled QM9 data at their tuned configs for 2 epochs each, then
+    `tf_gnn_samples_torch.test` evaluates each written checkpoint; the
+    kernel launch counters, set to 0 before each run and read after it,
+    must show that every layer of every batch went through its kernels
+    (`expected_launches`) and through no other;
+ 5. a reference check per path: loss and gradients of the full-width
     model on a small QM9 batch on the card (kernels) against the same
     model on the CPU (the kernels' plain versions).
 Usage: python3 chip_smoke.py
 """
 
+import collections
+import contextlib
 import json
 import math
 import os
@@ -41,7 +45,22 @@ OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 TUNED_OVERRIDES = {"max_epochs": 2}  # everything else: QM9_<model>.json
-MODELS = ("GNN-FiLM", "RGCN", "GGNN", "RGAT")
+# A main path: a model at its tuned config, the overrides that select the
+# path, and for RGAT the branch it is. The branch RGAT's gate picks at the
+# tuned batch trains with the gate as it is (its launches tell which
+# branch ran), the other one through a forced gate. The card-against-CPU
+# reference runs on a small batch, where the gate picks otherwise, and
+# forces both.
+Path = collections.namedtuple("Path", "label model overrides rgat_fused")
+PATHS = (
+    Path("GNN-FiLM", "GNN-FiLM", {}, None),
+    Path("GNN-FiLM-normalised", "GNN-FiLM",
+         {"normalize_messages_by_num_incoming": True}, None),
+    Path("RGCN", "RGCN", {}, None),
+    Path("GGNN", "GGNN", {}, None),
+    Path("RGAT-fused", "RGAT", {}, True),
+    Path("RGAT-streamed", "RGAT", {}, False),
+)
 REPLACES = {  # TPU kernel each CUDA kernel replaces
     "film_fwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:333",
     "film_bwd_dgb": "tf_gnn_samples_tpu/ops/ranked_segment.py:433",
@@ -52,7 +71,25 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     "expand_t": "tf_gnn_samples_tpu/ops/ranked_segment.py:1299",
     "wseg_t": "tf_gnn_samples_tpu/ops/ranked_segment.py:1314",
     "wseg_t_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:1341",
+    "film_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:526",
+    "wseg_t_dw": "tf_gnn_samples_tpu/ops/ranked_segment.py:1933",
+    "rgat_src_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:1985",
 }
+
+
+@contextlib.contextmanager
+def rgat_branch(rs, fused):
+    """Force RGAT's gate (ops/ranked_segment.py rgat_fused_supported) to
+    `fused` for the block, as the tests do; None leaves it as it is."""
+    if fused is None:
+        yield
+        return
+    gate = rs.rgat_fused_supported
+    rs.rgat_fused_supported = lambda *args, **kwargs: fused
+    try:
+        yield
+    finally:
+        rs.rgat_fused_supported = gate
 
 
 def card_line() -> str:
@@ -101,6 +138,28 @@ def cuda_queued_ms(fn, torch, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_busy_ms(fn, torch, calls=3) -> float:
+    """Device time per call of `fn` that the card spends in kernels and
+    copies (torch.profiler: the self device time of every device event of
+    `calls` calls, over `calls`). The rest of a step's device-timeline
+    time (`cuda_ms`) the card waits for the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return busy_us / 1e3 / calls
+
+
 def first_batch(max_nodes: int, fold_name: str):
     """First batch of a QM9 fold (unshuffled) at `max_nodes` per batch."""
     from tf_gnn_samples_torch.tasks.base import DataFold
@@ -113,17 +172,25 @@ def first_batch(max_nodes: int, fold_name: str):
         task._loaded_data[fold], DataFold.VALIDATION, max_nodes))
 
 
-def check_kernel(name, got, want, terms_abs, counts, torch):
+def check_kernel(name, got, want, terms_abs, counts, torch, term_ulps=0,
+                 slack=0.0):
     """|got - want| <= 2 * gamma_{n-1} * sum|t| + n * FLT_MIN per row: both
     are f32 sums of the same n bf16 terms, in two orders (the plain
     version's index_add_ and the kernel's stream order with atomics at
     chunk seams), and CUDA's float atomicAdd flushes subnormal results to
-    zero. Rows of a single normal term must match exactly."""
+    zero. Rows of a single normal term must match exactly. `term_ulps`
+    allows each term to differ by that many bf16 ulps (at most 2^-7 of
+    itself each) between the two, for a kernel whose terms go through exp
+    and a division before they are rounded: the kernel's expf and
+    PyTorch's exp may differ in the last f32 bit, which can carry a term to
+    the neighbouring bf16 number. `slack` is a further absolute allowance
+    per entry (see rgat_src_bwd_bounds)."""
     u = 2.0 ** -24
     flt_min = 2.0 ** -126
     n = counts.to(torch.float64)[:, None]
     gamma = (n - 1).clamp(min=0) * u / (1 - (n - 1).clamp(min=0) * u)
-    bound = 2 * gamma * terms_abs.to(torch.float64) + n * flt_min
+    bound = ((2 * gamma + term_ulps * 2.0 ** -7) * terms_abs.to(torch.float64)
+             + n * flt_min + slack)
     err = (got.to(torch.float64) - want.to(torch.float64)).abs()
     bad = int((err > bound).sum())
     max_err = float(err.max())
@@ -132,6 +199,40 @@ def check_kernel(name, got, want, terms_abs, counts, torch):
     if bad or not bool(torch.isfinite(got).all()):
         raise AssertionError("%s disagrees with its plain version" % name)
     return max_err
+
+
+def rgat_src_bwd_bounds(torch, rs, gcb, t_ext, ranks, rows, heads):
+    """(sum of |term|, number of terms, slack) per entry of K9's output,
+    for check_kernel. The terms are K9's plain version with every edge a
+    rank of its own. The slack covers what one bf16 ulp per term does not:
+    the logit cotangent attn * (draw - cor) cancels, and draw, an f32 sum
+    of D / K exact products, is taken in another order by the kernel, so
+    that term may move by attn * 2 gamma_{D/K} * sum|m * dagg| whatever
+    its own size."""
+    e = ranks.shape[0]
+    dim = t_ext.shape[1] - heads
+    t_rows = t_ext.index_select(0, ranks)
+    terms = rs._rgat_src_bwd_plain(
+        gcb, t_rows, torch.arange(e, device=gcb.device), e, heads, 50.0)
+    g = gcb.float()
+    pre = t_rows[:, dim:].float() + g[:, dim:dim + heads]
+    logit = torch.where(pre > 0, pre, 0.2 * pre)
+    attn = torch.exp(logit.clamp(-50.0, 50.0)) / (
+        g[:, dim + heads:dim + 2 * heads] + 1e-7)
+    draw_abs = (t_rows[:, :dim].float() * g[:, :dim]).abs().reshape(
+        e, heads, -1).sum(-1)
+    per_edge = torch.cat(
+        [torch.zeros((e, dim), device=gcb.device),
+         attn * draw_abs * (2 * (dim // heads) * 2.0 ** -24)], 1)
+
+    def per_row(x):
+        return torch.zeros((rows, x.shape[1]), device=gcb.device,
+                           dtype=torch.float64).index_add_(0, ranks,
+                                                           x.double())
+
+    counts = torch.zeros(rows, device=gcb.device).index_add_(
+        0, ranks, torch.ones(e, device=gcb.device))
+    return per_row(terms.abs()), counts, per_row(per_edge)
 
 
 def kernel_phase(torch, rs, dev):
@@ -188,18 +289,33 @@ def kernel_phase(torch, rs, dev):
         return lambda: torch.zeros((n, terms.shape[1]), device=dev).index_add_(
             0, ranks, terms)
 
+    def dw_check(name, stream):
+        """d_w_t [K, E] is an f32 sum of D / K exact products (the first D
+        columns of `stream` times the receiver's cotangent row) in another
+        order than the plain version's."""
+        def check(dw, dw_want):
+            prods = (stream[:, :d].float()
+                     * g7.float().index_select(0, rcv)).abs()
+            sums = prods.reshape(e, heads, -1).sum(-1).t()
+            return check_kernel(
+                name, dw.reshape(-1, 1), dw_want.reshape(-1, 1),
+                sums.reshape(-1, 1),
+                torch.full((e * heads,), float(d // heads), device=dev),
+                torch)
+        return check
+
     def wseg_bwd_check(got, want):
-        """K7b: d_msgs must equal the plain version's; d_w_t is an f32 sum
-        of D / K exact products in another order."""
+        """K7b: d_msgs must equal the plain version's."""
         (dm, dw), (dm_want, dw_want) = got, want
         err_m = exact_check("wseg_t_bwd d_msgs")(dm.float(), dm_want.float())
-        prods = (m7.float() * g7.float().index_select(0, rcv)).abs()
-        sums = prods.reshape(e, heads, -1).sum(-1).t()
-        err_w = check_kernel(
-            "wseg_t_bwd d_w_t", dw.reshape(-1, 1), dw_want.reshape(-1, 1),
-            sums.reshape(-1, 1),
-            torch.full((e * heads,), float(d // heads), device=dev), torch)
-        return max(err_m, err_w)
+        return max(err_m, dw_check("wseg_t_bwd d_w_t", m7)(dw, dw_want))
+
+    def film_bwd_check(got, want):
+        """K4: d_msgs must equal the plain version's; d_gb as K2."""
+        (dm, dgb), (dm_want, dgb_want) = got, want
+        err_m = exact_check("film_bwd d_msgs")(dm.float(), dm_want.float())
+        return max(err_m, order_check("film_bwd d_gb", rpad, fine, k2_terms)(
+            dgb, dgb_want))
 
     msgs, gb, gbg = randn(e, d), randn(rpad, 2 * d), randn(rpad, 3 * d)
     gcb, t = randn(e, 3 * d), randn(rsrc, d)
@@ -227,6 +343,21 @@ def kernel_phase(torch, rs, dev):
     m7, g7 = randn(e, d), randn(rows, d)
     w_t = torch.rand((heads, e), generator=gen, device=dev)
     k7_terms = rs._bf16_terms(m7.float() * rs._head_replicate(w_t, d))
+    # K8 / K9 inputs, as the fused RGAT backward builds them: the [E, D+K]
+    # gathered stream (K8 reads its first D columns); the [E, D+3K] side
+    # stream of K9 (cotangent | target logits | a positive denominator |
+    # correction) and the [R_src, D+K] t | lsrc table.
+    m8 = randn(e, d + heads)
+    gcb9 = torch.randn((e, d + 3 * heads), generator=gen, device=dev)
+    gcb9[:, d + heads:d + 2 * heads] = 0.5 + 4 * torch.rand(
+        (e, heads), generator=gen, device=dev)
+    gcb9 = gcb9.to(torch.bfloat16)
+    t9 = randn(rsrc, d + heads)
+    k9_abs, k9_counts, k9_slack = rgat_src_bwd_bounds(
+        torch, rs, gcb9, t9, src, rsrc, heads)
+    k9_terms = rs._rgat_src_bwd_plain(
+        gcb9, t9.index_select(0, src), torch.arange(e, device=dev), e, heads,
+        50.0)  # edge by edge, for the index_add_ yardstick
     film_yardstick = ("torch.Tensor.index_add_ of the precomputed terms "
                       "(leaves out the row gathers, the modulation and the "
                       "activation)")
@@ -316,6 +447,48 @@ def kernel_phase(torch, rs, dev):
              nbytes=(2 * e * d * 2 + 2 * heads * e * 4 + e * 4
                      + n_rcv * d * 2),
              nops=3 * e * d),
+        # K4 is K2 plus the bf16 [E, D] message cotangent it writes.
+        dict(name="film_bwd",
+             kern=lambda: rs._film_bwd_impl(msgs, gbg, fine, act=act),
+             plain=lambda: rs._film_bwd_plain(msgs, gbg, fine, act),
+             check=film_bwd_check,
+             nbytes=(2 * e * d * 2 + e * 4 + n_fine * 3 * d * 2
+                     + rpad * 2 * d * 4),
+             nops=8 * e * d,
+             yardstick=(film_yardstick, index_add(rpad, fine, k2_terms))),
+        # K8 reads the first D columns of the [E, D+K] stream, the ranks and
+        # the used rows of the bf16 cotangent table and writes [K, E] f32; a
+        # multiply and an add per element.
+        dict(name="wseg_t_dw",
+             kern=lambda: rs._wseg_t_dw_impl(m8, g7, rcv, num_heads=heads,
+                                             d_used=d),
+             plain=lambda: rs._wseg_t_dw_plain(m8, g7, rcv, heads, d),
+             check=dw_check("wseg_t_dw", m8),
+             nbytes=e * d * 2 + heads * e * 4 + e * 4 + n_rcv * d * 2,
+             nops=2 * e * d,
+             yardstick=("index_select of the cotangent rows, a multiply and "
+                        "a per-head sum (three PyTorch calls, on a stream "
+                        "already cut to D columns)",
+                        lambda: (m7.float() * g7.index_select(0, rcv).float()
+                                 ).reshape(e, heads, -1).sum(-1))),
+        # K9 reads the [E, D+3K] side stream, the ranks and the used rows of
+        # the t | lsrc table and writes the [R_src, D+K] table; per column a
+        # product for the head's dot, one for the term and two adds, per
+        # head the softmax recompute.
+        dict(name="rgat_src_bwd",
+             kern=lambda: rs._rgat_src_bwd_impl(
+                 gcb9, t9, src, table_rows=rsrc, num_heads=heads, clamp=50.0),
+             plain=lambda: rs._rgat_src_bwd_plain(gcb9, t9, src, rsrc, heads,
+                                                  50.0),
+             check=lambda got, want: check_kernel(
+                 "rgat_src_bwd", got, want, k9_abs, k9_counts, torch,
+                 term_ulps=1, slack=k9_slack),
+             nbytes=(e * (d + 3 * heads) * 2 + e * 4
+                     + n_src * (d + heads) * 2 + rsrc * (d + heads) * 4),
+             nops=5 * e * d + 16 * e * heads,
+             yardstick=("torch.Tensor.index_add_ of the precomputed terms "
+                        "(leaves out the row gathers and the attention "
+                        "recompute)", index_add(rsrc, src, k9_terms))),
     ]
     # The RGAT path gives each K6 kernel two tables: K6a also sums the
     # target logits' cotangent over the fine ranks (shorter runs, more
@@ -377,6 +550,160 @@ def kernel_phase(torch, rs, dev):
     return results
 
 
+def ppi_like_graph(dev, seed=0, num_nodes=8192, degree=14):
+    """A numpy-made graph of PPI-like degree on `dev`: `degree` random
+    in-edges per node, their reverses as a second type and a self-loop
+    type, padded by the port's own pad_graph_batch to whole 2048-edge
+    rows."""
+    import numpy as np
+
+    from tf_gnn_samples_torch.ops.graph import graph_to_device, pad_graph_batch
+
+    rng = np.random.RandomState(seed)
+    fwd = rng.randint(0, num_nodes, size=(num_nodes * degree, 2)).astype(
+        np.int32)
+    loops = np.stack([np.arange(num_nodes)] * 2, 1).astype(np.int32)
+    adj = [fwd, fwd[:, ::-1].copy(), loops]
+    feats = rng.randn(num_nodes, 8).astype(np.float32)
+    return graph_to_device(pad_graph_batch(
+        feats, adj, np.zeros(num_nodes, np.int32), 1,
+        e_pads=[-(-a.shape[0] // 2048) * 2048 for a in adj]), dev)
+
+
+def diluted_phase(torch, rs, dev, graph, seed=0):
+    """K3 and K9 on a DILUTED src stream. The tuned QM9 batches have no
+    fine rank window, so their src streams are undiluted; `graph`
+    (ppi_like_graph) dilutes. Fill slots carry the SD_FILL key, which the
+    passes clamp onto a zero row appended to their side table: both
+    kernels are held against their plain versions on that stream, and the
+    rows no real edge feeds must be exactly zero."""
+    from tf_gnn_samples_torch.nn.layers import src_stream
+    from tf_gnn_samples_torch.ops.graph import SD_FILL
+
+    flat = graph.flat
+    fine, ranks, win = src_stream(flat)
+    n_fill = int((fine == int(SD_FILL)).sum())
+    e, e_sd = int(flat.src_flat.numel()), int(ranks.numel())
+    print("diluted stream: E=%d, %d slots of which %d fill, window %d "
+          "(fine window %d, undiluted src window %d)"
+          % (e, e_sd, n_fill, win, flat.win_fine, flat.win_src))
+    if not (flat.win_sd and fine is flat.sd_fine and n_fill and e_sd > e):
+        raise AssertionError("the src stream did not dilute")
+    d, heads, act = 128, 8, "elu"
+    rpad = int(flat.fine_to_flat.numel())
+    rsrc = int(flat.src_from_rank.numel())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def gathered(side):
+        return rs._zero_extended(side).index_select(0, fine.clamp(max=rpad))
+
+    ones = torch.ones(e_sd, device=dev)
+    counts = torch.zeros(rsrc, device=dev).index_add_(0, ranks, ones)
+    fed = torch.zeros(rsrc, device=dev).index_add_(
+        0, ranks, (fine != int(SD_FILL)).float()) > 0
+    every = torch.arange(e_sd, device=dev)
+
+    def check(name, got, want, abs_sums, **allow):
+        check_kernel(name + " (diluted)", got, want, abs_sums, counts, torch,
+                     **allow)
+        if bool((got[~fed] != 0).any()):
+            raise AssertionError("%s: fill slots reached the table" % name)
+
+    gcb3, t3 = gathered(randn(rpad, 3 * d)), randn(rsrc, d)
+    k3_terms = rs._film_src_bwd_plain(gcb3, t3.index_select(0, ranks), every,
+                                      e_sd, act)  # edge by edge
+    check("film_src_bwd",
+          rs._film_src_bwd_impl(gcb3, t3, ranks, table_rows=rsrc, act=act),
+          rs._film_src_bwd_plain(gcb3, t3, ranks, rsrc, act),
+          torch.zeros((rsrc, d), device=dev).index_add_(0, ranks,
+                                                        k3_terms.abs()))
+    side = torch.randn((rpad, d + 3 * heads), generator=gen, device=dev)
+    side[:, d + heads:d + 2 * heads] = 0.5 + 4 * torch.rand(
+        (rpad, heads), generator=gen, device=dev)
+    gcb9, t9 = gathered(side.to(torch.bfloat16)), randn(rsrc, d + heads)
+    k9_abs, _, k9_slack = rgat_src_bwd_bounds(torch, rs, gcb9, t9, ranks,
+                                              rsrc, heads)
+    check("rgat_src_bwd",
+          rs._rgat_src_bwd_impl(gcb9, t9, ranks, table_rows=rsrc,
+                                num_heads=heads, clamp=50.0),
+          rs._rgat_src_bwd_plain(gcb9, t9, ranks, rsrc, heads, 50.0),
+          k9_abs, term_ulps=1, slack=k9_slack)
+    torch.cuda.synchronize()
+
+
+def rgat_branch_phase(torch, rs, dev, ppi_graph):
+    """RGAT's two kernel branches in turns (fused, streamed, streamed,
+    fused, twice over) within this one run: the device time of one train
+    and one eval step of the tuned model on one tuned QM9 batch (E below
+    the type-stacked node table's L * n_pad rows), and of one layer's
+    forward and backward at the same width on `ppi_graph`, whose edge
+    stream is about ten times its node table. A turn's figure is the
+    median of 10 CUDA-event timings; reported are each branch's median
+    over its four turns and in how many of the four neighbouring pairs of
+    turns the fused branch was the faster one. Both steps wait for the
+    host much of the time, so each branch's device-busy time per train
+    step and per layer pass (`device_busy_ms`) is read too."""
+    from tf_gnn_samples_torch.nn.layers import rgat_apply, rgat_init
+    from tf_gnn_samples_torch.runtime.model import batch_to_device
+    from tf_gnn_samples_torch.train import HYPERS_DIR
+    from tf_gnn_samples_torch.utils.registry import name_to_model_class
+
+    cls, _ = name_to_model_class("RGAT")
+    with open(os.path.join(HYPERS_DIR, "QM9_RGAT.json")) as f:
+        params = dict(cls.default_params(), **json.load(f)["model_params"])
+    task, batch = first_batch(params["max_nodes_in_batch"], "TRAIN")
+    out = os.path.join(OUT, "RGAT-branches")
+    os.makedirs(out, exist_ok=True)
+    model = cls(params, task, "ab", out, device=dev)
+    dev_batch = batch_to_device(batch, model.device)
+    heads, dim = params["num_heads"], params["hidden_size"]
+    gen = torch.Generator().manual_seed(0)
+    layer = {k: v.to(dev).requires_grad_(True) for k, v in rgat_init(
+        gen, ppi_graph.num_edge_types, dim, num_heads=heads).items()}
+    h = torch.randn((ppi_graph.n_pad, dim), generator=gen).to(dev)
+    h.requires_grad_(True)
+
+    def layer_step():
+        y = rgat_apply(layer, ppi_graph, h, num_heads=heads,
+                       activation_function="elu")
+        torch.autograd.grad(y.sum(), [h] + list(layer.values()))
+
+    work = {"train_step_ms": lambda: model._train_step(dev_batch),
+            "eval_step_ms": lambda: model._eval_step(dev_batch),
+            "ppi_layer_fwd_bwd_ms": layer_step}
+    times = {True: collections.defaultdict(list),
+             False: collections.defaultdict(list)}
+    for fused in (True, False, False, True) * 2:
+        with rgat_branch(rs, fused):
+            for name, fn in work.items():
+                times[fused][name].append(cuda_ms(fn, torch, warmup=2,
+                                                  iters=10))
+    result = {("fused" if fused else "streamed"): {
+        name: statistics.median(v) for name, v in t.items()}
+        for fused, t in times.items()}
+    result["pairs_fused_faster_of_4"] = {
+        name: sum(f < s for f, s in zip(times[True][name],
+                                        times[False][name]))
+        for name in work}
+    for fused in (True, False):
+        with rgat_branch(rs, fused):
+            result["fused" if fused else "streamed"].update(
+                train_step_busy_ms=device_busy_ms(work["train_step_ms"],
+                                                  torch),
+                ppi_layer_busy_ms=device_busy_ms(layer_step, torch))
+    e_qm9 = int(dev_batch.graph.flat.src_flat.numel())
+    e_ppi = int(ppi_graph.flat.src_flat.numel())
+    print("RGAT branches in turns: tuned QM9 batch (E=%d, L*n_pad=%d) and "
+          "PPI-like layer (E=%d, L*n_pad=%d): %s"
+          % (e_qm9, dev_batch.graph.num_edge_types * dev_batch.graph.n_pad,
+             e_ppi, ppi_graph.num_edge_types * ppi_graph.n_pad,
+             json.dumps(result)))
+    return result
+
+
 def finite_log_values(path, pattern):
     """Float values of `pattern`'s group 1 in a run log; all finite."""
     with open(path) as f:
@@ -387,41 +714,52 @@ def finite_log_values(path, pattern):
     return vals
 
 
-def expected_launches(model_name, layers, n_fwd, n_bwd):
+def expected_launches(label, layers, n_fwd, n_bwd):
     """Kernel launches of `n_fwd` forward passes, `n_bwd` of them with a
-    backward pass, through `layers` message-passing layers; no kernel of
-    another family runs. GNN-FiLM runs K1 forward and K2 + K3 backward;
-    RGCN and GGNN K5a forward and K5b backward. An RGAT layer runs, forward,
-    K6b for the target logits, K6a and K6b for the softmax denominator and
-    K7a; backward, K7b, the VJPs of those three K6 launches (K6a twice,
-    K6b once) and K5a in the message gather's backward."""
+    backward pass, through `layers` message-passing layers of the path
+    `label`; no other kernel runs. GNN-FiLM runs K1 forward and K2 + K3
+    backward; with normalised messages K1 forward and, backward, K4 and
+    K5a (the message gather's backward). RGCN and GGNN run K5a forward and
+    K5b backward. An RGAT layer runs, forward, K6b for the target logits,
+    K6a and K6b for the softmax denominator and K7a, on either branch;
+    backward, the streamed branch runs K7b, the VJPs of those three K6
+    launches (K6a twice, K6b once) and K5a in the message gather's
+    backward, the fused branch K8, K6a and K6b for the softmax correction,
+    K6a for the target logits' cotangent and K9."""
     want = {k: 0 for k in REPLACES}
-    if model_name == "GNN-FiLM":
+    if label == "GNN-FiLM":
         want.update(film_fwd=layers * n_fwd, film_bwd_dgb=layers * n_bwd,
                     film_src_bwd=layers * n_bwd)
-    elif model_name == "RGAT":
+    elif label == "GNN-FiLM-normalised":
+        want.update(film_fwd=layers * n_fwd, film_bwd=layers * n_bwd,
+                    segsum=layers * n_bwd)
+    elif label.startswith("RGAT"):
         want.update(expand_t=layers * (2 * n_fwd + n_bwd),
                     segsum_t=layers * (n_fwd + 2 * n_bwd),
-                    wseg_t=layers * n_fwd, wseg_t_bwd=layers * n_bwd,
-                    segsum=layers * n_bwd)
+                    wseg_t=layers * n_fwd)
+        if label == "RGAT-fused":
+            want.update(wseg_t_dw=layers * n_bwd, rgat_src_bwd=layers * n_bwd)
+        else:
+            want.update(wseg_t_bwd=layers * n_bwd, segsum=layers * n_bwd)
     else:
         want.update(segsum=layers * n_fwd, expand=layers * n_bwd)
     return want
 
 
-def main_path_phase(rs, model_name):
-    """Train `model_name` at its tuned QM9 config for 2 epochs, test its
+def main_path_phase(rs, path):
+    """Train `path.model` at its tuned QM9 config for 2 epochs, test its
     checkpoint; returns the training run's launches, and the step times
     with the launches counted in one train step."""
     from tf_gnn_samples_torch import train as train_cli
     from tf_gnn_samples_torch import test as test_cli
     from tf_gnn_samples_torch.tasks.base import DataFold
 
-    out = os.path.join(OUT, model_name)
+    out = os.path.join(OUT, path.label)
     os.makedirs(out, exist_ok=True)
     args = train_cli.get_train_args([
-        model_name, "QM9", "--data-path", DATA, "--result-dir", out,
-        "--quiet", "--model-param-overrides", json.dumps(TUNED_OVERRIDES)])
+        path.model, "QM9", "--data-path", DATA, "--result-dir", out,
+        "--quiet", "--model-param-overrides",
+        json.dumps(dict(TUNED_OVERRIDES, **path.overrides))])
     rs.reset_launches()
     t0 = time.time()
     (model,) = train_cli.run(args)
@@ -431,9 +769,9 @@ def main_path_phase(rs, model_name):
               * model.params["graph_num_timesteps_per_layer"])
     n_train = model.batches_run[DataFold.TRAIN]
     n_valid = model.batches_run[DataFold.VALIDATION]
-    want = expected_launches(model_name, layers, n_train + n_valid, n_train)
+    want = expected_launches(path.label, layers, n_train + n_valid, n_train)
     print("%s main path: %d train and %d valid batches in %.1f s; launches "
-          "%s, expected %s" % (model_name, n_train, n_valid, train_s,
+          "%s, expected %s" % (path.label, n_train, n_valid, train_s,
                                launches, want))
     if launches != want:
         raise AssertionError("kernel launches %s != expected %s"
@@ -447,14 +785,14 @@ def main_path_phase(rs, model_name):
                            os.path.join(DATA, "test.jsonl.gz"), out, quiet=True)
     n_test = tmodel.batches_run[DataFold.TEST]
     test_launches = dict(rs.LAUNCHES)
-    want_test = expected_launches(model_name, layers, n_test, 0)
+    want_test = expected_launches(path.label, layers, n_test, 0)
     print("%s test: %d batches; launches %s, expected %s"
-          % (model_name, n_test, test_launches, want_test))
+          % (path.label, n_test, test_launches, want_test))
     if test_launches != want_test:
         raise AssertionError("test launches %s != expected %s"
                              % (test_launches, want_test))
     finite_log_values(tmodel.log_file, re.compile(r"^Loss (\S+) on "))
-    return launches, step_times(rs, model)
+    return launches, step_times(rs, model, path.label)
 
 
 def host_enqueue_ms(fn, torch, iters=5) -> float:
@@ -472,7 +810,7 @@ def host_enqueue_ms(fn, torch, iters=5) -> float:
     return statistics.median(times)
 
 
-def step_times(rs, model):
+def step_times(rs, model, label):
     """Host time to pack one training batch, device time of one train and
     one eval step on it (median of CUDA-event timings), the host's time
     to enqueue the train step, and the launch counters of one train
@@ -498,35 +836,42 @@ def step_times(rs, model):
              "eval_step_ms": cuda_ms(lambda: model._eval_step(dev_batch),
                                      torch, warmup=2, iters=5),
              "train_step_host_ms": host_enqueue_ms(
+                 lambda: model._train_step(dev_batch), torch),
+             "train_step_busy_ms": device_busy_ms(
                  lambda: model._train_step(dev_batch), torch)}
     print("%s: one batch of %d graphs: host packing %.1f ms, train step "
-          "%.2f ms, eval step %.2f ms (device); the host enqueues the train "
-          "step in %.2f ms"
-          % (model.name(model.params), batch.num_graphs, times["pack_ms"],
+          "%.2f ms, eval step %.2f ms (device timeline); the host enqueues "
+          "the train step in %.2f ms; the card is busy %.2f ms of the train "
+          "step (idle %.0f%%)"
+          % (label, batch.num_graphs, times["pack_ms"],
              times["train_step_ms"], times["eval_step_ms"],
-             times["train_step_host_ms"]))
+             times["train_step_host_ms"], times["train_step_busy_ms"],
+             100 * max(0.0, 1 - times["train_step_busy_ms"]
+                       / times["train_step_ms"])))
     return times, step_launches
 
 
-def reference_phase(torch, rs, model_name, card="cuda"):
-    """Full-width model (tuned config) on a small QM9 batch: the card's
-    kernels against the CPU's plain versions, same weights, no dropout.
-    At 600 nodes RGCN and GGNN would take the dense strategy ("auto"), so
-    they are set to the ranked one ("pallas") and must launch K5; RGAT
-    takes its streamed branch under either."""
+def reference_phase(torch, rs, path, card="cuda"):
+    """Full-width model (tuned config) of `path` on a small QM9 batch: the
+    card's kernels against the CPU's plain versions, same weights, no
+    dropout. At 600 nodes RGCN and GGNN would take the dense strategy
+    ("auto"), so they are set to the ranked one ("pallas") and must launch
+    K5; RGAT takes the same branch under either."""
     import numpy as np
 
     from tf_gnn_samples_torch.runtime.model import batch_to_device, params_to_jax
     from tf_gnn_samples_torch.train import HYPERS_DIR
     from tf_gnn_samples_torch.utils.registry import name_to_model_class
 
-    cls, _ = name_to_model_class(model_name)
-    with open(os.path.join(HYPERS_DIR, "QM9_%s.json" % model_name)) as f:
+    model_name = path.label
+    cls, _ = name_to_model_class(path.model)
+    with open(os.path.join(HYPERS_DIR, "QM9_%s.json" % path.model)) as f:
         hypers = json.load(f)["model_params"]
     params = cls.default_params()
     params.update(hypers)
+    params.update(path.overrides)
     params["graph_layer_input_dropout_keep_prob"] = 1.0
-    if model_name != "GNN-FiLM":
+    if path.model != "GNN-FiLM":
         params["aggregation_strategy"] = "pallas"
     task, batch = first_batch(600, "VALIDATION")
     out = os.path.join(OUT, model_name)
@@ -602,8 +947,18 @@ def main() -> int:
     kernel_ms = {k["name"]: k["ms"] for k in kernels}
     queued_ms = {k["name"]: k["queued_ms"] for k in kernels}
     total = {k["name"]: 0 for k in kernels}
-    for model_name in MODELS:
-        launches, (times, per_step) = main_path_phase(rs, model_name)
+    ppi_graph = ppi_like_graph(torch.device("cuda"))
+    diluted_phase(torch, rs, torch.device("cuda"), ppi_graph)
+    # RGAT trains with its gate as it is on the branch the gate picks at
+    # the tuned batch, and through a forced gate on the other.
+    card_default = rs.rgat_fused_supported(161792, 128, 8, 51472, 162056)
+    for path in PATHS:
+        forced = (None if path.rgat_fused in (None, card_default)
+                  else path.rgat_fused)
+        print("%s: RGAT gate %s" % (path.label, "as it is" if forced is None
+                                    else "forced to %s" % forced))
+        with rgat_branch(rs, forced):
+            launches, (times, per_step) = main_path_phase(rs, path)
         for name, n in launches.items():
             total[name] += n
         share = sum(n * kernel_ms[k] for k, n in per_step.items())
@@ -611,12 +966,14 @@ def main() -> int:
         print("%s: kernel launches counted in one train step %s: %.2f ms at "
               "the single-call times above (%.2f ms at the queued times), "
               "%.1f%% of the train step"
-              % (model_name, per_step, share, queued,
+              % (path.label, per_step, share, queued,
                  100 * share / times["train_step_ms"]))
     for k in kernels:
         k["launches"] = total[k["name"]]
-    for model_name in MODELS:
-        reference_phase(torch, rs, model_name)
+    rgat_branch_phase(torch, rs, torch.device("cuda"), ppi_graph)
+    for path in PATHS:
+        with rgat_branch(rs, path.rgat_fused):
+            reference_phase(torch, rs, path)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version (the FiLM kernels for every activation, the ranked
+PyTorch version (the FiLM kernels K1-K4 for every activation, the ranked
 segment-sum for an f32 and a bf16 stream, the ranked expand exactly, the
-head-major attention kernels K6 and K7), the wrappers' checks and launch
-counts, and the fused GNN-FiLM, RGCN, GGNN and RGAT layers on the card
-against the CPU.
+head-major attention kernels K6, K7 and K8, and K9 on an undiluted and a
+diluted src stream), the wrappers' checks and launch counts, and the
+GNN-FiLM (fused and normalised), RGCN, GGNN and RGAT (fused and streamed)
+layers on the card against the CPU.
 
 Marked `cuda`; every test skips without a GPU. This file imports no JAX,
 so it runs where JAX is absent (the repository's conftest imports it):
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_kernel
+from chip_smoke import check_kernel, rgat_src_bwd_bounds
 from tf_gnn_samples_torch.nn import layers
 from tf_gnn_samples_torch.ops import ranked_segment as rs
 from tf_gnn_samples_torch.ops.graph import graph_to_device, pad_graph_batch
@@ -81,7 +82,7 @@ def _inputs(kernel, flat, d, dev):
     e = flat.tgt_rank.shape[0]
     if kernel == "film_fwd":
         return randn(e, d), randn(flat.fine_to_flat.shape[0], 2 * d), flat.tgt_rank
-    if kernel == "film_bwd_dgb":
+    if kernel in ("film_bwd_dgb", "film_bwd"):
         return randn(e, d), randn(flat.fine_to_flat.shape[0], 3 * d), flat.tgt_rank
     rows = flat.src_from_rank.shape[0]
     return randn(e, 3 * d), randn(rows, d), flat.src_sorted_rank, rows
@@ -94,6 +95,9 @@ def _run(kernel, args, act, plain):
     if kernel == "film_bwd_dgb":
         return (rs._film_bwd_dgb_plain(*args, act) if plain
                 else rs._film_bwd_dgb_impl(*args, act=act))
+    if kernel == "film_bwd":
+        return (rs._film_bwd_plain(*args, act) if plain
+                else rs._film_bwd_impl(*args, act=act))
     gcb, t, ranks, rows = args
     return (rs._film_src_bwd_plain(gcb, t, ranks, rows, act) if plain
             else rs._film_src_bwd_impl(gcb, t, ranks, table_rows=rows, act=act))
@@ -102,18 +106,22 @@ def _run(kernel, args, act, plain):
 @pytest.mark.parametrize("d", [200, 48])
 @pytest.mark.parametrize("act", sorted(rs.ACT_IDS))
 @pytest.mark.parametrize("kernel", ["film_fwd", "film_bwd_dgb",
-                                    "film_src_bwd"])
+                                    "film_src_bwd", "film_bwd"])
 def test_kernel_matches_plain_on_card(dev, graph, kernel, act, d):
     """Kernel and plain version sum the same bf16 terms in two orders; each
     row must agree within the f32 summation-order bound (exactly for a
     single normal term; see chip_smoke.check_kernel). D = 200 spans two column passes of a 128-thread block;
-    D = 48 a partly filled warp."""
+    D = 48 a partly filled warp. K4 also writes the per-edge message
+    cotangent, one rounded product: equal bit for bit."""
     args = _inputs(kernel, graph.flat, d, dev)
     before = rs.LAUNCHES[kernel]
     got = _run(kernel, args, act, plain=False)
     torch.cuda.synchronize()
     assert rs.LAUNCHES[kernel] == before + 1
     want = _run(kernel, args, act, plain=True)
+    if kernel == "film_bwd":
+        assert got[0].dtype == torch.bfloat16 and torch.equal(got[0], want[0])
+        got, want = got[1], want[1]
     abs_sums, counts = _terms_and_counts(kernel, act, args, graph.flat, dev)
     check_kernel(kernel, got, want, abs_sums, counts, torch)
 
@@ -156,8 +164,9 @@ def test_fused_layer_on_card_matches_cpu(dev, graph):
         out = layers.gnn_film_apply(p, g, hh, activation_function="elu")
         (out * torch.tensor(w, device=device)).sum().backward()
         if device.type == "cuda":
-            assert all(rs.LAUNCHES[k] == launches[k] + (k.startswith("film"))
-                       for k in launches)
+            assert {k: rs.LAUNCHES[k] - launches[k] for k in launches} == dict(
+                {k: 0 for k in launches}, film_fwd=1, film_bwd_dgb=1,
+                film_src_bwd=1)
         results.append([x.detach().cpu().numpy()
                         for x in (out, hh.grad, p["W"].grad, p["W_film"].grad)])
     for card, cpu in zip(*results):
@@ -396,6 +405,101 @@ def test_wseg_t_bwd_matches_plain_on_card(dev, graph, k, d, offset):
                  torch.full((e * k,), float(d // k), device=dev), torch)
 
 
+@pytest.mark.parametrize("k,d,extra,offset",
+                         [(k, d, x, 0) for k, d, x in HEAD_CASES]
+                         + [(8, 128, 8, 1), (4, 64, 4, 0)])
+def test_wseg_t_dw_matches_plain_on_card(dev, graph, k, d, extra, offset):
+    """K8: d_w_t, an f32 sum of D / K exact products in another order than
+    the plain version's, within the summation-order bound. The `extra`
+    cases feed a [E, D + extra] stream with d_used = D (4 extra columns
+    leave rows off 16-byte addresses, as a stream one bf16 past an aligned
+    address does: the 2-byte path); the extra columns hold 1e4 and must
+    not be read."""
+    ranks = graph.flat.rcv_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    e = ranks.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(d * k + extra)
+    base = torch.randn(e * (d + extra) + offset, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    msgs = base[offset:].view(e, d + extra)
+    msgs[:, d:] = 1e4
+    g16 = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    d_used = d if extra else None
+    before = rs.LAUNCHES["wseg_t_dw"]
+    dw = rs._wseg_t_dw_impl(msgs, g16, ranks, num_heads=k, d_used=d_used)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["wseg_t_dw"] == before + 1
+    assert dw.dtype == torch.float32 and dw.shape == (k, e)
+    dw_want = rs._wseg_t_dw_plain(msgs, g16, ranks, k, d_used)
+    sums = (msgs[:, :d].float() * g16.float().index_select(0, ranks)
+            ).abs().reshape(e, k, -1).sum(-1).t()
+    check_kernel("wseg_t_dw", dw.reshape(-1, 1), dw_want.reshape(-1, 1),
+                 sums.reshape(-1, 1),
+                 torch.full((e * k,), float(d // k), device=dev), torch)
+
+
+@pytest.fixture(scope="module")
+def diluted_graph(dev):
+    """A graph of PPI-like degree (14 random in-edges per node, their
+    reverses as a second type, self loops), whose src stream dilutes."""
+    rng = np.random.default_rng(4)
+    n = 2000
+    fwd = rng.integers(0, n, size=(14 * n, 2)).astype(np.int32)
+    adj = [fwd, fwd[:, ::-1].copy(),
+           np.stack([np.arange(n)] * 2, 1).astype(np.int32)]
+    feats = rng.standard_normal((n, 8)).astype(np.float32)
+    g = pad_graph_batch(feats, adj, np.zeros(n, np.int32), 1,
+                        e_pads=[-(-a.shape[0] // 2048) * 2048 for a in adj])
+    assert g.flat.win_sd and g.flat.sd_rank.shape[0] > g.flat.src_flat.shape[0]
+    return graph_to_device(g, dev)
+
+
+@pytest.mark.parametrize("k,d", [(8, 128), (8, 64), (4, 200), (8, 48),
+                                 (3, 48), (1, 64), (16, 128)])
+@pytest.mark.parametrize("stream", ["undiluted", "diluted"])
+def test_rgat_src_bwd_matches_plain_on_card(dev, graph, diluted_graph,
+                                            stream, k, d):
+    """K9 against its plain version: the same bf16 terms up to one bf16
+    ulp each (expf against torch.exp) and the cancellation slack of
+    chip_smoke.rgat_src_bwd_bounds, summed in two orders. Inputs as the
+    fused backward builds them: the side table's rows gathered by the fine
+    key of each slot, fill keys (the diluted stream) clamped onto appended
+    zero rows. Rows fed by no real edge stay exactly zero. Heads of 25, 6
+    and 16 columns with 3 or 1 heads take the 2-byte loads."""
+    if stream == "diluted":
+        flat = diluted_graph.flat
+        fine, ranks, _ = layers.src_stream(flat)
+        assert fine is flat.sd_fine and bool((fine == 2 ** 31 - 1).any())
+    else:
+        flat = graph.flat
+        fine, ranks = flat.fine_rank_by_src, flat.src_sorted_rank
+    rpad, rsrc = flat.fine_to_flat.shape[0], flat.src_from_rank.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(d + k)
+    side = torch.randn((rpad, d + 3 * k), generator=gen, device=dev)
+    side[:, d + k:d + 2 * k] = 0.5 + 4 * torch.rand((rpad, k), generator=gen,
+                                                    device=dev)
+    side[::37, d:d + k] = 80.0  # logits beyond the clamp
+    side[int(flat.tgt_rank.max()):] = 0.0  # the dump rank, the slack rows
+    gcb = rs._zero_extended(side.to(torch.bfloat16)).index_select(
+        0, fine.clamp(max=rpad))
+    t_ext = torch.randn((rsrc, d + k), generator=gen, device=dev).to(
+        torch.bfloat16)
+    before = rs.LAUNCHES["rgat_src_bwd"]
+    got = rs._rgat_src_bwd_impl(gcb, t_ext, ranks, table_rows=rsrc,
+                                num_heads=k, clamp=50.0)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["rgat_src_bwd"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (rsrc, d + k)
+    want = rs._rgat_src_bwd_plain(gcb, t_ext, ranks, rsrc, k, 50.0)
+    abs_sums, counts, slack = rgat_src_bwd_bounds(torch, rs, gcb, t_ext,
+                                                  ranks, rsrc, k)
+    check_kernel("rgat_src_bwd", got, want, abs_sums, counts, torch,
+                 term_ulps=1, slack=slack)
+    fed = torch.zeros(rsrc, device=dev).index_add_(
+        0, ranks, (gcb.float().abs().sum(1) > 0).float()) > 0
+    assert bool(fed.any()) and not bool(got[~fed].any())
+
+
 def test_head_major_wrappers_refuse_what_the_kernels_do_not_take(dev, graph):
     ranks = graph.flat.rcv_rank
     rows = rs.rank_table_rows(graph.n_pad, 256)
@@ -427,14 +531,43 @@ def test_head_major_wrappers_refuse_what_the_kernels_do_not_take(dev, graph):
         rs._wseg_t_bwd_impl(msgs, m_t, g16.float(), ranks, num_heads=4)
     with pytest.raises(ValueError):  # a cotangent table on the CPU
         rs._wseg_t_bwd_impl(msgs, m_t, g16.cpu(), ranks, num_heads=4)
+    with pytest.raises(TypeError):  # an f32 stream
+        rs._wseg_t_dw_impl(msgs.float(), g16, ranks, num_heads=4)
+    with pytest.raises(ValueError):  # a stream that is a column slice
+        rs._wseg_t_dw_impl(
+            torch.zeros((e, 32), device=dev, dtype=torch.bfloat16)[:, :16],
+            g16, ranks, num_heads=4)
+    gcb = torch.zeros((e, 16 + 12), device=dev, dtype=torch.bfloat16)
+    t_ext = torch.zeros((rows, 16 + 4), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # an f32 side stream
+        rs._rgat_src_bwd_impl(gcb.float(), t_ext, ranks, table_rows=rows,
+                              num_heads=4, clamp=50.0)
+    with pytest.raises(TypeError):
+        rs._rgat_src_bwd_impl(gcb, t_ext, ranks.long(), table_rows=rows,
+                              num_heads=4, clamp=50.0)
+    with pytest.raises(ValueError):  # more heads than a block's shared memory
+        rs._rgat_src_bwd_impl(
+            torch.zeros((e, 4 * 128), device=dev, dtype=torch.bfloat16),
+            torch.zeros((rows, 2 * 128), device=dev, dtype=torch.bfloat16),
+            ranks, table_rows=rows, num_heads=128, clamp=50.0)
+    with pytest.raises(TypeError):  # an f32 gamma | beta | g table
+        rs._film_bwd_impl(msgs, torch.zeros((rows, 48), device=dev), ranks,
+                          act="elu")
     assert rs.LAUNCHES == before  # nothing refused was launched
 
 
+@pytest.mark.parametrize("branch", ["streamed", "fused"])
 @pytest.mark.parametrize("d,heads", [(128, 8), (64, 4)])
-def test_rgat_layer_on_card_matches_cpu(dev, ranked_graph, d, heads):
-    """One RGAT layer on its streamed branch, forward and gradients: K6a,
-    K6b, K7a, K7b and (in the message gather's backward) K5a on the card,
-    their plain versions on the CPU."""
+def test_rgat_layer_on_card_matches_cpu(dev, ranked_graph, monkeypatch, d,
+                                        heads, branch):
+    """One RGAT layer, forward and gradients, on the card against the
+    plain versions on the CPU, on each kernel branch (the gate forced
+    either way): streamed K6a, K6b, K7a, K7b and (in the message gather's
+    backward) K5a; fused K6a, K6b, K7a, K8 and K9."""
+    monkeypatch.setattr(rs, "rgat_fused_supported",
+                        lambda *a, **k: branch == "fused")
+    own = (dict(wseg_t_bwd=1, segsum=1) if branch == "streamed"
+           else dict(wseg_t_dw=1, rgat_src_bwd=1))
     rng = np.random.default_rng(3)
     num_types = ranked_graph.num_edge_types
     params = {"W": (0.1 * rng.standard_normal((num_types, d, d))).astype(
@@ -456,7 +589,7 @@ def test_rgat_layer_on_card_matches_cpu(dev, ranked_graph, d, heads):
         if device.type == "cuda":
             assert {k: rs.LAUNCHES[k] - launches[k] for k in launches} == dict(
                 {k: 0 for k in launches}, expand_t=3, segsum_t=3, wseg_t=1,
-                wseg_t_bwd=1, segsum=1)
+                **own)
         results.append([x.detach().cpu().numpy()
                         for x in (out, hh.grad, p["W"].grad, p["att"].grad)])
     for card, cpu in zip(*results):
@@ -465,3 +598,46 @@ def test_rgat_layer_on_card_matches_cpu(dev, ranked_graph, d, heads):
         # the softmax denominator carries such a flip to a whole receiver.
         rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
         assert rel < 2e-3, rel
+
+
+@pytest.mark.parametrize("which", ["ranked_graph", "diluted_graph"])
+def test_film_ranked_and_diluted_layers_on_card_match_cpu(dev, request,
+                                                          which):
+    """One GNN-FiLM layer, forward and gradients, on the card against the
+    CPU: with normalised messages (K1 forward; K4 and K5a backward), and
+    without on the graph whose src stream dilutes (K1; K2 and K3 over the
+    fill-extended stream)."""
+    g_card = request.getfixturevalue(which)
+    normalize = which == "ranked_graph"
+    own = (dict(film_fwd=1, film_bwd=1, segsum=1) if normalize
+           else dict(film_fwd=1, film_bwd_dgb=1, film_src_bwd=1))
+    rng = np.random.default_rng(5)
+    num_types, d = g_card.num_edge_types, 64
+    params = {
+        "W": (0.2 * rng.standard_normal((num_types, d, d))).astype(np.float32),
+        "W_film": (0.2 * rng.standard_normal((num_types, d, 2 * d))).astype(
+            np.float32)}
+    h = rng.standard_normal((g_card.n_pad, d)).astype(np.float32)
+    w = rng.standard_normal((g_card.n_pad, d)).astype(np.float32)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        g = graph_to_device(g_card, device)
+        p = {k: torch.tensor(v, device=device, requires_grad=True)
+             for k, v in params.items()}
+        p["ln"] = {"scale": torch.ones(d, device=device),
+                   "bias": torch.zeros(d, device=device)}
+        hh = torch.tensor(h, device=device, requires_grad=True)
+        launches = dict(rs.LAUNCHES)
+        out = layers.gnn_film_apply(p, g, hh, activation_function="elu",
+                                    normalize_by_num_incoming=normalize)
+        (out * torch.tensor(w, device=device)).sum().backward()
+        if device.type == "cuda":
+            assert {k: rs.LAUNCHES[k] - launches[k] for k in launches} == dict(
+                {k: 0 for k in launches}, **own)
+        results.append([x.detach().cpu().numpy()
+                        for x in (out, hh.grad, p["W"].grad, p["W_film"].grad)])
+    for card, cpu in zip(*results):
+        # As for the other layers: a few streamed values round to the
+        # neighbouring bf16 number on one device (2^-8 relative each).
+        rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
+        assert rel < 1e-3, rel

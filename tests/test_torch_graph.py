@@ -1,7 +1,11 @@
 """Host batches of the port against the JAX package's: every field the
 port's pad_graph_batch / QM9 make_minibatch_iterator emits must EQUAL the
 JAX array (np.array_equal), on QM9 samples and on random multi-type
-graphs, and the batch specs and greedy packs must be the same."""
+graphs, and the batch specs and greedy packs must be the same. The rank
+windows are plain ints in the port and must equal what token_window
+decodes from the JAX package's shape tokens; the diluted src stream
+(sd_rank, sd_fine, sd_coarse) must equal the JAX arrays where it engages
+(a graph of PPI-like degree) and where it does not (QM9)."""
 
 import numpy as np
 import pytest
@@ -21,7 +25,12 @@ QM9_VALID = "data/qm9/valid.jsonl.gz"
 def assert_graphs_equal(tb, jb):
     """Every field of the port's GraphBatch equals the JAX batch's."""
     for field in tb.flat._fields:
-        got = getattr(tb.flat, field).numpy()
+        got = getattr(tb.flat, field)
+        if field.startswith("win_"):
+            assert type(got) is int, field
+            assert got == j_graph.token_window(getattr(jb.flat, field)), field
+            continue
+        got = got.numpy()
         want = np.asarray(getattr(jb.flat, field))
         assert got.shape == want.shape and np.array_equal(got, want), field
     for field in tb._fields:
@@ -113,3 +122,99 @@ def test_batch_specs_and_packs_equal_jax(qm9_tasks):
                 j_base.select_spec(jspecs, n, e, len(pack)))
     for n in (1, 127, 128, 129, 1000, 5000, 50001):
         assert t_graph.bucket_size(n) == j_graph.bucket_size(n)
+
+
+def ppi_like_graph(seed, num_nodes=600, degree=14):
+    """A numpy-made graph of PPI-like degree: `degree` random in-edges per
+    node on average, their reverses as a second type, and a self-loop
+    type."""
+    rng = np.random.RandomState(seed)
+    fwd = rng.randint(0, num_nodes, size=(num_nodes * degree, 2)).astype(
+        np.int32)
+    loops = np.stack([np.arange(num_nodes)] * 2, 1).astype(np.int32)
+    feats = rng.randn(num_nodes, 8).astype(np.float32)
+    gids = np.sort(rng.randint(0, 2, size=num_nodes)).astype(np.int32)
+    return feats, [fwd, fwd[:, ::-1].copy(), loops], gids
+
+
+@pytest.mark.parametrize("seed,degree", [(0, 14), (1, 28), (2, 6)])
+def test_ppi_like_graph_dilutes_as_jax(seed, degree):
+    """At PPI-like degree the fine window engages, so the diluted stream is
+    built: cap ceil(1.03 * E / 2048) * 2048, fill slots with SD_FILL that
+    repeat the previous rank, every 256-slot block's aligned span within
+    win_sd; all equal to the JAX arrays (assert_graphs_equal)."""
+    feats, adj, gids = ppi_like_graph(seed, degree=degree)
+    e_pads = [-(-a.shape[0] // 2048) * 2048 for a in adj]
+    jb = j_graph.pad_graph_batch(feats, adj, gids, 2, e_pads=e_pads)
+    tb = t_graph.pad_graph_batch(feats, adj, gids, 2, e_pads=e_pads)
+    assert_graphs_equal(tb, jb)
+    flat = tb.flat
+    e_tot = flat.src_flat.shape[0]
+    assert flat.win_fine in (16, 32, 64, 128)
+    assert flat.win_sd in (32, 64, 128)  # dilution engaged
+    cap = flat.sd_rank.shape[0]
+    assert cap == -(-103 * e_tot // (100 * 2048)) * 2048
+    sd_rank, sd_fine = flat.sd_rank.numpy(), flat.sd_fine.numpy()
+    fill = sd_fine == t_graph.SD_FILL
+    assert fill.any() and (flat.sd_coarse.numpy()[fill] == t_graph.SD_FILL).all()
+    assert (np.diff(sd_rank) >= 0).all() and (np.diff(sd_rank) <= 1).all()
+    assert (sd_rank[1:][fill[1:]] == sd_rank[:-1][fill[1:]]).all()
+    blocks = sd_rank.reshape(-1, 256)
+    assert (blocks[:, -1] - (blocks[:, 0] & ~7) + 1 <= flat.win_sd).all()
+    # The real slots are the real edges of the undiluted stream, in order.
+    n_real = int(flat.mask.sum())
+    assert np.array_equal(sd_rank[~fill], flat.src_sorted_rank.numpy()[:n_real])
+    assert np.array_equal(sd_fine[~fill],
+                          flat.fine_rank_by_src.numpy()[:n_real])
+
+
+def test_qm9_tuned_batch_is_undiluted(qm9_tasks):
+    """At QM9's degrees (about 3 edges per receiver) the fine window is 0 in
+    both packages, so the cap rule gives an empty sd stream and every
+    src-order consumer reads the undiluted one: the tuned QM9 paths never
+    dilute. Checked on packs of 2,500 nodes here (the arrays equal the JAX
+    package's, test_qm9_batches_equal_jax)."""
+    (jt, jdata), (tt, tdata) = qm9_tasks
+    jbs = jt.make_minibatch_iterator(jdata, j_base.DataFold.VALIDATION, 2500)
+    tbs = tt.make_minibatch_iterator(tdata, t_base.DataFold.VALIDATION, 2500)
+    for tb, jb in zip(tbs, jbs):
+        flat = tb.graph.flat
+        assert flat.win_fine == 0 == j_graph.token_window(jb.graph.flat.win_fine)
+        assert flat.win_sd == 0 and flat.sd_rank.shape == (0,)
+        assert jb.graph.flat.sd_rank.shape == (0,)
+        assert flat.sd_fine.shape == flat.sd_coarse.shape == (0,)
+
+
+@pytest.mark.parametrize("cap_blocks", [0, 1, 30, 40, 48, 400])
+def test_dilute_src_stream_equals_jax(cap_blocks):
+    """_dilute_src_stream against the JAX function on a stream with a
+    low-degree head (one edge per rank: 256 ranks per block undiluted) and
+    a dense tail, for caps that fit no window (None on both sides), only a
+    wide one, and the narrowest."""
+    rng = np.random.RandomState(5)
+    ranks = np.concatenate([np.arange(900),
+                            900 + np.sort(rng.randint(0, 300, size=7000))])
+    ranks = np.unique(ranks, return_inverse=True)[1].astype(np.int32)
+    comp = [rng.randint(0, 1000, size=ranks.shape[0]).astype(np.int32),
+            rng.randint(0, 1000, size=ranks.shape[0]).astype(np.int32)]
+    want = j_graph._dilute_src_stream(ranks, comp, cap_blocks * 256)
+    got = t_graph._dilute_src_stream(ranks, comp, cap_blocks * 256)
+    assert (got is None) == (want is None)
+    if got is not None:
+        assert got[2] == want[2]
+        assert np.array_equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert np.array_equal(a, b)
+    assert t_graph.SD_FILL == j_graph.SD_FILL
+    for a, b in [(0, 32), (32, 0), (16, 64), (128, 32), (0, 0)]:
+        assert t_graph._merge_windows(a, b) == j_graph._merge_windows(a, b)
+
+
+def test_rank_window_equals_jax():
+    rng = np.random.RandomState(9)
+    for e, groups in [(0, 1), (1, 1), (255, 40), (256, 256), (257, 9),
+                      (5000, 300), (5000, 2500), (4096, 4096), (3000, 1400)]:
+        ranks = np.sort(rng.randint(0, groups, size=e))
+        ranks = (np.unique(ranks, return_inverse=True)[1].astype(np.int32)
+                 if e else ranks.astype(np.int32))
+        assert t_graph.rank_window(ranks) == j_graph.rank_window(ranks), e

@@ -7,10 +7,12 @@ ranked gather, rgat_apply on its plain and streamed branches, the 2-layer
 model (loss, gradients, two RMSProp steps), checkpoints carried both ways
 and the CLIs on the CPU.
 
-The JAX package prefers a third, fused RGAT branch on small graphs (it
-rounds the source logits to bf16 and is a different function); the tests
-of the streamed branch switch it off, as tests/test_ranked_segment.py
-does."""
+Both packages prefer a third, fused RGAT branch where its gate holds (it
+rounds the source logits to bf16 and is a different function; held
+against JAX in tests/test_torch_rgat_fused.py); the tests of the streamed
+branch here switch it off in both, as tests/test_ranked_segment.py does.
+The CLI test runs in a subprocess, where "auto" takes the default
+branch."""
 
 import gzip
 import itertools
@@ -55,6 +57,7 @@ D = 64
 def _force_interpret(monkeypatch):
     monkeypatch.setattr(j_rs, "_FORCE_INTERPRET", True)
     monkeypatch.setattr(j_rs, "rgat_fused_supported", lambda *a, **k: False)
+    monkeypatch.setattr(t_rs, "rgat_fused_supported", lambda *a, **k: False)
 
 
 def load_task(mod, path, count):
@@ -708,8 +711,10 @@ def test_train_and_test_clis(small_data, tmp_path, strategy, branch):
     """`python -m tf_gnn_samples_torch.train RGAT QM9 --device cpu` at 2
     layers writes the Train/Valid log lines and a best-model pickle that
     `python -m tf_gnn_samples_torch.test --device cpu` evaluates, on the
-    streamed branch (the default: every pack's edge stream is padded to
-    whole 2048-edge rows) and on the plain one. Without --device cpu the
+    kernel branch "auto" picks (every pack's edge stream is padded to
+    whole 2048-edge rows, so the kernels' plain versions run; the case
+    keeps the name it had when that branch was the streamed one) and on
+    the plain one. Without --device cpu the
     CLI raises where there is no GPU."""
     overrides = json.dumps({"max_epochs": 1, "hidden_size": 16,
                             "graph_num_layers": 2,

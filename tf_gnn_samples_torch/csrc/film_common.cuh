@@ -1,9 +1,11 @@
-// Shared pieces of the fused GNN-FiLM kernels (film_fwd.cu,
-// film_bwd_dgb.cu, film_src_bwd.cu): the activations of the JAX package's
+// Shared pieces of the fused GNN-FiLM kernels (film_fwd.cu, film_bwd.cu,
+// film_bwd_dgb.cu, film_src_bwd.cu) and of the other sorted-rank
+// reductions (segsum.cu, segsum_t.cu, wseg_t.cu, rgat_src_bwd.cu): the
+// activations of the JAX package's
 // `_ACTS` table (tf_gnn_samples_tpu/ops/ranked_segment.py), bf16 rounding,
 // and the segment flush of the sorted-rank reduction.
 //
-// All three kernels are segmented reductions over a stream whose ranks are
+// These kernels are segmented reductions over a stream whose ranks are
 // nondecreasing and gap-free. A block owns CHUNK consecutive edges, its
 // threads span the feature columns, and each thread keeps a running f32
 // sum while the rank is unchanged. At a rank change it flushes the sum:

@@ -1,6 +1,7 @@
 """Relational message-passing layers (counterpart of
 tf_gnn_samples_tpu/nn/layers.py). Ported so far: GGNN, RGCN, RGAT (its
-streamed and plain branches), GNN-FiLM.
+fused, streamed and plain branches), GNN-FiLM (its gather-fused, ranked
+and plain branches).
 
 Each layer is a pair of functions over plain dicts of tensors:
     <name>_init(gen, num_edge_types, state_dim, **cfg) -> params
@@ -42,6 +43,18 @@ def typed_transform(h, W):
 def _flat(t):
     """[L, N, D] -> [L * N, D] type-stacked node table."""
     return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+def src_stream(flat):
+    """(fine_rank_by_src, src_sorted_rank, win) for the src-order backward
+    kernels (K3, K9): the DILUTED stream (ops/graph.py FlatEdges.sd_*)
+    when its window engaged, else the undiluted one. The CUDA kernels walk
+    sorted ranks and ignore the window; the port feeds them the stream the
+    JAX package feeds its own, so both sum the same slots in the same
+    order (the diluted one is at most 3 % longer)."""
+    if flat.win_sd:
+        return flat.sd_fine, flat.sd_rank, flat.win_sd
+    return flat.fine_rank_by_src, flat.src_sorted_rank, flat.win_src
 
 
 def use_dense_strategy(graph: GraphBatch, aggregation: str,
@@ -222,13 +235,15 @@ def rgat_apply(
     # att[l] flat (2D,) -> per-head source/target halves [L, K, Dh]:
     att = params["att"].reshape(L, num_heads, 2 * head_dim)
     att_src, att_tgt = att[..., :head_dim], att[..., head_dim:]
-    # The JAX package has a third, fused branch (rgat_fused_pass: the
-    # backward recomputes the message cotangent in source order, kernels
-    # K8 and K9) that it prefers where its tables fit; it is not ported
-    # yet (ROADMAP.md, Queue 1 item 8), so every eligible shape takes the
-    # streamed branch here, as the JAX package does at the tuned QM9 size.
     streamed = rgat_streamed_branch(graph, state_dim, num_heads,
                                     aggregation_strategy)
+    # Of the two kernel pipelines the fused one (rgat_fused_pass: K6, K7a
+    # forward; K8, K6, K9 backward) is taken where its gate holds (dense
+    # graphs: more edges than type-stacked node rows), the head-major
+    # streamed one (K6, K7a; K7b, K6, K5a) elsewhere.
+    fused = streamed and rs.rgat_fused_supported(
+        flat.src_flat.shape[0], state_dim, num_heads,
+        rs.rank_table_rows(n_pad, 256), flat.src_from_rank.shape[0])
 
     for _step in range(num_timesteps):
         t = typed_transform(h, params["W"])  # [L, N, D]
@@ -236,6 +251,22 @@ def rgat_apply(
         # Node-side halves of the attention logits (linearity of the dot
         # with concat(src, tgt) makes this exact):
         logit_tgt = torch.einsum("lnkd,lkd->lnk", t_heads, att_tgt)
+
+        if fused:
+            # Same pipeline as the streamed branch below but for the
+            # source logit halves, which are computed node-side and
+            # rounded to bf16; the backward recomputes the message
+            # cotangent in source order instead of permuting an [E, D]
+            # stream.
+            lt_ranked = take_by_fine_rank(_flat(logit_tgt), graph)
+            sd_fine, sd_rank, _ = src_stream(flat)
+            table = rs.rgat_fused_pass(
+                _flat(t), lt_ranked, att_src, flat.src_flat, sd_fine,
+                sd_rank, flat.src_to_rank, flat.src_from_rank,
+                flat.rcv_rank, flat.tgt_rank, flat.mask, flat.fine_to_rcv,
+                graph.node_to_rank, num_heads, n_pad)
+            h = act(ranked_table_to_nodes(table, graph))
+            continue
 
         if streamed:
             # The per-edge work runs on one bf16 [E, D] message stream and
@@ -306,26 +337,41 @@ def gnn_film_init(gen, num_edge_types, state_dim, **_):
     }
 
 
+def _film_aggregate_splits(m, gb_ranked, graph, act_name, splits):
+    """K1 / K4 over the gathered stream `m`, in `splits` column slices (the
+    FiLM modulation is elementwise in d, so the slices are independent);
+    the port's film_column_splits always says 1."""
+    ranks = graph.flat.tgt_rank
+    if splits == 1:
+        return rs.film_ranked_aggregate(m, gb_ranked, ranks, act_name)
+    d = m.shape[1]
+    w = d // splits
+    parts = []
+    for i in range(splits):
+        gb_i = torch.cat([gb_ranked[:, i * w:(i + 1) * w],
+                          gb_ranked[:, d + i * w:d + (i + 1) * w]], dim=1)
+        parts.append(rs.film_ranked_aggregate(
+            m[:, i * w:(i + 1) * w].contiguous(), gb_i, ranks, act_name))
+    return torch.cat(parts, dim=1)
+
+
 def film_fused_branch(aggregation_strategy: str, aggregation: str,
-                      activation_function: str,
-                      normalize_by_num_incoming: bool) -> bool:
-    """Whether GNN-FiLM takes the fused kernel pass (K1-K3).
+                      activation_function: str) -> bool:
+    """Whether GNN-FiLM takes the kernel branches (K1 forward; K2 and K3,
+    or K4 and K5a, backward) rather than the plain f32 segment one.
 
     This is the JAX package's gate (nn/layers.py gnn_film_apply, with
-    ranked_aggregation_ok and film_fused_src_supported) without its VMEM
-    terms: only the semantic conditions stay. The CUDA kernels reduce over
-    sorted ranks in device memory and keep no whole table on chip, so no
-    table height rules them out. On the TPU the VMEM terms reject the tuned
+    ranked_aggregation_ok) without its VMEM terms: only the semantic
+    conditions stay. The CUDA kernels reduce over sorted ranks in device
+    memory and keep no whole table on chip, so no table height rules them
+    out. On the TPU the VMEM terms reject the tuned
     QM9 config (a 50,000-node batch: E = 161,792 edges, 162,056 fine-rank
     rows, film_column_splits = 0), which runs the XLA segment branch there;
-    the port runs the fused pass at every size. Normalised messages need
-    the JAX package's column-split kernel (K4, not yet ported) and take the
-    plain segment branch here. 'pallas' is the JAX configs' name for the
-    kernel path; 'segment' forces the plain branch."""
+    the port runs the kernels at every size. 'pallas' is the JAX configs'
+    name for the kernel path; 'segment' forces the plain branch."""
     return (aggregation_strategy in ("auto", "pallas")
             and aggregation in ("sum", "unsorted_segment_sum")
-            and rs.film_act_supported(activation_function)
-            and not normalize_by_num_incoming)
+            and rs.film_act_supported(activation_function))
 
 
 def gnn_film_apply(
@@ -344,22 +390,39 @@ def gnn_film_apply(
     d = h.shape[-1]
     fused = film_fused_branch(aggregation_strategy,
                               message_aggregation_function,
-                              activation_function, normalize_by_num_incoming)
+                              activation_function)
     flat = graph.flat
+    act_name = activation_function.lower()
     for _step in range(num_timesteps):
         t = typed_transform(h, params["W"])  # [L, N, D]
         film = typed_transform(h, params["W_film"])  # [L, N, 2D]
         if fused:
-            # gamma|beta live in a FINE (receiver, type) rank table; the
-            # bf16 message stream is gathered inside the pass, whose
-            # backward recomputes dt in source order (K3).
+            # gamma|beta live in a FINE (receiver, type) rank table and
+            # the messages are a bf16 stream.
+            t_flat = _flat(t).to(torch.bfloat16)
             gb_ranked = take_by_fine_rank(_flat(film), graph)
-            table = rs.film_fused_src_pass(
-                _flat(t).to(torch.bfloat16), gb_ranked, flat.src_flat,
-                flat.fine_rank_by_src, flat.src_sorted_rank,
-                flat.src_to_rank, flat.src_from_rank, flat.tgt_rank,
-                activation_function,
-            )
+            splits = rs.film_column_splits(flat.src_flat.shape[0], d,
+                                           gb_ranked.shape[0])
+            gather_fusible = (splits == 1 and not normalize_by_num_incoming
+                              and rs.film_fused_src_supported(act_name))
+            if gather_fusible:
+                # The stream is gathered inside the pass, whose backward
+                # recomputes dt in source order (K2, K3).
+                sd_fine, sd_rank, _ = src_stream(flat)
+                table = rs.film_fused_src_pass(
+                    t_flat, gb_ranked, flat.src_flat, sd_fine, sd_rank,
+                    flat.src_to_rank, flat.src_from_rank, flat.tgt_rank,
+                    act_name)
+            else:
+                # A per-edge factor sits between the gather and the
+                # modulation, so the message cotangent is needed per edge
+                # (K4) and goes back through the ranked gather (K5a). The
+                # 1/c scale multiplies in bf16, as in the JAX package.
+                m = gather_flat_src_ranked(t_flat, flat)
+                if normalize_by_num_incoming:
+                    m = m * flat.norm_scale[:, None].to(m.dtype)
+                table = _film_aggregate_splits(m, gb_ranked, graph,
+                                               act_name, splits)
             agg = fine_table_to_nodes(table, graph)
         else:
             m = gather_flat_src(_flat(t), flat)

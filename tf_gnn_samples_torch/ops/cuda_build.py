@@ -45,6 +45,13 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "wseg_t": (("film_common.cuh",), (_P,) * 4 + (_I,) * 4 + (_P,)),
     # msgs, w_t, g16, ranks, dmsg, dw_t, num_edges, dim, num_heads, stream
     "wseg_t_bwd": ((), (_P,) * 6 + (_I,) * 3 + (_P,)),
+    # msgs, gbg, ranks, dmsg, dgb, num_edges, dim, act id, stream
+    "film_bwd": (("film_common.cuh",), (_P,) * 5 + (_I,) * 3 + (_P,)),
+    # msgs, g16, ranks, dw_t, num_edges, dim, dim_in, num_heads, stream
+    "wseg_t_dw": ((), (_P,) * 4 + (_I,) * 4 + (_P,)),
+    # gcb, t_ext, ranks, out, num_edges, dim, num_heads, clamp, stream
+    "rgat_src_bwd": (("film_common.cuh",),
+                     (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

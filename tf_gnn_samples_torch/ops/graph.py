@@ -3,10 +3,14 @@ tf_gnn_samples_tpu/ops/graph.py).
 
 The host-side construction is numpy, as in the JAX package, and every
 emitted field equals the JAX package's array for the same input. The
-batch carries only the fields the ported layers read; the TPU window
-tokens, the diluted `sd_*` src stream and the type-major `tm_*` view wait
-for the slices whose consumers need them (the CUDA kernels reduce over
-sorted ranks and need no window).
+batch carries only the fields the ported layers read: the target-sorted
+view (`perm_by_tgt`, `win_tgt`), the type-major `tm_*` view and
+`unify_flat_windows` wait for the slices whose consumers need them. The
+rank windows are plain ints here (the JAX package encodes them in array
+shapes to keep them static under jit); the CUDA kernels reduce over
+sorted ranks and ignore them, but `win_fine` gates the diluted src stream
+and `win_sd` decides which src stream the layers feed, so both packages
+walk the same edges.
 
 Padding contract: nodes are padded to `n_pad` and edges of each type to
 `e_pads[l]`. Padded edges point their receiver at the dump row `n_pad`,
@@ -65,6 +69,21 @@ class FlatEdges(NamedTuple):
     fine_to_flat: torch.Tensor  # [RPAD] int32
     fine_to_rcv: torch.Tensor  # [RPAD] int32
     fine_from_flat: torch.Tensor  # [L * n_pad] int32
+    # Max aligned rank span of any 256-edge sub-block (rank_window; 0 = no
+    # useful window): win_fine covers tgt_rank and rcv_rank, win_src the
+    # src-sorted ranks, win_sd the diluted stream below (0 = not engaged).
+    win_fine: int
+    win_src: int
+    win_sd: int
+    # DILUTED src-sorted stream: the real edges of the src stream re-blocked
+    # with inert fill slots so that every 256-edge sub-block's aligned rank
+    # span fits win_sd. A fill slot repeats the previous rank and carries
+    # SD_FILL in sd_fine / sd_coarse; consumers clamp it onto a zero row.
+    # Length ceil(1.03 * E_tot / 2048) * 2048 where the fine window
+    # engaged, else 0; with win_sd 0 it holds the undiluted stream.
+    sd_rank: torch.Tensor  # [E_sd] int32
+    sd_fine: torch.Tensor  # [E_sd] int32 (fill -> SD_FILL)
+    sd_coarse: torch.Tensor  # [E_sd] int32 (fill -> SD_FILL)
 
 
 class GraphBatch(NamedTuple):
@@ -94,6 +113,72 @@ class GraphBatch(NamedTuple):
     @property
     def num_edge_types(self) -> int:
         return self.typed_incoming_counts.shape[0]
+
+
+def rank_window(ranks: np.ndarray, block: int = 256) -> int:
+    """Max aligned rank span of any `block`-edge sub-block of gap-free
+    nondecreasing `ranks`, rounded up to a power of two in [16, 128]; spans
+    beyond 128 return 0 (no useful window)."""
+    e = int(ranks.shape[0])
+    if e == 0:
+        return 16
+    firsts = ranks[0:e:block].astype(np.int64) & ~7
+    lasts = ranks[np.minimum(np.arange(block - 1, e + block - 1, block),
+                             e - 1)]
+    span = int((lasts - firsts).max()) + 1
+    for cand in (16, 32, 64, 128):
+        if span <= cand:
+            return cand
+    return 0
+
+
+def _merge_windows(a: int, b: int) -> int:
+    """Combine two window bounds: 0 (no window) dominates."""
+    return max(a, b) if (a and b) else 0
+
+
+# Fill-slot sentinel of the diluted companion arrays: consumers clamp it
+# onto a zero row appended to whatever table they key.
+SD_FILL = np.int32(2**31 - 1)
+
+
+def _dilute_src_stream(ranks_real: np.ndarray, companions, cap: int,
+                       block: int = 256):
+    """Re-block a sorted gap-free rank stream with inert fill slots so
+    every `block`-edge sub-block's aligned span fits the smallest W in
+    {32, 64, 128} within the `cap` slot budget. Returns (sd_rank,
+    [sd_companions], W) of length exactly `cap`, or None if no W fits.
+    Fill slots repeat the previous rank and carry SD_FILL in every
+    companion array (per-edge values gathered alongside the stream)."""
+    e = int(ranks_real.shape[0])
+    if e == 0 or cap < block:
+        return None
+    for W in (32, 64, 128):
+        # limit[i] = first index whose rank falls outside the aligned
+        # window that starts at ranks[i].
+        limit = np.searchsorted(
+            ranks_real, (ranks_real & ~np.int32(7)) + np.int32(W),
+            side="left")
+        pieces = []
+        i = 0
+        while i < e and len(pieces) * block <= cap:
+            take = min(block, int(limit[i]) - i)
+            pieces.append((i, take))
+            i += take
+        if len(pieces) * block > cap:
+            continue
+        sd_rank = np.empty((cap,), np.int32)
+        sd_comp = [np.full((cap,), SD_FILL, np.int32) for _ in companions]
+        pos = 0
+        for i0, take in pieces:
+            sd_rank[pos:pos + take] = ranks_real[i0:i0 + take]
+            for arr, comp in zip(sd_comp, companions):
+                arr[pos:pos + take] = comp[i0:i0 + take]
+            sd_rank[pos + take:pos + block] = ranks_real[i0 + take - 1]
+            pos += block
+        sd_rank[pos:] = ranks_real[e - 1]
+        return sd_rank, sd_comp, W
+    return None
 
 
 def bucket_size(n: int, min_size: int = 128, buckets_per_octave: int = 4) -> int:
@@ -233,6 +318,32 @@ def pad_graph_batch(
         real_f = is_new_f & (tgt_sorted < L * n_pad)
         fine_from_flat[tgt_sorted[real_f]] = tgt_rank[real_f]
 
+    # Diluted src stream: the real edges are the src-sorted prefix (padded
+    # edges carry the L * n_pad sentinel and sort last). Its cap is 1.03x
+    # the flat stream, and it is gated on the FINE window: without one the
+    # JAX package's consumers of the stream disengage.
+    fine_by_src = np.ascontiguousarray(tgt_rank[perm_by_src])
+    coarse_by_src = rcv_rank[perm_by_src]
+    n_real_src = int((all_msk > 0).sum())
+    win_fine = _merge_windows(rank_window(tgt_rank), rank_window(rcv_rank))
+    cap_sd = (-(-103 * e_tot // (100 * 2048)) * 2048
+              if (e_tot and win_fine) else 0)
+    dil = _dilute_src_stream(
+        src_sorted_rank[:n_real_src],
+        [fine_by_src[:n_real_src], coarse_by_src[:n_real_src]], cap_sd)
+    if dil is not None:
+        sd_rank, (sd_fine, sd_coarse), win_sd = dil
+    else:
+        win_sd = 0
+        sd_rank = np.zeros((cap_sd,), np.int32)
+        sd_fine = np.full((cap_sd,), SD_FILL, np.int32)
+        sd_coarse = np.full((cap_sd,), SD_FILL, np.int32)
+        if cap_sd:
+            sd_rank[:e_tot] = src_sorted_rank
+            sd_rank[e_tot:] = src_sorted_rank[-1]
+            sd_fine[:e_tot] = fine_by_src
+            sd_coarse[:e_tot] = coarse_by_src
+
     t = torch.from_numpy
     flat = FlatEdges(
         src_flat=t(src_in_stream),
@@ -247,10 +358,16 @@ def pad_graph_batch(
         src_sorted_rank=t(src_sorted_rank),
         src_to_rank=t(src_to_rank),
         src_from_rank=t(src_from_rank),
-        fine_rank_by_src=t(np.ascontiguousarray(tgt_rank[perm_by_src])),
+        fine_rank_by_src=t(fine_by_src),
         fine_to_flat=t(fine_to_flat),
         fine_to_rcv=t(fine_to_rcv),
         fine_from_flat=t(fine_from_flat),
+        win_fine=win_fine,
+        win_src=rank_window(src_sorted_rank),
+        win_sd=win_sd,
+        sd_rank=t(sd_rank),
+        sd_fine=t(sd_fine),
+        sd_coarse=t(sd_coarse),
     )
     return GraphBatch(
         node_features=t(feats),

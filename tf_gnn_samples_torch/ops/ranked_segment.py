@@ -4,7 +4,7 @@ head-major attention kernels of RGAT).
 
 The flat edge stream (ops/graph.py FlatEdges) is receiver-sorted with
 gap-free coarse (receiver) and fine (receiver, type) ranks; its src-sorted
-view has gap-free src ranks. Nine CUDA kernels (csrc/) work over those
+view has gap-free src ranks. Twelve CUDA kernels (csrc/) work over those
 sorted ranks:
 
 * K5a `_segsum_table_impl`: table[r] = sum bf16(m_e) (the ranked
@@ -19,7 +19,13 @@ sorted ranks:
   K6a);
 * K7a `_wseg_t_impl`: table[r] = sum bf16(m_e * rep(w_t[:, e])), the
   attention-weighted aggregation with head-major [K, E] weights;
-* K7b `_wseg_t_bwd_impl`: d_msgs and d_w_t of K7a.
+* K7b `_wseg_t_bwd_impl`: d_msgs and d_w_t of K7a;
+* K4 `_film_bwd_impl`: d_msgs and d_gamma | d_beta of K1 in receiver order
+  (the VJP of `film_ranked_aggregate`, GNN-FiLM's normalised branch);
+* K8 `_wseg_t_dw_impl`: the d_w_t half of K7b alone;
+* K9 `_rgat_src_bwd_impl`: RGAT's message and source-logit cotangents over
+  the src-sorted stream, recomputing the attention (with K8, the backward
+  of `rgat_fused_pass`).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain PyTorch version beside it only
@@ -29,9 +35,10 @@ call that reached its kernel.
 Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
 activation in K1, m * dz and dz in K2, act'(z) * C in K3, the head-major
-term in K6a, the weighted message in K7a) is rounded to bf16 before its
-f32 sum; K5b and K6b round each table value to bf16; K7b writes d_msgs in
-bf16 and keeps d_w_t in f32. The kernels sum in stream order with atomics
+term in K6a, the weighted message in K7a, both halves of K9's row) is
+rounded to bf16 before its f32 sum; K5b and K6b round each table value to
+bf16; K7b and K4 write d_msgs in bf16; K7b and K8 keep d_w_t in f32. The
+kernels sum in stream order with atomics
 at chunk seams, so their sums differ from run to run in the last bits; the
 terms do not.
 """
@@ -41,6 +48,7 @@ from typing import Dict
 
 import torch
 
+from .. import SMALL_NUMBER
 from . import cuda_build
 
 
@@ -139,7 +147,8 @@ def film_act_supported(name: str) -> bool:
 LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "film_bwd_dgb": 0, "film_src_bwd": 0,
                             "segsum_t": 0, "expand_t": 0, "wseg_t": 0,
-                            "wseg_t_bwd": 0}
+                            "wseg_t_bwd": 0, "film_bwd": 0, "wseg_t_dw": 0,
+                            "rgat_src_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -180,6 +189,18 @@ def _film_bwd_dgb_plain(msgs, gbg_table, ranks, act):
     out = torch.zeros((gbg_table.shape[0], 2 * d), dtype=torch.float32,
                       device=msgs.device)
     return out.index_add_(0, ranks, terms)
+
+
+def _film_bwd_plain(msgs, gbg_table, ranks, act):
+    d = msgs.shape[1]
+    v = gbg_table.index_select(0, ranks).to(torch.float32)
+    m = msgs.to(torch.float32)
+    gamma = v[:, :d]
+    dz = _ACTS[act][1](gamma * m + v[:, d:2 * d]) * v[:, 2 * d:]
+    terms = torch.cat([_bf16_terms(m * dz), _bf16_terms(dz)], dim=1)
+    d_gb = torch.zeros((gbg_table.shape[0], 2 * d), dtype=torch.float32,
+                       device=msgs.device)
+    return (gamma * dz).to(torch.bfloat16), d_gb.index_add_(0, ranks, terms)
 
 
 def _film_src_bwd_plain(gcb_src, t_ranked, ranks, table_rows, act):
@@ -227,6 +248,36 @@ def _wseg_t_bwd_plain(msgs, w_t, g16, ranks):
     return dmsg, dw.t().contiguous()
 
 
+def _wseg_t_dw_plain(msgs, g16, ranks, num_heads, d_used=None):
+    dim = d_used or msgs.shape[1]
+    g_e = g16.index_select(0, ranks).to(torch.float32)
+    dw = (msgs[:, :dim].to(torch.float32) * g_e).reshape(
+        msgs.shape[0], num_heads, -1).sum(-1)
+    return dw.t().contiguous()
+
+
+def _rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, num_heads, clamp):
+    e, k = ranks.shape[0], num_heads
+    d = t_ext.shape[1] - k
+    mt = t_ext.index_select(0, ranks).to(torch.float32)
+    m, lsrc = mt[:, :d], mt[:, d:]
+    gcb = gcb_src.to(torch.float32)
+    dagg, lt = gcb[:, :d], gcb[:, d:d + k]
+    den, s_cor = gcb[:, d + k:d + 2 * k], gcb[:, d + 2 * k:]
+    pre = lsrc + lt
+    logit = torch.where(pre > 0, pre, 0.2 * pre)
+    attn = torch.exp(logit.clamp(-clamp, clamp)) / (den + SMALL_NUMBER)
+    draw = (m * dagg).reshape(e, k, -1).sum(-1)
+    # The forward clamps the logit before exp: no gradient where it did.
+    dlog = attn * (draw - s_cor) * (logit.abs() < clamp).to(torch.float32)
+    dpre = torch.where(pre > 0, dlog, 0.2 * dlog)
+    dmsg = attn.repeat_interleave(d // k, dim=1) * dagg
+    out = torch.zeros((table_rows, d + k), dtype=torch.float32,
+                      device=gcb_src.device)
+    return out.index_add_(
+        0, ranks, torch.cat([_bf16_terms(dmsg), _bf16_terms(dpre)], dim=1))
+
+
 def _call(kernel: str, tensors, ints):
     """Launch csrc/<kernel>.cu on PyTorch's current stream: its entry point
     takes the tensors' pointers, then `ints`, then the stream. Tensors must
@@ -251,6 +302,11 @@ def _check_ranks(kernel: str, ranks):
     if ranks.dtype != torch.int32:
         raise TypeError("%s: ranks must be int32, got %s" % (kernel,
                                                              ranks.dtype))
+
+
+def _check_dtype(kernel: str, x, dtype):
+    if x.dtype != dtype:
+        raise TypeError("%s: expected %s, got %s" % (kernel, dtype, x.dtype))
 
 
 def _launch(kernel: str, inputs, out, num_edges: int, dim: int, act: str):
@@ -368,18 +424,37 @@ def _film_src_bwd_impl(gcb_src, t_ranked, ranks, *, table_rows, block_edges=256,
                    act)
 
 
-# ---- the head-major attention kernels (K6, K7) ---------------------------
+def _film_bwd_impl(msgs, gbg_table, ranks, *, block_edges=256, act, win=0):
+    """K4: (d_msgs, d_gamma | d_beta) of K1 from bf16 m [E, D] and
+    gamma|beta|g [RPAD, 3D]: with z = gamma * m + beta and dz = act'(z) *
+    g, d_msgs[e] = bf16(gamma * dz) [E, D] and d_gb[r] = sum_{rank_e = r}
+    bf16(m * dz) | bf16(dz), f32 [RPAD, 2D]."""
+    e, dim = msgs.shape
+    rpad = gbg_table.shape[0]
+    if gbg_table.shape != (rpad, 3 * dim) or ranks.shape != (e,):
+        raise ValueError("film_bwd: shapes %s, %s, %s" % (
+            tuple(msgs.shape), tuple(gbg_table.shape), tuple(ranks.shape)))
+    if msgs.device.type == "cpu":
+        return _film_bwd_plain(msgs, gbg_table, ranks, act)
+    _check_dtype("film_bwd", msgs, torch.bfloat16)
+    _check_dtype("film_bwd", gbg_table, torch.bfloat16)
+    _check_ranks("film_bwd", ranks)
+    d_msgs = torch.empty((e, dim), dtype=torch.bfloat16, device=msgs.device)
+    d_gb = torch.zeros((rpad, 2 * dim), dtype=torch.float32,
+                       device=msgs.device)
+    if e:
+        _call("film_bwd", (msgs, gbg_table, ranks, d_msgs, d_gb),
+              (e, dim, ACT_IDS[act]))
+    return d_msgs, d_gb
+
+
+# ---- the head-major attention kernels (K6, K7, K8, K9) -------------------
 
 # Most heads the wrappers of K7a and K7b accept. It is a round number well
 # above any config's 8, not either kernel's own limit: K7a stages K x 64
 # f32 weights in at most 48 KB of shared memory (K <= 192), K7b gives each
 # (edge, head) pair one of a block's 256 threads (K <= 256).
 MAX_HEADS = 128
-
-
-def _check_dtype(kernel: str, x, dtype):
-    if x.dtype != dtype:
-        raise TypeError("%s: expected %s, got %s" % (kernel, dtype, x.dtype))
 
 
 def _check_heads(kernel: str, dim: int, num_heads: int):
@@ -477,6 +552,74 @@ def _wseg_t_bwd_impl(msgs, w_t, g16, ranks, *, num_heads, block_edges=256,
         _call("wseg_t_bwd", (msgs, w_t, g16, ranks, dmsg, dw_t),
               (e, dim, num_heads))
     return dmsg, dw_t
+
+
+def _wseg_t_dw_impl(msgs, g16, ranks, *, num_heads, block_edges=256, win=0,
+                    d_used=None):
+    """K8: the d_w_t half of K7b alone, d_w_t[k, e] = sum over head k's
+    columns of m_e * g16[rank_e], f32 [K, E], from the bf16 stream m
+    [E, D (+ extra)] and the bf16 table cotangent g16 [rows, D]. With
+    `d_used` only the first d columns of m are read (the row stays D +
+    extra wide)."""
+    e, dim_in = msgs.shape
+    dim = d_used or dim_in
+    if (ranks.shape != (e,) or g16.dim() != 2 or g16.shape[1] != dim
+            or dim > dim_in):
+        raise ValueError("wseg_t_dw: shapes %s, %s, %s, d_used %s" % (
+            tuple(msgs.shape), tuple(g16.shape), tuple(ranks.shape), d_used))
+    _check_heads("wseg_t_dw", dim, num_heads)
+    if msgs.device.type == "cpu":
+        return _wseg_t_dw_plain(msgs, g16, ranks, num_heads, d_used)
+    _check_dtype("wseg_t_dw", msgs, torch.bfloat16)
+    _check_dtype("wseg_t_dw", g16, torch.bfloat16)
+    _check_ranks("wseg_t_dw", ranks)
+    dw_t = torch.empty((num_heads, e), dtype=torch.float32,
+                       device=msgs.device)
+    if e:
+        _call("wseg_t_dw", (msgs, g16, ranks, dw_t),
+              (e, dim, dim_in, num_heads))
+    return dw_t
+
+
+# Most heads K9 takes: a block keeps 2 x 64 x K f32 values (the attention
+# weights and logit cotangents of its 64 edges) in 48 KB of shared memory.
+RGAT_SRC_MAX_HEADS = 96
+
+
+def _rgat_src_bwd_impl(gcb_src, t_ext, ranks, *, table_rows, num_heads,
+                       block_edges=256, clamp, win=0):
+    """K9: RGAT's backward over the src-sorted stream. Edge e of src rank
+    s reads m | lsrc = t_ext[s] (bf16 [R_src, D + K]: the src-rank message
+    rows with their source logit halves, the forward's own values) and
+    dagg | lt | den | s_cor = gcb_src[e] (bf16 [E, D + 3K]: its receiver's
+    aggregation cotangent, target logit half, softmax denominator and
+    correction term), recomputes attn = exp(clip(leaky(lsrc + lt))) / (den
+    + 1e-7) and the logit cotangent dpre, and sums per rank: out[s] = sum
+    bf16(rep(attn) * dagg) | bf16(dpre), f32 [R_src, D + K]. Padded edges
+    and fill slots read a zero gcb row and add zeros."""
+    e, k = ranks.shape[0], num_heads
+    dim = t_ext.shape[1] - k
+    if (ranks.dim() != 1 or t_ext.dim() != 2 or dim <= 0
+            or gcb_src.shape != (e, dim + 3 * k)
+            or t_ext.shape[0] != table_rows):
+        raise ValueError("rgat_src_bwd: shapes %s, %s, %s" % (
+            tuple(gcb_src.shape), tuple(t_ext.shape), tuple(ranks.shape)))
+    _check_heads("rgat_src_bwd", dim, k)
+    if gcb_src.device.type == "cpu":
+        return _rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, k,
+                                   clamp)
+    if k > RGAT_SRC_MAX_HEADS:
+        raise ValueError("rgat_src_bwd: at most %d heads, got %d"
+                         % (RGAT_SRC_MAX_HEADS, k))
+    _check_dtype("rgat_src_bwd", gcb_src, torch.bfloat16)
+    _check_dtype("rgat_src_bwd", t_ext, torch.bfloat16)
+    _check_ranks("rgat_src_bwd", ranks)
+    out = torch.zeros((table_rows, dim + k), dtype=torch.float32,
+                      device=gcb_src.device)
+    if e:
+        _call("rgat_src_bwd", (gcb_src, t_ext, ranks, out),
+              (e, dim, k, float(clamp)))
+    return out
 
 
 # ---- public segment-sum / expand, each the other's VJP ------------------
@@ -615,6 +758,11 @@ def _clip(idx, rows: int):
     return idx.clamp(0, rows - 1)
 
 
+def _zero_extended(table):
+    """`table` with 8 zero rows appended (the JAX package's count)."""
+    return torch.nn.functional.pad(table, (0, 0, 0, 8))
+
+
 class _FilmFusedSrcPass(torch.autograd.Function):
     """FiLM message pass with the source-side gather fused into the
     backward (the JAX package's film_fused_src_pass, _ffsp_fwd/_ffsp_bwd).
@@ -623,7 +771,9 @@ class _FilmFusedSrcPass(torch.autograd.Function):
     Backward: K2 gives d_gamma|d_beta in receiver order; dt is recomputed
     in SOURCE order by K3 from the small tables (gamma|beta|C = gamma * g
     gathered per edge by fine rank, t rows gathered by src rank), so no
-    [E, D] cotangent is permuted between edge orders. Returns d_t in
+    [E, D] cotangent is permuted between edge orders. `fine_rank_by_src`
+    and `src_sorted_rank` are the src stream of nn/layers.py src_stream:
+    undiluted [E], or diluted [E_sd] with SD_FILL fine keys. Returns d_t in
     t_flat's dtype (bf16 on the fused path) and dgb in gb_table's (f32).
     """
 
@@ -649,11 +799,13 @@ class _FilmFusedSrcPass(torch.autograd.Function):
         g16 = g.to(torch.bfloat16)
         dgb = _film_bwd_dgb_impl(m, torch.cat([gb16, g16], dim=1), ranks,
                                  act=ctx.act)
-        # The port's src stream is undiluted, so every fine key is a real
-        # table row (the JAX package appends a zero row for its diluted
-        # stream's fill slots).
+        # Appended zero rows: the diluted stream's fill slots (SD_FILL fine
+        # keys) clamp onto the first of them, so their recomputed dmsg is
+        # zero whatever the cotangent; real and padded edges key rows
+        # below it.
         gcb_table = torch.cat([gb16, gb16[:, :d] * g16], dim=1)
-        gcb_src = gcb_table.index_select(0, fine_rank_by_src)
+        gcb_src = _zero_extended(gcb_table).index_select(
+            0, fine_rank_by_src.clamp(max=gcb_table.shape[0]))
         t_ranked = t16.index_select(0, _clip(src_from_rank, t16.shape[0]))
         dt_table = _film_src_bwd_impl(
             gcb_src, t_ranked, src_sorted_rank,
@@ -675,3 +827,234 @@ def film_fused_src_pass(t_flat, gb_table, src_idx, fine_rank_by_src,
                                    fine_rank_by_src, src_sorted_rank,
                                    src_to_rank, src_from_rank, ranks,
                                    act.lower())
+
+
+# Escape hatch for debugging, as in the JAX package: False sends GNN-FiLM's
+# and RGAT's gather-fused passes back to their streamed forms.
+ENABLE_FUSED_SRC_PASS = True
+
+
+def film_fused_src_supported(act: str) -> bool:
+    """Eligibility of the gather-fused FiLM pass: the JAX package's gate
+    without its VMEM terms."""
+    return ENABLE_FUSED_SRC_PASS and act in _ACTS
+
+
+# ---- the FiLM aggregation with a per-edge message cotangent ---------------
+
+def film_column_splits(num_edges: int, dim: int, table_rows: int) -> int:
+    """Column-split count of the FiLM aggregation. The JAX package splits
+    the (elementwise in d) modulation into 2 or 4 column slices where its
+    tables do not fit its on-chip memory whole; the CUDA kernels keep no
+    table on chip, so every shape runs unsplit."""
+    return 1
+
+
+class _FilmRankedAggregate(torch.autograd.Function):
+    """K1 forward, K4 backward (the JAX package's film_ranked_aggregate,
+    _film_vjp_fwd / _film_vjp_bwd): d_msgs in the stream's dtype, d_gb in
+    the table's."""
+
+    @staticmethod
+    def forward(ctx, msgs, gb_table, ranks, act):
+        gb16 = gb_table.to(torch.bfloat16)
+        ctx.save_for_backward(msgs, gb16, ranks)
+        ctx.act, ctx.gb_dtype = act, gb_table.dtype
+        return _film_fwd_impl(msgs, gb16, ranks, act=act)
+
+    @staticmethod
+    def backward(ctx, g):
+        msgs, gb16, ranks = ctx.saved_tensors
+        gbg = torch.cat([gb16, g.to(torch.bfloat16)], dim=1)
+        d_msgs, d_gb = _film_bwd_impl(msgs, gbg, ranks, act=ctx.act)
+        return d_msgs.to(msgs.dtype), d_gb.to(ctx.gb_dtype), None, None
+
+
+def film_ranked_aggregate(msgs, gb_table, ranks, act: str = "relu"):
+    """Fused GNN-FiLM message pass over an already gathered stream:
+    table[r] = sum_{rank_e = r} act(gamma[r] * msgs[e] + beta[r]) with
+    gb_table = gamma | beta, rank-indexed [RPAD, 2D], and `ranks` the FINE
+    (receiver, type) ranks; f32 [RPAD, D] out. The backward recomputes the
+    modulation and returns d_msgs [E, D] and d_gb_table [RPAD, 2D]."""
+    return _FilmRankedAggregate.apply(msgs, gb_table, ranks, act.lower())
+
+
+# ---- the fused RGAT attention pass (src-order recompute backward) ---------
+
+def rgat_fused_supported(num_edges: int, dim: int, num_heads: int,
+                         table_rows: int, src_rows: int) -> bool:
+    """Whether RGAT takes the fused pass rather than the streamed
+    pipeline: the JAX package's gate without its VMEM terms (the CUDA
+    kernels keep no table on chip), where the type-stacked node table
+    (L * n_pad rows, which `src_rows` is cut from) is shorter than the
+    edge stream.
+
+    The fused pass works node-side where the streamed one works per edge
+    (the source logits, the widened [L * n_pad, D + K] table, the
+    completion of the message cotangent per src rank), so which of the
+    two is lighter on the card depends on that ratio. Measured on one
+    NVIDIA H100 80GB HBM3 at 700.00 W by `chip_smoke.py`
+    (rgat_branch_phase; see PERF.md), at 8 heads and 128 columns, both
+    branches in turns within one run. On the tuned QM9 batch (161,792
+    edges, 256,000 table rows) the card is busy 37.38 ms of a fused train
+    step and 32.30 ms of a streamed one; on the device timeline, where
+    both steps wait for the host's launches and the readings scatter with
+    the host, the medians read 52.86 ms fused against 44.07 ms streamed
+    (eval step 13.64 against 13.72 ms), and the streamed turn was the
+    faster one in 13 of 16 neighbouring pairs of turns over four such
+    readings. On one layer's forward and backward on a graph of PPI-like
+    degree (237,568 edges, 24,576 table rows) the card is busy 1.15 ms
+    fused and 1.49 ms streamed, and the timeline told them apart in
+    neither direction (4.79 against 4.51 ms). The rule follows the busy
+    times and is the same on the CPU, so that a batch takes the same
+    branch on every device."""
+    if not ENABLE_FUSED_SRC_PASS or dim % num_heads:
+        return False
+    return src_rows < src_rank_table_rows(num_edges, num_edges)
+
+
+def _rgat_fwd_compute(t_flat, lt_table, att_src, src_idx, rcv_rank, tgt_rank,
+                      edge_mask, num_heads, n_pad, clamp: float = 50.0):
+    num_types, k, dh = att_src.shape
+    d = t_flat.shape[1]
+    t16 = t_flat.to(torch.bfloat16)
+    # Per-(type, node) source logit halves, computed NODE-side and rounded
+    # to bf16 ONCE: they ride the type-stacked table as K extra columns, so
+    # one widened gather brings them to the edges, and the src-order
+    # backward reads the SAME bf16 values back.
+    lsrc_node = torch.einsum(
+        "lnkh,lkh->lnk",
+        t16.to(torch.float32).reshape(num_types, n_pad, k, dh),
+        _bf16_terms(att_src)).reshape(num_types * n_pad, k)
+    t_ext = torch.cat([t16, lsrc_node.to(torch.bfloat16)], dim=1)
+    m2e = t_ext.index_select(0, _clip(src_idx, t_ext.shape[0]))  # [E, D+K]
+    lsrc_t = m2e[:, d:].to(torch.float32).t().contiguous()
+    ltgt_t = _expand_t_impl(lt_table.t().contiguous(), tgt_rank)
+    pre_t = lsrc_t + ltgt_t
+    logits_t = torch.where(pre_t > 0, pre_t, 0.2 * pre_t)
+    ex_t = torch.exp(logits_t.clamp(-clamp, clamp)) * edge_mask[None, :]
+    rows = rank_table_rows(n_pad, 256)
+    den = _segsum_t_impl(ex_t, rcv_rank, table_rows=rows)
+    attn_t = ex_t / (_expand_t_impl(den, rcv_rank) + SMALL_NUMBER)
+    # The [E, D+K] gather feeds K7a unsliced (d_used).
+    table = _wseg_t_impl(m2e, attn_t, rcv_rank, table_rows=rows,
+                         num_heads=num_heads, d_used=d)
+    # 3-state leaky/clamp code for the backward: 0 = clamped (no
+    # gradient), 1 = positive branch, 2 = negative (0.2x) branch.
+    sign = torch.where(logits_t.abs() < clamp,
+                       torch.where(pre_t > 0, 1, 2), 0).to(torch.int8)
+    return table, (m2e, attn_t, den, sign, t_ext)
+
+
+class _RgatFusedPass(torch.autograd.Function):
+    """The JAX package's rgat_fused_pass (_rgat_vjp_fwd / _rgat_vjp_bwd)."""
+
+    @staticmethod
+    def forward(ctx, t_flat, lt_table, att_src, src_idx, fine_rank_by_src,
+                src_sorted_rank, src_to_rank, src_from_rank, rcv_rank,
+                tgt_rank, edge_mask, fine_to_rcv, node_to_rank, num_heads,
+                n_pad):
+        table, (m2e, attn_t, den, sign, t_ext) = _rgat_fwd_compute(
+            t_flat, lt_table, att_src, src_idx, rcv_rank, tgt_rank,
+            edge_mask, num_heads, n_pad)
+        ctx.save_for_backward(m2e, attn_t, den, sign, t_ext, lt_table,
+                              att_src, fine_rank_by_src, src_sorted_rank,
+                              src_to_rank, src_from_rank, rcv_rank, tgt_rank,
+                              fine_to_rcv, node_to_rank)
+        ctx.num_heads, ctx.n_pad, ctx.t_dtype = num_heads, n_pad, t_flat.dtype
+        return table
+
+    @staticmethod
+    def backward(ctx, g):
+        (m2e, attn_t, den, sign, t_ext, lt_table, att_src, fine_rank_by_src,
+         src_sorted_rank, src_to_rank, src_from_rank, rcv_rank, tgt_rank,
+         fine_to_rcv, node_to_rank) = ctx.saved_tensors
+        k, n_pad = ctx.num_heads, ctx.n_pad
+        num_types, _, dh = att_src.shape
+        d = m2e.shape[1] - k
+        rows = rank_table_rows(n_pad, 256)
+        rpad = lt_table.shape[0]
+        g16 = g.to(torch.bfloat16)
+
+        # Receiver-order half: raw attention cotangents (K8), the softmax
+        # correction table and the fine-rank d(lt_table), all narrow [K, E]
+        # math.
+        draw_t = _wseg_t_dw_impl(m2e, g16, rcv_rank, num_heads=k, d_used=d)
+        s_tab = _segsum_t_impl(attn_t * draw_t, rcv_rank, table_rows=rows)
+        s_exp = _expand_t_impl(s_tab, rcv_rank)
+        lrfac = torch.where(sign == 1, 1.0, torch.where(sign == 2, 0.2, 0.0))
+        dpre_t = attn_t * (draw_t - s_exp) * lrfac
+        d_lt = _segsum_t_impl(dpre_t, tgt_rank, table_rows=rpad).t()
+
+        # Source-order half: one [RPAD, D+3K] bf16 side table holds every
+        # receiver-keyed value an edge needs, gathered per src-sorted edge.
+        # Dump fine ranks (fine_to_rcv == n_pad: padded edges) read the
+        # coarse table's LAST slack row, whose cotangent, denominator and
+        # correction are structurally zero, so their dmsg and dpre vanish
+        # without a positional mask.
+        cof = torch.where(
+            fine_to_rcv >= n_pad, rows - 1,
+            node_to_rank.index_select(0, fine_to_rcv.clamp(max=n_pad - 1)))
+        side = torch.cat([
+            g16.index_select(0, cof),
+            lt_table.to(torch.bfloat16),
+            den.t().to(torch.bfloat16).index_select(0, cof),
+            s_tab.t().to(torch.bfloat16).index_select(0, cof),
+        ], dim=1)
+        # Appended zero rows: the diluted stream's fill slots (SD_FILL fine
+        # keys) clamp onto the first of them.
+        gcb_src = _zero_extended(side).index_select(
+            0, fine_rank_by_src.clamp(max=rpad))
+        t_rank_ext = t_ext.index_select(0, _clip(src_from_rank,
+                                                 t_ext.shape[0]))
+        dtp = _rgat_src_bwd_impl(gcb_src, t_rank_ext, src_sorted_rank,
+                                 table_rows=src_from_rank.shape[0],
+                                 num_heads=k, clamp=50.0)
+        dt_table, dp_table = dtp[:, :d], dtp[:, d:]
+        # Node-side completion from the per-rank dpre sums (m and the
+        # type's attention vector are constant within a src rank, an exact
+        # reassociation): the att_src-weighted half of the message
+        # cotangent, and d_att_src. Plain products, outside any kernel.
+        type_oh_rank = torch.nn.functional.one_hot(
+            (src_from_rank // n_pad).long(), num_types).to(torch.float32)
+        att_block = _bf16_terms(att_src.reshape(num_types, d))
+        attv_rank = torch.matmul(type_oh_rank, att_block)  # [R, D]
+        dpre_rep_rank = dp_table.repeat_interleave(dh, dim=1)  # [R, D]
+        dt_full = dt_table + attv_rank * dpre_rep_rank
+        d_att_block = torch.matmul(
+            type_oh_rank.t(),
+            t_rank_ext[:, :d].to(torch.float32) * dpre_rep_rank)  # [L, D]
+        d_t = dt_full.index_select(0, src_to_rank.clamp(min=0))
+        d_t = torch.where((src_to_rank >= 0)[:, None], d_t, 0.0)
+        return (d_t.to(ctx.t_dtype), d_lt.to(lt_table.dtype),
+                d_att_block.reshape(num_types, k, dh).to(att_src.dtype),
+                None, None, None, None, None, None, None, None, None, None,
+                None, None)
+
+
+def rgat_fused_pass(t_flat, lt_table, att_src, src_idx, fine_rank_by_src,
+                    src_sorted_rank, src_to_rank, src_from_rank, rcv_rank,
+                    tgt_rank, edge_mask, fine_to_rcv, node_to_rank,
+                    num_heads: int, n_pad: int):
+    """RGAT attention pass with the source-side gather fused into the
+    backward; returns the coarse rank table [rows, D] f32 (before the
+    activation).
+
+    Forward: messages gathered once from the type-stacked transform table
+    `t_flat` [L * n_pad, D], widened by the node-side source logit halves
+    (`att_src` [L, K, D / K], rounded to bf16); target halves expanded from
+    the fine-rank `lt_table` [RPAD, K] (K6b); clamped-exp receiver softmax
+    (K6a, K6b); weighted aggregation (K7a).
+
+    Backward: no [E, D] cotangent is permuted between edge orders. K8 gives
+    the raw per-edge attention cotangents, narrow [K, E] math and two
+    ranked segment-sums (K6a) the softmax correction table and
+    d(lt_table), and K9 recomputes attention and logit cotangents in
+    SOURCE order from one [E, D+3K] bf16 row gather, summing the message
+    cotangent straight into the src rank table. `fine_rank_by_src` and
+    `src_sorted_rank` are the src stream of nn/layers.py src_stream.
+    Receiver-keyed values ride bf16 through the side table."""
+    return _RgatFusedPass.apply(
+        t_flat, lt_table, att_src, src_idx, fine_rank_by_src,
+        src_sorted_rank, src_to_rank, src_from_rank, rcv_rank, tgt_rank,
+        edge_mask, fine_to_rcv, node_to_rank, num_heads, n_pad)
