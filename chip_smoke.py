@@ -4,19 +4,25 @@
 Phases, each of which raises on failure (no phase's failure is caught):
  1. the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels from tf_gnn_samples_torch/csrc/ with nvcc;
- 3. each of the twelve kernels (K1 film_fwd, K2 film_bwd_dgb, K3
+ 3. each of the sixteen kernels (K1 film_fwd, K2 film_bwd_dgb, K3
     film_src_bwd, K4 film_bwd, K5a segsum, K5b expand, K6a segsum_t, K6b
-    expand_t, K7a wseg_t, K7b wseg_t_bwd, K8 wseg_t_dw, K9 rgat_src_bwd)
+    expand_t, K7a wseg_t, K7b wseg_t_bwd, K8 wseg_t_dw, K9 rgat_src_bwd,
+    K11a expand_add_act, K11b expand_add_act_bwd, K12a act_agg, K12b
+    act_agg_bwd)
     at the shapes of the first training batch of the tuned QM9 configs
     (50,000-node packs; 8 attention heads), held against its plain
     PyTorch version on the card, and timed beside its bound and, where
     one PyTorch call computes the same function, that call; K6a and K6b
     are also held against their plain versions on the second table each
-    meets on the RGAT path, and K3 and K9 on the DILUTED src stream of a
-    numpy-made graph of PPI-like degree (QM9's streams are undiluted);
+    meets on the RGAT path, K12a and K12b on every edge type's slice of
+    the type-major stream (the shapes GNN-Edge-MLP1 gives them; they are
+    timed on the largest) and over the whole stream, and K3 and K9 on the
+    DILUTED src stream of a numpy-made graph of PPI-like degree (QM9's
+    streams are undiluted);
  4. the main paths: `tf_gnn_samples_torch.train` trains GNN-FiLM (with
-    and without normalised messages), RGCN, GGNN and RGAT (on its fused
-    and on its streamed branch, one of the two through a forced gate) on
+    and without normalised messages), RGCN, GGNN, RGAT (on its fused and
+    on its streamed branch, one of the two through a forced gate),
+    GNN-Edge-MLP1 (type-major branch) and GNN-Edge-MLP0 (FiLM kernels) on
     the bundled QM9 data at their tuned configs for 2 epochs each, then
     `tf_gnn_samples_torch.test` evaluates each written checkpoint; the
     kernel launch counters, set to 0 before each run and read after it,
@@ -60,7 +66,13 @@ PATHS = (
     Path("GGNN", "GGNN", {}, None),
     Path("RGAT-fused", "RGAT", {}, True),
     Path("RGAT-streamed", "RGAT", {}, False),
+    Path("GNN-Edge-MLP1", "GNN-Edge-MLP1", {}, None),
+    Path("GNN-Edge-MLP0", "GNN-Edge-MLP0", {}, None),
 )
+# QM9 has five edge types: the self loops (type 0), which GNN-Edge-MLP1
+# combines node-side, and four that stream through K12.
+QM9_TM_SELF = (True, False, False, False, False)
+QM9_STREAMED_TYPES = QM9_TM_SELF.count(False)
 REPLACES = {  # TPU kernel each CUDA kernel replaces
     "film_fwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:333",
     "film_bwd_dgb": "tf_gnn_samples_tpu/ops/ranked_segment.py:433",
@@ -74,6 +86,10 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     "film_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:526",
     "wseg_t_dw": "tf_gnn_samples_tpu/ops/ranked_segment.py:1933",
     "rgat_src_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:1985",
+    "expand_add_act": "tf_gnn_samples_tpu/ops/ranked_segment.py:700",
+    "expand_add_act_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:717",
+    "act_agg": "tf_gnn_samples_tpu/ops/ranked_segment.py:855",
+    "act_agg_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:875",
 }
 
 
@@ -361,6 +377,87 @@ def kernel_phase(torch, rs, dev):
     film_yardstick = ("torch.Tensor.index_add_ of the precomputed terms "
                       "(leaves out the row gathers, the modulation and the "
                       "activation)")
+    # K11 / K12 inputs, as GNN-Edge-MLP1 builds them over the type-major
+    # stream: bf16 streams, the f32 beta table and the bf16 table cotangent
+    # over the (type, receiver) ranks; K11 runs elu, K12 gelu. K12 is
+    # called once per streamed edge type on that type's slice: the specs
+    # time the largest slice, `also` checks every slice and the whole
+    # stream, and `extra` times the other slices and the whole stream.
+    tm, offs = flat.tm_rank, flat.tm_offs
+    if flat.tm_self != QM9_TM_SELF:
+        raise AssertionError("QM9 self-loop types %s" % (flat.tm_self,))
+    n_tm = int(tm[-1]) + 1
+    slices = {l: (offs[l], offs[l + 1]) for l in range(len(offs) - 1)
+              if not flat.tm_self[l]}
+    big = max(slices, key=lambda l: slices[l][1] - slices[l][0])
+    print("type-major stream: %d (type, receiver) groups; slices %s, self-"
+          "loop types %s; K12 timed on type %d" % (
+              n_tm, [b - a for a, b in zip(offs[:-1], offs[1:])],
+              [l for l, s_ in enumerate(flat.tm_self) if s_], big))
+    m11, x11, dx11, y12 = randn(e, d), randn(e, d), randn(e, d), randn(e, d)
+    beta11 = torch.randn((rpad, d), generator=gen, device=dev)
+    g12 = randn(rpad, d)
+    gelu, dgelu = rs._ACTS["gelu"]
+    dz11 = rs._expand_add_act_bwd_plain(x11, dx11, tm, rpad, "elu")[0].float()
+    table12 = torch.zeros((rpad, d), device=dev)  # K12a's shared table
+    k12_terms = rs._bf16_terms(gelu(y12.float()))
+    dgelu12 = dgelu(y12.float())
+
+    def k12(lo, hi):
+        """K12a and K12b specs on the stream slice [lo, hi)."""
+        el = hi - lo
+        msg, ranks = y12[lo:hi], tm[lo:hi]
+        n_l = int(ranks[-1]) - int(ranks[0]) + 1
+        terms, dact_l = k12_terms[lo:hi], dgelu12[lo:hi]
+        counts_l = torch.zeros(rpad, device=dev).index_add_(
+            0, ranks, torch.ones(el, device=dev))
+        abs_l = torch.zeros((rpad, d), device=dev).index_add_(0, ranks,
+                                                             terms.abs())
+        return (
+            # K12a reads the slice's messages and ranks and writes the
+            # slice's rank rows of a table that the caller zeroed once for
+            # all slices (`out`, as act_ranked_aggregate_slices calls it:
+            # that is what is timed; the check runs on a table of its own);
+            # gelu through the erf polynomial is about 30 operations an
+            # element.
+            dict(name="act_agg",
+                 kern=lambda: rs._act_agg_impl(msg, ranks, table_rows=rpad,
+                                               act="gelu"),
+                 timed=lambda: rs._act_agg_impl(msg, ranks, table_rows=rpad,
+                                                act="gelu", out=table12),
+                 plain=lambda: rs._act_agg_plain(msg, ranks, rpad, "gelu"),
+                 check=lambda got, want: check_kernel(
+                     "act_agg [%d:%d]" % (lo, hi), got, want, abs_l, counts_l,
+                     torch),
+                 nbytes=el * d * 2 + el * 4 + n_l * d * 4, nops=30 * el * d,
+                 yardstick=("torch.Tensor.index_add_ of the precomputed "
+                            "terms (leaves out the activation)",
+                            lambda: torch.zeros((rpad, d), device=dev
+                                                ).index_add_(0, ranks, terms))),
+            # K12b reads the messages, the ranks and the used rows of the
+            # bf16 cotangent table and writes [E_l, D] bf16; gelu' is about
+            # 45 operations an element.
+            dict(name="act_agg_bwd",
+                 kern=lambda: rs._act_agg_bwd_impl(msg, g12, ranks,
+                                                   act="gelu"),
+                 plain=lambda: rs._act_agg_bwd_plain(msg, g12, ranks, "gelu"),
+                 check=exact_check("act_agg_bwd [%d:%d]" % (lo, hi)),
+                 nbytes=2 * el * d * 2 + el * 4 + n_l * d * 2,
+                 nops=45 * el * d,
+                 yardstick=("index_select of the cotangent rows times the "
+                            "precomputed derivative, rounded (three PyTorch "
+                            "calls; leaves out gelu')",
+                            lambda: (dact_l * g12.index_select(0, ranks)
+                                     .float()).to(torch.bfloat16))))
+
+    def eaa_bwd_check(got, want):
+        """K11b: d_m must equal the plain version's; d_beta sums it."""
+        (dm, dbeta), (dm_want, dbeta_want) = got, want
+        err_m = exact_check("expand_add_act_bwd d_m")(dm.float(),
+                                                      dm_want.float())
+        return max(err_m, order_check("expand_add_act_bwd d_beta", rpad, tm,
+                                      dz11)(dbeta, dbeta_want))
+
     specs = [
         dict(name="film_fwd",
              kern=lambda: rs._film_fwd_impl(msgs, gb, fine, act=act),
@@ -489,6 +586,33 @@ def kernel_phase(torch, rs, dev):
              yardstick=("torch.Tensor.index_add_ of the precomputed terms "
                         "(leaves out the row gathers and the attention "
                         "recompute)", index_add(rsrc, src, k9_terms))),
+        # K11a reads the bf16 stream, the ranks and the used rows of the f32
+        # table and writes [E, D] bf16; a rounding, an add and elu.
+        dict(name="expand_add_act",
+             kern=lambda: rs._expand_add_act_impl(m11, beta11, tm, act="elu"),
+             plain=lambda: rs._expand_add_act_plain(m11, beta11, tm, "elu"),
+             check=lambda got, want: exact_check("expand_add_act")(
+                 got.float(), want.float()),
+             nbytes=2 * e * d * 2 + e * 4 + n_tm * d * 4, nops=12 * e * d,
+             yardstick=("index_select of the table rows, an add, elu and a "
+                        "cast (PyTorch calls on f32 [E, D] intermediates; "
+                        "the table is not rounded)",
+                        lambda: torch.nn.functional.elu(
+                            m11.float() + beta11.index_select(0, tm)
+                        ).to(torch.bfloat16))),
+        # K11b reads two bf16 streams and the ranks and writes d_m (bf16)
+        # and the whole zeroed f32 d_beta table.
+        dict(name="expand_add_act_bwd",
+             kern=lambda: rs._expand_add_act_bwd_impl(
+                 x11, dx11, tm, table_rows=rpad, act="elu"),
+             plain=lambda: rs._expand_add_act_bwd_plain(x11, dx11, tm, rpad,
+                                                        "elu"),
+             check=eaa_bwd_check,
+             nbytes=3 * e * d * 2 + e * 4 + rpad * d * 4, nops=4 * e * d,
+             yardstick=("torch.Tensor.index_add_ of the precomputed dz "
+                        "(leaves out the derivative and the d_m store)",
+                        index_add(rpad, tm, dz11))),
+        *k12(*slices[big]),
     ]
     # The RGAT path gives each K6 kernel two tables: K6a also sums the
     # target logits' cotangent over the fine ranks (shorter runs, more
@@ -506,6 +630,32 @@ def kernel_phase(torch, rs, dev):
                 rs._expand_t_impl(table_rcv, rcv),
                 rs._expand_t_plain(table_rcv, rcv)),
     }
+    # K12 on the other streamed types' slices and over the whole stream
+    # (self-loop slice included): checked, then timed into `extra`.
+    extra = {"act_agg": {}, "act_agg_bwd": {}}
+    others = [("type %d" % l, rng_) for l, rng_ in slices.items() if l != big]
+    others.append(("whole stream", (0, e)))
+
+    def k12_also(which):
+        def run():
+            worst = 0.0
+            for label, (lo, hi) in others:
+                spec = k12(lo, hi)[which]
+                got = spec["kern"]()
+                torch.cuda.synchronize()
+                worst = max(worst, spec["check"](got, spec["plain"]()))
+                timed = spec.get("timed", spec["kern"])
+                extra[spec["name"]][label] = {
+                    "edges": hi - lo, "ms": cuda_ms(timed, torch),
+                    "queued_ms": cuda_queued_ms(timed, torch),
+                    "plain_ms": cuda_ms(spec["plain"], torch),
+                    "bound_ms": max(spec["nbytes"] / HBM_BYTES_PER_S,
+                                    spec["nops"] / F32_FLOPS) * 1e3}
+            return worst
+        return run
+
+    also["act_agg"] = k12_also(0)
+    also["act_agg_bwd"] = k12_also(1)
     results = []
     for spec in specs:
         name = spec["name"]
@@ -514,7 +664,8 @@ def kernel_phase(torch, rs, dev):
         max_err = spec["check"](got, spec["plain"]())
         if name in also:
             max_err = max(max_err, also[name]())
-        ms = cuda_ms(spec["kern"], torch)
+        timed = spec.get("timed", spec["kern"])
+        ms = cuda_ms(timed, torch)
         plain_ms = cuda_ms(spec["plain"], torch)
         bound_bytes_ms = spec["nbytes"] / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = spec["nops"] / F32_FLOPS * 1e3
@@ -527,7 +678,7 @@ def kernel_phase(torch, rs, dev):
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
             "library_ms": None,
-            "queued_ms": cuda_queued_ms(spec["kern"], torch),
+            "queued_ms": cuda_queued_ms(timed, torch),
         }
         if "library" in spec:
             what, fn = spec["library"]
@@ -546,6 +697,22 @@ def kernel_phase(torch, rs, dev):
               "ops at 67 TFLOP/s); %s"
               % (name, ms, row["queued_ms"], plain_ms, bound_ms,
                  spec["nbytes"], spec["nops"], other))
+        if name in extra:
+            # The row is the largest slice; the main path launches the
+            # kernel once per streamed type, so a launch's mean time over
+            # those slices is what a step's kernel share is counted with.
+            row["edges"] = slices[big][1] - slices[big][0]
+            row["other_shapes"] = extra[name]
+            per_type = [v for k, v in extra[name].items()
+                        if k != "whole stream"]
+            row["mean_slice_ms"] = statistics.mean(
+                [ms] + [v["ms"] for v in per_type])
+            row["mean_slice_queued_ms"] = statistics.mean(
+                [row["queued_ms"]] + [v["queued_ms"] for v in per_type])
+            print("  %s on its other shapes: %s; mean over the streamed "
+                  "types' slices %.4f ms (%.4f queued)"
+                  % (name, json.dumps(extra[name]), row["mean_slice_ms"],
+                     row["mean_slice_queued_ms"]))
         results.append(row)
     return results
 
@@ -725,14 +892,22 @@ def expected_launches(label, layers, n_fwd, n_bwd):
     backward, the streamed branch runs K7b, the VJPs of those three K6
     launches (K6a twice, K6b once) and K5a in the message gather's
     backward, the fused branch K8, K6a and K6b for the softmax correction,
-    K6a for the target logits' cotangent and K9."""
+    K6a for the target logits' cotangent and K9. GNN-Edge-MLP0 is the
+    fused FiLM pass (K1; K2 and K3). A GNN-Edge-MLP1 layer runs K11a once
+    and K12a once per streamed edge type forward; backward K12b per
+    streamed type, K11b and K5a (the type-major gather's backward)."""
     want = {k: 0 for k in REPLACES}
-    if label == "GNN-FiLM":
+    if label in ("GNN-FiLM", "GNN-Edge-MLP0"):
         want.update(film_fwd=layers * n_fwd, film_bwd_dgb=layers * n_bwd,
                     film_src_bwd=layers * n_bwd)
     elif label == "GNN-FiLM-normalised":
         want.update(film_fwd=layers * n_fwd, film_bwd=layers * n_bwd,
                     segsum=layers * n_bwd)
+    elif label == "GNN-Edge-MLP1":
+        want.update(expand_add_act=layers * n_fwd,
+                    act_agg=layers * n_fwd * QM9_STREAMED_TYPES,
+                    act_agg_bwd=layers * n_bwd * QM9_STREAMED_TYPES,
+                    expand_add_act_bwd=layers * n_bwd, segsum=layers * n_bwd)
     elif label.startswith("RGAT"):
         want.update(expand_t=layers * (2 * n_fwd + n_bwd),
                     segsum_t=layers * (n_fwd + 2 * n_bwd),
@@ -944,8 +1119,9 @@ def main() -> int:
                 print("  %s: %s" % (name, line.strip()))
 
     kernels = kernel_phase(torch, rs, torch.device("cuda"))
-    kernel_ms = {k["name"]: k["ms"] for k in kernels}
-    queued_ms = {k["name"]: k["queued_ms"] for k in kernels}
+    kernel_ms = {k["name"]: k.get("mean_slice_ms", k["ms"]) for k in kernels}
+    queued_ms = {k["name"]: k.get("mean_slice_queued_ms", k["queued_ms"])
+                 for k in kernels}
     total = {k["name"]: 0 for k in kernels}
     ppi_graph = ppi_like_graph(torch.device("cuda"))
     diluted_phase(torch, rs, torch.device("cuda"), ppi_graph)

@@ -641,3 +641,169 @@ def test_film_ranked_and_diluted_layers_on_card_match_cpu(dev, request,
         # neighbouring bf16 number on one device (2^-8 relative each).
         rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
         assert rel < 1e-3, rel
+
+
+# ---- K11, K12: the GNN-Edge-MLP1 kernels ----------------------------------
+
+# (D, bf16 elements the streams start past an aligned address): D = 200 and
+# 128 take the 8-column slots, D = 44 and a stream one bf16 past an aligned
+# address the single columns; D = 200 also spans two column passes of a
+# 128-thread block in the two reductions.
+EMLP_CASES = [(128, 0), (200, 0), (44, 0), (128, 1)]
+
+
+def _tm_inputs(dev, flat, d, offset, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e = flat.tm_rank.shape[0]
+    rows = flat.tm_to_flat.shape[0]
+
+    def stream():
+        base = (2 * torch.randn(e * d + offset, generator=gen,
+                                device=dev)).to(torch.bfloat16)
+        return base[offset:].view(e, d)
+
+    return e, rows, stream, gen
+
+
+@pytest.mark.parametrize("d,offset", EMLP_CASES)
+@pytest.mark.parametrize("act", sorted(rs.ACT_IDS))
+def test_expand_add_act_matches_plain_exactly_on_card(dev, ranked_graph, act,
+                                                      d, offset):
+    """K11a: one f32 sum and activation per element, rounded once, through
+    the same expf / tanhf as the plain version's: equal bit for bit."""
+    flat = ranked_graph.flat
+    e, rows, stream, gen = _tm_inputs(dev, flat, d, offset, d)
+    m = stream()
+    beta = 2 * torch.randn((rows, d), generator=gen, device=dev)
+    before = rs.LAUNCHES["expand_add_act"]
+    got = rs._expand_add_act_impl(m, beta, flat.tm_rank, act=act)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["expand_add_act"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (e, d)
+    assert torch.equal(got, rs._expand_add_act_plain(m, beta, flat.tm_rank,
+                                                     act))
+
+
+@pytest.mark.parametrize("d,offset", EMLP_CASES)
+@pytest.mark.parametrize("act", sorted(rs._ACTS_FROM_OUT))
+def test_expand_add_act_bwd_matches_plain_on_card(dev, ranked_graph, act, d,
+                                                  offset):
+    """K11b: d_m (one rounded product) equals the plain version's bit for
+    bit; d_beta sums the same bf16 terms in another order."""
+    flat = ranked_graph.flat
+    ranks = flat.tm_rank
+    e, rows, stream, _ = _tm_inputs(dev, flat, d, offset, d + 1)
+    x, dx = stream(), stream()
+    before = rs.LAUNCHES["expand_add_act_bwd"]
+    dm, dbeta = rs._expand_add_act_bwd_impl(x, dx, ranks, table_rows=rows,
+                                            act=act)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["expand_add_act_bwd"] == before + 1
+    assert dm.dtype == torch.bfloat16 and dbeta.shape == (rows, d)
+    dm_want, dbeta_want = rs._expand_add_act_bwd_plain(x, dx, ranks, rows, act)
+    assert torch.equal(dm, dm_want)
+    check_kernel("expand_add_act_bwd", dbeta, dbeta_want,
+                 *_order_inputs(dev, ranks, rows, dm_want.float()), torch)
+
+
+@pytest.mark.parametrize("d,offset", EMLP_CASES)
+@pytest.mark.parametrize("act", sorted(rs.ACT_IDS))
+def test_act_agg_matches_plain_on_card(dev, ranked_graph, act, d, offset):
+    """K12a over the whole type-major stream and over each type's slice
+    (ranks that start anywhere): the same bf16 terms in two orders. K12b
+    (one rounded product per element) equals its plain version bit for
+    bit."""
+    flat = ranked_graph.flat
+    e, rows, stream, gen = _tm_inputs(dev, flat, d, offset, d + 2)
+    msgs = stream()
+    g16 = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    offs = flat.tm_offs
+    for lo, hi in [(0, e)] + list(zip(offs[:-1], offs[1:])):
+        m, ranks = msgs[lo:hi], flat.tm_rank[lo:hi]
+        before = dict(rs.LAUNCHES)
+        got = rs._act_agg_impl(m, ranks, table_rows=rows, act=act)
+        dmsg = rs._act_agg_bwd_impl(m, g16, ranks, act=act)
+        torch.cuda.synchronize()
+        assert {k: rs.LAUNCHES[k] - before[k] for k in before} == dict(
+            {k: 0 for k in before}, act_agg=1, act_agg_bwd=1)
+        assert got.dtype == torch.float32 and got.shape == (rows, d)
+        terms = rs._bf16_terms(rs._ACTS[act][0](m.float()))
+        check_kernel("act_agg", got, rs._act_agg_plain(m, ranks, rows, act),
+                     *_order_inputs(dev, ranks, rows, terms), torch)
+        assert dmsg.dtype == torch.bfloat16 and dmsg.shape == (hi - lo, d)
+        assert torch.equal(dmsg, rs._act_agg_bwd_plain(m, g16, ranks, act))
+
+
+def test_edge_mlp_wrappers_refuse_what_the_kernels_do_not_take(dev,
+                                                               ranked_graph):
+    flat = ranked_graph.flat
+    ranks = flat.tm_rank
+    e, rows = ranks.shape[0], flat.tm_to_flat.shape[0]
+    m = torch.zeros((e, 16), device=dev, dtype=torch.bfloat16)
+    beta = torch.zeros((rows, 16), device=dev)
+    before = dict(rs.LAUNCHES)
+    with pytest.raises(TypeError):  # an f32 stream
+        rs._expand_add_act_impl(m.float(), beta, ranks, act="elu")
+    with pytest.raises(TypeError):  # a bf16 table
+        rs._expand_add_act_impl(m, beta.to(torch.bfloat16), ranks, act="elu")
+    with pytest.raises(ValueError):  # a table on the CPU
+        rs._expand_add_act_impl(m, beta.cpu(), ranks, act="elu")
+    with pytest.raises(TypeError):
+        rs._expand_add_act_bwd_impl(m, m.float(), ranks, table_rows=rows,
+                                    act="elu")
+    with pytest.raises(ValueError):  # gelu' is no function of the output
+        rs._expand_add_act_bwd_impl(m, m, ranks, table_rows=rows, act="gelu")
+    with pytest.raises(TypeError):
+        rs._act_agg_impl(m, ranks.long(), table_rows=rows, act="gelu")
+    with pytest.raises(ValueError):  # a stream that is a column slice
+        rs._act_agg_impl(
+            torch.zeros((e, 32), device=dev, dtype=torch.bfloat16)[:, :16],
+            ranks, table_rows=rows, act="gelu")
+    with pytest.raises(TypeError):  # an f32 cotangent table
+        rs._act_agg_bwd_impl(m, beta, ranks, act="gelu")
+    assert rs.LAUNCHES == before  # nothing refused was launched
+
+
+@pytest.mark.parametrize("kind", [1, 0])
+def test_edge_mlp_layer_on_card_matches_cpu(dev, ranked_graph, kind):
+    """One GNN-Edge-MLP layer step, forward and gradients, on the card
+    against the plain versions on the CPU. With one hidden layer the
+    type-major branch: K11a and one K12a per streamed type forward; K12b
+    per streamed type, K11b and (in the gather's backward) K5a backward.
+    Without, the FiLM kernels K1-K3 with gamma = 1."""
+    streamed = sum(not s for s in ranked_graph.flat.tm_self)
+    assert streamed == 4 and ranked_graph.flat.tm_self[0]
+    own = (dict(expand_add_act=1, expand_add_act_bwd=1, segsum=1,
+                act_agg=streamed, act_agg_bwd=streamed) if kind
+           else dict(film_fwd=1, film_bwd_dgb=1, film_src_bwd=1))
+    rng = np.random.default_rng(6)
+    num_types, d = ranked_graph.num_edge_types, 64
+    sizes = [2 * d] + [d] * (kind + 1)
+    params = [(rng.standard_normal((num_types, a, b)) / np.sqrt(a)).astype(
+        np.float32) for a, b in zip(sizes[:-1], sizes[1:])]
+    h = rng.standard_normal((ranked_graph.n_pad, d)).astype(np.float32)
+    w = rng.standard_normal((ranked_graph.n_pad, d)).astype(np.float32)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        g = graph_to_device(ranked_graph, device)
+        p = {"edge_mlp": [torch.tensor(v, device=device, requires_grad=True)
+                          for v in params],
+             "ln": {"scale": torch.ones(d, device=device),
+                    "bias": torch.zeros(d, device=device)}}
+        hh = torch.tensor(h, device=device, requires_grad=True)
+        launches = dict(rs.LAUNCHES)
+        out = layers.gnn_edge_mlp_apply(
+            p, g, hh, activation_function="gelu" if kind else "relu",
+            num_edge_hidden_layers=kind)
+        (out * torch.tensor(w, device=device)).sum().backward()
+        if device.type == "cuda":
+            assert {k: rs.LAUNCHES[k] - launches[k] for k in launches} == dict(
+                {k: 0 for k in launches}, **own)
+        results.append([x.detach().cpu().numpy() for x in
+                        [out, hh.grad] + [v.grad for v in p["edge_mlp"]]])
+    for card, cpu in zip(*results):
+        # As for the other layers: a few streamed values round to the
+        # neighbouring bf16 number on one device (2^-8 relative each); the
+        # per-type bf16 products sum in another order on the card.
+        rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
+        assert rel < 2e-3, rel

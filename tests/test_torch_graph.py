@@ -10,6 +10,7 @@ decodes from the JAX package's shape tokens; the diluted src stream
 import numpy as np
 import pytest
 
+from tf_gnn_samples_tpu.ops import edge_ops as j_edge_ops
 from tf_gnn_samples_tpu.ops import graph as j_graph
 from tf_gnn_samples_tpu.tasks import base as j_base
 from tf_gnn_samples_tpu.tasks import qm9 as j_qm9
@@ -29,6 +30,15 @@ def assert_graphs_equal(tb, jb):
         if field.startswith("win_"):
             assert type(got) is int, field
             assert got == j_graph.token_window(getattr(jb.flat, field)), field
+            continue
+        if field == "tm_self":  # shape tokens in JAX, plain bools here
+            assert got == j_edge_ops.tm_self_types(jb), field
+            assert all(type(s) is bool for s in got), field
+            continue
+        if field == "tm_offs":  # the JAX layer's cumsum of its edge blocks
+            offs = np.cumsum([0] + [e.senders.shape[0] for e in jb.edges])
+            assert got == tuple(int(o) for o in offs), field
+            assert all(type(o) is int for o in got), field
             continue
         got = got.numpy()
         want = np.asarray(getattr(jb.flat, field))
@@ -218,3 +228,117 @@ def test_rank_window_equals_jax():
         ranks = (np.unique(ranks, return_inverse=True)[1].astype(np.int32)
                  if e else ranks.astype(np.int32))
         assert t_graph.rank_window(ranks) == j_graph.rank_window(ranks), e
+
+
+def self_loop_graph(seed=7, n=300, edges=1900):
+    """A dense random type and a pure self-loop type in which node 0 has a
+    DOUBLE self loop, each padded to one 2048-edge row (the fixture of the
+    JAX package's own type-major Edge-MLP1 test)."""
+    rng = np.random.RandomState(seed)
+    nodes = np.arange(n, dtype=np.int32)
+    self_adj = np.stack([nodes, nodes], axis=1)
+    self_adj = np.concatenate([self_adj, self_adj[:1]], axis=0)
+    dense_adj = np.stack([rng.randint(0, n, size=edges),
+                          rng.randint(0, n, size=edges)], 1).astype(np.int32)
+    feats = rng.randn(n, 8).astype(np.float32)
+    return feats, [dense_adj, self_adj], np.zeros(n, np.int32)
+
+
+def check_type_major_view(tb):
+    """What the consumers of the type-major view rely on."""
+    flat = tb.flat
+    n_pad, L = tb.n_pad, tb.num_edge_types
+    tm_rank = flat.tm_rank.numpy()
+    e = tm_rank.shape[0]
+    assert flat.tm_offs[0] == 0 and flat.tm_offs[-1] == e
+    assert len(flat.tm_offs) == L + 1 == len(flat.tm_self) + 1
+    steps = np.diff(tm_rank)
+    assert tm_rank[0] == 0 and ((steps == 0) | (steps == 1)).all()
+    # Same edges as the receiver-sorted stream, type by type.
+    src_tm = flat.tm_src_flat.numpy()
+    assert np.array_equal(np.sort(src_tm), np.sort(flat.src_flat.numpy()))
+    real = src_tm < L * n_pad
+    types = np.repeat(np.arange(L), np.diff(flat.tm_offs))
+    assert np.array_equal(src_tm[real] // n_pad, types[real])
+    # The src-sorted values are shared with the receiver-major view.
+    perm = flat.tm_perm_by_src.numpy()
+    assert np.array_equal(src_tm[perm],
+                          flat.src_flat.numpy()[flat.perm_by_src.numpy()])
+    assert np.array_equal(flat.tm_rank_by_src.numpy(), tm_rank[perm])
+    # Rank rows: a real edge of a streamed type maps to its (type,
+    # receiver) slot and back; self-loop types and padding map to the
+    # dump receiver and have no slot.
+    to_flat, to_rcv = flat.tm_to_flat.numpy(), flat.tm_to_rcv.numpy()
+    from_flat = flat.tm_from_flat.numpy()
+    is_self = np.asarray(flat.tm_self)[types]
+    streamed = real & ~is_self
+    slots = to_flat[tm_rank[streamed]]
+    assert np.array_equal(slots // n_pad, types[streamed])
+    assert np.array_equal(to_rcv[tm_rank[streamed]], slots % n_pad)
+    assert np.array_equal(from_flat[slots], tm_rank[streamed])
+    assert (to_rcv[tm_rank[~streamed]] == n_pad).all()
+    assert (from_flat >= 0).sum() == np.unique(slots).shape[0]
+    for l in range(L):
+        if flat.tm_self[l]:
+            assert (from_flat[l * n_pad:(l + 1) * n_pad] == -1).all()
+
+
+def test_type_major_view_with_self_loop_type_equals_jax():
+    """The type-major view on the dense two-type graph with a pure
+    self-loop type and one doubled self edge: every array equals the JAX
+    package's (assert_graphs_equal), the self-loop type is flagged, and the
+    window (measured over the blocks of the other type only) is one the
+    JAX package's type-major gate accepts."""
+    feats, adj, gids = self_loop_graph()
+    kwargs = dict(n_pad=512, e_pads=[2048, 2048], g_pad=16)
+    jb = j_graph.pad_graph_batch(feats, adj, gids, 1, **kwargs)
+    tb = t_graph.pad_graph_batch(feats, adj, gids, 1, **kwargs)
+    assert_graphs_equal(tb, jb)
+    assert tb.flat.tm_self == (False, True)
+    assert tb.flat.tm_offs == (0, 2048, 4096)
+    assert 0 < tb.flat.win_tm <= 64
+    assert float(tb.typed_incoming_counts[1, 0]) == 2.0  # the double loop
+    check_type_major_view(tb)
+
+
+@pytest.mark.parametrize("seed,degree", [(0, 14), (3, 4)])
+def test_type_major_view_on_ppi_like_graph_equals_jax(seed, degree):
+    feats, adj, gids = ppi_like_graph(seed, degree=degree)
+    e_pads = [-(-a.shape[0] // 2048) * 2048 for a in adj]
+    jb = j_graph.pad_graph_batch(feats, adj, gids, 2, e_pads=e_pads)
+    tb = t_graph.pad_graph_batch(feats, adj, gids, 2, e_pads=e_pads)
+    assert_graphs_equal(tb, jb)
+    assert tb.flat.tm_self == (False, False, True)
+    check_type_major_view(tb)
+
+
+def test_type_major_view_on_qm9_equals_jax(qm9_tasks):
+    """QM9's type 0 is the self-loop type (add_self_loop_edges); the other
+    four stream. The arrays equal the JAX package's."""
+    (jt, jdata), (tt, tdata) = qm9_tasks
+    jb = next(jt.make_minibatch_iterator(jdata, j_base.DataFold.VALIDATION,
+                                         2500))
+    tb = next(tt.make_minibatch_iterator(tdata, t_base.DataFold.VALIDATION,
+                                         2500))
+    assert_graphs_equal(tb.graph, jb.graph)
+    assert tb.graph.flat.tm_self == (True, False, False, False, False)
+    assert tb.graph.flat.win_tm == j_graph.token_window(jb.graph.flat.win_tm)
+    check_type_major_view(tb.graph)
+
+
+@pytest.mark.parametrize("e,groups,relevant_from", [
+    (0, 1, 0), (1, 1, 0), (255, 40, 0), (257, 9, 256), (5000, 300, 2048),
+    (5000, 2500, 4000), (4096, 4096, 4096), (3000, 1400, 0)])
+def test_rank_window_masked_equals_jax(e, groups, relevant_from):
+    """_rank_window_masked against the JAX function: blocks without a
+    relevant edge do not count, so a stream whose wide-span blocks are all
+    irrelevant keeps a narrow window."""
+    rng = np.random.RandomState(e + groups)
+    ranks = np.sort(rng.randint(0, groups, size=e))
+    ranks = (np.unique(ranks, return_inverse=True)[1].astype(np.int32)
+             if e else ranks.astype(np.int32))
+    for relevant in (np.arange(e) >= relevant_from,
+                     np.arange(e) < relevant_from,
+                     rng.rand(e) < 0.01):
+        assert (t_graph._rank_window_masked(ranks, relevant)
+                == j_graph._rank_window_masked(ranks, relevant))

@@ -1,7 +1,8 @@
 // Shared pieces of the fused GNN-FiLM kernels (film_fwd.cu, film_bwd.cu,
 // film_bwd_dgb.cu, film_src_bwd.cu) and of the other sorted-rank
-// reductions (segsum.cu, segsum_t.cu, wseg_t.cu, rgat_src_bwd.cu): the
-// activations of the JAX package's
+// reductions and activation passes (segsum.cu, segsum_t.cu, wseg_t.cu,
+// rgat_src_bwd.cu, expand_add_act.cu, expand_add_act_bwd.cu, act_agg.cu,
+// act_agg_bwd.cu): the activations of the JAX package's
 // `_ACTS` table (tf_gnn_samples_tpu/ops/ranked_segment.py), bf16 rounding,
 // and the segment flush of the sorted-rank reduction.
 //

@@ -1,7 +1,8 @@
 """Relational message-passing layers (counterpart of
 tf_gnn_samples_tpu/nn/layers.py). Ported so far: GGNN, RGCN, RGAT (its
 fused, streamed and plain branches), GNN-FiLM (its gather-fused, ranked
-and plain branches).
+and plain branches), GNN-Edge-MLP (its type-major, FiLM-kernel and plain
+branches).
 
 Each layer is a pair of functions over plain dicts of tensors:
     <name>_init(gen, num_edge_types, state_dim, **cfg) -> params
@@ -21,12 +22,18 @@ from ..ops.edge_ops import (
     gather_flat_src,
     gather_flat_src_ranked,
     gather_flat_tgt,
+    gather_tm_src,
     ranked_aggregation_ok,
     ranked_table_to_nodes,
     segment_softmax_flat,
     segment_softmax_flat_ranked_t,
     take_by_fine_rank,
+    take_by_tm_rank,
+    tm_available,
+    tm_self_types,
+    tm_table_to_nodes,
 )
+from .. import SMALL_NUMBER
 from ..ops.graph import GraphBatch
 from .activations import _leaky_relu_02, get_activation
 from .cells import cell_apply, cell_init
@@ -437,7 +444,220 @@ def gnn_film_apply(
     return h
 
 
+# --------------------------------------------------------------------------
+# GNN-Edge-MLP (reference: gnns/gnn_edge_mlp.py)
+# --------------------------------------------------------------------------
+
+def gnn_edge_mlp_init(gen, num_edge_types, state_dim,
+                      use_target_state_as_input=True,
+                      num_edge_hidden_layers=1, **_):
+    in_dim = 2 * state_dim if use_target_state_as_input else state_dim
+    sizes = [in_dim] + [state_dim] * (num_edge_hidden_layers + 1)
+    return {
+        "edge_mlp": [
+            stacked_glorot_uniform(gen, num_edge_types, (d_in, d_out))
+            for d_in, d_out in zip(sizes[:-1], sizes[1:])
+        ],
+        "ln": layer_norm_init(state_dim),
+    }
+
+
+# The edge MLP's inner activation is a fixed elu.
+_inner_elu = get_activation("elu")
+
+
+def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
+                    message_aggregation_function: str,
+                    normalize_by_num_incoming: bool,
+                    use_target_state_as_input: bool,
+                    num_edge_hidden_layers: int,
+                    typed_edge_scan: str) -> str:
+    """Which branch GNN-Edge-MLP takes: "tmajor1" (K5a, K11, K12 over the
+    type-major stream), "fused0" (the FiLM kernels K1-K3) or "plain" (f32
+    PyTorch).
+
+    These are the JAX package's gates (nn/layers.py gnn_edge_mlp_apply)
+    with their semantic terms kept and their rank-window, VMEM and device
+    terms dropped: the CUDA kernels walk sorted ranks in device memory,
+    need no window and keep no table on chip, so no shape rules them out
+    (on the TPU the tuned QM9 batch, whose fine window is 0, runs the
+    unrolled XLA branch). The rule is the same on the CPU, so that a batch
+    takes the same branch on every device.
+
+    Not ported yet, so these configurations take the plain branch here:
+    the JAX package's `ranked` branch (no target state: node-side MLP and
+    one ranked aggregation, shared with RGIN) and its `fused1` branch (the
+    typed dense aggregate kernel for batches without the type-major view;
+    every batch of the port has that view). `typed_edge_scan` "unroll"
+    forces the plain branch; "scan" / "always" (ops/typed_stream.py, the
+    per-type scan for many edge types) raise NotImplementedError."""
+    if typed_edge_scan in ("scan", "always"):
+        raise NotImplementedError(
+            "typed_edge_scan '%s' (the per-type scan of ops/typed_stream.py, "
+            "ROADMAP Queue 1 item 12) is not yet ported to the PyTorch "
+            "package." % typed_edge_scan)
+    kernels = (use_target_state_as_input
+               and typed_edge_scan == "auto"
+               and message_aggregation_function in ("sum",
+                                                    "unsorted_segment_sum")
+               and rs.film_act_supported(activation_function))
+    if (kernels and num_edge_hidden_layers == 1
+            and not normalize_by_num_incoming and tm_available(graph)):
+        return "tmajor1"
+    if kernels and num_edge_hidden_layers == 0:
+        return "fused0"
+    return "plain"
+
+
+def _typed_mlp_messages_flat(h, weights, graph, concat_target):
+    """Stacked per-type edge MLP over the flat stream, in f32: the first
+    linear layer node-sided, the later ones per edge with elu in front
+    (the JAX package's _typed_mlp_messages). The later layers' weight
+    depends on the edge's type, so the stream is brought into type-major
+    order (a stable sort by type of the receiver-sorted stream is exactly
+    that order), each type's slice multiplies its own matrix, and the
+    result goes back to stream order."""
+    flat = graph.flat
+    msgs = _flat_linear_messages(h, weights[0], graph,
+                                 concat_target=concat_target)
+    if len(weights) == 1:
+        return msgs
+    perm = torch.argsort(flat.edge_type, stable=True)
+    inverse = torch.empty_like(perm)
+    inverse[perm] = torch.arange(perm.shape[0], device=perm.device)
+    sizes = [b - a for a, b in zip(flat.tm_offs[:-1], flat.tm_offs[1:])]
+    msgs = msgs.index_select(0, perm)
+    for W in weights[1:]:
+        parts = torch.split(_inner_elu(msgs), sizes)
+        msgs = torch.cat([torch.matmul(x_l, W[l])
+                          for l, x_l in enumerate(parts)])
+    return msgs.index_select(0, inverse)
+
+
+def gnn_edge_mlp_apply(
+    params,
+    graph: GraphBatch,
+    h,
+    *,
+    num_timesteps=1,
+    activation_function="relu",
+    message_aggregation_function="sum",
+    normalize_by_num_incoming=False,
+    use_target_state_as_input=True,
+    num_edge_hidden_layers=1,
+    typed_edge_scan="auto",
+    **_,
+):
+    """The message along a type-l edge u -> v is act(MLP_l(h_u | h_v)) (or
+    of h_u alone), an MLP of `num_edge_hidden_layers` hidden layers with a
+    fixed inner elu; messages are aggregated per receiver and layer-normed.
+    See edge_mlp_branch for the three branches."""
+    act = get_activation(activation_function)
+    act_name = activation_function.lower()
+    branch = edge_mlp_branch(
+        graph, activation_function=act_name,
+        message_aggregation_function=message_aggregation_function,
+        normalize_by_num_incoming=normalize_by_num_incoming,
+        use_target_state_as_input=use_target_state_as_input,
+        num_edge_hidden_layers=num_edge_hidden_layers,
+        typed_edge_scan=typed_edge_scan)
+    flat = graph.flat
+    d0 = h.shape[-1]
+    n_pad, num_types = graph.n_pad, graph.num_edge_types
+    for _step in range(num_timesteps):
+        if branch == "tmajor1":
+            # One hidden layer and the target state (the tuned
+            # GNN-Edge-MLP1), over the TYPE-MAJOR stream: the hidden x =
+            # elu(ts[src] + tt[tgt]) assembles from a bf16 row gather and
+            # the (type, receiver) rank table of the target halves (K11a);
+            # the type-dependent output matrix W1 multiplies each type's
+            # contiguous slice whole (bf16 operands, f32 accumulation,
+            # rounded to bf16: plain matmuls outside any kernel); the
+            # outer activation and the aggregation run per type through
+            # K12a. The types' rank rows are disjoint, so every type's
+            # call writes into the one table. Backward: K12b per type, the
+            # matmuls' own, K11b, and K5a in the gather's.
+            W0, W1 = params["edge_mlp"]
+            ts = typed_transform(h, W0[:, :d0, :])
+            tt = typed_transform(h, W0[:, d0:, :])
+            self_types = tm_self_types(graph)
+            offs = flat.tm_offs
+            beta = take_by_tm_rank(_flat(tt), graph)  # [RPAD, D]
+            m = gather_tm_src(_flat(ts).to(torch.bfloat16), graph)
+            x = rs.expand_add_act(m, beta, flat.tm_rank, "elu")
+            rows = rs.fine_rank_table_rows(n_pad, num_types,
+                                           flat.tm_rank.shape[0], 256)
+            parts = torch.split(
+                x, [b - a for a, b in zip(offs[:-1], offs[1:])])
+            slices = [
+                (torch.matmul(parts[l], W1[l].to(torch.bfloat16)),
+                 flat.tm_rank[offs[l]:offs[l + 1]])
+                for l in range(num_types) if not self_types[l]]
+            if slices:
+                table = rs.act_ranked_aggregate_slices(slices, rows, act_name)
+            else:
+                table = torch.zeros((rows, d0), dtype=torch.float32,
+                                    device=h.device)
+            agg = tm_table_to_nodes(table, graph)
+            # Self-loop types node-side, in f32: the message along a self
+            # loop is a function of its node alone, summed once per
+            # incident self edge (typed_incoming_counts carries the
+            # multiplicity; 0 for a node without one).
+            for l in range(num_types):
+                if self_types[l]:
+                    y_self = torch.matmul(_inner_elu(ts[l] + tt[l]), W1[l])
+                    agg = agg + act(y_self) * (
+                        graph.typed_incoming_counts[l][:, None])
+        elif branch == "fused0":
+            # No hidden layer and the target state (the tuned
+            # GNN-Edge-MLP0): the message is act(norm * (ts[src] +
+            # tt[tgt])), which is the fused FiLM pass with gamma = norm (1
+            # or 1/c), constant per (receiver, type) group, and beta = norm
+            # * tt rows. gamma is a constant, so the d_gamma half of K2's
+            # output is dropped.
+            W0 = params["edge_mlp"][0]
+            ts = typed_transform(h, W0[:, :d0, :])
+            tt = typed_transform(h, W0[:, d0:, :])
+            beta = take_by_fine_rank(_flat(tt), graph)
+            if normalize_by_num_incoming:
+                counts = graph.typed_incoming_counts.reshape(-1)
+                scale = 1.0 / (counts.index_select(0, flat.fine_to_flat)
+                               + SMALL_NUMBER)
+                gamma = scale[:, None].expand_as(beta)
+                beta = beta * scale[:, None]
+            else:
+                gamma = torch.ones_like(beta)
+            gb_ranked = torch.cat([gamma, beta], dim=1)
+            ts16 = _flat(ts).to(torch.bfloat16)
+            splits = rs.film_column_splits(flat.src_flat.shape[0], d0,
+                                           gb_ranked.shape[0])
+            # The 1/c scale is folded into gamma and beta per fine group,
+            # so (unlike GNN-FiLM's per-edge scale) the gather-fused pass
+            # applies even when normalising.
+            if splits == 1 and rs.film_fused_src_supported(act_name):
+                sd_fine, sd_rank, _ = src_stream(flat)
+                table = rs.film_fused_src_pass(
+                    ts16, gb_ranked, flat.src_flat, sd_fine, sd_rank,
+                    flat.src_to_rank, flat.src_from_rank, flat.tgt_rank,
+                    act_name)
+            else:
+                m = gather_flat_src_ranked(ts16, flat)
+                table = _film_aggregate_splits(m, gb_ranked, graph,
+                                               act_name, splits)
+            agg = fine_table_to_nodes(table, graph)
+        else:
+            msgs = _typed_mlp_messages_flat(h, params["edge_mlp"], graph,
+                                            use_target_state_as_input)
+            if normalize_by_num_incoming:
+                msgs = msgs * flat.norm_scale[:, None]
+            agg = aggregate_flat(act(msgs), flat, n_pad,
+                                 message_aggregation_function)
+        h = layer_norm(params["ln"], agg)  # unconditional LN
+    return h
+
+
 LAYERS = {
+    "gnn_edge_mlp": (gnn_edge_mlp_init, gnn_edge_mlp_apply),
     "ggnn": (ggnn_init, ggnn_apply),
     "rgcn": (rgcn_init, rgcn_apply),
     "rgat": (rgat_init, rgat_apply),

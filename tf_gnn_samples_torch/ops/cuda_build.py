@@ -52,6 +52,15 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # gcb, t_ext, ranks, out, num_edges, dim, num_heads, clamp, stream
     "rgat_src_bwd": (("film_common.cuh",),
                      (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
+    # m, beta, ranks, x, num_edges, dim, act id, stream
+    "expand_add_act": (("film_common.cuh",), _FILM_ARGS),
+    # x, dx, ranks, dm, dbeta, num_edges, dim, act id, stream
+    "expand_add_act_bwd": (("film_common.cuh",),
+                           (_P,) * 5 + (_I,) * 3 + (_P,)),
+    # msgs, ranks, out, num_edges, dim, act id, stream
+    "act_agg": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
+    # msgs, g16, ranks, dmsg, num_edges, dim, act id, stream
+    "act_agg_bwd": (("film_common.cuh",), _FILM_ARGS),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

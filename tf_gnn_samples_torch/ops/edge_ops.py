@@ -70,6 +70,35 @@ def gather_flat_src_ranked(table_flat, flat):
                                flat.src_sorted_rank, flat.src_to_rank)
 
 
+# ---- type-major stream ops (FlatEdges.tm_*) ------------------------------
+
+_TM_FIELDS = ("tm_src_flat", "tm_rank", "tm_perm_by_src", "tm_to_flat",
+              "tm_from_flat", "tm_to_rcv", "win_tm", "tm_self", "tm_offs",
+              "src_sorted_rank", "src_to_rank", "win_src")
+
+
+def tm_available(graph) -> bool:
+    """Whether the batch carries the type-major view (every batch that
+    pad_graph_batch builds does)."""
+    return all(getattr(graph.flat, f, None) is not None for f in _TM_FIELDS)
+
+
+def tm_self_types(graph):
+    """Per-type self-loop flags of the type-major view."""
+    return tuple(graph.flat.tm_self)
+
+
+def gather_tm_src(table_flat, graph):
+    """table_flat[tm_src_flat] over the TYPE-MAJOR stream; the backward is
+    the ranked segment-sum (K5a) over the SHARED src-sorted ranks: both
+    stream orders have the same src-sorted values, only the permutation
+    (tm_perm_by_src) differs."""
+    flat = graph.flat
+    return _GatherRanked.apply(table_flat, flat.tm_src_flat,
+                               flat.tm_perm_by_src, flat.src_sorted_rank,
+                               flat.src_to_rank)
+
+
 def gather_node_tgt(table, flat):
     """table[[N, ...]][receivers]: per-edge row of a node table; padded
     edges (receiver n_pad) read the last row."""
@@ -261,6 +290,15 @@ def take_by_fine_rank(table_flat, graph):
                                 flat.fine_from_flat)
 
 
+def take_by_tm_rank(table_flat, graph):
+    """table_flat rows at each TYPE-MAJOR (type, receiver) group rank:
+    [RPAD, ...], with the inverse-take backward (see take_by_fine_rank;
+    self-loop types' slots are -1, so their rows get no cotangent)."""
+    flat = graph.flat
+    return _InjectiveTake.apply(table_flat, flat.tm_to_flat,
+                                flat.tm_from_flat)
+
+
 class _FineCombine(torch.autograd.Function):
     """Sum the <= L fine-rank rows of each receiver: out[v] = sum_l
     table[from_flat_2d[l, v]] over slots >= 0. Each real fine rank belongs
@@ -290,3 +328,11 @@ def fine_table_to_nodes(table, graph):
     n_pad, num_types = graph.n_pad, graph.num_edge_types
     ffl = flat.fine_from_flat.reshape(num_types, n_pad)
     return _FineCombine.apply(table, ffl, flat.fine_to_rcv, n_pad)
+
+
+def tm_table_to_nodes(table, graph):
+    """Combine a TYPE-MAJOR rank table [RPAD, D] into node rows [n_pad, D];
+    self-loop types' rows are left out (their slots are -1)."""
+    flat = graph.flat
+    ffl = flat.tm_from_flat.reshape(graph.num_edge_types, graph.n_pad)
+    return _FineCombine.apply(table, ffl, flat.tm_to_rcv, graph.n_pad)

@@ -4,8 +4,8 @@ tf_gnn_samples_tpu/ops/graph.py).
 The host-side construction is numpy, as in the JAX package, and every
 emitted field equals the JAX package's array for the same input. The
 batch carries only the fields the ported layers read: the target-sorted
-view (`perm_by_tgt`, `win_tgt`), the type-major `tm_*` view and
-`unify_flat_windows` wait for the slices whose consumers need them. The
+view (`perm_by_tgt`, `win_tgt`) and `unify_flat_windows` wait for the
+slices whose consumers need them. The
 rank windows are plain ints here (the JAX package encodes them in array
 shapes to keep them static under jit); the CUDA kernels reduce over
 sorted ranks and ignore them, but `win_fine` gates the diluted src stream
@@ -22,7 +22,7 @@ keep the JAX package's heights (`fine_rank_table_rows`,
 same thing in both packages.
 """
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +84,32 @@ class FlatEdges(NamedTuple):
     sd_rank: torch.Tensor  # [E_sd] int32
     sd_fine: torch.Tensor  # [E_sd] int32 (fill -> SD_FILL)
     sd_coarse: torch.Tensor  # [E_sd] int32 (fill -> SD_FILL)
+    # TYPE-MAJOR view: the same edges in per-type-block order (the
+    # concatenation of the receiver-sorted EdgeBlocks before the global
+    # receiver sort). Each type's edges are CONTIGUOUS, at the static
+    # offsets tm_offs, so a type-dependent per-edge dense stage runs as L
+    # whole matmuls on slices (GNN-Edge-MLP1). tm_rank are the gap-free
+    # nondecreasing (type, receiver) group ranks of this order (each
+    # type's padded edges form a dump group of their own); tm_to_flat /
+    # tm_from_flat / tm_to_rcv mirror the fine-rank maps. The src-SORTED
+    # stream of this view has the same values as the receiver-major one's,
+    # so src_sorted_rank / src_to_rank / win_src are shared and only the
+    # permutation (tm_perm_by_src) differs. SELF-LOOP types (every real
+    # edge has sender == receiver) are combined node-side by their
+    # consumers: tm_self flags them, their tm_from_flat slots are -1 and
+    # their rank rows map to the dump receiver, so stream-side values on
+    # their rows never reach real nodes; win_tm is measured over the
+    # 256-edge blocks that hold an edge of another type.
+    tm_src_flat: torch.Tensor  # [E_tot] int32
+    tm_rank: torch.Tensor  # [E_tot] int32
+    tm_perm_by_src: torch.Tensor  # [E_tot] int32
+    tm_rank_by_src: torch.Tensor  # [E_tot] int32 (tm_rank[tm_perm_by_src])
+    tm_to_flat: torch.Tensor  # [RPAD] int32
+    tm_from_flat: torch.Tensor  # [L * n_pad] int32
+    tm_to_rcv: torch.Tensor  # [RPAD] int32
+    win_tm: int
+    tm_self: Tuple[bool, ...]  # per type: a pure self-loop type
+    tm_offs: Tuple[int, ...]  # L + 1 offsets of the types' slices
 
 
 class GraphBatch(NamedTuple):
@@ -126,6 +152,25 @@ def rank_window(ranks: np.ndarray, block: int = 256) -> int:
     lasts = ranks[np.minimum(np.arange(block - 1, e + block - 1, block),
                              e - 1)]
     span = int((lasts - firsts).max()) + 1
+    for cand in (16, 32, 64, 128):
+        if span <= cand:
+            return cand
+    return 0
+
+
+def _rank_window_masked(ranks: np.ndarray, relevant: np.ndarray,
+                        block: int = 256) -> int:
+    """rank_window over only the blocks that hold any `relevant` edge
+    (FlatEdges.tm_self: blocks of self-loop edges alone are exempt, their
+    rows never reach real nodes)."""
+    e = int(ranks.shape[0])
+    if e == 0:
+        return 16
+    firsts = ranks[0:e:block].astype(np.int64) & ~7
+    lasts = ranks[np.minimum(np.arange(block - 1, e + block - 1, block),
+                             e - 1)]
+    keep = np.logical_or.reduceat(relevant, np.arange(0, e, block))
+    span = int((lasts - firsts + 1)[keep].max()) if keep.any() else 0
     for cand in (16, 32, 64, 128):
         if span <= cand:
             return cand
@@ -344,6 +389,27 @@ def pad_graph_batch(
             sd_fine[:e_tot] = fine_by_src
             sd_coarse[:e_tot] = coarse_by_src
 
+    # Type-major view: src_flat / tgt_flat / all_rcv above are in that
+    # order. Each type block is receiver-sorted with its padded edges last,
+    # so the group ranks over tgt_flat are nondecreasing and gap-free.
+    tm_new, tm_rank = _group_ranks(tgt_flat)
+    type_is_self = tuple(
+        bool(adj.shape[0]) and bool(np.all(adj[:, 0] == adj[:, 1]))
+        for adj in adjacency_lists)
+    edge_is_self = np.asarray(type_is_self, dtype=bool)[all_type]
+    tm_to_flat = np.zeros((rpad,), dtype=np.int32)
+    tm_to_rcv = np.full((rpad,), n_pad, dtype=np.int32)
+    tm_from_flat = np.full((L * n_pad,), -1, dtype=np.int32)
+    if e_tot:
+        tm_to_flat[tm_rank[tm_new]] = np.minimum(tgt_flat[tm_new],
+                                                 L * n_pad - 1)
+        tm_to_rcv[tm_rank[tm_new]] = np.where(edge_is_self[tm_new], n_pad,
+                                              all_rcv[tm_new])
+        real_tm = tm_new & (tgt_flat < L * n_pad) & ~edge_is_self
+        tm_from_flat[tgt_flat[real_tm]] = tm_rank[real_tm]
+    tm_perm_by_src = np.argsort(src_flat, kind="stable").astype(np.int32)
+    tm_offs = np.cumsum([0] + [e.senders.shape[0] for e in edges])
+
     t = torch.from_numpy
     flat = FlatEdges(
         src_flat=t(src_in_stream),
@@ -368,6 +434,16 @@ def pad_graph_batch(
         sd_rank=t(sd_rank),
         sd_fine=t(sd_fine),
         sd_coarse=t(sd_coarse),
+        tm_src_flat=t(src_flat),
+        tm_rank=t(tm_rank),
+        tm_perm_by_src=t(tm_perm_by_src),
+        tm_rank_by_src=t(np.ascontiguousarray(tm_rank[tm_perm_by_src])),
+        tm_to_flat=t(tm_to_flat),
+        tm_from_flat=t(tm_from_flat),
+        tm_to_rcv=t(tm_to_rcv),
+        win_tm=_rank_window_masked(tm_rank, ~edge_is_self),
+        tm_self=type_is_self,
+        tm_offs=tuple(int(o) for o in tm_offs),
     )
     return GraphBatch(
         node_features=t(feats),
@@ -383,7 +459,8 @@ def pad_graph_batch(
 
 
 def graph_to_device(graph: GraphBatch, device) -> GraphBatch:
-    """Copy every tensor of a batch to `device` (ints stay host ints)."""
+    """Copy every tensor of a batch to `device` (ints and tuples of
+    static values stay on the host)."""
     def move(x):
         return x.to(device, non_blocking=True) if torch.is_tensor(x) else x
 

@@ -1,10 +1,11 @@
 """Rank-table kernels (counterpart of tf_gnn_samples_tpu/ops/ranked_segment.py:
-the ranked segment-sum / expand pair, the fused GNN-FiLM kernels and the
-head-major attention kernels of RGAT).
+the ranked segment-sum / expand pair, the fused GNN-FiLM kernels, the
+head-major attention kernels of RGAT and the expand-add-activate /
+activate-aggregate pairs of GNN-Edge-MLP1).
 
 The flat edge stream (ops/graph.py FlatEdges) is receiver-sorted with
 gap-free coarse (receiver) and fine (receiver, type) ranks; its src-sorted
-view has gap-free src ranks. Twelve CUDA kernels (csrc/) work over those
+view has gap-free src ranks. Sixteen CUDA kernels (csrc/) work over those
 sorted ranks:
 
 * K5a `_segsum_table_impl`: table[r] = sum bf16(m_e) (the ranked
@@ -25,7 +26,14 @@ sorted ranks:
 * K8 `_wseg_t_dw_impl`: the d_w_t half of K7b alone;
 * K9 `_rgat_src_bwd_impl`: RGAT's message and source-logit cotangents over
   the src-sorted stream, recomputing the attention (with K8, the backward
-  of `rgat_fused_pass`).
+  of `rgat_fused_pass`);
+* K11a `_expand_add_act_impl`: x[e] = bf16(act(m_e + bf16(beta[rank_e])))
+  (the hidden assembly of GNN-Edge-MLP1 over the type-major ranks);
+* K11b `_expand_add_act_bwd_impl`: dz = bf16(act'(x) * dx) with act' taken
+  from the OUTPUT x, written per edge and summed per rank (d_beta);
+* K12a `_act_agg_impl`: table[r] = sum bf16(act(msg_e)) (K1 without the
+  modulation tables; one call per edge type's slice of the stream);
+* K12b `_act_agg_bwd_impl`: d_msg[e] = bf16(act'(msg_e) * g[rank_e]).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain PyTorch version beside it only
@@ -35,8 +43,8 @@ call that reached its kernel.
 Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
 activation in K1, m * dz and dz in K2, act'(z) * C in K3, the head-major
-term in K6a, the weighted message in K7a, both halves of K9's row) is
-rounded to bf16 before its f32 sum; K5b and K6b round each table value to
+term in K6a, the weighted message in K7a, both halves of K9's row, dz in
+K11b, the activation in K12a) is rounded to bf16 before its f32 sum; K5b and K6b round each table value to
 bf16; K7b and K4 write d_msgs in bf16; K7b and K8 keep d_w_t in f32. The
 kernels sum in stream order with atomics
 at chunk seams, so their sums differ from run to run in the last bits; the
@@ -142,13 +150,31 @@ def film_act_supported(name: str) -> bool:
     return name.lower() in _ACTS
 
 
+# Activations whose derivative is a function of their OUTPUT x = act(z):
+# elu' = 1 (x > 0) else x + 1; relu' = (x > 0); leaky_relu' = 1 (x > 0)
+# else 0.2 (its sign survives); linear' = 1. K11b reads these, so the
+# expand-add-activate pass keeps no activation residual beside its output.
+_ACTS_FROM_OUT = {
+    "elu": lambda x: torch.where(x > 0, 1.0, x + 1.0),
+    "relu": lambda x: (x > 0).to(torch.float32),
+    "leaky_relu": lambda x: torch.where(x > 0, 1.0, 0.2),
+    "linear": lambda x: torch.ones_like(x),
+}
+
+
+def expand_add_act_supported(act: str) -> bool:
+    return act.lower() in _ACTS_FROM_OUT and act.lower() in _ACTS
+
+
 # ---- kernels and their plain versions ---------------------------------
 
 LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "film_bwd_dgb": 0, "film_src_bwd": 0,
                             "segsum_t": 0, "expand_t": 0, "wseg_t": 0,
                             "wseg_t_bwd": 0, "film_bwd": 0, "wseg_t_dw": 0,
-                            "rgat_src_bwd": 0}
+                            "rgat_src_bwd": 0, "expand_add_act": 0,
+                            "expand_add_act_bwd": 0, "act_agg": 0,
+                            "act_agg_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -212,6 +238,32 @@ def _film_src_bwd_plain(gcb_src, t_ranked, ranks, table_rows, act):
                       device=gcb_src.device)
     return out.index_add_(0, ranks,
                           _bf16_terms(_ACTS[act][1](z) * gcb[:, 2 * d:]))
+
+
+def _expand_add_act_plain(m, beta_table, ranks, act):
+    beta_e = _bf16_terms(beta_table).index_select(0, ranks)
+    return _ACTS[act][0](m.to(torch.float32) + beta_e).to(torch.bfloat16)
+
+
+def _expand_add_act_bwd_plain(x, dx, ranks, table_rows, act):
+    dz = (_ACTS_FROM_OUT[act](x.to(torch.float32))
+          * dx.to(torch.float32)).to(torch.bfloat16)
+    dbeta = torch.zeros((table_rows, x.shape[1]), dtype=torch.float32,
+                        device=x.device)
+    return dz, dbeta.index_add_(0, ranks, dz.to(torch.float32))
+
+
+def _act_agg_plain(msgs, ranks, table_rows, act, out=None):
+    if out is None:
+        out = torch.zeros((table_rows, msgs.shape[1]), dtype=torch.float32,
+                          device=msgs.device)
+    return out.index_add_(
+        0, ranks, _bf16_terms(_ACTS[act][0](msgs.to(torch.float32))))
+
+
+def _act_agg_bwd_plain(msgs, g16, ranks, act):
+    g_e = g16.index_select(0, ranks).to(torch.float32)
+    return (_ACTS[act][1](msgs.to(torch.float32)) * g_e).to(torch.bfloat16)
 
 
 def _segsum_t_plain(msgs_t, ranks, table_rows):
@@ -446,6 +498,106 @@ def _film_bwd_impl(msgs, gbg_table, ranks, *, block_edges=256, act, win=0):
         _call("film_bwd", (msgs, gbg_table, ranks, d_msgs, d_gb),
               (e, dim, ACT_IDS[act]))
     return d_msgs, d_gb
+
+
+# ---- the GNN-Edge-MLP1 kernels (K11, K12) ---------------------------------
+
+def _expand_add_act_impl(m, beta_table, ranks, *, block_edges=256, act,
+                         win=0):
+    """K11a: x[e] = bf16(act(m_e + bf16(beta[rank_e]))) for a bf16 stream m
+    [E, D], an f32 rank table beta [rows, D] and int32 ranks below `rows`;
+    bf16 [E, D] out. The table value is rounded to bf16 BEFORE the f32
+    add, the sum is activated in f32 and rounded once."""
+    e, dim = m.shape
+    if (ranks.shape != (e,) or beta_table.dim() != 2
+            or beta_table.shape[1] != dim):
+        raise ValueError("expand_add_act: shapes %s, %s, %s" % (
+            tuple(m.shape), tuple(beta_table.shape), tuple(ranks.shape)))
+    if m.device.type == "cpu":
+        return _expand_add_act_plain(m, beta_table, ranks, act)
+    _check_dtype("expand_add_act", m, torch.bfloat16)
+    _check_dtype("expand_add_act", beta_table, torch.float32)
+    _check_ranks("expand_add_act", ranks)
+    x = torch.empty((e, dim), dtype=torch.bfloat16, device=m.device)
+    if e:
+        _call("expand_add_act", (m, beta_table, ranks, x),
+              (e, dim, ACT_IDS[act]))
+    return x
+
+
+def _expand_add_act_bwd_impl(x, dx, ranks, *, table_rows, block_edges=256,
+                             act, win=0):
+    """K11b: with dz = bf16(act'(x_e) * dx_e), act' taken from the OUTPUT x
+    (`_ACTS_FROM_OUT`), returns (d_m, d_beta): d_m[e] = dz [E, D] bf16 and
+    d_beta[r] = sum_{rank_e = r} dz, f32 [table_rows, D] (the ROUNDED dz is
+    what both see), from the bf16 streams x and dx [E, D] and
+    nondecreasing gap-free int32 ranks."""
+    e, dim = x.shape
+    if dx.shape != (e, dim) or ranks.shape != (e,):
+        raise ValueError("expand_add_act_bwd: shapes %s, %s, %s" % (
+            tuple(x.shape), tuple(dx.shape), tuple(ranks.shape)))
+    if act not in _ACTS_FROM_OUT:
+        raise ValueError("expand_add_act_bwd: the derivative of '%s' is no "
+                         "function of its output" % act)
+    if x.device.type == "cpu":
+        return _expand_add_act_bwd_plain(x, dx, ranks, table_rows, act)
+    _check_dtype("expand_add_act_bwd", x, torch.bfloat16)
+    _check_dtype("expand_add_act_bwd", dx, torch.bfloat16)
+    _check_ranks("expand_add_act_bwd", ranks)
+    dm = torch.empty((e, dim), dtype=torch.bfloat16, device=x.device)
+    dbeta = torch.zeros((table_rows, dim), dtype=torch.float32,
+                        device=x.device)
+    if e:
+        _call("expand_add_act_bwd", (x, dx, ranks, dm, dbeta),
+              (e, dim, ACT_IDS[act]))
+    return dm, dbeta
+
+
+def _act_agg_impl(msgs, ranks, *, table_rows, block_edges=256, act, win=0,
+                  out=None):
+    """K12a: table[r] = sum_{rank_e = r} bf16(act(msg_e)) for a bf16 stream
+    [E, D] and nondecreasing gap-free int32 ranks below `table_rows`; f32
+    [table_rows, D] out. The stream may be one edge type's slice of the
+    type-major stream: any length, ranks that start anywhere. `out` is a
+    table to write into in place of a new zeroed one; the rows of this
+    stream's ranks must still be zero in it (the rank rows of two edge
+    types are disjoint, so one table takes every type's slice)."""
+    e, dim = msgs.shape
+    if ranks.shape != (e,) or (out is not None
+                               and out.shape != (table_rows, dim)):
+        raise ValueError("act_agg: shapes %s, %s" % (tuple(msgs.shape),
+                                                     tuple(ranks.shape)))
+    if msgs.device.type == "cpu":
+        return _act_agg_plain(msgs, ranks, table_rows, act, out)
+    _check_dtype("act_agg", msgs, torch.bfloat16)
+    _check_ranks("act_agg", ranks)
+    if out is None:
+        out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                          device=msgs.device)
+    _check_dtype("act_agg", out, torch.float32)
+    if e:
+        _call("act_agg", (msgs, ranks, out), (e, dim, ACT_IDS[act]))
+    return out
+
+
+def _act_agg_bwd_impl(msgs, g16, ranks, *, block_edges=256, act, win=0):
+    """K12b: d_msg[e] = bf16(act'(msg_e) * g16[rank_e]), bf16 [E, D], from
+    the bf16 stream [E, D], the bf16 table cotangent g16 [rows, D] and
+    int32 ranks below `rows`; act' is recomputed in f32 from the message."""
+    e, dim = msgs.shape
+    if ranks.shape != (e,) or g16.dim() != 2 or g16.shape[1] != dim:
+        raise ValueError("act_agg_bwd: shapes %s, %s, %s" % (
+            tuple(msgs.shape), tuple(g16.shape), tuple(ranks.shape)))
+    if msgs.device.type == "cpu":
+        return _act_agg_bwd_plain(msgs, g16, ranks, act)
+    _check_dtype("act_agg_bwd", msgs, torch.bfloat16)
+    _check_dtype("act_agg_bwd", g16, torch.bfloat16)
+    _check_ranks("act_agg_bwd", ranks)
+    dmsg = torch.empty((e, dim), dtype=torch.bfloat16, device=msgs.device)
+    if e:
+        _call("act_agg_bwd", (msgs, g16, ranks, dmsg),
+              (e, dim, ACT_IDS[act]))
+    return dmsg
 
 
 # ---- the head-major attention kernels (K6, K7, K8, K9) -------------------
@@ -877,6 +1029,105 @@ def film_ranked_aggregate(msgs, gb_table, ranks, act: str = "relu"):
     (receiver, type) ranks; f32 [RPAD, D] out. The backward recomputes the
     modulation and returns d_msgs [E, D] and d_gb_table [RPAD, 2D]."""
     return _FilmRankedAggregate.apply(msgs, gb_table, ranks, act.lower())
+
+
+# ---- GNN-Edge-MLP1: expand-add-activate and activate-aggregate ------------
+
+class _ExpandAddAct(torch.autograd.Function):
+    """K11a forward, K11b backward on the cotangent cast to bf16 (the JAX
+    package's expand_add_act, _eaa_fwd / _eaa_bwd): the only residual is
+    the output x itself."""
+
+    @staticmethod
+    def forward(ctx, m, beta_table, ranks, act):
+        x = _expand_add_act_impl(m, beta_table, ranks, act=act)
+        ctx.save_for_backward(x, ranks)
+        ctx.act, ctx.rows = act, beta_table.shape[0]
+        ctx.m_dtype, ctx.beta_dtype = m.dtype, beta_table.dtype
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ranks = ctx.saved_tensors
+        dm, dbeta = _expand_add_act_bwd_impl(
+            x, g.to(torch.bfloat16).contiguous(), ranks, table_rows=ctx.rows,
+            act=ctx.act)
+        return dm.to(ctx.m_dtype), dbeta.to(ctx.beta_dtype), None, None
+
+
+def expand_add_act(m, beta_table, ranks, act: str):
+    """x[e] = act(m[e] + beta_table[rank_e]), bf16 [E, D], with the
+    rank-indexed f32 table expanded inside the kernel: neither an [E, D]
+    beta stream nor an activation residual exists in device memory (the
+    backward recovers act' from x). `act` must be in _ACTS_FROM_OUT; the
+    backward returns d_m (bf16) and the d_beta rank table."""
+    act = act.lower()
+    if not expand_add_act_supported(act):
+        raise ValueError("expand_add_act: unsupported activation '%s'" % act)
+    return _ExpandAddAct.apply(m, beta_table, ranks, act)
+
+
+class _ActRankedAggregate(torch.autograd.Function):
+    """K12a forward and K12b backward, once per stream slice, on the table
+    cotangent cast to bf16 (the JAX package's act_ranked_aggregate,
+    _aagg_fwd / _aagg_bwd, summed over the slices)."""
+
+    @staticmethod
+    def forward(ctx, table_rows, act, num_slices, *streams_and_ranks):
+        streams = streams_and_ranks[:num_slices]
+        ranks = streams_and_ranks[num_slices:]
+        ctx.save_for_backward(*streams_and_ranks)
+        ctx.act, ctx.num_slices = act, num_slices
+        table = torch.zeros((table_rows, streams[0].shape[1]),
+                            dtype=torch.float32, device=streams[0].device)
+        for msgs, rk in zip(streams, ranks):
+            _act_agg_impl(msgs, rk, table_rows=table_rows, act=act, out=table)
+        return table
+
+    @staticmethod
+    def backward(ctx, g):
+        streams = ctx.saved_tensors[:ctx.num_slices]
+        ranks = ctx.saved_tensors[ctx.num_slices:]
+        g16 = g.to(torch.bfloat16).contiguous()
+        d_streams = [
+            _act_agg_bwd_impl(msgs, g16, rk, act=ctx.act).to(msgs.dtype)
+            for msgs, rk in zip(streams, ranks)]
+        return (None, None, None, *d_streams, *([None] * ctx.num_slices))
+
+
+def act_ranked_aggregate_slices(slices, table_rows: int, act: str = "relu"):
+    """act_ranked_aggregate of several stream slices whose rank rows are
+    DISJOINT (the edge types' slices of the type-major stream), summed:
+    `slices` is a sequence of (msgs, ranks). The JAX package adds up one
+    whole table per slice; with disjoint rows that sum only ever adds
+    zeros, so here every slice's kernel writes into the one table (the
+    same values, without a zero fill, an add and a cotangent cast of the
+    whole table per slice)."""
+    streams, ranks = zip(*slices)
+    return _ActRankedAggregate.apply(table_rows, act.lower(), len(slices),
+                                     *streams, *ranks)
+
+
+def act_ranked_aggregate(msgs, ranks, table_rows: int, act: str = "relu"):
+    """table[r] = sum_{rank_e = r} act(msgs[e]), f32 [table_rows, D]: the
+    fused FiLM aggregate without the modulation tables (GNN-Edge-MLP's
+    outer activation on messages). The backward is one d_msgs-only pass
+    that recomputes act' and expands the table cotangent."""
+    return act_ranked_aggregate_slices([(msgs, ranks)], table_rows, act)
+
+
+# The source-order recompute backward of the type-major Edge-MLP1 pass
+# (the JAX package's emlp1_tm_pass) is off there by default and not ported
+# yet: the layer takes expand_add_act / act_ranked_aggregate instead.
+ENABLE_EMLP1_SRC_PASS = False
+
+
+def emlp1_src_supported(*_args, **_kwargs) -> bool:
+    if ENABLE_EMLP1_SRC_PASS:
+        raise NotImplementedError(
+            "The source-order Edge-MLP1 pass (emlp1_tm_pass) is not yet "
+            "ported to the PyTorch package.")
+    return False
 
 
 # ---- the fused RGAT attention pass (src-order recompute backward) ---------

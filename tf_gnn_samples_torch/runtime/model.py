@@ -90,7 +90,9 @@ def params_from_jax(flat: Dict[str, np.ndarray], device=None):
     (float32 tensors on `device`). The port keeps the JAX names and layouts
     (W [L, D_in, D_out], W_film [L, D, 2D], RGAT's att [L, 2D], a GGNN
     cell's kernel and recurrent_kernel [D, G * D] and bias [G * D] under
-    `.../gnn/cell/`), so the map is name for name."""
+    `.../gnn/cell/`, GNN-Edge-MLP's list of stacked matrices under
+    `.../gnn/edge_mlp/<i>` and its `.../gnn/ln/{scale,bias}`), so the map
+    is name for name; entries whose names are all digits become lists."""
     return _unflatten({k: torch.tensor(np.asarray(v, dtype=np.float32),
                                        device=device)
                        for k, v in flat.items()})
@@ -504,6 +506,38 @@ class GNN_FiLM_Model(SparseGraphModel):
             "normalize_by_num_incoming": self.params[
                 "normalize_messages_by_num_incoming"
             ],
+        }
+
+
+class GNN_Edge_MLP_Model(SparseGraphModel):
+    layer_name = "gnn_edge_mlp"
+
+    @classmethod
+    def default_params(cls):
+        params = super().default_params()
+        params.update({
+            "max_nodes_in_batch": 25000,
+            "hidden_size": 128,
+            "graph_activation_function": "gelu",
+            "message_aggregation_function": "sum",
+            "graph_inter_layer_norm": True,
+            "use_target_state_as_input": True,
+            "num_edge_hidden_layers": 1,
+        })
+        return params
+
+    @staticmethod
+    def name(params):
+        # Parameterised name, as the reference's.
+        return "GNN-Edge-MLP%i" % (params["num_edge_hidden_layers"])
+
+    def layer_kwargs(self):
+        return {
+            "activation_function": self.params["graph_activation_function"],
+            "message_aggregation_function": self.params["message_aggregation_function"],
+            "use_target_state_as_input": self.params["use_target_state_as_input"],
+            "num_edge_hidden_layers": self.params["num_edge_hidden_layers"],
+            "typed_edge_scan": self.params.get("typed_edge_scan", "auto"),
         }
 
 

@@ -1,17 +1,14 @@
 """Name -> class registries and checkpoint restore (counterpart of
-tf_gnn_samples_tpu/utils/registry.py). Ported so far: the GGNN, RGCN, RGAT
-and GNN-FiLM models and the QM9 task; every other name the JAX package
-knows raises "not yet ported"."""
+tf_gnn_samples_tpu/utils/registry.py). Ported so far: the GGNN, RGCN, RGAT,
+GNN-FiLM and GNN-Edge-MLP models and the QM9 task; every other name the
+JAX package knows raises "not yet ported"."""
 
 import pickle
 from typing import Any, Dict, Tuple, Type
 
 _UNPORTED_TASKS = ("ppi", "varmisuse", "citationnetwork", "citation_network",
                    "cora", "citeseer", "pubmed")
-_UNPORTED_MODELS = ("gnn_edge_mlp", "gnn-edge-mlp", "gnn_edge_mlp_model",
-                    "gnn_edge_mlp0", "gnn-edge-mlp0", "gnn_edge_mlp1",
-                    "gnn-edge-mlp1", "rgdcn", "rgdcn_model", "rgin",
-                    "rgin_model")
+_UNPORTED_MODELS = ("rgdcn", "rgdcn_model", "rgin", "rgin_model")
 
 
 def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
@@ -28,8 +25,17 @@ def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
 
 
 def name_to_model_class(name: str) -> Tuple[Type, Dict[str, Any]]:
-    """Model name -> (class, additional params)."""
+    """Model name -> (class, additional params). `gnn_edge_mlp0` and
+    `gnn_edge_mlp1` pin `num_edge_hidden_layers`."""
     name = name.lower()
+    if name in ("gnn_edge_mlp", "gnn-edge-mlp", "gnn_edge_mlp_model",
+                "gnn_edge_mlp0", "gnn-edge-mlp0", "gnn_edge_mlp1",
+                "gnn-edge-mlp1"):
+        from ..runtime.model import GNN_Edge_MLP_Model
+
+        if name[-1] in "01":
+            return GNN_Edge_MLP_Model, {"num_edge_hidden_layers": int(name[-1])}
+        return GNN_Edge_MLP_Model, {}
     if name in ("ggnn", "ggnn_model"):
         from ..runtime.model import GGNN_Model
 
