@@ -4,11 +4,12 @@
 Phases, each of which raises on failure (no phase's failure is caught):
  1. the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels from tf_gnn_samples_torch/csrc/ with nvcc;
- 3. each of the sixteen kernels (K1 film_fwd, K2 film_bwd_dgb, K3
+ 3. each of the nineteen kernels (K1 film_fwd, K2 film_bwd_dgb, K3
     film_src_bwd, K4 film_bwd, K5a segsum, K5b expand, K6a segsum_t, K6b
     expand_t, K7a wseg_t, K7b wseg_t_bwd, K8 wseg_t_dw, K9 rgat_src_bwd,
-    K11a expand_add_act, K11b expand_add_act_bwd, K12a act_agg, K12b
-    act_agg_bwd)
+    K10a typed_dense_agg, K10b typed_dense_agg_bwd, K11a expand_add_act,
+    K11b expand_add_act_bwd, K12a act_agg, K12b act_agg_bwd, K14
+    emlp1_src_bwd)
     at the shapes of the first training batch of the tuned QM9 configs
     (50,000-node packs; 8 attention heads), held against its plain
     PyTorch version on the card, and timed beside its bound and, where
@@ -16,21 +17,26 @@ Phases, each of which raises on failure (no phase's failure is caught):
     are also held against their plain versions on the second table each
     meets on the RGAT path, K12a and K12b on every edge type's slice of
     the type-major stream (the shapes GNN-Edge-MLP1 gives them; they are
-    timed on the largest) and over the whole stream, and K3 and K9 on the
-    DILUTED src stream of a numpy-made graph of PPI-like degree (QM9's
-    streams are undiluted);
+    timed on the largest) and over the whole stream, and K3, K9 and K14
+    on the DILUTED src stream of a numpy-made graph of PPI-like degree
+    (QM9's streams are undiluted);
  4. the main paths: `tf_gnn_samples_torch.train` trains GNN-FiLM (with
     and without normalised messages), RGCN, GGNN, RGAT (on its fused and
-    on its streamed branch, one of the two through a forced gate),
-    GNN-Edge-MLP1 (type-major branch) and GNN-Edge-MLP0 (FiLM kernels) on
-    the bundled QM9 data at their tuned configs for 2 epochs each, then
-    `tf_gnn_samples_torch.test` evaluates each written checkpoint; the
-    kernel launch counters, set to 0 before each run and read after it,
-    must show that every layer of every batch went through its kernels
-    (`expected_launches`) and through no other;
+    on its streamed branch, one of the two through a forced gate), RGIN
+    (ranked branch: K5a both ways), GNN-Edge-MLP1 (type-major branch; its
+    `fused_src1` form with K14, with ENABLE_EMLP1_SRC_PASS set; and its
+    `fused1` branch with K10, through a forced gate that hides the
+    type-major view), GNN-Edge-MLP1 without the target state (ranked
+    branch) and GNN-Edge-MLP0 (FiLM kernels) on the bundled QM9 data at
+    their tuned configs for 2 epochs each, then `tf_gnn_samples_torch.test`
+    evaluates each written checkpoint; the kernel launch counters, set to
+    0 before each run and read after it, must show that every layer of
+    every batch went through its kernels (`expected_launches`) and through
+    no other;
  5. a reference check per path: loss and gradients of the full-width
     model on a small QM9 batch on the card (kernels) against the same
-    model on the CPU (the kernels' plain versions).
+    model on the CPU (the kernels' plain versions), with the same gates
+    forced.
 Usage: python3 chip_smoke.py
 """
 
@@ -50,24 +56,31 @@ DATA = os.path.join(ROOT, "data", "qm9")
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TUNED_OVERRIDES = {"max_epochs": 2}  # everything else: QM9_<model>.json
 # A main path: a model at its tuned config, the overrides that select the
-# path, and for RGAT the branch it is. The branch RGAT's gate picks at the
-# tuned batch trains with the gate as it is (its launches tell which
-# branch ran), the other one through a forced gate. The card-against-CPU
-# reference runs on a small batch, where the gate picks otherwise, and
-# forces both.
-Path = collections.namedtuple("Path", "label model overrides rgat_fused")
+# path, for RGAT the branch it is, and the gate a path forces (`gate`,
+# see forced_gate). The branch RGAT's gate picks at the tuned batch trains
+# with the gate as it is (its launches tell which branch ran), the other
+# one through a forced gate. The card-against-CPU reference runs on a
+# small batch, where the gate picks otherwise, and forces both.
+Path = collections.namedtuple("Path", "label model overrides rgat_fused gate",
+                              defaults=(None, None))
 PATHS = (
-    Path("GNN-FiLM", "GNN-FiLM", {}, None),
+    Path("GNN-FiLM", "GNN-FiLM", {}),
     Path("GNN-FiLM-normalised", "GNN-FiLM",
-         {"normalize_messages_by_num_incoming": True}, None),
-    Path("RGCN", "RGCN", {}, None),
-    Path("GGNN", "GGNN", {}, None),
+         {"normalize_messages_by_num_incoming": True}),
+    Path("RGCN", "RGCN", {}),
+    Path("GGNN", "GGNN", {}),
     Path("RGAT-fused", "RGAT", {}, True),
     Path("RGAT-streamed", "RGAT", {}, False),
-    Path("GNN-Edge-MLP1", "GNN-Edge-MLP1", {}, None),
-    Path("GNN-Edge-MLP0", "GNN-Edge-MLP0", {}, None),
+    Path("GNN-Edge-MLP1", "GNN-Edge-MLP1", {}),
+    Path("GNN-Edge-MLP0", "GNN-Edge-MLP0", {}),
+    Path("RGIN", "RGIN", {}),
+    Path("GNN-Edge-MLP1-fused1", "GNN-Edge-MLP1", {}, gate="no_type_major"),
+    Path("GNN-Edge-MLP1-src", "GNN-Edge-MLP1", {}, gate="emlp1_src"),
+    Path("GNN-Edge-MLP-ranked", "GNN-Edge-MLP1",
+         {"use_target_state_as_input": False}),
 )
 # QM9 has five edge types: the self loops (type 0), which GNN-Edge-MLP1
 # combines node-side, and four that stream through K12.
@@ -90,22 +103,45 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     "expand_add_act_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:717",
     "act_agg": "tf_gnn_samples_tpu/ops/ranked_segment.py:855",
     "act_agg_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:875",
+    "typed_dense_agg": "tf_gnn_samples_tpu/ops/ranked_segment.py:1084",
+    "typed_dense_agg_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:1108",
+    "emlp1_src_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:2305",
 }
 
 
 @contextlib.contextmanager
+def patched(obj, name, value):
+    """obj.name = value for the block."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
 def rgat_branch(rs, fused):
     """Force RGAT's gate (ops/ranked_segment.py rgat_fused_supported) to
     `fused` for the block, as the tests do; None leaves it as it is."""
     if fused is None:
-        yield
-        return
-    gate = rs.rgat_fused_supported
-    rs.rgat_fused_supported = lambda *args, **kwargs: fused
-    try:
-        yield
-    finally:
-        rs.rgat_fused_supported = gate
+        return contextlib.nullcontext()
+    return patched(rs, "rgat_fused_supported", lambda *args, **kwargs: fused)
+
+
+def forced_gate(rs, layers, gate):
+    """Force a GNN-Edge-MLP gate for the block: "no_type_major" hides the
+    type-major view from the layer's branch choice (nn/layers.py
+    tm_available), so the tuned GNN-Edge-MLP1 takes its `fused1` branch
+    (K10); "emlp1_src" sets ops/ranked_segment.py ENABLE_EMLP1_SRC_PASS,
+    so its type-major branch takes the `fused_src1` form (K14). None
+    leaves the gates as they are."""
+    if gate is None:
+        return contextlib.nullcontext()
+    if gate == "no_type_major":
+        return patched(layers, "tm_available", lambda graph: False)
+    if gate == "emlp1_src":
+        return patched(rs, "ENABLE_EMLP1_SRC_PASS", True)
+    raise ValueError("unknown gate %r" % gate)
 
 
 def card_line() -> str:
@@ -217,6 +253,12 @@ def check_kernel(name, got, want, terms_abs, counts, torch, term_ulps=0,
     return max_err
 
 
+def per_row(torch, rows, ranks, x):
+    """f64 [rows, D] sums of the per-edge rows `x` by rank."""
+    return torch.zeros((rows, x.shape[1]), device=x.device,
+                       dtype=torch.float64).index_add_(0, ranks, x.double())
+
+
 def rgat_src_bwd_bounds(torch, rs, gcb, t_ext, ranks, rows, heads):
     """(sum of |term|, number of terms, slack) per entry of K9's output,
     for check_kernel. The terms are K9's plain version with every edge a
@@ -240,15 +282,85 @@ def rgat_src_bwd_bounds(torch, rs, gcb, t_ext, ranks, rows, heads):
     per_edge = torch.cat(
         [torch.zeros((e, dim), device=gcb.device),
          attn * draw_abs * (2 * (dim // heads) * 2.0 ** -24)], 1)
-
-    def per_row(x):
-        return torch.zeros((rows, x.shape[1]), device=gcb.device,
-                           dtype=torch.float64).index_add_(0, ranks,
-                                                           x.double())
-
     counts = torch.zeros(rows, device=gcb.device).index_add_(
         0, ranks, torch.ones(e, device=gcb.device))
-    return per_row(terms.abs()), counts, per_row(per_edge)
+    return (per_row(torch, rows, ranks, terms.abs()), counts,
+            per_row(torch, rows, ranks, per_edge))
+
+
+def typed_abs_products(rs, a, w, types):
+    """|a_e| @ |w[type_e]| per edge, f32 [E, D_out]: the sum of the
+    absolute values of the products an edge's typed product adds up."""
+    return rs._typed_products(a.float().abs(), w.float().abs(), types)
+
+
+def typed_dense_agg_bwd_check(torch, rs, got, want, x, w, dz, types):
+    """K10b's (dx, dW) against the plain version's, for the plain dz (the
+    per-edge bf16 act'(y) * g). dx: each side rounds an f32 sum of D
+    products to bf16, the two sums in other orders (2 gamma_D of their sum
+    of |product| S) and over dz that may differ by a bf16 ulp (2^-7 of
+    |dz|, where y moved across a rounding point): within 2^-7 |dx| + 2^-6
+    S. dW[l]: an f32 sum over the type's n edges of exact products x * dz,
+    in another order (atomics), with the same possible dz ulps: within
+    (2 gamma_n + 2^-7) of its sum of |product|. Returns the larger max
+    |kernel - plain|."""
+    (dx, dw), (dx_want, dw_want) = got, want
+    s_dx = typed_abs_products(rs, dz, w.transpose(1, 2), types)
+    err = (dx.double() - dx_want.double()).abs()
+    bad = int((err > 2.0 ** -7 * dx_want.double().abs()
+               + 2.0 ** -6 * s_dx.double()).sum())
+    a_dw, n = [], []
+    for l in range(w.shape[0]):
+        sel = types == l
+        a_dw.append(torch.matmul(x[sel].float().abs().t(),
+                                 dz[sel].float().abs()))
+        n.append(float(sel.sum()))
+    n = torch.tensor(n, dtype=torch.float64, device=dw.device)[:, None, None]
+    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    err_w = (dw.double() - dw_want.double()).abs()
+    bad_w = int((err_w > (2 * gamma + 2.0 ** -7)
+                 * torch.stack(a_dw).double()).sum())
+    print("  typed_dense_agg_bwd: max |kernel - plain| = %.3e (dx), %.3e "
+          "(dW); entries over the bound: %d, %d"
+          % (float(err.max()), float(err_w.max()), bad, bad_w))
+    if (bad or bad_w or not bool(torch.isfinite(dx.float()).all())
+            or not bool(torch.isfinite(dw).all())):
+        raise AssertionError("typed_dense_agg_bwd disagrees with its plain "
+                             "version")
+    return max(float(err.max()), float(err_w.max()))
+
+
+def emlp1_src_bwd_bounds(torch, rs, gcb, t, cols, w, e_real, ranks, rows,
+                         act):
+    """(sum of |term|, number of terms, slack) per entry of K14's output,
+    for check_kernel (with one bf16 ulp per term). The terms are K14's
+    plain version with every edge a rank of its own. The slack covers the
+    per-edge products: y = bf16(x) @ W and dx = da @ W^T are f32 sums of D
+    products taken in another order by the kernel (2 gamma_D of their sum
+    of |product|), and a y that moves by that may carry da = bf16(act'(y) *
+    g) to the neighbouring bf16 number (2^-7 of |da|), so each dm term may
+    move by elu'(x) * (2 gamma_D + 2^-7) * sum_c |da_c W_kc| beyond its own
+    rounding; 2^-6 covers both."""
+    e = ranks.shape[0]
+    d = t.shape[1]
+    t_rows = t.index_select(0, ranks)
+    c = cols.index_select(0, ranks.long())
+    terms = rs._emlp1_src_bwd_plain(gcb, t_rows, c, w, e_real,
+                                    torch.arange(e, device=gcb.device), e,
+                                    act)
+    g = gcb.float()
+    x = rs._elu(t_rows.float() + g[:, :d])
+    live = (torch.arange(e, device=gcb.device) < e_real)[:, None] & (
+        c >= 0)[:, None]
+    y = rs._typed_products(x.to(torch.bfloat16), w, c)
+    da = torch.where(live, rs._ACTS[act][1](y) * g[:, d:], 0.0).to(
+        torch.bfloat16)
+    slack = (rs._ACTS_FROM_OUT["elu"](x).abs() * 2.0 ** -6
+             * typed_abs_products(rs, da, w.transpose(1, 2), c))
+    counts = torch.zeros(rows, device=gcb.device).index_add_(
+        0, ranks, torch.ones(e, device=gcb.device))
+    return (per_row(torch, rows, ranks, terms.abs()), counts,
+            per_row(torch, rows, ranks, slack))
 
 
 def kernel_phase(torch, rs, dev):
@@ -458,6 +570,61 @@ def kernel_phase(torch, rs, dev):
         return max(err_m, order_check("expand_add_act_bwd d_beta", rpad, tm,
                                       dz11)(dbeta, dbeta_want))
 
+    # K10 inputs, as GNN-Edge-MLP1's fused1 branch builds them (gelu): the
+    # bf16 hidden stream over the receiver-sorted edges, the edge types,
+    # the five types' bf16 W1 and the bf16 coarse table cotangent. The
+    # "other" compositions sort by type first (the split sizes are the
+    # batch's, known before the step, as the type-major view's offsets).
+    types = flat.edge_type
+    n_types = graph.num_edge_types
+    x10, g10 = randn(e, d), randn(rows, d)
+    w10 = (torch.randn((n_types, d, d), generator=gen, device=dev)
+           / math.sqrt(d)).to(torch.bfloat16)
+    y10 = rs._typed_products(x10, w10, types)
+    k10_terms = rs._bf16_terms(gelu(y10))
+    dz10 = (dgelu(y10) * g10.float().index_select(0, rcv)).to(torch.bfloat16)
+    sizes10 = torch.bincount(types, minlength=n_types).tolist()
+
+    def k10a_other():
+        order = torch.argsort(types, stable=True)
+        parts = torch.split(x10.index_select(0, order), sizes10)
+        y = torch.cat([torch.matmul(p, w10[l]) for l, p in enumerate(parts)])
+        return torch.zeros((rows, d), device=dev).index_add_(
+            0, rcv.index_select(0, order),
+            torch.nn.functional.gelu(y.float()).to(torch.bfloat16).float())
+
+    def k10b_other():
+        order = torch.argsort(types, stable=True)
+        xs = torch.split(x10.index_select(0, order), sizes10)
+        gs = torch.split(g10.index_select(0, rcv.index_select(0, order)),
+                         sizes10)
+        dxs, dws = [], []
+        for l, (xp, gp) in enumerate(zip(xs, gs)):
+            dz = (dgelu(torch.matmul(xp, w10[l]).float())
+                  * gp.float()).to(torch.bfloat16)
+            dxs.append(torch.matmul(dz, w10[l].t()))
+            dws.append(torch.matmul(xp.t().float(), dz.float()))
+        return (torch.empty_like(x10).index_copy_(0, order, torch.cat(dxs)),
+                torch.stack(dws))
+
+    # K14 inputs, as the fused_src1 backward builds them: the bf16 beta | g
+    # stream over the src-sorted edges, the bf16 t table over src ranks,
+    # each src rank's compact non-self type, the four streamed types' bf16
+    # weights and the real-edge count.
+    gcb14, t14 = randn(e, 2 * d), randn(rsrc, d)
+    cols14 = rs.src_rank_type_columns(flat.src_from_rank, graph.n_pad,
+                                      flat.tm_self)
+    w14 = (torch.randn((QM9_STREAMED_TYPES, d, d), generator=gen, device=dev)
+           / math.sqrt(d)).to(torch.bfloat16)
+    e_real14 = flat.mask.sum().to(torch.int32).reshape(1)
+    e14_live = int(((cols14.index_select(0, src.long()) >= 0)
+                    & (torch.arange(e, device=dev) < e_real14)).sum())
+    k14_abs, k14_counts, k14_slack = emlp1_src_bwd_bounds(
+        torch, rs, gcb14, t14, cols14, w14, e_real14, src, rsrc, "gelu")
+    k14_terms = rs._emlp1_src_bwd_plain(
+        gcb14, t14.index_select(0, src), cols14.index_select(0, src.long()),
+        w14, e_real14, torch.arange(e, device=dev), e, "gelu")
+
     specs = [
         dict(name="film_fwd",
              kern=lambda: rs._film_fwd_impl(msgs, gb, fine, act=act),
@@ -613,6 +780,61 @@ def kernel_phase(torch, rs, dev):
                         "(leaves out the derivative and the d_m store)",
                         index_add(rpad, tm, dz11))),
         *k12(*slices[big]),
+        # K10a reads the bf16 stream, the types, the ranks and the weights
+        # and writes the used table rows; per element of the output a
+        # D-long product (on the tensor cores: 2 E D^2 bf16 operations)
+        # and gelu.
+        dict(name="typed_dense_agg",
+             kern=lambda: rs._typed_dense_agg_impl(x10, w10, types,
+                                                   rcv, table_rows=rows,
+                                                   act="gelu"),
+             plain=lambda: rs._typed_dense_agg_plain(x10, w10, types, rcv,
+                                                     rows, "gelu"),
+             check=lambda got, want: check_kernel(
+                 "typed_dense_agg", got, want, abs_sums(rows, rcv, k10_terms),
+                 counts(rows, rcv), torch, term_ulps=1),
+             nbytes=(e * d * 2 + 2 * e * 4 + n_types * d * d * 2
+                     + n_rcv * d * 4),
+             nops=30 * e * d, tensor_ops=2 * e * d * d,
+             yardstick=("a stable sort by type, one torch.matmul per type, "
+                        "gelu and index_add_", k10a_other)),
+        # K10b reads the stream, the types, the ranks, the weights and the
+        # used rows of the bf16 cotangent table and writes dx (bf16) and
+        # dW (f32); three D-long products per element (6 E D^2 bf16
+        # operations on the tensor cores) and gelu'.
+        dict(name="typed_dense_agg_bwd",
+             kern=lambda: rs._typed_dense_agg_bwd_impl(x10, w10, g10, types,
+                                                       rcv, act="gelu"),
+             plain=lambda: rs._typed_dense_agg_bwd_plain(x10, w10, g10,
+                                                         types, rcv, "gelu"),
+             check=lambda got, want: typed_dense_agg_bwd_check(
+                 torch, rs, got, want, x10, w10, dz10, types),
+             nbytes=(2 * e * d * 2 + 2 * e * 4 + n_rcv * d * 2
+                     + n_types * d * d * (2 + 4)),
+             nops=45 * e * d, tensor_ops=6 * e * d * d,
+             yardstick=("the matching composition: a stable sort by type, "
+                        "a row gather of the cotangent, three torch.matmul "
+                        "per type, gelu' and index_copy_", k10b_other)),
+        # K14 reads the [E, 2D] beta | g stream, the ranks, the used rows
+        # of the t table and of the type column and the weights and writes
+        # the src-rank table; two D-long products per element of a live
+        # edge of a streamed type (4 E_live D^2 bf16 operations) and the
+        # elu / gelu' recompute.
+        dict(name="emlp1_src_bwd",
+             kern=lambda: rs._emlp1_src_bwd_impl(
+                 gcb14, t14, cols14, w14, e_real14, src, table_rows=rsrc,
+                 act="gelu"),
+             plain=lambda: rs._emlp1_src_bwd_plain(
+                 gcb14, t14, cols14, w14, e_real14, src, rsrc, "gelu"),
+             check=lambda got, want: check_kernel(
+                 "emlp1_src_bwd", got, want, k14_abs, k14_counts, torch,
+                 term_ulps=1, slack=k14_slack),
+             nbytes=(e * 2 * d * 2 + e * 4 + n_src * (d * 2 + 4)
+                     + 4 * d * d * 2 + rsrc * d * 4),
+             nops=60 * e * d, tensor_ops=4 * e14_live * d * d,
+             yardstick=("torch.Tensor.index_add_ of the precomputed terms "
+                        "(leaves out the row gathers and the two typed "
+                        "products per edge)", index_add(rsrc, src, k14_terms))),
     ]
     # The RGAT path gives each K6 kernel two tables: K6a also sums the
     # target logits' cotangent over the fine ranks (shorter runs, more
@@ -668,7 +890,10 @@ def kernel_phase(torch, rs, dev):
         ms = cuda_ms(timed, torch)
         plain_ms = cuda_ms(spec["plain"], torch)
         bound_bytes_ms = spec["nbytes"] / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms = spec["nops"] / F32_FLOPS * 1e3
+        # Elementwise work at the f32 rate; typed products (K10, K14) at
+        # the bf16 tensor-core rate, the least time they could take.
+        bound_ops_ms = max(spec["nops"] / F32_FLOPS,
+                           spec.get("tensor_ops", 0) / BF16_TENSOR_FLOPS) * 1e3
         bound_ms = max(bound_bytes_ms, bound_ops_ms)
         row = {
             "name": name, "route": "cuda",
@@ -679,7 +904,12 @@ def kernel_phase(torch, rs, dev):
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
             "library_ms": None,
             "queued_ms": cuda_queued_ms(timed, torch),
+            "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
         }
+        if "tensor_ops" in spec:
+            # What a kernel that forms the products with scalar f32
+            # multiplies and adds, as K10 and K14 do, runs against.
+            row["products_at_f32_ms"] = spec["tensor_ops"] / F32_FLOPS * 1e3
         if "library" in spec:
             what, fn = spec["library"]
             row["library_ms"] = cuda_ms(fn, torch)
@@ -694,9 +924,10 @@ def kernel_phase(torch, rs, dev):
             other = "no single PyTorch call computes this function"
         print("  %s: kernel %.4f ms (%.4f ms queued behind a busy card), "
               "plain %.4f ms; bound %.4f ms (%d bytes at 3.35 TB/s; %d f32 "
-              "ops at 67 TFLOP/s); %s"
-              % (name, ms, row["queued_ms"], plain_ms, bound_ms,
-                 spec["nbytes"], spec["nops"], other))
+              "ops at 67 TFLOP/s; %d bf16 tensor-core ops at 989 TFLOP/s); "
+              "%s" % (name, ms, row["queued_ms"], plain_ms, bound_ms,
+                      spec["nbytes"], spec["nops"],
+                      spec.get("tensor_ops", 0), other))
         if name in extra:
             # The row is the largest slice; the main path launches the
             # kernel once per streamed type, so a launch's mean time over
@@ -738,7 +969,7 @@ def ppi_like_graph(dev, seed=0, num_nodes=8192, degree=14):
 
 
 def diluted_phase(torch, rs, dev, graph, seed=0):
-    """K3 and K9 on a DILUTED src stream. The tuned QM9 batches have no
+    """K3, K9 and K14 on a DILUTED src stream. The tuned QM9 batches have no
     fine rank window, so their src streams are undiluted; `graph`
     (ppi_like_graph) dilutes. Fill slots carry the SD_FILL key, which the
     passes clamp onto a zero row appended to their side table: both
@@ -798,6 +1029,25 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
                                 num_heads=heads, clamp=50.0),
           rs._rgat_src_bwd_plain(gcb9, t9, ranks, rsrc, heads, 50.0),
           k9_abs, term_ulps=1, slack=k9_slack)
+    # K14 on the diluted stream: the graph's self-loop type has no column;
+    # fill slots carry zero beta | g rows.
+    cols14 = rs.src_rank_type_columns(flat.src_from_rank, graph.n_pad,
+                                      flat.tm_self)
+    n_types = graph.num_edge_types
+    gcb14 = randn(e_sd, 2 * d)
+    gcb14[fine == int(SD_FILL)] = 0
+    t14 = randn(rsrc, d)
+    w14 = (torch.randn((n_types - 1, d, d), generator=gen, device=dev)
+           / math.sqrt(d)).to(torch.bfloat16)
+    e_real = torch.tensor([e_sd], dtype=torch.int32, device=dev)
+    k14_abs, _, k14_slack = emlp1_src_bwd_bounds(
+        torch, rs, gcb14, t14, cols14, w14, e_real, ranks, rsrc, "gelu")
+    check("emlp1_src_bwd",
+          rs._emlp1_src_bwd_impl(gcb14, t14, cols14, w14, e_real, ranks,
+                                 table_rows=rsrc, act="gelu"),
+          rs._emlp1_src_bwd_plain(gcb14, t14, cols14, w14, e_real, ranks,
+                                  rsrc, "gelu"),
+          k14_abs, term_ulps=1, slack=k14_slack)
     torch.cuda.synchronize()
 
 
@@ -895,9 +1145,26 @@ def expected_launches(label, layers, n_fwd, n_bwd):
     K6a for the target logits' cotangent and K9. GNN-Edge-MLP0 is the
     fused FiLM pass (K1; K2 and K3). A GNN-Edge-MLP1 layer runs K11a once
     and K12a once per streamed edge type forward; backward K12b per
-    streamed type, K11b and K5a (the type-major gather's backward)."""
+    streamed type, K11b and K5a (the type-major gather's backward), or in
+    its fused_src1 form K14 in place of that K5a. Its fused1 branch runs
+    K5b (the target halves' expand) and K10a forward; K10b and two K5a
+    (the backwards of the expand and of the source gather) backward. RGIN
+    and GNN-Edge-MLP without the target state run the fused gather +
+    segment-sum: K5a forward and K5a backward."""
     want = {k: 0 for k in REPLACES}
-    if label in ("GNN-FiLM", "GNN-Edge-MLP0"):
+    if label in ("RGIN", "GNN-Edge-MLP-ranked"):
+        want.update(segsum=layers * (n_fwd + n_bwd))
+    elif label == "GNN-Edge-MLP1-fused1":
+        want.update(expand=layers * n_fwd, typed_dense_agg=layers * n_fwd,
+                    typed_dense_agg_bwd=layers * n_bwd,
+                    segsum=2 * layers * n_bwd)
+    elif label == "GNN-Edge-MLP1-src":
+        want.update(expand_add_act=layers * n_fwd,
+                    act_agg=layers * n_fwd * QM9_STREAMED_TYPES,
+                    act_agg_bwd=layers * n_bwd * QM9_STREAMED_TYPES,
+                    expand_add_act_bwd=layers * n_bwd,
+                    emlp1_src_bwd=layers * n_bwd)
+    elif label in ("GNN-FiLM", "GNN-Edge-MLP0"):
         want.update(film_fwd=layers * n_fwd, film_bwd_dgb=layers * n_bwd,
                     film_src_bwd=layers * n_bwd)
     elif label == "GNN-FiLM-normalised":
@@ -1101,8 +1368,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from tf_gnn_samples_torch.nn import layers
     from tf_gnn_samples_torch.ops import cuda_build
     from tf_gnn_samples_torch.ops import ranked_segment as rs
+
+    # Full f32 products in the plain versions and the models, as the
+    # runtime sets for its models.
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     card = card_line()
     print(card)
@@ -1131,9 +1403,10 @@ def main() -> int:
     for path in PATHS:
         forced = (None if path.rgat_fused in (None, card_default)
                   else path.rgat_fused)
-        print("%s: RGAT gate %s" % (path.label, "as it is" if forced is None
-                                    else "forced to %s" % forced))
-        with rgat_branch(rs, forced):
+        print("%s: RGAT gate %s, forced gate %s"
+              % (path.label, "as it is" if forced is None
+                 else "forced to %s" % forced, path.gate))
+        with rgat_branch(rs, forced), forced_gate(rs, layers, path.gate):
             launches, (times, per_step) = main_path_phase(rs, path)
         for name, n in launches.items():
             total[name] += n
@@ -1148,7 +1421,8 @@ def main() -> int:
         k["launches"] = total[k["name"]]
     rgat_branch_phase(torch, rs, torch.device("cuda"), ppi_graph)
     for path in PATHS:
-        with rgat_branch(rs, path.rgat_fused):
+        with rgat_branch(rs, path.rgat_fused), forced_gate(rs, layers,
+                                                            path.gate):
             reference_phase(torch, rs, path)
 
     print(card)

@@ -1,10 +1,12 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version (the FiLM kernels K1-K4 for every activation, the ranked
 segment-sum for an f32 and a bf16 stream, the ranked expand exactly, the
-head-major attention kernels K6, K7 and K8, and K9 on an undiluted and a
-diluted src stream), the wrappers' checks and launch counts, and the
-GNN-FiLM (fused and normalised), RGCN, GGNN and RGAT (fused and streamed)
-layers on the card against the CPU.
+head-major attention kernels K6, K7 and K8, K9 and K14 on an undiluted
+and a diluted src stream, the GNN-Edge-MLP1 kernels K10, K11 and K12), the
+wrappers' checks and launch counts, and the GNN-FiLM (fused and
+normalised), RGCN, GGNN, RGAT (fused and streamed), RGIN and GNN-Edge-MLP
+(type-major with and without K14, fused1, fused0, ranked) layers on the
+card against the CPU.
 
 Marked `cuda`; every test skips without a GPU. This file imports no JAX,
 so it runs where JAX is absent (the repository's conftest imports it):
@@ -15,10 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_kernel, rgat_src_bwd_bounds
+from chip_smoke import (check_kernel, emlp1_src_bwd_bounds,
+                        rgat_src_bwd_bounds, typed_dense_agg_bwd_check)
 from tf_gnn_samples_torch.nn import layers
 from tf_gnn_samples_torch.ops import ranked_segment as rs
-from tf_gnn_samples_torch.ops.graph import graph_to_device, pad_graph_batch
+from tf_gnn_samples_torch.ops.graph import (SD_FILL, graph_to_device,
+                                            pad_graph_batch)
 
 pytestmark = pytest.mark.cuda
 
@@ -807,3 +811,197 @@ def test_edge_mlp_layer_on_card_matches_cpu(dev, ranked_graph, kind):
         # per-type bf16 products sum in another order on the card.
         rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
         assert rel < 2e-3, rel
+
+
+# ---- K10, K14: the typed dense aggregate and the Edge-MLP1 source pass -------
+
+# (D_h, D): the tuned width, two widths that are no multiple of 8 and D_h
+# != D; K10b stages 128 x (D_h + D) bf16 values, above 48 KB from 96 on.
+K10_CASES = [(128, 128), (44, 44), (64, 200)]
+
+
+@pytest.mark.parametrize("dh,d", K10_CASES)
+@pytest.mark.parametrize("act", sorted(rs.ACT_IDS))
+def test_typed_dense_agg_matches_plain_on_card(dev, ranked_graph, act, dh, d):
+    """K10a and K10b against their plain versions over the receiver-sorted
+    stream and its edge types (a few set out of range: they add nothing).
+    The kernels form each product in f32 in another order than the plain
+    version's matmul: each rounded term may differ by one bf16 ulp
+    (check_kernel with term_ulps=1; typed_dense_agg_bwd_check states the
+    bounds of dx and dW)."""
+    flat = ranked_graph.flat
+    ranks, rows = flat.rcv_rank, rs.rank_table_rows(ranked_graph.n_pad, 256)
+    e = ranks.shape[0]
+    types = flat.edge_type.clone()
+    types[::101] = ranked_graph.num_edge_types
+    gen = torch.Generator(device=dev).manual_seed(dh + d)
+    x = torch.randn((e, dh), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((ranked_graph.num_edge_types, dh, d), generator=gen,
+                     device=dev) / np.sqrt(dh)).to(torch.bfloat16)
+    g16 = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    before = dict(rs.LAUNCHES)
+    got = rs._typed_dense_agg_impl(x, w, types, ranks, table_rows=rows,
+                                   act=act)
+    dx, dw = rs._typed_dense_agg_bwd_impl(x, w, g16, types, ranks, act=act)
+    torch.cuda.synchronize()
+    assert {k: rs.LAUNCHES[k] - before[k] for k in before} == dict(
+        {k: 0 for k in before}, typed_dense_agg=1, typed_dense_agg_bwd=1)
+    assert got.dtype == torch.float32 and got.shape == (rows, d)
+    assert dx.dtype == torch.bfloat16 and dx.shape == (e, dh)
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    fn, dact = rs._ACTS[act]
+    y = rs._typed_products(x, w, types)
+    check_kernel("typed_dense_agg", got,
+                 rs._typed_dense_agg_plain(x, w, types, ranks, rows, act),
+                 *_order_inputs(dev, ranks, rows, rs._bf16_terms(fn(y))),
+                 torch, term_ulps=1)
+    valid = (types < ranked_graph.num_edge_types)[:, None]
+    dz = torch.where(valid, dact(y) * g16.float().index_select(0, ranks),
+                     0.0).to(torch.bfloat16)
+    typed_dense_agg_bwd_check(
+        torch, rs, (dx, dw),
+        rs._typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act),
+        x, w, dz, types)
+    assert (dx[~valid[:, 0]] == 0).all()
+
+
+@pytest.mark.parametrize("d", [128, 44])
+@pytest.mark.parametrize("stream", ["undiluted", "diluted"])
+def test_emlp1_src_bwd_matches_plain_on_card(dev, ranked_graph, diluted_graph,
+                                            stream, d):
+    """K14 over the src-sorted stream of a graph with a self-loop type
+    (its src ranks get no column) and over a diluted one (zero beta | g
+    rows at the fill slots): the recomputed terms within the order bound,
+    one bf16 ulp each and the per-edge products' slack
+    (emlp1_src_bwd_bounds); slots at or past e_real add nothing."""
+    g = ranked_graph if stream == "undiluted" else diluted_graph
+    flat = g.flat
+    ranks = flat.src_sorted_rank if stream == "undiluted" else flat.sd_rank
+    e, rows = ranks.shape[0], flat.src_from_rank.shape[0]
+    nonself = [l for l, s in enumerate(flat.tm_self) if not s]
+    cols = rs.src_rank_type_columns(flat.src_from_rank, g.n_pad, flat.tm_self)
+    assert any(flat.tm_self) and (cols >= 0).any()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    gcb = torch.randn((e, 2 * d), generator=gen, device=dev)
+    if stream == "diluted":
+        gcb[flat.sd_fine == int(SD_FILL)] = 0.0
+    gcb = gcb.to(torch.bfloat16)
+    t = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((len(nonself), d, d), generator=gen, device=dev)
+         / np.sqrt(d)).to(torch.bfloat16)
+    e_real = torch.tensor([e - 500], dtype=torch.int32, device=dev)
+    before = rs.LAUNCHES["emlp1_src_bwd"]
+    got = rs._emlp1_src_bwd_impl(gcb, t, cols, w, e_real, ranks,
+                                 table_rows=rows, act="gelu")
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["emlp1_src_bwd"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (rows, d)
+    want = rs._emlp1_src_bwd_plain(gcb, t, cols, w, e_real, ranks, rows,
+                                   "gelu")
+    abs_sums, counts, slack = emlp1_src_bwd_bounds(
+        torch, rs, gcb, t, cols, w, e_real, ranks, rows, "gelu")
+    check_kernel("emlp1_src_bwd", got, want, abs_sums, counts, torch,
+                 term_ulps=1, slack=slack)
+    fed = torch.zeros(rows, dtype=torch.bool, device=dev)
+    fed[ranks[:e - 500].long()] = True
+    assert (got[~fed] == 0).all()
+
+
+def test_k10_k14_wrappers_refuse_what_the_kernels_do_not_take(dev,
+                                                             ranked_graph):
+    flat = ranked_graph.flat
+    ranks = flat.rcv_rank
+    e, types = ranks.shape[0], flat.edge_type
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    x, w = torch.zeros((e, 16), **bf), torch.zeros((5, 16, 16), **bf)
+    g16 = torch.zeros((8, 16), **bf)
+    before = dict(rs.LAUNCHES)
+    with pytest.raises(TypeError):  # f32 weights
+        rs._typed_dense_agg_impl(x, w.float(), types, ranks, table_rows=8,
+                                 act="gelu")
+    with pytest.raises(TypeError):  # int64 types
+        rs._typed_dense_agg_impl(x, w, types.long(), ranks, table_rows=8,
+                                 act="gelu")
+    with pytest.raises(TypeError):  # an f32 cotangent table
+        rs._typed_dense_agg_bwd_impl(x, w, g16.float(), types, ranks,
+                                     act="gelu")
+    with pytest.raises(ValueError):  # a stream that is a column slice
+        rs._typed_dense_agg_impl(torch.zeros((e, 32), **bf)[:, :16], w, types,
+                                 ranks, table_rows=8, act="gelu")
+    src = flat.src_sorted_rank
+    rows = flat.src_from_rank.shape[0]
+    cols = torch.zeros(rows, device=dev, dtype=torch.int32)
+    e_real = torch.tensor([e], device=dev, dtype=torch.int32)
+    with pytest.raises(TypeError):  # an int64 e_real
+        rs._emlp1_src_bwd_impl(torch.zeros((e, 32), **bf),
+                               torch.zeros((rows, 16), **bf), cols,
+                               torch.zeros((1, 16, 16), **bf), e_real.long(),
+                               src, table_rows=rows, act="gelu")
+    assert rs.LAUNCHES == before  # nothing refused was launched
+
+
+def _layer_on_card_and_cpu(dev, graph, apply, params, d, seed, **kw):
+    """One layer step, forward and gradients, on the card and on the CPU
+    (plain versions): ([out, dh, dW...] per device, the card's launches)."""
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((graph.n_pad, d)).astype(np.float32)
+    w = rng.standard_normal((graph.n_pad, d)).astype(np.float32)
+    results, launches = [], None
+    for device in (dev, torch.device("cpu")):
+        g = graph_to_device(graph, device)
+        p = {"edge_mlp": [torch.tensor(v, device=device, requires_grad=True)
+                          for v in params],
+             "ln": {"scale": torch.ones(d, device=device),
+                    "bias": torch.zeros(d, device=device)}}
+        hh = torch.tensor(h, device=device, requires_grad=True)
+        before = dict(rs.LAUNCHES)
+        out = apply(p, g, hh, **kw)
+        (out * torch.tensor(w, device=device)).sum().backward()
+        if device.type == "cuda":
+            launches = {k: rs.LAUNCHES[k] - before[k] for k in before
+                        if rs.LAUNCHES[k] > before[k]}
+        results.append([x.detach().cpu().numpy() for x in
+                        [out, hh.grad] + [v.grad for v in p["edge_mlp"]]])
+    return results, launches
+
+
+@pytest.mark.parametrize("branch", ["fused1", "fused_src1", "ranked",
+                                    "rgin"])
+def test_new_branches_on_card_match_cpu(dev, ranked_graph, monkeypatch,
+                                        branch):
+    """GNN-Edge-MLP1's fused1 (the type-major view hidden from the gate:
+    K5b and K10a forward; K10b and two K5a backward) and fused_src1
+    (ENABLE_EMLP1_SRC_PASS set: K14 in place of the type-major gather's
+    K5a), GNN-Edge-MLP's ranked branch and RGIN's (K5a both ways), one
+    layer step on the card against the CPU."""
+    streamed = sum(not s for s in ranked_graph.flat.tm_self)
+    d, num_types = 64, ranked_graph.num_edge_types
+    rng = np.random.default_rng(7)
+    target = branch in ("fused1", "fused_src1")
+    sizes = [2 * d if target else d, d, d]
+    params = [(rng.standard_normal((num_types, a, b)) / np.sqrt(a)).astype(
+        np.float32) for a, b in zip(sizes[:-1], sizes[1:])]
+    apply, kw = layers.gnn_edge_mlp_apply, dict(
+        activation_function="gelu", use_target_state_as_input=target)
+    if branch == "fused1":
+        monkeypatch.setattr(layers, "tm_available", lambda graph: False)
+        own = dict(expand=1, typed_dense_agg=1, typed_dense_agg_bwd=1,
+                   segsum=2)
+    elif branch == "fused_src1":
+        monkeypatch.setattr(rs, "ENABLE_EMLP1_SRC_PASS", True)
+        own = dict(expand_add_act=1, act_agg=streamed, act_agg_bwd=streamed,
+                   expand_add_act_bwd=1, emlp1_src_bwd=1)
+    else:
+        own = dict(segsum=2)
+        if branch == "rgin":
+            apply, kw = layers.rgin_apply, dict(activation_function="elu")
+    results, launches = _layer_on_card_and_cpu(dev, ranked_graph, apply,
+                                               params, d, 8, **kw)
+    assert launches == own
+    for card, cpu in zip(*results):
+        # As for the other layers: a few streamed values round to the
+        # neighbouring bf16 number on one device (2^-8 relative each); the
+        # typed products sum in another order on the card.
+        rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
+        assert rel < 2e-3, rel
+

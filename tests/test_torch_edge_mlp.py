@@ -281,7 +281,7 @@ def test_edge_mlp_wrappers_check_their_arguments():
     assert t_rs.expand_add_act_supported("ELU")
     assert not t_rs.expand_add_act_supported("gelu")
     assert t_rs.ENABLE_EMLP1_SRC_PASS is False
-    assert t_rs.emlp1_src_supported("gelu", 4096, 64, 1, 100, 100) is False
+    assert t_rs.emlp1_src_supported("gelu", 1) is False
     assert (j_rs.ENABLE_EMLP1_SRC_PASS is False
             and set(t_rs._ACTS_FROM_OUT) == set(j_rs._ACTS_FROM_OUT))
 
@@ -378,9 +378,9 @@ def test_plain_branch_matches_jax_unrolled(loop_graphs, ppi_graphs, hidden,
 
 def test_configurations_without_a_kernel_branch_take_the_plain_one(
         loop_graphs):
-    """No target state (JAX's `ranked` branch, not ported), two hidden
-    layers, max aggregation or "unroll" take the plain branch; "scan" and
-    "always" raise."""
+    """Two hidden layers with the target state, normalised messages with
+    a hidden layer, max aggregation or "unroll" take the plain branch; no
+    target state takes the ranked one; "scan" and "always" raise."""
     _, tg = loop_graphs
     base = dict(activation_function="gelu",
                 message_aggregation_function="sum",
@@ -393,8 +393,9 @@ def test_configurations_without_a_kernel_branch_take_the_plain_one(
     assert t_layers.edge_mlp_branch(
         tg, **dict(base, num_edge_hidden_layers=0,
                    normalize_by_num_incoming=True)) == "fused0"
-    for change in (dict(use_target_state_as_input=False),
-                   dict(num_edge_hidden_layers=2),
+    assert t_layers.edge_mlp_branch(
+        tg, **dict(base, use_target_state_as_input=False)) == "ranked"
+    for change in (dict(num_edge_hidden_layers=2),
                    dict(normalize_by_num_incoming=True),
                    dict(message_aggregation_function="max"),
                    dict(activation_function="selu"),

@@ -267,7 +267,7 @@ def test_device_defaults_to_cuda():
 
 def test_unported_names_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_registry.name_to_model_class("RGIN")
+        t_registry.name_to_model_class("RGDCN")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         t_registry.name_to_task_class("PPI")
     with pytest.raises(ValueError):

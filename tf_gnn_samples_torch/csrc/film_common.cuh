@@ -2,9 +2,10 @@
 // film_bwd_dgb.cu, film_src_bwd.cu) and of the other sorted-rank
 // reductions and activation passes (segsum.cu, segsum_t.cu, wseg_t.cu,
 // rgat_src_bwd.cu, expand_add_act.cu, expand_add_act_bwd.cu, act_agg.cu,
-// act_agg_bwd.cu): the activations of the JAX package's
+// act_agg_bwd.cu, typed_dense_agg.cu, typed_dense_agg_bwd.cu,
+// emlp1_src_bwd.cu): the activations of the JAX package's
 // `_ACTS` table (tf_gnn_samples_tpu/ops/ranked_segment.py), bf16 rounding,
-// and the segment flush of the sorted-rank reduction.
+// the segment flush of the sorted-rank reduction and the launches.
 //
 // These kernels are segmented reductions over a stream whose ranks are
 // nondecreasing and gap-free. A block owns CHUNK consecutive edges, its
@@ -104,6 +105,22 @@ inline dim3 block_for(int dim) {
   return dim3(dim < MAX_THREADS ? ((dim + 31) / 32) * 32 : MAX_THREADS);
 }
 
+// Launches `kernel` with `smem` bytes of dynamic shared memory, first
+// raising the kernel's limit where `smem` is over the 48 KB default;
+// returns the CUDA error of the launch.
+template <typename... Params, typename... Args>
+inline int launch_smem(void (*kernel)(Params...), dim3 grid, dim3 block,
+                       size_t smem, cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, block, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace film
 
 // Launches KERNEL<ACT> for the runtime activation id `act`; returns
@@ -116,5 +133,18 @@ inline dim3 block_for(int dim) {
     case film::ELU: KERNEL<film::ELU><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__); break;               \
     case film::TANH: KERNEL<film::TANH><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__); break;             \
     case film::GELU: KERNEL<film::GELU><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__); break;             \
+    default: return static_cast<int>(cudaErrorInvalidValue);                  \
+  }
+
+// Returns film::launch_smem of KERNEL<ACT> for the runtime activation id
+// `act`, or cudaErrorInvalidValue for an unknown id.
+#define FILM_DISPATCH_ACT_SMEM(act, KERNEL, GRID, BLOCK, SMEM, STREAM, ...)   \
+  switch (act) {                                                              \
+    case film::LINEAR: return film::launch_smem(KERNEL<film::LINEAR>, GRID, BLOCK, SMEM, STREAM, __VA_ARGS__);         \
+    case film::RELU: return film::launch_smem(KERNEL<film::RELU>, GRID, BLOCK, SMEM, STREAM, __VA_ARGS__);             \
+    case film::LEAKY_RELU: return film::launch_smem(KERNEL<film::LEAKY_RELU>, GRID, BLOCK, SMEM, STREAM, __VA_ARGS__); \
+    case film::ELU: return film::launch_smem(KERNEL<film::ELU>, GRID, BLOCK, SMEM, STREAM, __VA_ARGS__);               \
+    case film::TANH: return film::launch_smem(KERNEL<film::TANH>, GRID, BLOCK, SMEM, STREAM, __VA_ARGS__);             \
+    case film::GELU: return film::launch_smem(KERNEL<film::GELU>, GRID, BLOCK, SMEM, STREAM, __VA_ARGS__);             \
     default: return static_cast<int>(cudaErrorInvalidValue);                  \
   }

@@ -1,8 +1,8 @@
 """Weight initializers matching the TF1 layers the reference uses
 (counterpart of tf_gnn_samples_tpu/nn/initializers.py).
 
-Every initializer draws from an explicit `torch.Generator`; the numbers
-differ from jax.random's for the same seed, the distributions do not.
+Every initializer draws from an explicit `torch.Generator`; for the same
+seed the numbers are not the JAX package's, the distributions are.
 """
 
 import math

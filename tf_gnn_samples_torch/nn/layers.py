@@ -1,8 +1,10 @@
 """Relational message-passing layers (counterpart of
 tf_gnn_samples_tpu/nn/layers.py). Ported so far: GGNN, RGCN, RGAT (its
 fused, streamed and plain branches), GNN-FiLM (its gather-fused, ranked
-and plain branches), GNN-Edge-MLP (its type-major, FiLM-kernel and plain
-branches).
+and plain branches), GNN-Edge-MLP (its type-major branch with and without
+the source-order recompute, its typed-dense, FiLM-kernel, ranked and plain
+branches) and RGIN (its ranked, unrolled and bare branches). RGDCN is
+still to port.
 
 Each layer is a pair of functions over plain dicts of tensors:
     <name>_init(gen, num_edge_types, state_dim, **cfg) -> params
@@ -19,6 +21,8 @@ from ..ops.edge_ops import (
     aggregate_flat_ranked,
     dense_aggregate_linear,
     fine_table_to_nodes,
+    gather_aggregate_src,
+    gather_aggregate_src_ok,
     gather_flat_src,
     gather_flat_src_ranked,
     gather_flat_tgt,
@@ -38,6 +42,7 @@ from ..ops.graph import GraphBatch
 from .activations import _leaky_relu_02, get_activation
 from .cells import cell_apply, cell_init
 from .initializers import stacked_glorot_uniform
+from .mlp import mlp_apply, mlp_init
 from .normalization import layer_norm, layer_norm_init
 
 
@@ -466,53 +471,81 @@ def gnn_edge_mlp_init(gen, num_edge_types, state_dim,
 _inner_elu = get_activation("elu")
 
 
+def _refuse_typed_scan(typed_edge_scan: str) -> None:
+    """"scan" / "always" select the per-type scan of ops/typed_stream.py,
+    which is not ported: raise."""
+    if typed_edge_scan in ("scan", "always"):
+        raise NotImplementedError(
+            "typed_edge_scan '%s' (the per-type scan of ops/typed_stream.py, "
+            "ROADMAP Queue 1 item 5) is not yet ported to the PyTorch "
+            "package." % typed_edge_scan)
+
+
 def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
                     message_aggregation_function: str,
                     normalize_by_num_incoming: bool,
                     use_target_state_as_input: bool,
                     num_edge_hidden_layers: int,
                     typed_edge_scan: str) -> str:
-    """Which branch GNN-Edge-MLP takes: "tmajor1" (K5a, K11, K12 over the
-    type-major stream), "fused0" (the FiLM kernels K1-K3) or "plain" (f32
-    PyTorch).
+    """Which branch GNN-Edge-MLP takes, for `typed_edge_scan` "auto":
+
+    * "tmajor1" (target state, one hidden layer, sum, no normalisation,
+      the type-major view present; the tuned GNN-Edge-MLP1): K11a and one
+      K12a per non-self edge type forward; K12b per non-self type, K11b
+      and K5a (the type-major gather's backward) backward. With
+      ops/ranked_segment.py ENABLE_EMLP1_SRC_PASS on (off by default, as
+      in the JAX package) it takes its `fused_src1` form: the same
+      forward, and K14 in place of the gather's backward;
+    * "fused1" (the same configuration on a batch without the type-major
+      view; every batch that pad_graph_batch builds has it, so only a
+      caller that withholds the view reaches it): K5b expands the target
+      halves and the typed dense aggregate K10a runs the W1 products, the
+      activation and the aggregation forward; K10b, and K5a for the
+      expand's and the source gather's backward;
+    * "fused0" (target state, no hidden layer, sum; the tuned
+      GNN-Edge-MLP0): the FiLM kernels K1-K3 with gamma = 1 or 1/c;
+    * "ranked" (no target state, a sum-family aggregation on a ranked
+      stream): the whole MLP on the node tables, then one bf16 gather and
+      ranked aggregation, the fused gather + segment-sum with its
+      source-order backward (K5a both ways; RGIN's branch too), or with
+      normalised messages the ranked gather and aggregation (K5a forward;
+      K5b and K5a backward);
+    * "plain" (everything else, and "unroll"): f32 PyTorch.
 
     These are the JAX package's gates (nn/layers.py gnn_edge_mlp_apply)
     with their semantic terms kept and their rank-window, VMEM and device
     terms dropped: the CUDA kernels walk sorted ranks in device memory,
     need no window and keep no table on chip, so no shape rules them out
-    (on the TPU the tuned QM9 batch, whose fine window is 0, runs the
+    (on the TPU the tuned QM9 batch, whose rank windows are 0, runs the
     unrolled XLA branch). The rule is the same on the CPU, so that a batch
-    takes the same branch on every device.
-
-    Not ported yet, so these configurations take the plain branch here:
-    the JAX package's `ranked` branch (no target state: node-side MLP and
-    one ranked aggregation, shared with RGIN) and its `fused1` branch (the
-    typed dense aggregate kernel for batches without the type-major view;
-    every batch of the port has that view). `typed_edge_scan` "unroll"
-    forces the plain branch; "scan" / "always" (ops/typed_stream.py, the
-    per-type scan for many edge types) raise NotImplementedError."""
-    if typed_edge_scan in ("scan", "always"):
-        raise NotImplementedError(
-            "typed_edge_scan '%s' (the per-type scan of ops/typed_stream.py, "
-            "ROADMAP Queue 1 item 12) is not yet ported to the PyTorch "
-            "package." % typed_edge_scan)
-    kernels = (use_target_state_as_input
-               and typed_edge_scan == "auto"
-               and message_aggregation_function in ("sum",
-                                                    "unsorted_segment_sum")
+    takes the same branch on every device. "scan" / "always"
+    (ops/typed_stream.py, the per-type scan for many edge types) raise
+    NotImplementedError."""
+    _refuse_typed_scan(typed_edge_scan)
+    if typed_edge_scan != "auto":
+        return "plain"
+    if not use_target_state_as_input:
+        if ranked_aggregation_ok(graph, message_aggregation_function):
+            return "ranked"
+        return "plain"
+    kernels = (message_aggregation_function in ("sum", "unsorted_segment_sum")
                and rs.film_act_supported(activation_function))
-    if (kernels and num_edge_hidden_layers == 1
-            and not normalize_by_num_incoming and tm_available(graph)):
-        return "tmajor1"
+    if kernels and num_edge_hidden_layers == 1 and not normalize_by_num_incoming:
+        if tm_available(graph):
+            return "tmajor1"
+        if ranked_aggregation_ok(graph, "sum") and rs.typed_dense_agg_supported(
+                graph.num_edge_types, activation_function):
+            return "fused1"
     if kernels and num_edge_hidden_layers == 0:
         return "fused0"
     return "plain"
 
 
-def _typed_mlp_messages_flat(h, weights, graph, concat_target):
+def _typed_mlp_messages_flat(h, weights, graph, concat_target,
+                             inner_act=_inner_elu):
     """Stacked per-type edge MLP over the flat stream, in f32: the first
-    linear layer node-sided, the later ones per edge with elu in front
-    (the JAX package's _typed_mlp_messages). The later layers' weight
+    linear layer node-sided, the later ones per edge with `inner_act` in
+    front (the JAX package's _typed_mlp_messages). The later layers' weight
     depends on the edge's type, so the stream is brought into type-major
     order (a stable sort by type of the receiver-sorted stream is exactly
     that order), each type's slice multiplies its own matrix, and the
@@ -528,10 +561,34 @@ def _typed_mlp_messages_flat(h, weights, graph, concat_target):
     sizes = [b - a for a, b in zip(flat.tm_offs[:-1], flat.tm_offs[1:])]
     msgs = msgs.index_select(0, perm)
     for W in weights[1:]:
-        parts = torch.split(_inner_elu(msgs), sizes)
+        parts = torch.split(inner_act(msgs), sizes)
         msgs = torch.cat([torch.matmul(x_l, W[l])
                           for l, x_l in enumerate(parts)])
     return msgs.index_select(0, inverse)
+
+
+def _node_table_mlp(h, weights, inner_act):
+    """The stacked per-type MLP on the NODE tables: [N, D] -> [L, N, D_out]
+    (the JAX package's _node_table_mlp). Where the edge MLP reads the
+    source state alone, the message is a function of (type, source), so
+    every layer runs node-side and the per-edge stage is one gather and
+    one ranked aggregation. Plain f32 batched matmuls, outside any
+    kernel."""
+    t = typed_transform(h, weights[0])
+    for W in weights[1:]:
+        t = torch.matmul(inner_act(t), W)
+    return t
+
+
+def _ranked_source_aggregate(t16, graph, aggregation):
+    """Aggregate the bf16 type-stacked node table `t16`, gathered by
+    source, per receiver: the fused gather + segment-sum with the
+    source-order backward (K5a both ways) where it is eligible, else the
+    gather and the ranked aggregation apart."""
+    if gather_aggregate_src_ok(graph, aggregation):
+        return gather_aggregate_src(t16, graph, aggregation)
+    return aggregate_flat_ranked(gather_flat_src(t16, graph.flat), graph,
+                                 aggregation)
 
 
 def gnn_edge_mlp_apply(
@@ -551,7 +608,7 @@ def gnn_edge_mlp_apply(
     """The message along a type-l edge u -> v is act(MLP_l(h_u | h_v)) (or
     of h_u alone), an MLP of `num_edge_hidden_layers` hidden layers with a
     fixed inner elu; messages are aggregated per receiver and layer-normed.
-    See edge_mlp_branch for the three branches."""
+    See edge_mlp_branch for the branches."""
     act = get_activation(activation_function)
     act_name = activation_function.lower()
     branch = edge_mlp_branch(
@@ -583,21 +640,32 @@ def gnn_edge_mlp_apply(
             self_types = tm_self_types(graph)
             offs = flat.tm_offs
             beta = take_by_tm_rank(_flat(tt), graph)  # [RPAD, D]
-            m = gather_tm_src(_flat(ts).to(torch.bfloat16), graph)
-            x = rs.expand_add_act(m, beta, flat.tm_rank, "elu")
             rows = rs.fine_rank_table_rows(n_pad, num_types,
                                            flat.tm_rank.shape[0], 256)
-            parts = torch.split(
-                x, [b - a for a, b in zip(offs[:-1], offs[1:])])
-            slices = [
-                (torch.matmul(parts[l], W1[l].to(torch.bfloat16)),
-                 flat.tm_rank[offs[l]:offs[l + 1]])
-                for l in range(num_types) if not self_types[l]]
-            if slices:
-                table = rs.act_ranked_aggregate_slices(slices, rows, act_name)
+            if rs.emlp1_src_supported(act_name, self_types.count(False)):
+                # fused_src1: the same forward inside one op whose backward
+                # recomputes the message cotangent in source order (K14)
+                # in place of the gather's [E, D] cotangent permute.
+                table = rs.emlp1_tm_pass(
+                    _flat(ts), beta, W1, flat.tm_src_flat, flat.tm_rank,
+                    flat.tm_rank_by_src, flat.src_sorted_rank,
+                    flat.src_to_rank, flat.src_from_rank, flat.mask, offs,
+                    self_types, act_name, n_pad, rows)
             else:
-                table = torch.zeros((rows, d0), dtype=torch.float32,
-                                    device=h.device)
+                m = gather_tm_src(_flat(ts).to(torch.bfloat16), graph)
+                x = rs.expand_add_act(m, beta, flat.tm_rank, "elu")
+                parts = torch.split(
+                    x, [b - a for a, b in zip(offs[:-1], offs[1:])])
+                slices = [
+                    (torch.matmul(parts[l], W1[l].to(torch.bfloat16)),
+                     flat.tm_rank[offs[l]:offs[l + 1]])
+                    for l in range(num_types) if not self_types[l]]
+                if slices:
+                    table = rs.act_ranked_aggregate_slices(slices, rows,
+                                                           act_name)
+                else:
+                    table = torch.zeros((rows, d0), dtype=torch.float32,
+                                        device=h.device)
             agg = tm_table_to_nodes(table, graph)
             # Self-loop types node-side, in f32: the message along a self
             # loop is a function of its node alone, summed once per
@@ -608,6 +676,40 @@ def gnn_edge_mlp_apply(
                     y_self = torch.matmul(_inner_elu(ts[l] + tt[l]), W1[l])
                     agg = agg + act(y_self) * (
                         graph.typed_incoming_counts[l][:, None])
+        elif branch == "fused1":
+            # The tmajor1 configuration over the receiver-sorted stream:
+            # the hidden x = elu(ts[src] + tt[tgt]) from a bf16 row gather
+            # and the fine rank table of the target halves expanded per
+            # edge (K5b); the typed dense aggregate (K10a) runs each edge's
+            # W1 product, the activation and the aggregation into the
+            # coarse receiver table in one pass, and its backward (K10b)
+            # recomputes the products.
+            W0, W1 = params["edge_mlp"]
+            ts = typed_transform(h, W0[:, :d0, :])
+            tt = typed_transform(h, W0[:, d0:, :])
+            beta = take_by_fine_rank(_flat(tt), graph)
+            m = gather_flat_src_ranked(_flat(ts).to(torch.bfloat16), flat)
+            beta_e = rs.ranked_expand_table(beta, flat.tgt_rank, beta.shape[0])
+            x = _inner_elu(m.to(torch.float32) + beta_e).to(torch.bfloat16)
+            table = rs.typed_dense_aggregate(
+                x, W1, flat.edge_type, flat.rcv_rank,
+                rs.rank_table_rows(n_pad, 256), act_name)
+            agg = ranked_table_to_nodes(table, graph)
+        elif branch == "ranked":
+            # No target state: the message is a function of (type, source)
+            # alone, so the whole MLP runs on the node tables.
+            t = _node_table_mlp(h, params["edge_mlp"], _inner_elu)
+            if normalize_by_num_incoming:
+                # 1/c belongs to the receiver, so it scales the per-edge
+                # stream before the activation.
+                m = gather_flat_src_ranked(_flat(t).to(torch.bfloat16), flat)
+                agg = aggregate_flat_ranked(
+                    act(m.to(torch.float32) * flat.norm_scale[:, None]),
+                    graph, message_aggregation_function)
+            else:
+                agg = _ranked_source_aggregate(
+                    _flat(act(t)).to(torch.bfloat16), graph,
+                    message_aggregation_function)
         elif branch == "fused0":
             # No hidden layer and the target state (the tuned
             # GNN-Edge-MLP0): the message is act(norm * (ts[src] +
@@ -656,8 +758,101 @@ def gnn_edge_mlp_apply(
     return h
 
 
+# --------------------------------------------------------------------------
+# RGIN (reference: gnns/rgin.py)
+# --------------------------------------------------------------------------
+
+def rgin_init(gen, num_edge_types, state_dim, use_target_state_as_input=False,
+              num_edge_MLP_hidden_layers=1, num_aggr_MLP_hidden_layers=None,
+              **_):
+    params = {"ln": layer_norm_init(state_dim)}
+    if num_edge_MLP_hidden_layers is not None:
+        in_dim = 2 * state_dim if use_target_state_as_input else state_dim
+        sizes = [in_dim] + [state_dim] * (num_edge_MLP_hidden_layers + 1)
+        params["edge_mlp"] = [
+            stacked_glorot_uniform(gen, num_edge_types, (d_in, d_out))
+            for d_in, d_out in zip(sizes[:-1], sizes[1:])
+        ]
+    if num_aggr_MLP_hidden_layers is not None:
+        params["aggr_mlp"] = mlp_init(gen, state_dim, state_dim,
+                                      num_aggr_MLP_hidden_layers)
+    return params
+
+
+def rgin_branch(graph: GraphBatch, *, message_aggregation_function: str,
+                use_target_state_as_input: bool, num_edge_MLP_hidden_layers,
+                typed_edge_scan: str) -> str:
+    """Which branch RGIN takes:
+
+    * "ranked" (an edge MLP on the source state alone, "auto", a
+      sum-family aggregation on a ranked stream; the tuned QM9 RGIN): the
+      whole MLP on the node tables, then the fused gather + segment-sum
+      with its source-order backward (K5a forward and backward);
+    * "unrolled" (an edge MLP otherwise, and "unroll"): the per-type MLP
+      over the flat stream in f32;
+    * "bare" (`num_edge_MLP_hidden_layers` None): the source states
+      themselves are the messages.
+
+    This is the JAX package's gate (nn/layers.py rgin_apply) without its
+    window and VMEM terms, as edge_mlp_branch has it. "scan" / "always"
+    (the per-type scan of ops/typed_stream.py) raise
+    NotImplementedError."""
+    if num_edge_MLP_hidden_layers is None:
+        return "bare"
+    _refuse_typed_scan(typed_edge_scan)
+    if (not use_target_state_as_input and typed_edge_scan == "auto"
+            and ranked_aggregation_ok(graph, message_aggregation_function)):
+        return "ranked"
+    return "unrolled"
+
+
+def rgin_apply(
+    params,
+    graph: GraphBatch,
+    h,
+    *,
+    num_timesteps=1,
+    activation_function="relu",
+    message_aggregation_function="sum",
+    use_target_state_as_input=False,
+    num_edge_MLP_hidden_layers=1,
+    num_aggr_MLP_hidden_layers=None,
+    typed_edge_scan="auto",
+    **_,
+):
+    """h' = LN(act(aggr_MLP(sum of act(MLP_l(h_u)) over in-edges))), the
+    edge MLP with `act` between its layers and the aggregation MLP
+    optional. See rgin_branch for the branches."""
+    act = get_activation(activation_function)
+    branch = rgin_branch(
+        graph, message_aggregation_function=message_aggregation_function,
+        use_target_state_as_input=use_target_state_as_input,
+        num_edge_MLP_hidden_layers=num_edge_MLP_hidden_layers,
+        typed_edge_scan=typed_edge_scan)
+    for _step in range(num_timesteps):
+        if branch == "ranked":
+            t = act(_node_table_mlp(h, params["edge_mlp"], act))
+            agg = _ranked_source_aggregate(_flat(t).to(torch.bfloat16), graph,
+                                           message_aggregation_function)
+        else:
+            if branch == "unrolled":
+                msgs = act(_typed_mlp_messages_flat(
+                    h, params["edge_mlp"], graph, use_target_state_as_input,
+                    inner_act=act))
+            else:
+                msgs = gather_flat_src(h.repeat(graph.num_edge_types, 1),
+                                       graph.flat)
+            agg = aggregate_flat(msgs, graph.flat, graph.n_pad,
+                                 message_aggregation_function)
+        if num_aggr_MLP_hidden_layers is not None:
+            agg = mlp_apply(params["aggr_mlp"], agg, act)
+        h = layer_norm(params["ln"], act(agg))  # act + unconditional LN
+    return h
+
+
 LAYERS = {
     "gnn_edge_mlp": (gnn_edge_mlp_init, gnn_edge_mlp_apply),
+    "rgin": (rgin_init, rgin_apply),
     "ggnn": (ggnn_init, ggnn_apply),
     "rgcn": (rgcn_init, rgcn_apply),
     "rgat": (rgat_init, rgat_apply),

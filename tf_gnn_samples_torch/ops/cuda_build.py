@@ -61,6 +61,15 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "act_agg": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
     # msgs, g16, ranks, dmsg, num_edges, dim, act id, stream
     "act_agg_bwd": (("film_common.cuh",), _FILM_ARGS),
+    # x, w, types, ranks, out, num_edges, dh, dim, num_types, act id, stream
+    "typed_dense_agg": (("film_common.cuh",), (_P,) * 5 + (_I,) * 5 + (_P,)),
+    # x, w, wt, g16, types, ranks, dx, dw, num_edges, dh, dim, num_types,
+    # act id, stream
+    "typed_dense_agg_bwd": (("film_common.cuh",),
+                            (_P,) * 8 + (_I,) * 5 + (_P,)),
+    # gcb, t, type_col, w, wt, e_real, ranks, out, num_edges, dim, l_eff,
+    # act id, stream
+    "emlp1_src_bwd": (("film_common.cuh",), (_P,) * 8 + (_I,) * 4 + (_P,)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -162,6 +162,90 @@ def aggregate_flat_ranked(messages, graph, aggregation: str):
     return out / _per_node(count, out)
 
 
+class _GatherSegsum(torch.autograd.Function):
+    """table_flat[src] summed per COARSE receiver rank (K5a), with a
+    SOURCE-ORDER backward (the JAX package's _gather_segsum): the forward
+    is a plain segment-sum by receiver, so each edge's cotangent is its
+    receiver's row of the table cotangent. The backward re-gathers that row
+    per edge of the src-sorted stream from the small [rows, D] table
+    cotangent (rounded to bf16) and sums it per src rank (K5a again), so no
+    [E, D] cotangent is permuted between edge orders. `coarse_by_src` /
+    `stream_rank` are the src-order stream of _src_bwd_stream; its fill
+    slots (SD_FILL keys) and padded edges read zero rows."""
+
+    @staticmethod
+    def forward(ctx, table_flat, src_flat, rcv_rank, coarse_by_src,
+                stream_rank, src_to_rank, rows, src_rows):
+        m = _take_clip(table_flat, src_flat)
+        ctx.save_for_backward(coarse_by_src, stream_rank, src_to_rank)
+        ctx.rows, ctx.src_rows = rows, src_rows
+        ctx.table_rows, ctx.table_dtype = table_flat.shape[0], table_flat.dtype
+        return rs._segsum_table_impl(m, rcv_rank, table_rows=rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        coarse_by_src, stream_rank, src_to_rank = ctx.saved_tensors
+        # Appended zero rows: the diluted stream's fill slots clamp onto
+        # the first of them, so they stay inert for any cotangent.
+        gz = rs._zero_extended(g.to(torch.bfloat16))
+        g_edge = gz.index_select(0, coarse_by_src.clamp(max=ctx.rows))
+        dt_table = rs._segsum_table_impl(g_edge, stream_rank,
+                                         table_rows=ctx.src_rows)
+        d = dt_table.index_select(0, src_to_rank.clamp(min=0))
+        d = torch.where((src_to_rank >= 0)[:, None], d, 0.0).to(
+            ctx.table_dtype)
+        # src_to_rank covers the L * n_pad node rows; a table may carry more.
+        pad = ctx.table_rows - d.shape[0]
+        if pad:
+            d = torch.nn.functional.pad(d, (0, 0, 0, pad))
+        return d, None, None, None, None, None, None, None
+
+
+def _src_bwd_stream(flat):
+    """(coarse_by_src, stream_rank) of the src-order backward: the DILUTED
+    sd_coarse / sd_rank where its window engaged, else the receiver rank of
+    each src-sorted edge and the undiluted src ranks (the stream the JAX
+    package feeds its own kernels)."""
+    if flat.win_sd:
+        return flat.sd_coarse, flat.sd_rank
+    return flat.rcv_rank.index_select(0, flat.perm_by_src), flat.src_sorted_rank
+
+
+def gather_aggregate_src_ok(graph, aggregation: str) -> bool:
+    """Eligibility of the fused gather + segment-sum: the JAX package's
+    gate with its semantic terms (the src-sorted fields exist, sum-family
+    aggregation on a ranked stream) and without its VMEM term (the CUDA
+    kernel keeps no table on chip, so no width or height rules it out)."""
+    flat = graph.flat
+    if flat.src_sorted_rank is None or flat.src_to_rank is None:
+        return False
+    return ranked_aggregation_ok(graph, aggregation)
+
+
+def gather_aggregate_src(table_flat, graph, aggregation: str):
+    """aggregate_flat_ranked(gather_flat_src(table_flat)) as one op whose
+    backward never materialises an [E, D] reorder (see _GatherSegsum).
+    table_flat: type-stacked node table [L * n_pad (+ extra), D]; the caller
+    checked gather_aggregate_src_ok."""
+    flat = graph.flat
+    coarse_by_src, stream_rank = _src_bwd_stream(flat)
+    # The backward's src-rank table is as high as src_from_rank, the height
+    # the batch gives every src-rank table (the JAX package's
+    # _gather_src_rows may be one row higher; no row past the last rank is
+    # read back).
+    table = _GatherSegsum.apply(
+        table_flat, flat.src_flat, flat.rcv_rank, coarse_by_src, stream_rank,
+        flat.src_to_rank, rs.rank_table_rows(graph.n_pad, 256),
+        flat.src_from_rank.shape[0])
+    out = ranked_table_to_nodes(table, graph)
+    if aggregation in ("sum", "unsorted_segment_sum"):
+        return out
+    count = graph.typed_incoming_counts.sum(0).clamp(min=1.0)
+    if aggregation.endswith("sqrt_n"):
+        count = torch.sqrt(count)
+    return out / count[:, None]
+
+
 def _edge_mask(flat, like):
     """[E] stream mask broadcastable against `like` [E, ...]."""
     return flat.mask.reshape(flat.mask.shape + (1,) * (like.dim() - 1))

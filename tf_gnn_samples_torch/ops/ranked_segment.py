@@ -1,11 +1,12 @@
 """Rank-table kernels (counterpart of tf_gnn_samples_tpu/ops/ranked_segment.py:
 the ranked segment-sum / expand pair, the fused GNN-FiLM kernels, the
-head-major attention kernels of RGAT and the expand-add-activate /
-activate-aggregate pairs of GNN-Edge-MLP1).
+head-major attention kernels of RGAT, the expand-add-activate /
+activate-aggregate pairs of GNN-Edge-MLP1, its typed dense aggregate and
+its source-order recompute).
 
 The flat edge stream (ops/graph.py FlatEdges) is receiver-sorted with
 gap-free coarse (receiver) and fine (receiver, type) ranks; its src-sorted
-view has gap-free src ranks. Sixteen CUDA kernels (csrc/) work over those
+view has gap-free src ranks. Nineteen CUDA kernels (csrc/) work over those
 sorted ranks:
 
 * K5a `_segsum_table_impl`: table[r] = sum bf16(m_e) (the ranked
@@ -33,7 +34,13 @@ sorted ranks:
   from the OUTPUT x, written per edge and summed per rank (d_beta);
 * K12a `_act_agg_impl`: table[r] = sum bf16(act(msg_e)) (K1 without the
   modulation tables; one call per edge type's slice of the stream);
-* K12b `_act_agg_bwd_impl`: d_msg[e] = bf16(act'(msg_e) * g[rank_e]).
+* K12b `_act_agg_bwd_impl`: d_msg[e] = bf16(act'(msg_e) * g[rank_e]);
+* K10a `_typed_dense_agg_impl`: table[r] = sum bf16(act(x_e @ W[type_e]))
+  (GNN-Edge-MLP1's `fused1` branch);
+* K10b `_typed_dense_agg_bwd_impl`: its dx (bf16) and dW (f32);
+* K14 `_emlp1_src_bwd_impl`: GNN-Edge-MLP1's message cotangent over the
+  src-sorted stream, recomputing the hidden layer and both W1 products
+  (the backward of `emlp1_tm_pass`).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain PyTorch version beside it only
@@ -44,8 +51,11 @@ Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
 activation in K1, m * dz and dz in K2, act'(z) * C in K3, the head-major
 term in K6a, the weighted message in K7a, both halves of K9's row, dz in
-K11b, the activation in K12a) is rounded to bf16 before its f32 sum; K5b and K6b round each table value to
-bf16; K7b and K4 write d_msgs in bf16; K7b and K8 keep d_w_t in f32. The
+K11b, the activation in K12a and K10a, the message cotangent in K14) is
+rounded to bf16 before its f32 sum; K5b and K6b round each table value to
+bf16; K7b, K4 and K10b write d_msgs / dx in bf16; K7b and K8 keep d_w_t,
+K10b dW in f32. The typed products of K10 and K14 sum their f32 products
+in another order than the plain versions' matmuls. The
 kernels sum in stream order with atomics
 at chunk seams, so their sums differ from run to run in the last bits; the
 terms do not.
@@ -174,7 +184,8 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "wseg_t_bwd": 0, "film_bwd": 0, "wseg_t_dw": 0,
                             "rgat_src_bwd": 0, "expand_add_act": 0,
                             "expand_add_act_bwd": 0, "act_agg": 0,
-                            "act_agg_bwd": 0}
+                            "act_agg_bwd": 0, "typed_dense_agg": 0,
+                            "typed_dense_agg_bwd": 0, "emlp1_src_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -598,6 +609,168 @@ def _act_agg_bwd_impl(msgs, g16, ranks, *, block_edges=256, act, win=0):
         _call("act_agg_bwd", (msgs, g16, ranks, dmsg),
               (e, dim, ACT_IDS[act]))
     return dmsg
+
+
+# ---- the typed dense aggregate (K10) and Edge-MLP1's source pass (K14) ----
+
+def _typed_products(x, w, types):
+    """y[e] = float(x_e) @ float(w[type_e]), f32 [E, D_out], one f32 matmul
+    per type's edges; an edge whose type is not in [0, L) gets 0."""
+    y = torch.zeros((x.shape[0], w.shape[2]), dtype=torch.float32,
+                    device=x.device)
+    xf, wf = x.to(torch.float32), w.to(torch.float32)
+    for l in range(w.shape[0]):
+        sel = (types == l).nonzero(as_tuple=True)[0]
+        if sel.numel():
+            y.index_copy_(0, sel, torch.matmul(xf.index_select(0, sel), wf[l]))
+    return y
+
+
+def _typed_dense_agg_plain(x, w, types, ranks, table_rows, act):
+    out = torch.zeros((table_rows, w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    # act(0) = 0 for every activation of _ACTS: an edge of no valid type
+    # adds nothing.
+    return out.index_add_(
+        0, ranks, _bf16_terms(_ACTS[act][0](_typed_products(x, w, types))))
+
+
+def _typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act):
+    n_types = w.shape[0]
+    valid = ((types >= 0) & (types < n_types))[:, None]
+    y = _typed_products(x, w, types)
+    g_e = g16.index_select(0, ranks).to(torch.float32)
+    dz = torch.where(valid, _ACTS[act][1](y) * g_e, 0.0).to(torch.bfloat16)
+    dx = _typed_products(dz, w.transpose(1, 2), types).to(torch.bfloat16)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
+    xf, dzf = x.to(torch.float32), dz.to(torch.float32)
+    for l in range(n_types):
+        sel = (types == l).nonzero(as_tuple=True)[0]
+        if sel.numel():
+            dw[l] = torch.matmul(xf.index_select(0, sel).t(),
+                                 dzf.index_select(0, sel))
+    return dx, dw
+
+
+def _emlp1_src_bwd_plain(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
+                         table_rows, act):
+    e = ranks.shape[0]
+    d = t_ranked.shape[1]
+    m = t_ranked.index_select(0, ranks).to(torch.float32)
+    gcb = gcb_src.to(torch.float32)
+    x = _elu(m + gcb[:, :d])
+    x16 = x.to(torch.bfloat16)
+    cols = type_col.index_select(0, ranks)
+    dagg = torch.where((cols >= 0)[:, None],
+                       _ACTS[act][1](_typed_products(x16, w_stack, cols))
+                       * gcb[:, d:], 0.0).to(torch.bfloat16)
+    dx = _typed_products(dagg, w_stack.transpose(1, 2), cols)
+    dm = _ACTS_FROM_OUT["elu"](x) * dx
+    live = torch.arange(e, device=ranks.device) < e_real.to(ranks.device)
+    dm = torch.where(live[:, None], dm, 0.0)
+    out = torch.zeros((table_rows, d), dtype=torch.float32,
+                      device=gcb_src.device)
+    return out.index_add_(0, ranks, _bf16_terms(dm))
+
+
+def _typed_dense_agg_impl(x, w, types, ranks, *, table_rows, block_edges=256,
+                          act, win=0):
+    """K10a: table[r] = sum_{rank_e = r} bf16(act(x_e @ w[type_e])) for a
+    bf16 stream x [E, Dh], bf16 weights w [L, Dh, D], int32 types and
+    nondecreasing gap-free int32 ranks [E]; f32 [table_rows, D] out. Each
+    product sums in f32; an edge whose type is not in [0, L) adds
+    nothing."""
+    e, dh = x.shape
+    if (w.dim() != 3 or w.shape[1] != dh or types.shape != (e,)
+            or ranks.shape != (e,)):
+        raise ValueError("typed_dense_agg: shapes %s, %s, %s, %s" % (
+            tuple(x.shape), tuple(w.shape), tuple(types.shape),
+            tuple(ranks.shape)))
+    if x.device.type == "cpu":
+        return _typed_dense_agg_plain(x, w, types, ranks, table_rows, act)
+    _check_dtype("typed_dense_agg", x, torch.bfloat16)
+    _check_dtype("typed_dense_agg", w, torch.bfloat16)
+    _check_dtype("typed_dense_agg", types, torch.int32)
+    _check_ranks("typed_dense_agg", ranks)
+    out = torch.zeros((table_rows, w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    if e:
+        _call("typed_dense_agg", (x, w, types, ranks, out),
+              (e, dh, w.shape[2], w.shape[0], ACT_IDS[act]))
+    return out
+
+
+def _typed_dense_agg_bwd_impl(x, w, g16, types, ranks, *, block_edges=256,
+                              act, win=0):
+    """K10b: with y_e = x_e @ w[type_e] recomputed in f32 and dz_e =
+    bf16(act'(y_e) * g16[rank_e]), returns dx [E, Dh] bf16, dx_e =
+    bf16(dz_e @ w[type_e]^T), and dW [L, Dh, D] f32, dW[l] = sum_{type_e =
+    l} x_e^T dz_e, from the bf16 stream x, bf16 weights w, the bf16 table
+    cotangent g16 [rows, D], int32 types and ranks. On the card dW sums in
+    another order on every run (atomics)."""
+    e, dh = x.shape
+    if (w.dim() != 3 or w.shape[1] != dh or types.shape != (e,)
+            or ranks.shape != (e,) or g16.dim() != 2
+            or g16.shape[1] != w.shape[2]):
+        raise ValueError("typed_dense_agg_bwd: shapes %s, %s, %s, %s, %s" % (
+            tuple(x.shape), tuple(w.shape), tuple(g16.shape),
+            tuple(types.shape), tuple(ranks.shape)))
+    if x.device.type == "cpu":
+        return _typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act)
+    _check_dtype("typed_dense_agg_bwd", x, torch.bfloat16)
+    _check_dtype("typed_dense_agg_bwd", w, torch.bfloat16)
+    _check_dtype("typed_dense_agg_bwd", g16, torch.bfloat16)
+    _check_dtype("typed_dense_agg_bwd", types, torch.int32)
+    _check_ranks("typed_dense_agg_bwd", ranks)
+    dx = torch.empty((e, dh), dtype=torch.bfloat16, device=x.device)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
+    if e:
+        # The kernel reads the weights both ways; W^T [L, D, Dh] keeps its
+        # loads of the dx product contiguous.
+        wt = w.transpose(1, 2).contiguous()
+        _call("typed_dense_agg_bwd", (x, w, wt, g16, types, ranks, dx, dw),
+              (e, dh, w.shape[2], w.shape[0], ACT_IDS[act]))
+    return dx, dw
+
+
+def _emlp1_src_bwd_impl(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
+                        *, table_rows, block_edges=256, act, win=0):
+    """K14: the source-order half of the Edge-MLP1 backward. Edge e of src
+    rank s (ranks [E], nondecreasing and gap-free) reads m = t_ranked[s]
+    (bf16 [table_rows, D]), beta | g = gcb_src[e] (bf16 [E, 2D]) and the
+    compact non-self type col = type_col[s] (int32 [table_rows]; -1 for a
+    self-loop type or a slack row), and recomputes x = elu(m + beta), y =
+    bf16(x) @ w_stack[col], dm = elu'(x) * (bf16(act'(y) * g) @
+    w_stack[col]^T), all in f32; out[s] = sum bf16(dm), f32 [table_rows,
+    D]. Edges at or past e_real (an int32 [1] tensor: the padded tail of
+    the src-sorted stream, whose type decode is garbage) and edges of no
+    non-self type add nothing. The JAX package takes the type from a
+    one-hot over the non-self types; `type_col` is its column index."""
+    e = ranks.shape[0]
+    dim = t_ranked.shape[1]
+    if (gcb_src.shape != (e, 2 * dim) or t_ranked.shape[0] != table_rows
+            or type_col.shape != (table_rows,) or w_stack.dim() != 3
+            or w_stack.shape[1:] != (dim, dim) or e_real.shape != (1,)):
+        raise ValueError("emlp1_src_bwd: shapes %s, %s, %s, %s, %s" % (
+            tuple(gcb_src.shape), tuple(t_ranked.shape),
+            tuple(type_col.shape), tuple(w_stack.shape), tuple(ranks.shape)))
+    if gcb_src.device.type == "cpu":
+        return _emlp1_src_bwd_plain(gcb_src, t_ranked, type_col, w_stack,
+                                    e_real, ranks, table_rows, act)
+    _check_dtype("emlp1_src_bwd", gcb_src, torch.bfloat16)
+    _check_dtype("emlp1_src_bwd", t_ranked, torch.bfloat16)
+    _check_dtype("emlp1_src_bwd", w_stack, torch.bfloat16)
+    _check_dtype("emlp1_src_bwd", type_col, torch.int32)
+    _check_dtype("emlp1_src_bwd", e_real, torch.int32)
+    _check_ranks("emlp1_src_bwd", ranks)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=gcb_src.device)
+    if e:
+        wt = w_stack.transpose(1, 2).contiguous()
+        _call("emlp1_src_bwd", (gcb_src, t_ranked, type_col, w_stack, wt,
+                                e_real, ranks, out),
+              (e, dim, w_stack.shape[0], ACT_IDS[act]))
+    return out
 
 
 # ---- the head-major attention kernels (K6, K7, K8, K9) -------------------
@@ -1116,19 +1289,189 @@ def act_ranked_aggregate(msgs, ranks, table_rows: int, act: str = "relu"):
     return act_ranked_aggregate_slices([(msgs, ranks)], table_rows, act)
 
 
-# The source-order recompute backward of the type-major Edge-MLP1 pass
-# (the JAX package's emlp1_tm_pass) is off there by default and not ported
-# yet: the layer takes expand_add_act / act_ranked_aggregate instead.
+# ---- the typed dense aggregate (GNN-Edge-MLP1's `fused1` branch) ----------
+
+def typed_dense_agg_supported(n_types: int, act: str) -> bool:
+    """Eligibility of the typed dense aggregate: the JAX package's gate
+    with its semantic terms (a known activation; at most 8 types, so that
+    VarMisuse-scale type counts go where they go there). Its stream-length
+    and width terms are dropped: the CUDA kernel walks any stream at any
+    width."""
+    return act in _ACTS and n_types <= 8
+
+
+class _TypedDenseAggregate(torch.autograd.Function):
+    """K10a forward, K10b backward on the table cotangent cast to bf16 (the
+    JAX package's typed_dense_aggregate, _tda_fwd / _tda_bwd): the weights
+    are rounded to bf16 once and dW comes back in w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, types, ranks, table_rows, act):
+        w16 = w.to(torch.bfloat16)
+        ctx.save_for_backward(x, w16, types, ranks)
+        ctx.act, ctx.w_dtype = act, w.dtype
+        return _typed_dense_agg_impl(x, w16.contiguous(), types, ranks,
+                                     table_rows=table_rows, act=act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w16, types, ranks = ctx.saved_tensors
+        dx, dw = _typed_dense_agg_bwd_impl(
+            x, w16.contiguous(), g.to(torch.bfloat16).contiguous(), types,
+            ranks, act=ctx.act)
+        return dx.to(x.dtype), dw.to(ctx.w_dtype), None, None, None, None
+
+
+def typed_dense_aggregate(x, w, types, ranks, table_rows: int,
+                          act: str = "relu"):
+    """table[r] = sum_{rank_e = r} act(x_e @ w[type_e]), f32 [table_rows,
+    D], for a receiver-sorted bf16 stream x [E, Dh] with gap-free coarse
+    ranks, per-edge types and stacked weights w [L, Dh, D]: the per-edge
+    typed dense stage, its activation and the aggregation in one pass, so
+    the [E, D] post-dense stream never exists in device memory; the
+    backward recomputes it."""
+    return _TypedDenseAggregate.apply(x, w, types, ranks, table_rows,
+                                      act.lower())
+
+
+# ---- the type-major Edge-MLP1 pass with a source-order backward (K14) -------
+
+# Off by default, as in the JAX package, which measured this pass slower
+# than the [E, D] cotangent permute it replaces on its TPU (the W1 dense
+# sits between the activation and the transport, so the recompute runs the
+# per-edge products again). `chip_smoke.py` and the tests switch it on.
 ENABLE_EMLP1_SRC_PASS = False
 
 
-def emlp1_src_supported(*_args, **_kwargs) -> bool:
-    if ENABLE_EMLP1_SRC_PASS:
-        raise NotImplementedError(
-            "The source-order Edge-MLP1 pass (emlp1_tm_pass) is not yet "
-            "ported to the PyTorch package.")
-    return False
+def emlp1_src_supported(act: str, l_eff: int) -> bool:
+    """Eligibility of the Edge-MLP1 source-order recompute backward for
+    `l_eff` non-self edge types: the JAX package's gate with its semantic
+    terms (the flag, a known activation, 1 to 4 non-self types) and
+    without its VMEM, stream-length and slice-alignment terms (the CUDA
+    kernels keep no table on chip and K12a takes any slice)."""
+    return (ENABLE_EMLP1_SRC_PASS and ENABLE_FUSED_SRC_PASS
+            and act in _ACTS and 0 < l_eff <= 4)
 
+
+def src_rank_type_columns(src_from_rank, n_pad: int, self_flags):
+    """Each src rank's compact non-self edge type, int32 [R_src]: the
+    index of its type among the non-self types, -1 for a self-loop type
+    (whose messages are combined node-side). The type of a src rank is
+    its node-table row // n_pad."""
+    num_types = len(self_flags)
+    nonself = [l for l, s in enumerate(self_flags) if not s]
+    col_of_type = torch.full((num_types + 1,), -1, dtype=torch.int32,
+                             device=src_from_rank.device)
+    col_of_type[nonself] = torch.arange(len(nonself), dtype=torch.int32,
+                                        device=src_from_rank.device)
+    return col_of_type.index_select(
+        0, torch.clamp(src_from_rank // n_pad, max=num_types).long())
+
+
+def _emlp1_fwd_compute(ts_flat, beta_table, w1, src_idx, tm_rank, offs,
+                       self_flags, act, table_rows):
+    """The type-major Edge-MLP1 forward: m = ts[src] (bf16), x = elu(m +
+    beta[rank]) (K11a), one bf16 product per non-self type's slice and
+    K12a of each into one table."""
+    ts16 = ts_flat.to(torch.bfloat16)
+    m = ts16.index_select(0, _clip(src_idx, ts16.shape[0]))
+    x = _expand_add_act_impl(m, beta_table, tm_rank, act="elu")
+    table = torch.zeros((table_rows, ts_flat.shape[1]), dtype=torch.float32,
+                        device=ts_flat.device)
+    ys = []
+    for l, is_self in enumerate(self_flags):
+        if is_self:
+            ys.append(None)
+            continue
+        y_l = torch.matmul(x[offs[l]:offs[l + 1]], w1[l].to(torch.bfloat16))
+        ys.append(y_l)
+        _act_agg_impl(y_l, tm_rank[offs[l]:offs[l + 1]],
+                      table_rows=table_rows, act=act, out=table)
+    return table, (ts16, x, ys)
+
+
+class _Emlp1TmPass(torch.autograd.Function):
+    """The JAX package's emlp1_tm_pass (_emlp1_vjp_fwd / _emlp1_vjp_bwd)."""
+
+    @staticmethod
+    def forward(ctx, ts_flat, beta_table, w1, src_idx, tm_rank,
+                tm_rank_by_src, src_sorted_rank, src_to_rank, src_from_rank,
+                edge_mask, offs, self_flags, act, n_pad, table_rows):
+        table, (ts16, x, ys) = _emlp1_fwd_compute(
+            ts_flat, beta_table, w1, src_idx, tm_rank, offs, self_flags, act,
+            table_rows)
+        ctx.save_for_backward(ts16, x, beta_table, w1, tm_rank,
+                              tm_rank_by_src, src_sorted_rank, src_to_rank,
+                              src_from_rank, edge_mask,
+                              *[y for y in ys if y is not None])
+        ctx.offs, ctx.self_flags, ctx.act = offs, self_flags, act
+        ctx.n_pad, ctx.table_rows = n_pad, table_rows
+        ctx.ts_dtype = ts_flat.dtype
+        return table
+
+    @staticmethod
+    def backward(ctx, g):
+        (ts16, x, beta_table, w1, tm_rank, tm_rank_by_src, src_sorted_rank,
+         src_to_rank, src_from_rank, edge_mask, *ys) = ctx.saved_tensors
+        offs, self_flags, act = ctx.offs, ctx.self_flags, ctx.act
+        nonself = [l for l, s in enumerate(self_flags) if not s]
+        g16 = g.to(torch.bfloat16).contiguous()
+
+        # Receiver-order half: per non-self type the activation cotangent
+        # (K12b), dW1 and dx as plain products (outside any kernel, as the
+        # JAX package leaves them to XLA), then dbeta through K11b.
+        dx = torch.zeros_like(x)
+        dw1 = torch.zeros(w1.shape, dtype=torch.float32, device=w1.device)
+        for l, y_l in zip(nonself, ys):
+            a, b = offs[l], offs[l + 1]
+            dy_l = _act_agg_bwd_impl(y_l, g16, tm_rank[a:b], act=act)
+            dw1[l] = torch.matmul(x[a:b].t().to(torch.float32),
+                                  dy_l.to(torch.float32))
+            dx[a:b] = torch.matmul(dy_l, w1[l].to(torch.bfloat16).t())
+        _, dbeta = _expand_add_act_bwd_impl(x, dx, tm_rank,
+                                            table_rows=ctx.table_rows,
+                                            act="elu")
+
+        # Source-order half: one [E, 2D] bf16 gather of beta | g keyed by
+        # the (type, receiver) rank of each src-sorted edge, the t rows per
+        # src rank, and each src rank's compact non-self type (-1 for a
+        # self-loop type: its recomputed dm is zero); K14 sums dm into the
+        # src rank table, so no [E, D] cotangent is permuted.
+        side = torch.cat([beta_table.to(torch.bfloat16), g16], dim=1)
+        gcb_src = side.index_select(0, _clip(tm_rank_by_src, side.shape[0]))
+        t_ranked = ts16.index_select(0, _clip(src_from_rank, ts16.shape[0]))
+        type_col = src_rank_type_columns(src_from_rank, ctx.n_pad, self_flags)
+        w_stack = w1[nonself].to(torch.bfloat16).contiguous()
+        e_real = edge_mask.sum().to(torch.int32).reshape(1)
+        dt_table = _emlp1_src_bwd_impl(
+            gcb_src, t_ranked, type_col, w_stack, e_real, src_sorted_rank,
+            table_rows=src_from_rank.shape[0], act=act)
+        d_ts = dt_table.index_select(0, src_to_rank.clamp(min=0))
+        d_ts = torch.where((src_to_rank >= 0)[:, None], d_ts, 0.0)
+        return (d_ts.to(ctx.ts_dtype), dbeta.to(beta_table.dtype),
+                dw1.to(w1.dtype), None, None, None, None, None, None, None,
+                None, None, None, None, None)
+
+
+def emlp1_tm_pass(ts_flat, beta_table, w1, src_idx, tm_rank, tm_rank_by_src,
+                  src_sorted_rank, src_to_rank, src_from_rank, edge_mask,
+                  offs, self_flags, act: str, n_pad: int, table_rows: int):
+    """GNN-Edge-MLP1's message pass over the TYPE-MAJOR stream with the
+    source-side gather fused into the backward; returns the (type,
+    receiver) rank table [table_rows, D] f32. Self-loop types contribute
+    node-side outside this op.
+
+    Forward: the tmajor1 pipeline (K11a, a bf16 product per non-self
+    type's slice, K12a into one table), from the type-stacked source
+    halves `ts_flat` [L * n_pad, D] and the rank table of the target
+    halves `beta_table`. Backward: the receiver-order half (K12b per
+    non-self type, the dW1 and dx products, K11b) and, in place of the
+    [E, D] cotangent permute of the type-major gather, the source-order
+    recompute K14."""
+    return _Emlp1TmPass.apply(
+        ts_flat, beta_table, w1, src_idx, tm_rank, tm_rank_by_src,
+        src_sorted_rank, src_to_rank, src_from_rank, edge_mask, tuple(offs),
+        tuple(self_flags), act.lower(), n_pad, table_rows)
 
 # ---- the fused RGAT attention pass (src-order recompute backward) ---------
 

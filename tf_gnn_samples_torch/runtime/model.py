@@ -30,6 +30,7 @@ from ..nn.propagation import propagation_apply, propagation_init
 from ..ops.edge_ops import dense_adjacency
 from ..ops.graph import graph_to_device
 from ..tasks.base import DataFold, SparseGraphTask, TaskBatch
+from ..utils.iterators import ThreadedIterator
 from .optimizers import clip_grads_per_tensor, make_optimizer
 
 # Consecutive flagged validation epochs before the degenerate-basin
@@ -90,9 +91,11 @@ def params_from_jax(flat: Dict[str, np.ndarray], device=None):
     (float32 tensors on `device`). The port keeps the JAX names and layouts
     (W [L, D_in, D_out], W_film [L, D, 2D], RGAT's att [L, 2D], a GGNN
     cell's kernel and recurrent_kernel [D, G * D] and bias [G * D] under
-    `.../gnn/cell/`, GNN-Edge-MLP's list of stacked matrices under
-    `.../gnn/edge_mlp/<i>` and its `.../gnn/ln/{scale,bias}`), so the map
-    is name for name; entries whose names are all digits become lists."""
+    `.../gnn/cell/`, GNN-Edge-MLP's and RGIN's lists of stacked matrices
+    under `.../gnn/edge_mlp/<i>` and their `.../gnn/ln/{scale,bias}`,
+    RGIN's aggregation MLP under `.../gnn/aggr_mlp/layers/<i>/kernel`), so
+    the map is name for name; entries whose names are all digits become
+    lists."""
     return _unflatten({k: torch.tensor(np.asarray(v, dtype=np.float32),
                                        device=device)
                        for k, v in flat.items()})
@@ -185,6 +188,16 @@ class SparseGraphModel(ABC):
         # Batches run per fold (host telemetry: lets a caller check that
         # every batch went through the expected kernels).
         self.batches_run = {fold: 0 for fold in DataFold}
+        if params.get("cache_batches_on_device"):
+            self.log_line(
+                "WARNING: cache_batches_on_device is not yet ported to the "
+                "PyTorch package (ROADMAP Queue 1 item 1); batches are packed "
+                "and uploaded every epoch.")
+
+    def initialize_model(self) -> None:
+        """Kept for API parity with the JAX package (reference
+        initialize_model, sparse_graph_model.py:85-89); parameters are
+        initialized in __init__."""
 
     # -------------------- files --------------------
 
@@ -322,30 +335,35 @@ class SparseGraphModel(ABC):
         data_fold: DataFold,
         quiet: bool = False,
     ) -> Tuple[float, List[Dict[str, Any]], int, float, float, float]:
-        batch_iterator = self.task.make_minibatch_iterator(
-            data, data_fold, self.params["max_nodes_in_batch"])
+        # A worker thread packs the next batches (host numpy work) while
+        # the card runs the current step.
+        batch_iterator = ThreadedIterator(
+            self.task.make_minibatch_iterator(
+                data, data_fold, self.params["max_nodes_in_batch"]),
+            max_queue_size=5)
         start_time = time.time()
         processed_graphs = processed_nodes = processed_edges = 0
         device_metrics: List[Dict[str, Any]] = []
         batch_graph_counts: List[int] = []
-        for step_i, batch in enumerate(batch_iterator):
-            processed_graphs += int(batch.num_graphs)
-            processed_nodes += int(batch.num_nodes)
-            processed_edges += int(batch.num_edges)
-            dev_batch = batch_to_device(batch, self.device)
-            if data_fold == DataFold.TRAIN:
-                metrics = self._train_step(dev_batch)
-            else:
-                metrics = self._eval_step(dev_batch)
-            self.batches_run[data_fold] += 1
-            device_metrics.append(metrics)
-            batch_graph_counts.append(batch.num_graphs)
-            if not quiet and step_i % 16 == 0:
-                print(
-                    "Running %s, batch %i (has %i graphs)."
-                    % (epoch_name, step_i, batch.num_graphs),
-                    end="\r",
-                )
+        with batch_iterator:
+            for step_i, batch in enumerate(batch_iterator):
+                processed_graphs += int(batch.num_graphs)
+                processed_nodes += int(batch.num_nodes)
+                processed_edges += int(batch.num_edges)
+                dev_batch = batch_to_device(batch, self.device)
+                if data_fold == DataFold.TRAIN:
+                    metrics = self._train_step(dev_batch)
+                else:
+                    metrics = self._eval_step(dev_batch)
+                self.batches_run[data_fold] += 1
+                device_metrics.append(metrics)
+                batch_graph_counts.append(batch.num_graphs)
+                if not quiet and step_i % 16 == 0:
+                    print(
+                        "Running %s, batch %i (has %i graphs)."
+                        % (epoch_name, step_i, batch.num_graphs),
+                        end="\r",
+                    )
 
         assert processed_graphs > 0, "Can't run epoch over empty dataset."
         # One host sync at epoch end: the device runs ahead of the host
@@ -368,9 +386,18 @@ class SparseGraphModel(ABC):
             processed_edges / epoch_time,
         )
 
-    def train(self, quiet: bool = False):
+    def train(self, quiet: bool = False, tf_summary_path: Optional[str] = None,
+              resume_from: Optional[str] = None):
         """Patience-based early-stopped training; log format kept verbatim
-        (the bench scripts regex these lines)."""
+        (the bench scripts regex these lines). The JAX package's summary
+        writer (`tf_summary_path`) and full-state resume (`resume_from`) are
+        not ported yet and raise when given."""
+        for key, value in (("tf_summary_path", tf_summary_path),
+                           ("resume_from", resume_from)):
+            if value is not None:
+                raise NotImplementedError(
+                    "train(%s=...) is not yet ported to the PyTorch package "
+                    "(ROADMAP Queue 1 item 8)." % key)
         total_time_start = time.time()
         best_valid_metric, best_val_metric_epoch, best_val_metric_descr = (
             float("+inf"), 0, "",
@@ -624,4 +651,37 @@ class RGAT_Model(SparseGraphModel):
             "num_heads": self.params["num_heads"],
             "activation_function": self.params["graph_activation_function"],
             "aggregation_strategy": self.params.get("aggregation_strategy", "auto"),
+        }
+
+
+class RGIN_Model(SparseGraphModel):
+    layer_name = "rgin"
+
+    @classmethod
+    def default_params(cls):
+        params = super().default_params()
+        params.update({
+            "hidden_size": 128,
+            "graph_activation_function": "ReLU",
+            "message_aggregation_function": "sum",
+            "graph_dense_between_every_num_gnn_layers": 10000,
+            "graph_inter_layer_norm": True,
+            "use_target_state_as_input": False,
+            "graph_num_edge_MLP_hidden_layers": 1,
+            "graph_num_aggr_MLP_hidden_layers": None,
+        })
+        return params
+
+    @staticmethod
+    def name(params):
+        return "RGIN"
+
+    def layer_kwargs(self):
+        return {
+            "activation_function": self.params["graph_activation_function"],
+            "message_aggregation_function": self.params["message_aggregation_function"],
+            "use_target_state_as_input": self.params["use_target_state_as_input"],
+            "num_edge_MLP_hidden_layers": self.params["graph_num_edge_MLP_hidden_layers"],
+            "typed_edge_scan": self.params.get("typed_edge_scan", "auto"),
+            "num_aggr_MLP_hidden_layers": self.params["graph_num_aggr_MLP_hidden_layers"],
         }

@@ -70,11 +70,15 @@ class Optimizer:
             b1, b2, eps = 0.9, 0.999, 1e-8
             t = torch.tensor(float(step), dtype=torch.float32)
             lr_t = lr * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+            # One copy to the parameters' device per update, not one per
+            # parameter.
+            if params:
+                lr_t = lr_t.to(params[0].device)
             for p, g, m, v in zip(params, grads, state.slots["m"],
                                   state.slots["v"]):
                 m.copy_(b1 * m + (1 - b1) * g)
                 v.copy_(b2 * v + (1 - b2) * torch.square(g))
-                p.sub_(lr_t.to(p.device) * m / (torch.sqrt(v) + eps))
+                p.sub_(lr_t * m / (torch.sqrt(v) + eps))
             return OptimizerState(step, state.slots)
         decay = self.hparams.get("decay", 0.9)
         momentum = self.hparams.get("momentum", 0.0)

@@ -1,14 +1,14 @@
 """Name -> class registries and checkpoint restore (counterpart of
 tf_gnn_samples_tpu/utils/registry.py). Ported so far: the GGNN, RGCN, RGAT,
-GNN-FiLM and GNN-Edge-MLP models and the QM9 task; every other name the
-JAX package knows raises "not yet ported"."""
+RGIN, GNN-FiLM and GNN-Edge-MLP models and the QM9 task; every other name
+the JAX package knows raises "not yet ported"."""
 
 import pickle
 from typing import Any, Dict, Tuple, Type
 
 _UNPORTED_TASKS = ("ppi", "varmisuse", "citationnetwork", "citation_network",
                    "cora", "citeseer", "pubmed")
-_UNPORTED_MODELS = ("rgdcn", "rgdcn_model", "rgin", "rgin_model")
+_UNPORTED_MODELS = ("rgdcn", "rgdcn_model")
 
 
 def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
@@ -48,6 +48,10 @@ def name_to_model_class(name: str) -> Tuple[Type, Dict[str, Any]]:
         from ..runtime.model import RGAT_Model
 
         return RGAT_Model, {}
+    if name in ("rgin", "rgin_model"):
+        from ..runtime.model import RGIN_Model
+
+        return RGIN_Model, {}
     if name in ("gnn_film", "gnn-film", "gnn_film_model"):
         from ..runtime.model import GNN_FiLM_Model
 
