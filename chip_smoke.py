@@ -288,41 +288,112 @@ def rgat_src_bwd_bounds(torch, rs, gcb, t_ext, ranks, rows, heads):
             per_row(torch, rows, ranks, per_edge))
 
 
-def typed_abs_products(rs, a, w, types):
-    """|a_e| @ |w[type_e]| per edge, f32 [E, D_out]: the sum of the
-    absolute values of the products an edge's typed product adds up."""
-    return rs._typed_products(a.float().abs(), w.float().abs(), types)
-
-
-def typed_dense_agg_bwd_check(torch, rs, got, want, x, w, dz, types):
-    """K10b's (dx, dW) against the plain version's, for the plain dz (the
-    per-edge bf16 act'(y) * g). dx: each side rounds an f32 sum of D
-    products to bf16, the two sums in other orders (2 gamma_D of their sum
-    of |product| S) and over dz that may differ by a bf16 ulp (2^-7 of
-    |dz|, where y moved across a rounding point): within 2^-7 |dx| + 2^-6
-    S. dW[l]: an f32 sum over the type's n edges of exact products x * dz,
-    in another order (atomics), with the same possible dz ulps: within
-    (2 gamma_n + 2^-7) of its sum of |product|. Returns the larger max
-    |kernel - plain|."""
-    (dx, dw), (dx_want, dw_want) = got, want
-    s_dx = typed_abs_products(rs, dz, w.transpose(1, 2), types)
-    err = (dx.double() - dx_want.double()).abs()
-    bad = int((err > 2.0 ** -7 * dx_want.double().abs()
-               + 2.0 ** -6 * s_dx.double()).sum())
-    a_dw, n = [], []
+def kernel_order_products(torch, a, w, types):
+    """y[e] = a_e @ w[type_e], f32 [E, D_out], summed as K10 and K14 sum
+    their typed products: per output entry one f32 add per term, in index
+    order over the inner axis, each term the exact f32 product of two bf16
+    numbers (the kernels build with -fmad=false), so this equals the
+    kernels' sums bit for bit. An edge whose type is not in [0, L) gets 0."""
+    y = torch.zeros((a.shape[0], w.shape[2]), dtype=torch.float32,
+                    device=a.device)
     for l in range(w.shape[0]):
-        sel = types == l
-        a_dw.append(torch.matmul(x[sel].float().abs().t(),
-                                 dz[sel].float().abs()))
-        n.append(float(sel.sum()))
-    n = torch.tensor(n, dtype=torch.float64, device=dw.device)[:, None, None]
-    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+        sel = (types == l).nonzero(as_tuple=True)[0]
+        if not sel.numel():
+            continue
+        al, wl = a.index_select(0, sel).float(), w[l].float()
+        acc = torch.zeros((sel.numel(), w.shape[2]), dtype=torch.float32,
+                          device=a.device)
+        for k in range(w.shape[1]):
+            acc = acc + al[:, k:k + 1] * wl[k]
+        y.index_copy_(0, sel, acc)
+    return y
+
+
+# The checks of K10 and K14 compute each edge's terms as the kernel does:
+# its typed products in its own order (kernel_order_products), and its
+# activations, their derivatives and the bf16 roundings by the plain
+# version's f32 expressions, which the kernels evaluate in the same
+# operation order (film_common.cuh; K11a and K12b are held to them
+# exactly). The plain version sums the products in another order
+# (torch.matmul), which can round a y, and so a dz or da, or a dx to the
+# neighbouring bf16 number. So a kernel's output may differ from the plain
+# version's by no more than the same math in the kernel's order does:
+# entry by entry that is 0 for all but the few entries the two orders
+# round apart, and a dropped, doubled or misplaced term of any product
+# shows at once (tests/test_torch_chip_checks.py plants such faults). A
+# kernel that changes its order of the products changes
+# kernel_order_products with it.
+
+
+def typed_dense_agg_bounds(torch, rs, x, w, types, ranks, rows, act):
+    """(sum of |term|, number of terms, slack) per entry of K10a's output,
+    for check_kernel (term_ulps=0): the terms bf16(act(y_e)) with y_e
+    summed in the kernel's order and in the plain version's, and as slack
+    the per-entry sum of their differences."""
+    fn = rs._ACTS[act][0]
+    t_ko = rs._bf16_terms(fn(kernel_order_products(torch, x, w, types)))
+    t_p = rs._bf16_terms(fn(rs._typed_products(x, w, types)))
+    counts = torch.zeros(rows, device=x.device).index_add_(
+        0, ranks, torch.ones(ranks.shape[0], device=x.device))
+    return (per_row(torch, rows, ranks, torch.maximum(t_ko.abs(), t_p.abs())),
+            counts, per_row(torch, rows, ranks, (t_ko - t_p).abs()))
+
+
+def typed_dense_agg_bwd_check(torch, rs, got, want, x, w, g16, types, ranks,
+                              act):
+    """K10b's (dx, dW) against the plain version's on the same inputs.
+    dz = bf16(act'(y) * g16[rank]) and dx = bf16(dz @ W^T) in the kernel's
+    order of both products: |dx - dx_plain| may be no larger than that
+    kernel-order dx's distance from dx_plain, entry by entry. dW[l] sums
+    the type's n exact products x * dz in f32, across blocks by atomics,
+    in another order on every run: elementwise within gamma_n of their sum
+    of |product| (+ n FLT_MIN, the atomics flush subnormals) from the f64
+    sum of the kernel-order dz, a guard against blow-ups only, since at n
+    near 10^5 that exceeds a typical |dW|; and per type by norm,
+    |dW - dW_plain| <= 1e-4 |dW_plain| + |x_l^T (dz - dz_plain)| (the
+    second term the exact change that the kernel-order dz makes; rounding
+    errors of f32 sums of n terms grow about as sqrt(n) u, 2e-5 of the
+    norm at n = 10^5). Returns the larger max |kernel - plain|."""
+    (dx, dw), (dx_want, dw_want) = got, want
+    n_types = w.shape[0]
+    valid = ((types >= 0) & (types < n_types))[:, None]
+    g = g16.index_select(0, ranks).float()
+    dact = rs._ACTS[act][1]
+
+    def dz_of(y):
+        return torch.where(valid, dact(y) * g, 0.0).to(torch.bfloat16)
+
+    dz = dz_of(kernel_order_products(torch, x, w, types))
+    dz_plain = dz_of(rs._typed_products(x, w, types))
+    dx_ko = kernel_order_products(torch, dz, w.transpose(1, 2), types).to(
+        torch.bfloat16)
+    err = (dx.double() - dx_want.double()).abs()
+    allowed = (dx_ko.double() - dx_want.double()).abs()
+    bad = int((err > allowed).sum())
+    bad_w, worst_norm = 0, 0.0
     err_w = (dw.double() - dw_want.double()).abs()
-    bad_w = int((err_w > (2 * gamma + 2.0 ** -7)
-                 * torch.stack(a_dw).double()).sum())
-    print("  typed_dense_agg_bwd: max |kernel - plain| = %.3e (dx), %.3e "
-          "(dW); entries over the bound: %d, %d"
-          % (float(err.max()), float(err_w.max()), bad, bad_w))
+    for l in range(n_types):
+        sel = (types == l).nonzero(as_tuple=True)[0]
+        xl = x.index_select(0, sel).double()
+        dzl = dz.index_select(0, sel).double()
+        n = sel.numel()
+        gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+        ref = xl.t() @ dzl
+        bad_w += int(((dw[l].double() - ref).abs()
+                      > gamma * (xl.abs().t() @ dzl.abs())
+                      + n * 2.0 ** -126).sum())
+        moved = float(torch.linalg.norm(
+            xl.t() @ (dzl - dz_plain.index_select(0, sel).double())))
+        want_norm = float(torch.linalg.norm(dw_want[l].double()))
+        diff = float(torch.linalg.norm(dw[l].double() - dw_want[l].double()))
+        if diff > 1e-4 * want_norm + moved:
+            bad_w += 1
+        worst_norm = max(worst_norm, diff / max(want_norm, 1e-30))
+    print("  typed_dense_agg_bwd: max |kernel - plain| = %.3e (dx; %d "
+          "entries the kernel's order rounds apart), %.3e (dW; |dW - "
+          "dW_plain| / |dW_plain| <= %.3e per type); entries over the "
+          "bound: %d, %d" % (float(err.max()), int((allowed > 0).sum()),
+                             float(err_w.max()), worst_norm, bad, bad_w))
     if (bad or bad_w or not bool(torch.isfinite(dx.float()).all())
             or not bool(torch.isfinite(dw).all())):
         raise AssertionError("typed_dense_agg_bwd disagrees with its plain "
@@ -330,37 +401,41 @@ def typed_dense_agg_bwd_check(torch, rs, got, want, x, w, dz, types):
     return max(float(err.max()), float(err_w.max()))
 
 
+def emlp1_src_bwd_terms(torch, rs, gcb, t_rows, cols, w, e_real, act):
+    """K14's per-edge terms as the kernel computes them, f32 [E, D]: x =
+    elu(m + beta), y = bf16(x) @ W[col] and dx = da @ W[col]^T summed in
+    its order, da = bf16(act'(y) * g), the term bf16(elu'(x) * dx); 0 at
+    or past e_real and for an edge of no non-self type."""
+    d = t_rows.shape[1]
+    g = gcb.float()
+    x = rs._elu(t_rows.float() + g[:, :d])
+    y = kernel_order_products(torch, x.to(torch.bfloat16), w, cols)
+    da = torch.where((cols >= 0)[:, None], rs._ACTS[act][1](y) * g[:, d:],
+                     0.0).to(torch.bfloat16)
+    dx = kernel_order_products(torch, da, w.transpose(1, 2), cols)
+    live = ((torch.arange(cols.shape[0], device=cols.device)
+             < e_real.to(cols.device)) & (cols >= 0))[:, None]
+    return rs._bf16_terms(torch.where(
+        live, rs._ACTS_FROM_OUT["elu"](x) * dx, 0.0))
+
+
 def emlp1_src_bwd_bounds(torch, rs, gcb, t, cols, w, e_real, ranks, rows,
                          act):
     """(sum of |term|, number of terms, slack) per entry of K14's output,
-    for check_kernel (with one bf16 ulp per term). The terms are K14's
-    plain version with every edge a rank of its own. The slack covers the
-    per-edge products: y = bf16(x) @ W and dx = da @ W^T are f32 sums of D
-    products taken in another order by the kernel (2 gamma_D of their sum
-    of |product|), and a y that moves by that may carry da = bf16(act'(y) *
-    g) to the neighbouring bf16 number (2^-7 of |da|), so each dm term may
-    move by elu'(x) * (2 gamma_D + 2^-7) * sum_c |da_c W_kc| beyond its own
-    rounding; 2^-6 covers both."""
+    for check_kernel (term_ulps=0): the terms in the kernel's order
+    (emlp1_src_bwd_terms) and in the plain version's (its plain version
+    with every edge a rank of its own), and as slack the per-entry sum of
+    their differences."""
     e = ranks.shape[0]
-    d = t.shape[1]
     t_rows = t.index_select(0, ranks)
     c = cols.index_select(0, ranks.long())
-    terms = rs._emlp1_src_bwd_plain(gcb, t_rows, c, w, e_real,
-                                    torch.arange(e, device=gcb.device), e,
-                                    act)
-    g = gcb.float()
-    x = rs._elu(t_rows.float() + g[:, :d])
-    live = (torch.arange(e, device=gcb.device) < e_real)[:, None] & (
-        c >= 0)[:, None]
-    y = rs._typed_products(x.to(torch.bfloat16), w, c)
-    da = torch.where(live, rs._ACTS[act][1](y) * g[:, d:], 0.0).to(
-        torch.bfloat16)
-    slack = (rs._ACTS_FROM_OUT["elu"](x).abs() * 2.0 ** -6
-             * typed_abs_products(rs, da, w.transpose(1, 2), c))
+    t_ko = emlp1_src_bwd_terms(torch, rs, gcb, t_rows, c, w, e_real, act)
+    t_p = rs._emlp1_src_bwd_plain(gcb, t_rows, c, w, e_real,
+                                  torch.arange(e, device=gcb.device), e, act)
     counts = torch.zeros(rows, device=gcb.device).index_add_(
         0, ranks, torch.ones(e, device=gcb.device))
-    return (per_row(torch, rows, ranks, terms.abs()), counts,
-            per_row(torch, rows, ranks, slack))
+    return (per_row(torch, rows, ranks, torch.maximum(t_ko.abs(), t_p.abs())),
+            counts, per_row(torch, rows, ranks, (t_ko - t_p).abs()))
 
 
 def kernel_phase(torch, rs, dev):
@@ -580,9 +655,8 @@ def kernel_phase(torch, rs, dev):
     x10, g10 = randn(e, d), randn(rows, d)
     w10 = (torch.randn((n_types, d, d), generator=gen, device=dev)
            / math.sqrt(d)).to(torch.bfloat16)
-    y10 = rs._typed_products(x10, w10, types)
-    k10_terms = rs._bf16_terms(gelu(y10))
-    dz10 = (dgelu(y10) * g10.float().index_select(0, rcv)).to(torch.bfloat16)
+    k10_abs, k10_counts, k10_slack = typed_dense_agg_bounds(
+        torch, rs, x10, w10, types, rcv, rows, "gelu")
     sizes10 = torch.bincount(types, minlength=n_types).tolist()
 
     def k10a_other():
@@ -791,8 +865,8 @@ def kernel_phase(torch, rs, dev):
              plain=lambda: rs._typed_dense_agg_plain(x10, w10, types, rcv,
                                                      rows, "gelu"),
              check=lambda got, want: check_kernel(
-                 "typed_dense_agg", got, want, abs_sums(rows, rcv, k10_terms),
-                 counts(rows, rcv), torch, term_ulps=1),
+                 "typed_dense_agg", got, want, k10_abs, k10_counts, torch,
+                 slack=k10_slack),
              nbytes=(e * d * 2 + 2 * e * 4 + n_types * d * d * 2
                      + n_rcv * d * 4),
              nops=30 * e * d, tensor_ops=2 * e * d * d,
@@ -808,7 +882,7 @@ def kernel_phase(torch, rs, dev):
              plain=lambda: rs._typed_dense_agg_bwd_plain(x10, w10, g10,
                                                          types, rcv, "gelu"),
              check=lambda got, want: typed_dense_agg_bwd_check(
-                 torch, rs, got, want, x10, w10, dz10, types),
+                 torch, rs, got, want, x10, w10, g10, types, rcv, "gelu"),
              nbytes=(2 * e * d * 2 + 2 * e * 4 + n_rcv * d * 2
                      + n_types * d * d * (2 + 4)),
              nops=45 * e * d, tensor_ops=6 * e * d * d,
@@ -828,7 +902,7 @@ def kernel_phase(torch, rs, dev):
                  gcb14, t14, cols14, w14, e_real14, src, rsrc, "gelu"),
              check=lambda got, want: check_kernel(
                  "emlp1_src_bwd", got, want, k14_abs, k14_counts, torch,
-                 term_ulps=1, slack=k14_slack),
+                 slack=k14_slack),
              nbytes=(e * 2 * d * 2 + e * 4 + n_src * (d * 2 + 4)
                      + 4 * d * d * 2 + rsrc * d * 4),
              nops=60 * e * d, tensor_ops=4 * e14_live * d * d,
@@ -904,12 +978,7 @@ def kernel_phase(torch, rs, dev):
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
             "library_ms": None,
             "queued_ms": cuda_queued_ms(timed, torch),
-            "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
         }
-        if "tensor_ops" in spec:
-            # What a kernel that forms the products with scalar f32
-            # multiplies and adds, as K10 and K14 do, runs against.
-            row["products_at_f32_ms"] = spec["tensor_ops"] / F32_FLOPS * 1e3
         if "library" in spec:
             what, fn = spec["library"]
             row["library_ms"] = cuda_ms(fn, torch)
@@ -922,12 +991,20 @@ def kernel_phase(torch, rs, dev):
                      "yardstick: %s %.4f ms" % (what, row["yardstick_ms"]))
         else:
             other = "no single PyTorch call computes this function"
+        # The bound's two terms, and for K10 and K14 what their typed
+        # products take at the f32 rate (the kernels form them with scalar
+        # f32 multiplies and adds): computed, not measured, so printed
+        # here and kept out of the kernels line.
+        products = ("; the typed products at the f32 rate %.4f ms"
+                    % (spec["tensor_ops"] / F32_FLOPS * 1e3)
+                    if "tensor_ops" in spec else "")
         print("  %s: kernel %.4f ms (%.4f ms queued behind a busy card), "
-              "plain %.4f ms; bound %.4f ms (%d bytes at 3.35 TB/s; %d f32 "
-              "ops at 67 TFLOP/s; %d bf16 tensor-core ops at 989 TFLOP/s); "
-              "%s" % (name, ms, row["queued_ms"], plain_ms, bound_ms,
-                      spec["nbytes"], spec["nops"],
-                      spec.get("tensor_ops", 0), other))
+              "plain %.4f ms; bound %.4f ms = max(bytes %.4f ms, operations "
+              "%.4f ms) (%d bytes at 3.35 TB/s; %d f32 ops at 67 TFLOP/s; "
+              "%d bf16 tensor-core ops at 989 TFLOP/s%s); %s"
+              % (name, ms, row["queued_ms"], plain_ms, bound_ms,
+                 bound_bytes_ms, bound_ops_ms, spec["nbytes"], spec["nops"],
+                 spec.get("tensor_ops", 0), products, other))
         if name in extra:
             # The row is the largest slice; the main path launches the
             # kernel once per streamed type, so a launch's mean time over
@@ -1047,7 +1124,7 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
                                  table_rows=rsrc, act="gelu"),
           rs._emlp1_src_bwd_plain(gcb14, t14, cols14, w14, e_real, ranks,
                                   rsrc, "gelu"),
-          k14_abs, term_ulps=1, slack=k14_slack)
+          k14_abs, slack=k14_slack)
     torch.cuda.synchronize()
 
 

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from chip_smoke import (check_kernel, emlp1_src_bwd_bounds,
-                        rgat_src_bwd_bounds, typed_dense_agg_bwd_check)
+                        rgat_src_bwd_bounds, typed_dense_agg_bounds,
+                        typed_dense_agg_bwd_check)
+from test_torch_chip_checks import k10_emulated, k14_emulated
 from tf_gnn_samples_torch.nn import layers
 from tf_gnn_samples_torch.ops import ranked_segment as rs
 from tf_gnn_samples_torch.ops.graph import (SD_FILL, graph_to_device,
@@ -826,9 +828,10 @@ def test_typed_dense_agg_matches_plain_on_card(dev, ranked_graph, act, dh, d):
     """K10a and K10b against their plain versions over the receiver-sorted
     stream and its edge types (a few set out of range: they add nothing).
     The kernels form each product in f32 in another order than the plain
-    version's matmul: each rounded term may differ by one bf16 ulp
-    (check_kernel with term_ulps=1; typed_dense_agg_bwd_check states the
-    bounds of dx and dW)."""
+    version's matmul: each output may differ from the plain version's by no
+    more than the same math in the kernel's order does, plus the order
+    bound of the sums (typed_dense_agg_bounds and typed_dense_agg_bwd_check
+    state the bounds; dW is also held by norm)."""
     flat = ranked_graph.flat
     ranks, rows = flat.rcv_rank, rs.rank_table_rows(ranked_graph.n_pad, 256)
     e = ranks.shape[0]
@@ -849,20 +852,21 @@ def test_typed_dense_agg_matches_plain_on_card(dev, ranked_graph, act, dh, d):
     assert got.dtype == torch.float32 and got.shape == (rows, d)
     assert dx.dtype == torch.bfloat16 and dx.shape == (e, dh)
     assert dw.dtype == torch.float32 and dw.shape == w.shape
-    fn, dact = rs._ACTS[act]
-    y = rs._typed_products(x, w, types)
+    abs_sums, counts, slack = typed_dense_agg_bounds(torch, rs, x, w, types,
+                                                     ranks, rows, act)
     check_kernel("typed_dense_agg", got,
                  rs._typed_dense_agg_plain(x, w, types, ranks, rows, act),
-                 *_order_inputs(dev, ranks, rows, rs._bf16_terms(fn(y))),
-                 torch, term_ulps=1)
-    valid = (types < ranked_graph.num_edge_types)[:, None]
-    dz = torch.where(valid, dact(y) * g16.float().index_select(0, ranks),
-                     0.0).to(torch.bfloat16)
-    typed_dense_agg_bwd_check(
-        torch, rs, (dx, dw),
-        rs._typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act),
-        x, w, dz, types)
-    assert (dx[~valid[:, 0]] == 0).all()
+                 abs_sums, counts, torch, slack=slack)
+    plain_bwd = rs._typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act)
+    typed_dense_agg_bwd_check(torch, rs, (dx, dw), plain_bwd, x, w, g16,
+                              types, ranks, act)
+    assert (dx[types >= ranked_graph.num_edge_types] == 0).all()
+    # The same check fails a planted dW = 0 and a dx sum one column short.
+    for fault in ("dw_zero", "dx_drops_last_term"):
+        _, planted = k10_emulated(fault, x, w, g16, types, ranks, rows, act)
+        with pytest.raises(AssertionError):
+            typed_dense_agg_bwd_check(torch, rs, planted, plain_bwd, x, w,
+                                      g16, types, ranks, act)
 
 
 @pytest.mark.parametrize("d", [128, 44])
@@ -871,8 +875,8 @@ def test_emlp1_src_bwd_matches_plain_on_card(dev, ranked_graph, diluted_graph,
                                             stream, d):
     """K14 over the src-sorted stream of a graph with a self-loop type
     (its src ranks get no column) and over a diluted one (zero beta | g
-    rows at the fill slots): the recomputed terms within the order bound,
-    one bf16 ulp each and the per-edge products' slack
+    rows at the fill slots): within the order bound of the sums plus what
+    the terms in the kernel's order differ by from the plain version's
     (emlp1_src_bwd_bounds); slots at or past e_real add nothing."""
     g = ranked_graph if stream == "undiluted" else diluted_graph
     flat = g.flat
@@ -901,7 +905,13 @@ def test_emlp1_src_bwd_matches_plain_on_card(dev, ranked_graph, diluted_graph,
     abs_sums, counts, slack = emlp1_src_bwd_bounds(
         torch, rs, gcb, t, cols, w, e_real, ranks, rows, "gelu")
     check_kernel("emlp1_src_bwd", got, want, abs_sums, counts, torch,
-                 term_ulps=1, slack=slack)
+                 slack=slack)
+    # The same check fails a planted dx sum one column short.
+    planted = k14_emulated("dx_drops_last_term", gcb, t, cols, w, e_real,
+                           ranks, rows, "gelu")
+    with pytest.raises(AssertionError):
+        check_kernel("emlp1_src_bwd", planted, want, abs_sums, counts, torch,
+                     slack=slack)
     fed = torch.zeros(rows, dtype=torch.bool, device=dev)
     fed[ranks[:e - 500].long()] = True
     assert (got[~fed] == 0).all()

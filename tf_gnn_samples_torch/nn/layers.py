@@ -653,19 +653,9 @@ def gnn_edge_mlp_apply(
                     self_types, act_name, n_pad, rows)
             else:
                 m = gather_tm_src(_flat(ts).to(torch.bfloat16), graph)
-                x = rs.expand_add_act(m, beta, flat.tm_rank, "elu")
-                parts = torch.split(
-                    x, [b - a for a, b in zip(offs[:-1], offs[1:])])
-                slices = [
-                    (torch.matmul(parts[l], W1[l].to(torch.bfloat16)),
-                     flat.tm_rank[offs[l]:offs[l + 1]])
-                    for l in range(num_types) if not self_types[l]]
-                if slices:
-                    table = rs.act_ranked_aggregate_slices(slices, rows,
-                                                           act_name)
-                else:
-                    table = torch.zeros((rows, d0), dtype=torch.float32,
-                                        device=h.device)
+                table, _, _ = rs.emlp1_tm_forward(
+                    m, beta, W1, flat.tm_rank, offs, self_types, act_name,
+                    rows)
             agg = tm_table_to_nodes(table, graph)
             # Self-loop types node-side, in f32: the message along a self
             # loop is a function of its node alone, summed once per

@@ -1368,26 +1368,25 @@ def src_rank_type_columns(src_from_rank, n_pad: int, self_flags):
         0, torch.clamp(src_from_rank // n_pad, max=num_types).long())
 
 
-def _emlp1_fwd_compute(ts_flat, beta_table, w1, src_idx, tm_rank, offs,
-                       self_flags, act, table_rows):
-    """The type-major Edge-MLP1 forward: m = ts[src] (bf16), x = elu(m +
-    beta[rank]) (K11a), one bf16 product per non-self type's slice and
-    K12a of each into one table."""
-    ts16 = ts_flat.to(torch.bfloat16)
-    m = ts16.index_select(0, _clip(src_idx, ts16.shape[0]))
-    x = _expand_add_act_impl(m, beta_table, tm_rank, act="elu")
-    table = torch.zeros((table_rows, ts_flat.shape[1]), dtype=torch.float32,
-                        device=ts_flat.device)
-    ys = []
-    for l, is_self in enumerate(self_flags):
-        if is_self:
-            ys.append(None)
-            continue
-        y_l = torch.matmul(x[offs[l]:offs[l + 1]], w1[l].to(torch.bfloat16))
-        ys.append(y_l)
-        _act_agg_impl(y_l, tm_rank[offs[l]:offs[l + 1]],
-                      table_rows=table_rows, act=act, out=table)
-    return table, (ts16, x, ys)
+def emlp1_tm_forward(m, beta_table, w1, tm_rank, offs, self_flags,
+                     act: str, table_rows: int):
+    """The type-major Edge-MLP1 forward from the gathered bf16 source
+    halves m [E, D]: x = elu(m + beta_table[rank]) (K11a), one bf16 product
+    per non-self type's slice of x and the outer activation and the
+    aggregation of each slice (K12a) into one (type, receiver) rank table,
+    f32 [table_rows, D]. Returns (table, x, the non-self slices' products).
+    Differentiable through K11b, the products and K12b; emlp1_tm_pass runs
+    it with grad mode off and brings its own backward."""
+    x = expand_add_act(m, beta_table, tm_rank, "elu")
+    slices = [(torch.matmul(x[offs[l]:offs[l + 1]], w1[l].to(torch.bfloat16)),
+               tm_rank[offs[l]:offs[l + 1]])
+              for l, is_self in enumerate(self_flags) if not is_self]
+    if slices:
+        table = act_ranked_aggregate_slices(slices, table_rows, act)
+    else:
+        table = torch.zeros((table_rows, m.shape[1]), dtype=torch.float32,
+                            device=m.device)
+    return table, x, [y for y, _ in slices]
 
 
 class _Emlp1TmPass(torch.autograd.Function):
@@ -1397,13 +1396,13 @@ class _Emlp1TmPass(torch.autograd.Function):
     def forward(ctx, ts_flat, beta_table, w1, src_idx, tm_rank,
                 tm_rank_by_src, src_sorted_rank, src_to_rank, src_from_rank,
                 edge_mask, offs, self_flags, act, n_pad, table_rows):
-        table, (ts16, x, ys) = _emlp1_fwd_compute(
-            ts_flat, beta_table, w1, src_idx, tm_rank, offs, self_flags, act,
-            table_rows)
+        ts16 = ts_flat.to(torch.bfloat16)
+        m = ts16.index_select(0, _clip(src_idx, ts16.shape[0]))
+        table, x, ys = emlp1_tm_forward(m, beta_table, w1, tm_rank, offs,
+                                        self_flags, act, table_rows)
         ctx.save_for_backward(ts16, x, beta_table, w1, tm_rank,
                               tm_rank_by_src, src_sorted_rank, src_to_rank,
-                              src_from_rank, edge_mask,
-                              *[y for y in ys if y is not None])
+                              src_from_rank, edge_mask, *ys)
         ctx.offs, ctx.self_flags, ctx.act = offs, self_flags, act
         ctx.n_pad, ctx.table_rows = n_pad, table_rows
         ctx.ts_dtype = ts_flat.dtype
