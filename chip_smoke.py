@@ -4,12 +4,13 @@
 Phases, each of which raises on failure (no phase's failure is caught):
  1. the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels from tf_gnn_samples_torch/csrc/ with nvcc;
- 3. each of the nineteen kernels (K1 film_fwd, K2 film_bwd_dgb, K3
+ 3. each of the twenty-three kernels (K1 film_fwd, K2 film_bwd_dgb, K3
     film_src_bwd, K4 film_bwd, K5a segsum, K5b expand, K6a segsum_t, K6b
     expand_t, K7a wseg_t, K7b wseg_t_bwd, K8 wseg_t_dw, K9 rgat_src_bwd,
     K10a typed_dense_agg, K10b typed_dense_agg_bwd, K11a expand_add_act,
-    K11b expand_add_act_bwd, K12a act_agg, K12b act_agg_bwd, K14
-    emlp1_src_bwd)
+    K11b expand_add_act_bwd, K12a act_agg, K12b act_agg_bwd, K13a wseg,
+    K13b wseg_bwd, K14 emlp1_src_bwd, K15a film_fwd_mask, K15b
+    masked_segsum)
     at the shapes of the first training batch of the tuned QM9 configs
     (50,000-node packs; 8 attention heads), held against its plain
     PyTorch version on the card, and timed beside its bound and, where
@@ -17,9 +18,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
     are also held against their plain versions on the second table each
     meets on the RGAT path, K12a and K12b on every edge type's slice of
     the type-major stream (the shapes GNN-Edge-MLP1 gives them; they are
-    timed on the largest) and over the whole stream, and K3, K9 and K14
-    on the DILUTED src stream of a numpy-made graph of PPI-like degree
-    (QM9's streams are undiluted);
+    timed on the largest) and over the whole stream, K15a and K15b for
+    relu and leaky_relu (timed with relu; K15a's table also against K1's
+    on the same inputs), and K3, K9, K14 and K15b on the DILUTED src
+    stream of a numpy-made graph of PPI-like degree (QM9's streams are
+    undiluted);
  4. the main paths: `tf_gnn_samples_torch.train` trains GNN-FiLM (with
     and without normalised messages), RGCN, GGNN, RGAT (on its fused and
     on its streamed branch, one of the two through a forced gate), RGIN
@@ -27,12 +30,14 @@ Phases, each of which raises on failure (no phase's failure is caught):
     `fused_src1` form with K14, with ENABLE_EMLP1_SRC_PASS set; and its
     `fused1` branch with K10, through a forced gate that hides the
     type-major view), GNN-Edge-MLP1 without the target state (ranked
-    branch) and GNN-Edge-MLP0 (FiLM kernels) on the bundled QM9 data at
-    their tuned configs for 2 epochs each, then `tf_gnn_samples_torch.test`
-    evaluates each written checkpoint; the kernel launch counters, set to
-    0 before each run and read after it, must show that every layer of
-    every batch went through its kernels (`expected_launches`) and through
-    no other;
+    branch), GNN-Edge-MLP0 (FiLM kernels) and RGDCN (class defaults,
+    25,000-node packs; fine-rank neighbour sums, K5a both ways) on the
+    bundled QM9 data at their tuned configs for 2 epochs each, then
+    `tf_gnn_samples_torch.test` evaluates each written checkpoint; the
+    kernel launch counters, set to 0 before each run and read after it,
+    must show that every layer of every batch went through its kernels
+    (`expected_launches`) and through no other; K13 and K15 run on no
+    path, as in the JAX package;
  5. a reference check per path: loss and gradients of the full-width
     model on a small QM9 batch on the card (kernels) against the same
     model on the CPU (the kernels' plain versions), with the same gates
@@ -81,6 +86,7 @@ PATHS = (
     Path("GNN-Edge-MLP1-src", "GNN-Edge-MLP1", {}, gate="emlp1_src"),
     Path("GNN-Edge-MLP-ranked", "GNN-Edge-MLP1",
          {"use_target_state_as_input": False}),
+    Path("RGDCN", "RGDCN", {}),
 )
 # QM9 has five edge types: the self loops (type 0), which GNN-Edge-MLP1
 # combines node-side, and four that stream through K12.
@@ -106,6 +112,10 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     "typed_dense_agg": "tf_gnn_samples_tpu/ops/ranked_segment.py:1084",
     "typed_dense_agg_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:1108",
     "emlp1_src_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:2305",
+    "wseg": "tf_gnn_samples_tpu/ops/ranked_segment.py:284",
+    "wseg_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:309",
+    "film_fwd_mask": "tf_gnn_samples_tpu/ops/ranked_segment.py:398",
+    "masked_segsum": "tf_gnn_samples_tpu/ops/ranked_segment.py:468",
 }
 
 
@@ -190,11 +200,33 @@ def cuda_queued_ms(fn, torch, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_busy_ms(fn, torch, calls=3) -> float:
+def hand_kernel_names():
+    """The __global__ function names of the port's CUDA sources."""
+    names = set()
+    csrc = os.path.join(ROOT, "tf_gnn_samples_torch", "csrc")
+    for fname in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, fname)) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", f.read()))
+    return names
+
+
+def hand_kernel_of(key, names):
+    """The kernel of `names` that the profiler event named `key` ran (the
+    name as a whole word: "void masked_segsum_kernel<0>(...)" is not
+    segsum_kernel), else None."""
+    m = re.search(r"(?<!\w)(%s)(?!\w)" % "|".join(sorted(names)), key)
+    return m.group(1) if m else None
+
+
+def device_profile(fn, torch, calls=3):
     """Device time per call of `fn` that the card spends in kernels and
     copies (torch.profiler: the self device time of every device event of
-    `calls` calls, over `calls`). The rest of a step's device-timeline
-    time (`cuda_ms`) the card waits for the host."""
+    `calls` calls, over `calls`), and the part of it spent in each of the
+    port's hand-written kernels, by __global__ name ({} where none ran).
+    The rest of a step's device-timeline time (`cuda_ms`) the card waits
+    for the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -205,11 +237,23 @@ def device_busy_ms(fn, torch, calls=3) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
     if busy_us <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return busy_us / 1e3 / calls
+    names = hand_kernel_names()
+    by_kernel = collections.Counter()
+    for e in events:
+        name = hand_kernel_of(e.key, names)
+        if name is not None:
+            by_kernel[name] += e.self_device_time_total / 1e3 / calls
+    return busy_us / 1e3 / calls, dict(by_kernel)
+
+
+def device_busy_ms(fn, torch, calls=3) -> float:
+    """device_profile's busy time alone."""
+    return device_profile(fn, torch, calls)[0]
 
 
 def first_batch(max_nodes: int, fold_name: str):
@@ -251,6 +295,55 @@ def check_kernel(name, got, want, terms_abs, counts, torch, term_ulps=0,
     if bad or not bool(torch.isfinite(got).all()):
         raise AssertionError("%s disagrees with its plain version" % name)
     return max_err
+
+
+def check_exact(name, got, want, torch):
+    """got must equal want bit for bit (same shape and type)."""
+    max_err = (float((got.double() - want.double()).abs().max())
+               if got.shape == want.shape and got.numel() else 0.0)
+    print("  %s: max |kernel - plain| = %.3e (must be 0)" % (name, max_err))
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not torch.equal(got, want)):
+        raise AssertionError("%s disagrees with its plain version" % name)
+    return max_err
+
+
+def head_dw_check(name, dw, dw_want, msgs, g_e, torch):
+    """A per-head weight cotangent d_w [E, K] (K7b, K8 and K13b; pass
+    K7b's and K8's [K, E] transposed): each entry an f32 sum of the D / K
+    exact products msgs[e, c] * g_e[e, c] of its head's columns, in
+    another order than the plain version's, so within check_kernel's order
+    bound with n = D / K."""
+    e, k = dw.shape
+    sums = (msgs.float() * g_e.float()).abs().reshape(e, k, -1).sum(-1)
+    return check_kernel(
+        name, dw.reshape(-1, 1), dw_want.reshape(-1, 1), sums.reshape(-1, 1),
+        torch.full((e * k,), float(msgs.shape[1] // k), device=dw.device),
+        torch)
+
+
+def masked_terms(torch, rs, mask, c_e, leak):
+    """K15b's per-edge terms bf16(C_e * factor(mask_e)), f32 [E, D] (its
+    plain version with every edge a rank of its own)."""
+    e = c_e.shape[0]
+    return rs._masked_segsum_plain(mask, c_e,
+                                   torch.arange(e, device=c_e.device), e, leak)
+
+
+def seam_rows(torch, ranks, rows):
+    """[rows] bool: the rank rows whose edges span three or more CHUNK-edge
+    blocks of the sorted-rank walk (film_common.cuh). Three or more
+    partial sums reach such a row by atomicAdd in an order that changes
+    from run to run; any other row is summed in a fixed order."""
+    chunk = torch.div(torch.arange(ranks.shape[0], device=ranks.device), 64,
+                      rounding_mode="floor")
+    first = torch.full((rows,), 2 ** 62, dtype=torch.int64,
+                       device=ranks.device).scatter_reduce_(
+                           0, ranks.long(), chunk, "amin")
+    last = torch.full((rows,), -1, dtype=torch.int64,
+                      device=ranks.device).scatter_reduce_(
+                          0, ranks.long(), chunk, "amax")
+    return (last - first) >= 2
 
 
 def per_row(torch, rows, ranks, x):
@@ -478,15 +571,7 @@ def kernel_phase(torch, rs, dev):
             torch)
 
     def exact_check(name):
-        def check(got, want):
-            max_err = float((got - want).abs().max())
-            print("  %s: max |kernel - plain| = %.3e (must be 0)"
-                  % (name, max_err))
-            if not torch.equal(got, want):
-                raise AssertionError("%s disagrees with its plain version"
-                                     % name)
-            return max_err
-        return check
+        return lambda got, want: check_exact(name, got, want, torch)
 
     def index_add(n, ranks, terms):
         return lambda: torch.zeros((n, terms.shape[1]), device=dev).index_add_(
@@ -496,22 +581,44 @@ def kernel_phase(torch, rs, dev):
         """d_w_t [K, E] is an f32 sum of D / K exact products (the first D
         columns of `stream` times the receiver's cotangent row) in another
         order than the plain version's."""
-        def check(dw, dw_want):
-            prods = (stream[:, :d].float()
-                     * g7.float().index_select(0, rcv)).abs()
-            sums = prods.reshape(e, heads, -1).sum(-1).t()
-            return check_kernel(
-                name, dw.reshape(-1, 1), dw_want.reshape(-1, 1),
-                sums.reshape(-1, 1),
-                torch.full((e * heads,), float(d // heads), device=dev),
-                torch)
-        return check
+        return lambda dw, dw_want: head_dw_check(
+            name, dw.t(), dw_want.t(), stream[:, :d], g7.index_select(0, rcv),
+            torch)
 
     def wseg_bwd_check(got, want):
         """K7b: d_msgs must equal the plain version's."""
         (dm, dw), (dm_want, dw_want) = got, want
         err_m = exact_check("wseg_t_bwd d_msgs")(dm.float(), dm_want.float())
         return max(err_m, dw_check("wseg_t_bwd d_w_t", m7)(dw, dw_want))
+
+    def wseg_rows_bwd_check(got, want):
+        """K13b: d_msgs must equal the plain version's; d_w as K7b's."""
+        (dm, dw), (dm_want, dw_want) = got, want
+        err_m = check_exact("wseg_bwd d_msgs", dm, dm_want, torch)
+        return max(err_m, head_dw_check("wseg_bwd d_w", dw, dw_want, m13,
+                                        g7.index_select(0, rcv), torch))
+
+    def film_fwd_mask_check(act_m):
+        """K15a: its table must equal K1's on the same inputs wherever K1
+        sums in a fixed order (rows of at most two chunks' partials, all
+        but a few dump rows), and lie within the order bound of the plain
+        version's everywhere; its mask must equal the plain version's."""
+        def check(got, want):
+            (table, mask), (table_want, mask_want) = got, want
+            k1 = rs._film_fwd_impl(msgs, gb, fine, act=act_m)
+            fixed = ~seam_rows(torch, fine, rpad)
+            check_exact("film_fwd_mask (%s) table = film_fwd's on %d of %d "
+                        "rows" % (act_m, int(fixed.sum()), rpad),
+                        table[fixed], k1[fixed], torch)
+            check_exact("film_fwd_mask (%s) mask" % act_m, mask, mask_want,
+                        torch)
+            return check_kernel(
+                "film_fwd_mask (%s) table" % act_m, table, table_want,
+                abs_sums(rpad, fine, rs._bf16_terms(
+                    rs._ACTS[act_m][0](g32[:, :d] * msgs.float()
+                                       + g32[:, d:]))),
+                counts(rpad, fine), torch)
+        return check
 
     def film_bwd_check(got, want):
         """K4: d_msgs must equal the plain version's; d_gb as K2."""
@@ -698,6 +805,22 @@ def kernel_phase(torch, rs, dev):
     k14_terms = rs._emlp1_src_bwd_plain(
         gcb14, t14.index_select(0, src), cols14.index_select(0, src.long()),
         w14, e_real14, torch.arange(e, device=dev), e, "gelu")
+
+    # K13 inputs at RGAT's tuned coarse table (8 heads): the bf16 stream,
+    # row-major [E, K] weights in [0, 1) and K7's bf16 table cotangent.
+    m13 = randn(e, d)
+    w13 = torch.rand((e, heads), generator=gen, device=dev)
+    k13_terms = rs._bf16_terms(m13.float() * rs._head_replicate(w13.t(), d))
+    # K15 inputs: K1's stream and table for K15a; for K15b the mask K15a
+    # writes, brought into src-sorted order, and a bf16 C stream over the
+    # src ranks (the dt pass of the masked FiLM backward).
+    lanes = rs._mask_lanes(d)
+    perm = flat.perm_by_src.long()
+    mask15 = rs._film_fwd_mask_plain(msgs, gb, fine, "relu")[1].index_select(
+        0, perm)
+    c15 = randn(e, d)
+    k15_terms = {leak: masked_terms(torch, rs, mask15, c15, leak)
+                 for leak in (0.0, 0.2)}
 
     specs = [
         dict(name="film_fwd",
@@ -910,6 +1033,61 @@ def kernel_phase(torch, rs, dev):
                         "(leaves out the row gathers and the two typed "
                         "products per edge)", index_add(rsrc, src, k14_terms))),
     ]
+    specs += [
+        # K13a reads the bf16 stream, the [E, K] weights and the ranks and
+        # writes the table; a multiply and an add per element.
+        dict(name="wseg",
+             kern=lambda: rs._wseg_impl(m13, w13, rcv, table_rows=rows,
+                                        num_heads=heads),
+             plain=lambda: rs._wseg_plain(m13, w13, rcv, rows),
+             check=order_check("wseg", rows, rcv, k13_terms),
+             nbytes=e * d * 2 + heads * e * 4 + e * 4 + rows * d * 4,
+             nops=2 * e * d,
+             yardstick=("torch.Tensor.index_add_ of the precomputed terms "
+                        "(leaves out the head replicate and the product)",
+                        index_add(rows, rcv, k13_terms))),
+        # K13b reads the stream, the weights, the ranks and the used rows of
+        # the bf16 cotangent table and writes d_msgs (bf16) and d_w; two
+        # multiplies and an add per element. Its plain version is the
+        # shortest composition.
+        dict(name="wseg_bwd",
+             kern=lambda: rs._wseg_bwd_impl(m13, w13, g7, rcv,
+                                            num_heads=heads),
+             plain=lambda: rs._wseg_bwd_plain(m13, w13, g7, rcv),
+             check=wseg_rows_bwd_check,
+             nbytes=(2 * e * d * 2 + 2 * heads * e * 4 + e * 4
+                     + n_rcv * d * 2),
+             nops=3 * e * d),
+        # K15a is K1 (relu) plus the [E, lanes] f32 mask store; a compare
+        # and a vote per element besides K1's work.
+        dict(name="film_fwd_mask",
+             kern=lambda: rs._film_fwd_mask_impl(msgs, gb, fine, act="relu"),
+             plain=lambda: rs._film_fwd_mask_plain(msgs, gb, fine, "relu"),
+             check=film_fwd_mask_check("relu"),
+             nbytes=(e * d * 2 + e * 4 + n_fine * 2 * d * 2 + rpad * d * 4
+                     + e * lanes * 4),
+             nops=6 * e * d,
+             yardstick=("film_fwd (K1) on the same inputs, which writes no "
+                        "mask", lambda: rs._film_fwd_impl(msgs, gb, fine,
+                                                          act="relu"))),
+        # K15b (relu) reads the mask's ceil(D/16) used lanes (the rest hold
+        # 0 and are never read), the bf16 C stream and the src ranks, and
+        # writes the src-rank table; a shift, a multiply and an add per
+        # element.
+        dict(name="masked_segsum",
+             kern=lambda: rs._masked_segsum_impl(mask15, c15, src,
+                                                 table_rows=rsrc, leak=0.0),
+             plain=lambda: rs._masked_segsum_plain(mask15, c15, src, rsrc,
+                                                   0.0),
+             check=order_check("masked_segsum (relu)", rsrc, src,
+                               k15_terms[0.0]),
+             nbytes=(e * (-(-d // 16)) * 4 + e * d * 2 + e * 4
+                     + rsrc * d * 4),
+             nops=3 * e * d,
+             yardstick=("torch.Tensor.index_add_ of the precomputed terms "
+                        "(leaves out the mask unpack and the product)",
+                        index_add(rsrc, src, k15_terms[0.0]))),
+    ]
     # The RGAT path gives each K6 kernel two tables: K6a also sums the
     # target logits' cotangent over the fine ranks (shorter runs, more
     # seams per thread), K6b also expands the denominator over the
@@ -950,6 +1128,15 @@ def kernel_phase(torch, rs, dev):
             return worst
         return run
 
+    # K15a and K15b are timed with relu; leaky_relu is checked only.
+    also["film_fwd_mask"] = lambda: film_fwd_mask_check("leaky_relu")(
+        rs._film_fwd_mask_impl(msgs, gb, fine, act="leaky_relu"),
+        rs._film_fwd_mask_plain(msgs, gb, fine, "leaky_relu"))
+    also["masked_segsum"] = lambda: order_check(
+        "masked_segsum (leaky_relu)", rsrc, src, k15_terms[0.2])(
+            rs._masked_segsum_impl(mask15, c15, src, table_rows=rsrc,
+                                   leak=0.2),
+            rs._masked_segsum_plain(mask15, c15, src, rsrc, 0.2))
     also["act_agg"] = k12_also(0)
     also["act_agg_bwd"] = k12_also(1)
     results = []
@@ -1046,7 +1233,7 @@ def ppi_like_graph(dev, seed=0, num_nodes=8192, degree=14):
 
 
 def diluted_phase(torch, rs, dev, graph, seed=0):
-    """K3, K9 and K14 on a DILUTED src stream. The tuned QM9 batches have no
+    """K3, K9, K14 and K15b on a DILUTED src stream. The tuned QM9 batches have no
     fine rank window, so their src streams are undiluted; `graph`
     (ppi_like_graph) dilutes. Fill slots carry the SD_FILL key, which the
     passes clamp onto a zero row appended to their side table: both
@@ -1125,6 +1312,20 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
           rs._emlp1_src_bwd_plain(gcb14, t14, cols14, w14, e_real, ranks,
                                   rsrc, "gelu"),
           k14_abs, slack=k14_slack)
+    # K15b on the diluted stream: the C rows gathered from a fine-rank
+    # table (fill slots read its zero row), a random packed mask.
+    lanes = rs._mask_lanes(d)
+    mask = torch.zeros((e_sd, lanes), device=dev)
+    mask[:, :d // 16] = torch.randint(0, 2 ** 16, (e_sd, d // 16),
+                                      generator=gen, device=dev).float()
+    c15 = gathered(randn(rpad, d))
+    for leak in (0.0, 0.2):
+        check("masked_segsum (leak %g)" % leak,
+              rs._masked_segsum_impl(mask, c15, ranks, table_rows=rsrc,
+                                     leak=leak),
+              rs._masked_segsum_plain(mask, c15, ranks, rsrc, leak),
+              torch.zeros((rsrc, d), device=dev).index_add_(
+                  0, ranks, masked_terms(torch, rs, mask, c15, leak).abs()))
     torch.cuda.synchronize()
 
 
@@ -1227,9 +1428,11 @@ def expected_launches(label, layers, n_fwd, n_bwd):
     K5b (the target halves' expand) and K10a forward; K10b and two K5a
     (the backwards of the expand and of the source gather) backward. RGIN
     and GNN-Edge-MLP without the target state run the fused gather +
-    segment-sum: K5a forward and K5a backward."""
+    segment-sum, RGDCN its fine-rank sibling: K5a forward and K5a
+    backward. K13 and K15 run on no path (no model of either package
+    calls them)."""
     want = {k: 0 for k in REPLACES}
-    if label in ("RGIN", "GNN-Edge-MLP-ranked"):
+    if label in ("RGIN", "GNN-Edge-MLP-ranked", "RGDCN"):
         want.update(segsum=layers * (n_fwd + n_bwd))
     elif label == "GNN-Edge-MLP1-fused1":
         want.update(expand=layers * n_fwd, typed_dense_agg=layers * n_fwd,
@@ -1273,25 +1476,29 @@ def main_path_phase(rs, path):
     from tf_gnn_samples_torch import test as test_cli
     from tf_gnn_samples_torch.tasks.base import DataFold
 
+    import torch
+
     out = os.path.join(OUT, path.label)
     os.makedirs(out, exist_ok=True)
     args = train_cli.get_train_args([
         path.model, "QM9", "--data-path", DATA, "--result-dir", out,
         "--quiet", "--model-param-overrides",
         json.dumps(dict(TUNED_OVERRIDES, **path.overrides))])
+    torch.cuda.reset_peak_memory_stats()
     rs.reset_launches()
     t0 = time.time()
     (model,) = train_cli.run(args)
     launches = dict(rs.LAUNCHES)
     train_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers = (model.params["graph_num_layers"]
               * model.params["graph_num_timesteps_per_layer"])
     n_train = model.batches_run[DataFold.TRAIN]
     n_valid = model.batches_run[DataFold.VALIDATION]
     want = expected_launches(path.label, layers, n_train + n_valid, n_train)
-    print("%s main path: %d train and %d valid batches in %.1f s; launches "
-          "%s, expected %s" % (path.label, n_train, n_valid, train_s,
-                               launches, want))
+    print("%s main path: %d train and %d valid batches in %.1f s, peak "
+          "device memory %.2f GB; launches %s, expected %s"
+          % (path.label, n_train, n_valid, train_s, peak_gb, launches, want))
     if launches != want:
         raise AssertionError("kernel launches %s != expected %s"
                              % (launches, want))
@@ -1355,9 +1562,9 @@ def step_times(rs, model, label):
              "eval_step_ms": cuda_ms(lambda: model._eval_step(dev_batch),
                                      torch, warmup=2, iters=5),
              "train_step_host_ms": host_enqueue_ms(
-                 lambda: model._train_step(dev_batch), torch),
-             "train_step_busy_ms": device_busy_ms(
                  lambda: model._train_step(dev_batch), torch)}
+    times["train_step_busy_ms"], times["train_step_kernel_ms"] = (
+        device_profile(lambda: model._train_step(dev_batch), torch))
     print("%s: one batch of %d graphs: host packing %.1f ms, train step "
           "%.2f ms, eval step %.2f ms (device timeline); the host enqueues "
           "the train step in %.2f ms; the card is busy %.2f ms of the train "
@@ -1371,11 +1578,13 @@ def step_times(rs, model, label):
 
 
 def reference_phase(torch, rs, path, card="cuda"):
-    """Full-width model (tuned config) of `path` on a small QM9 batch: the
-    card's kernels against the CPU's plain versions, same weights, no
-    dropout. At 600 nodes RGCN and GGNN would take the dense strategy
-    ("auto"), so they are set to the ranked one ("pallas") and must launch
-    K5; RGAT takes the same branch under either."""
+    """Full-width model (tuned config, or the class defaults where the
+    repository has no QM9_<model>.json, as for RGDCN) of `path` on a small
+    QM9 batch: the card's kernels against the CPU's plain versions, same
+    weights, no dropout. At 600 nodes RGCN, GGNN and RGDCN would take the
+    dense strategy ("auto"), so they are set to the ranked one ("pallas")
+    and must launch K5 (RGDCN: its fine form); RGAT takes the same branch
+    under either."""
     import numpy as np
 
     from tf_gnn_samples_torch.runtime.model import batch_to_device, params_to_jax
@@ -1384,10 +1593,11 @@ def reference_phase(torch, rs, path, card="cuda"):
 
     model_name = path.label
     cls, _ = name_to_model_class(path.model)
-    with open(os.path.join(HYPERS_DIR, "QM9_%s.json" % path.model)) as f:
-        hypers = json.load(f)["model_params"]
     params = cls.default_params()
-    params.update(hypers)
+    hypers_file = os.path.join(HYPERS_DIR, "QM9_%s.json" % path.model)
+    if os.path.exists(hypers_file):
+        with open(hypers_file) as f:
+            params.update(json.load(f)["model_params"])
     params.update(path.overrides)
     params["graph_layer_input_dropout_keep_prob"] = 1.0
     if path.model != "GNN-FiLM":
@@ -1494,6 +1704,13 @@ def main() -> int:
               "%.1f%% of the train step"
               % (path.label, per_step, share, queued,
                  100 * share / times["train_step_ms"]))
+        traced = times["train_step_kernel_ms"]
+        print("%s: device time of the hand-written kernels in one train "
+              "step (torch.profiler) %s: %.2f ms, %.1f%% of the card's busy "
+              "time"
+              % (path.label, {k: round(v, 4) for k, v in sorted(
+                  traced.items())}, sum(traced.values()),
+                 100 * sum(traced.values()) / times["train_step_busy_ms"]))
     for k in kernels:
         k["launches"] = total[k["name"]]
     rgat_branch_phase(torch, rs, torch.device("cuda"), ppi_graph)

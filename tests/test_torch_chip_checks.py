@@ -1,17 +1,20 @@
 """The checks that `chip_smoke.py` and `tests/test_torch_cuda.py` hold the
-K10 and K14 kernels to, on the CPU: each accepts the kernel's math taken in
-the kernel's own summation order (emulated here, independently of the
-checks' helpers) against the plain version's, and rejects a planted fault:
-a product that drops its last term, a dx sum that stops one column short,
-a zero or partial dW, an edge past e_real that is counted. No kernel runs
-here; the faults are planted in the emulation."""
+K10, K13, K14 and K15 kernels to, on the CPU: each accepts the kernel's
+math taken in another summation order (emulated here, independently of
+the checks' helpers) against the plain version's, and rejects a planted
+fault: a product that drops its last term, a dx sum that stops one column
+short, a zero or partial dW or d_w, an edge past e_real that is counted, a
+term dropped or weighted by the wrong head, a mask one bit off, the wrong
+leak. No kernel runs here; the faults are planted in the emulation."""
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_kernel, emlp1_src_bwd_bounds,
-                        kernel_order_products, typed_dense_agg_bounds,
+from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
+                        hand_kernel_names, hand_kernel_of, head_dw_check,
+                        kernel_order_products, masked_terms,
+                        seam_rows, typed_dense_agg_bounds,
                         typed_dense_agg_bwd_check)
 from tf_gnn_samples_torch.ops import ranked_segment as rs
 
@@ -174,3 +177,148 @@ def test_kernel_order_products_sum_in_index_order():
     assert float(kernel_order_products(torch, a, w, types)) == 0.0
     assert float(kernel_order_products(
         torch, a[:, [0, 2, 1]], w, types)) == 1.0
+
+
+# ---- K13 and K15 ---------------------------------------------------------
+
+def reversed_segsum(terms, ranks, rows):
+    """f32 per-rank sums of `terms` in reverse stream order: another order
+    than the plain versions' index_add_, as the kernels' chunked walk is."""
+    return torch.zeros((rows, terms.shape[1])).index_add_(
+        0, ranks.flip(0), terms.flip(0))
+
+
+def order_bound(terms, ranks, rows):
+    """(sum of |term|, number of terms) per row, for check_kernel."""
+    return (torch.zeros((rows, terms.shape[1])).index_add_(0, ranks,
+                                                           terms.abs()),
+            torch.zeros(rows).index_add_(0, ranks, torch.ones(len(ranks))))
+
+
+def k13_inputs(seed=2, e=2048, k=4):
+    """Receiver-sorted ranks, a bf16 stream, row-major [E, K] weights and
+    the bf16 table cotangent."""
+    rng = np.random.RandomState(seed)
+    ranks = sorted_ranks(rng, e, 500)
+    rows = int(ranks[-1]) + 1
+    w = torch.from_numpy(rng.rand(e, k).astype(np.float32))
+    return bf16(rng, e, D), w, bf16(rng, rows, D), ranks, rows
+
+
+@pytest.mark.parametrize("fault", ["none", "term_dropped", "wrong_head"])
+def test_k13a_check_rejects_planted_faults(fault):
+    msgs, w, _, ranks, rows = k13_inputs()
+    wk = w.roll(1, dims=1) if fault == "wrong_head" else w
+    terms = rs._bf16_terms(msgs.float() * rs._head_replicate(wk.t(), D))
+    if fault == "term_dropped":
+        terms[1000] = 0.0
+    got = reversed_segsum(terms, ranks, rows)
+    want = rs._wseg_plain(msgs, w, ranks, rows)
+    bound = order_bound(rs._bf16_terms(
+        msgs.float() * rs._head_replicate(w.t(), D)), ranks, rows)
+    if fault == "none":
+        check_kernel("wseg", got, want, *bound, torch)
+    else:
+        with pytest.raises(AssertionError):
+            check_kernel("wseg", got, want, *bound, torch)
+
+
+@pytest.mark.parametrize("fault", ["none", "dw_zero", "dw_drops_last_column",
+                                   "dmsg_one_ulp_off"])
+def test_k13b_checks_reject_planted_faults(fault):
+    msgs, w, g16, ranks, rows = k13_inputs(seed=3)
+    k = w.shape[1]
+    g_e = g16.index_select(0, ranks)
+    prods = (msgs.float() * g_e.float()).reshape(len(ranks), k, -1)
+    if fault == "dw_drops_last_column":
+        prods = prods[:, :, :-1]
+    dw = prods.flip(2).sum(-1)  # the head's columns in reverse order
+    if fault == "dw_zero":
+        dw = torch.zeros_like(dw)
+    dm = (g_e.float() * rs._head_replicate(w.t(), D)).to(torch.bfloat16)
+    if fault == "dmsg_one_ulp_off":
+        dm.view(torch.int16)[5, 3] += 1
+    dm_want, dw_want = rs._wseg_bwd_plain(msgs, w, g16, ranks)
+
+    def check():
+        check_exact("wseg_bwd d_msgs", dm, dm_want, torch)
+        head_dw_check("wseg_bwd d_w", dw, dw_want, msgs, g_e, torch)
+
+    if fault == "none":
+        check()
+    else:
+        with pytest.raises(AssertionError):
+            check()
+
+
+def k15_inputs(seed=4, e=2048):
+    """Src-sorted-like ranks, a packed mask from K15a's plain version (both
+    signs of z) and a bf16 C stream."""
+    rng = np.random.RandomState(seed)
+    ranks = sorted_ranks(rng, e, 600)
+    rows = int(ranks[-1]) + 1
+    _, mask = rs._film_fwd_mask_plain(bf16(rng, e, D), bf16(rng, rows, 2 * D),
+                                      ranks, "relu")
+    return mask, bf16(rng, e, D), ranks, rows
+
+
+@pytest.mark.parametrize("leak", [0.0, 0.2])
+@pytest.mark.parametrize("fault", ["none", "mask_one_bit_off", "wrong_leak",
+                                   "term_dropped"])
+def test_k15b_check_rejects_planted_faults(fault, leak):
+    mask, c, ranks, rows = k15_inputs()
+    used = mask.clone()
+    if fault == "mask_one_bit_off":
+        used[10, 1] = float(int(used[10, 1]) ^ 4)
+    used_leak = (0.2 - leak) if fault == "wrong_leak" else leak
+    terms = masked_terms(torch, rs, used, c, used_leak)
+    if fault == "term_dropped":
+        terms[77] = 0.0
+    got = reversed_segsum(terms, ranks, rows)
+    want = rs._masked_segsum_plain(mask, c, ranks, rows, leak)
+    bound = order_bound(masked_terms(torch, rs, mask, c, leak), ranks, rows)
+    if fault == "none":
+        check_kernel("masked_segsum", got, want, *bound, torch)
+    else:
+        with pytest.raises(AssertionError):
+            check_kernel("masked_segsum", got, want, *bound, torch)
+
+
+def test_k15a_mask_check_rejects_one_bit_off():
+    mask, _, _, _ = k15_inputs(seed=5)
+    check_exact("film_fwd_mask mask", mask.clone(), mask, torch)
+    off = mask.clone()
+    off[3, 0] = float(int(off[3, 0]) ^ 1)
+    with pytest.raises(AssertionError):
+        check_exact("film_fwd_mask mask", off, mask, torch)
+
+
+def test_seam_rows_marks_rows_over_three_chunks():
+    """A rank over edges 60-200 spans chunks 0-3 of 64 edges; one over
+    edges 50-70 spans two; single-chunk ranks are in neither."""
+    ranks = torch.tensor([0] * 50 + [1] * 10 + [2] * 141 + [3] * 55,
+                         dtype=torch.int32)
+    rows = seam_rows(torch, ranks, 6)
+    assert rows.tolist() == [False, False, True, False, False, False]
+    ranks = torch.tensor([0] * 50 + [1] * 21 + [2] * 10, dtype=torch.int32)
+    assert not seam_rows(torch, ranks, 3).any()
+
+
+def test_hand_kernel_names_read_from_the_sources():
+    """The step profile's kernel names come from the CUDA sources, and a
+    profiler event is charged to the kernel it names as a whole word
+    only."""
+    names = hand_kernel_names()
+    assert {"segsum_kernel", "masked_segsum_kernel", "wseg_kernel",
+            "wseg_bwd_kernel", "film_fwd_mask_kernel"} <= names
+    assert all(n.endswith("_kernel") for n in names)
+    assert hand_kernel_of("void masked_segsum_kernel<0>(float const*, int)",
+                          names) == "masked_segsum_kernel"
+    assert hand_kernel_of(
+        "void (anonymous namespace)::segsum_kernel<float>(float const*)",
+        names) == "segsum_kernel"
+    assert hand_kernel_of("void wseg_kernel<true>(__nv_bfloat16 const*)",
+                          names) == "wseg_kernel"
+    assert hand_kernel_of(
+        "void at::native::vectorized_elementwise_kernel<4, ...>(int, ...)",
+        names) is None

@@ -2,11 +2,12 @@
 PyTorch version (the FiLM kernels K1-K4 for every activation, the ranked
 segment-sum for an f32 and a bf16 stream, the ranked expand exactly, the
 head-major attention kernels K6, K7 and K8, K9 and K14 on an undiluted
-and a diluted src stream, the GNN-Edge-MLP1 kernels K10, K11 and K12), the
-wrappers' checks and launch counts, and the GNN-FiLM (fused and
-normalised), RGCN, GGNN, RGAT (fused and streamed), RGIN and GNN-Edge-MLP
-(type-major with and without K14, fused1, fused0, ranked) layers on the
-card against the CPU.
+and a diluted src stream, the GNN-Edge-MLP1 kernels K10, K11 and K12, the
+row-major weighted segment-sum K13, the sign-mask kernels K15, K15b on
+both streams), the wrappers' checks and launch counts, and the GNN-FiLM
+(fused and normalised), RGCN, GGNN, RGAT (fused and streamed), RGIN,
+GNN-Edge-MLP (type-major with and without K14, fused1, fused0, ranked)
+and RGDCN (fine form) layers on the card against the CPU.
 
 Marked `cuda`; every test skips without a GPU. This file imports no JAX,
 so it runs where JAX is absent (the repository's conftest imports it):
@@ -17,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_kernel, emlp1_src_bwd_bounds,
-                        rgat_src_bwd_bounds, typed_dense_agg_bounds,
+from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
+                        head_dw_check, masked_terms, rgat_src_bwd_bounds,
+                        seam_rows, typed_dense_agg_bounds,
                         typed_dense_agg_bwd_check)
 from test_torch_chip_checks import k10_emulated, k14_emulated
 from tf_gnn_samples_torch.nn import layers
@@ -1015,3 +1017,217 @@ def test_new_branches_on_card_match_cpu(dev, ranked_graph, monkeypatch,
         rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
         assert rel < 2e-3, rel
 
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("which", ["ranked", "diluted"])
+def test_rgdcn_layer_on_card_matches_cpu(dev, ranked_graph, diluted_graph,
+                                         which, normalize):
+    """RGDCN's fine-form neighbour sums ("pallas": the fused gather + fine
+    segment-sum, K5a forward over the fine ranks and K5a backward over the
+    src-sorted stream, the diluted one where it engaged and normalisation
+    is off), one layer step on the card against the CPU."""
+    graph = ranked_graph if which == "ranked" else diluted_graph
+    d, channels = 64, 4
+    k = d // channels
+    rng = np.random.default_rng(9)
+    w_wc = (rng.standard_normal((graph.num_edge_types, channels, k, k * k))
+            / k ** 2).astype(np.float32)
+    h = rng.standard_normal((graph.n_pad, d)).astype(np.float32)
+    w = rng.standard_normal((graph.n_pad, d)).astype(np.float32)
+    assert layers.rgdcn_sums_form(graph, "pallas", "auto") == "fine"
+    results, launches = [], None
+    for device in (dev, torch.device("cpu")):
+        g = graph_to_device(graph, device)
+        p = {"W_wc": torch.tensor(w_wc, device=device, requires_grad=True)}
+        hh = torch.tensor(h, device=device, requires_grad=True)
+        before = dict(rs.LAUNCHES)
+        out = layers.rgdcn_apply(p, g, hh, num_channels=channels,
+                                 aggregation_strategy="pallas",
+                                 normalize_by_num_incoming=normalize)
+        (out * torch.tensor(w, device=device)).sum().backward()
+        if device.type == "cuda":
+            launches = {n: rs.LAUNCHES[n] - before[n] for n in before
+                        if rs.LAUNCHES[n] > before[n]}
+        results.append([x.detach().cpu().numpy()
+                        for x in (out, hh.grad, p["W_wc"].grad)])
+    assert launches == dict(segsum=2)
+    for card, cpu in zip(*results):
+        # The same bf16 terms; the f32 contractions sum in other orders on
+        # the card, which can round a cotangent to the neighbouring bf16
+        # number (2^-8 relative) before the backward K5a.
+        rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
+        assert rel < 2e-3, rel
+
+
+# ---- K13, K15: row-major weighted segment-sum, sign-mask FiLM kernels ------
+
+@pytest.mark.parametrize("k,d", [(k, d) for k, d, x in HEAD_CASES if not x])
+def test_wseg_matches_plain_on_card(dev, graph, k, d):
+    """K13a and its plain version sum the same bf16-rounded products in two
+    orders, reading the [E, K] weights in place."""
+    ranks = graph.flat.rcv_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    e = ranks.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(d + k)
+    msgs = torch.randn((e, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.rand((e, k), generator=gen, device=dev)
+    before = rs.LAUNCHES["wseg"]
+    got = rs._wseg_impl(msgs, w, ranks, table_rows=rows, num_heads=k)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["wseg"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (rows, d)
+    want = rs._wseg_plain(msgs, w, ranks, rows)
+    terms = rs._bf16_terms(msgs.float() * rs._head_replicate(w.t(), d))
+    check_kernel("wseg", got, want, *_order_inputs(dev, ranks, rows, terms),
+                 torch)
+
+
+@pytest.mark.parametrize("k,d,offset", [(k, d, 0) for k, d, x in HEAD_CASES
+                                        if not x] + [(8, 128, 1)])
+def test_wseg_bwd_matches_plain_on_card(dev, graph, k, d, offset):
+    """K13b: d_msgs equals the plain version's exactly; d_w, an f32 sum of
+    D / K exact products in another order, within the order bound, and the
+    same check rejects a d_w that is zero. A stream one bf16 past an
+    aligned address takes the 2-byte path."""
+    ranks = graph.flat.rcv_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    e = ranks.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(d * k + 1)
+    base = torch.randn(e * d + offset, generator=gen, device=dev).to(
+        torch.bfloat16)
+    msgs = base[offset:].view(e, d)
+    w = torch.rand((e, k), generator=gen, device=dev)
+    g16 = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    before = rs.LAUNCHES["wseg_bwd"]
+    dm, dw = rs._wseg_bwd_impl(msgs, w, g16, ranks, num_heads=k)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["wseg_bwd"] == before + 1
+    assert dw.dtype == torch.float32 and dw.shape == (e, k)
+    dm_want, dw_want = rs._wseg_bwd_plain(msgs, w, g16, ranks)
+    check_exact("wseg_bwd d_msgs", dm, dm_want, torch)
+    g_e = g16.index_select(0, ranks)
+    head_dw_check("wseg_bwd d_w", dw, dw_want, msgs, g_e, torch)
+    with pytest.raises(AssertionError):
+        head_dw_check("wseg_bwd d_w (zero)", torch.zeros_like(dw), dw_want,
+                      msgs, g_e, torch)
+
+
+def test_ranked_weighted_segment_sum_grad_on_card(dev, graph):
+    """The autograd Function launches K13a forward and K13b backward, and
+    its gradients are the wrappers' outputs."""
+    ranks = graph.flat.rcv_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    e, k, d = ranks.shape[0], 8, 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    msgs = torch.randn((e, d), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    w = torch.rand((e, k), generator=gen, device=dev).requires_grad_(True)
+    g = torch.randn((rows, d), generator=gen, device=dev)
+    before = dict(rs.LAUNCHES)
+    out = rs.ranked_weighted_segment_sum(msgs, w, ranks, rows, k)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["wseg"] == before["wseg"] + 1
+    assert rs.LAUNCHES["wseg_bwd"] == before["wseg_bwd"] + 1
+    dm, dw = rs._wseg_bwd_impl(msgs.detach(), w.detach(), g.bfloat16(),
+                               ranks, num_heads=k)
+    assert torch.equal(msgs.grad, dm)
+    head_dw_check("ranked_weighted_segment_sum d_w", w.grad, dw,
+                  msgs.detach(), g.bfloat16().index_select(0, ranks), torch)
+
+
+@pytest.mark.parametrize("d", [128, 200, 48, 40])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "elu"])
+def test_film_fwd_mask_matches_plain_and_film_fwd_on_card(dev, graph, act, d):
+    """K15a: the mask equals the plain version's bit for bit (D = 40 and
+    200 leave a part-filled 16-column group, 48 and 40 a part-filled
+    warp), and the same exact check rejects a mask one bit off; the table
+    equals K1's on the same inputs on every row that K1 sums in a fixed
+    order and lies within the order bound of the plain version's."""
+    msgs, gb, ranks = _inputs("film_fwd", graph.flat, d, dev)
+    rows = gb.shape[0]
+    before = rs.LAUNCHES["film_fwd_mask"]
+    table, mask = rs._film_fwd_mask_impl(msgs, gb, ranks, act=act)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["film_fwd_mask"] == before + 1
+    assert mask.dtype == torch.float32
+    assert mask.shape == (ranks.shape[0], rs._mask_lanes(d))
+    t_want, m_want = rs._film_fwd_mask_plain(msgs, gb, ranks, act)
+    check_exact("film_fwd_mask mask", mask, m_want, torch)
+    off = mask.clone()
+    off[7, 0] = float(int(off[7, 0]) ^ 1)
+    with pytest.raises(AssertionError):
+        check_exact("film_fwd_mask mask (one bit off)", off, m_want, torch)
+    fixed = ~seam_rows(torch, ranks, rows)
+    k1 = rs._film_fwd_impl(msgs, gb, ranks, act=act)
+    check_exact("film_fwd_mask table", table[fixed], k1[fixed], torch)
+    check_kernel("film_fwd_mask", table, t_want,
+                 *_terms_and_counts("film_fwd", act, (msgs, gb, ranks),
+                                    graph.flat, dev), torch)
+
+
+@pytest.mark.parametrize("d", [128, 200, 40])
+@pytest.mark.parametrize("leak", [0.0, 0.2])
+@pytest.mark.parametrize("stream", ["undiluted", "diluted"])
+def test_masked_segsum_matches_plain_on_card(dev, graph, diluted_graph,
+                                             stream, leak, d):
+    """K15b and its plain version sum the same bf16-rounded masked terms in
+    two orders over the src-sorted stream (on the diluted one, fill slots
+    carry zero C rows); the same check rejects the table of a mask one bit
+    off."""
+    g = graph if stream == "undiluted" else diluted_graph
+    fine, ranks, _ = layers.src_stream(g.flat)
+    rows = g.flat.src_from_rank.shape[0]
+    e = ranks.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(d)
+    lanes = rs._mask_lanes(d)
+    mask = torch.zeros((e, lanes), device=dev)
+    mask[:, :-(-d // 16)] = torch.randint(0, 2 ** 16, (e, -(-d // 16)),
+                                          generator=gen, device=dev).float()
+    c = torch.randn((e, d), generator=gen, device=dev).to(torch.bfloat16)
+    c[fine == int(SD_FILL)] = 0
+    before = rs.LAUNCHES["masked_segsum"]
+    got = rs._masked_segsum_impl(mask, c, ranks, table_rows=rows, leak=leak)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["masked_segsum"] == before + 1
+    want = rs._masked_segsum_plain(mask, c, ranks, rows, leak)
+    bounds = _order_inputs(dev, ranks, rows,
+                           masked_terms(torch, rs, mask, c, leak))
+    check_kernel("masked_segsum", got, want, *bounds, torch)
+    off = mask.clone()
+    off[0, 0] = float(int(off[0, 0]) ^ 1)
+    with pytest.raises(AssertionError):
+        check_kernel("masked_segsum (mask one bit off)", got,
+                     rs._masked_segsum_plain(off, c, ranks, rows, leak),
+                     *bounds, torch)
+
+
+def test_k13_k15_wrappers_refuse_what_the_kernels_do_not_take(dev, graph):
+    ranks = graph.flat.rcv_rank
+    rows = rs.rank_table_rows(graph.n_pad, 256)
+    e = ranks.shape[0]
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    msgs, w = torch.zeros((e, 16), **bf), torch.zeros((e, 4), device=dev)
+    g16 = torch.zeros((rows, 16), **bf)
+    before = dict(rs.LAUNCHES)
+    with pytest.raises(TypeError):  # an f32 stream
+        rs._wseg_impl(msgs.float(), w, ranks, table_rows=rows, num_heads=4)
+    with pytest.raises(ValueError):  # head-major weights
+        rs._wseg_impl(msgs, w.t().contiguous(), ranks, table_rows=rows,
+                      num_heads=4)
+    with pytest.raises(TypeError):  # an f32 cotangent table
+        rs._wseg_bwd_impl(msgs, w, g16.float(), ranks, num_heads=4)
+    with pytest.raises(ValueError):  # a transposed weight view
+        rs._wseg_bwd_impl(msgs, w.t().contiguous().t(), g16, ranks,
+                          num_heads=4)
+    gb = torch.zeros((rows, 32), **bf)
+    with pytest.raises(TypeError):  # an f32 gamma | beta table
+        rs._film_fwd_mask_impl(msgs, gb.float(), ranks, act="relu")
+    mask = torch.zeros((e, 32), device=dev)
+    with pytest.raises(TypeError):  # an int32 mask
+        rs._masked_segsum_impl(mask.int(), msgs, ranks, table_rows=rows,
+                               leak=0.0)
+    with pytest.raises(ValueError):  # two lanes hold 32 of 48 columns
+        rs._masked_segsum_impl(mask[:, :2], torch.zeros((e, 48), **bf), ranks,
+                               table_rows=rows, leak=0.0)
+    assert rs.LAUNCHES == before  # nothing refused was launched

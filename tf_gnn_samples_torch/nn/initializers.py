@@ -35,6 +35,20 @@ def orthogonal(gen: torch.Generator, shape):
     return q.reshape(shape).contiguous()
 
 
+def truncated_normal(gen: torch.Generator, shape, stddev: float):
+    """Normal draws of standard deviation `stddev`, each one outside two
+    standard deviations drawn anew (TF's truncated_normal, as the JAX
+    package's; RGDCN's kernels use stddev 1 / K^2). The spread of the
+    result is about 0.88 `stddev`."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32)
+    while True:
+        out = x.abs() > 2.0
+        n = int(out.sum())
+        if not n:
+            return stddev * x
+        x[out] = torch.randn(n, generator=gen, dtype=torch.float32)
+
+
 def zeros(shape):
     return torch.zeros(shape, dtype=torch.float32)
 

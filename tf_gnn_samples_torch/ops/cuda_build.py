@@ -27,6 +27,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # The FiLM kernels' entry point: (two inputs, ranks, out, num_edges, dim,
 # act id, stream).
 _FILM_ARGS = (_P,) * 4 + (_I,) * 3 + (_P,)
+# The per-head weighted segment-sums (K7a, K7b, K13a, K13b) share their
+# device code.
+_WSEG_HEADERS = ("wseg_common.cuh", "film_common.cuh")
 # name -> (headers the source includes, argument types of <name>_launch);
 # every entry point returns the CUDA error code of its launch.
 KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
@@ -42,9 +45,9 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # table_t, ranks, out, num_edges, rows, num_heads, stream
     "expand_t": ((), (_P,) * 3 + (_I,) * 3 + (_P,)),
     # msgs, w_t, ranks, out, num_edges, dim, dim_in, num_heads, stream
-    "wseg_t": (("film_common.cuh",), (_P,) * 4 + (_I,) * 4 + (_P,)),
+    "wseg_t": (_WSEG_HEADERS, (_P,) * 4 + (_I,) * 4 + (_P,)),
     # msgs, w_t, g16, ranks, dmsg, dw_t, num_edges, dim, num_heads, stream
-    "wseg_t_bwd": ((), (_P,) * 6 + (_I,) * 3 + (_P,)),
+    "wseg_t_bwd": (_WSEG_HEADERS, (_P,) * 6 + (_I,) * 3 + (_P,)),
     # msgs, gbg, ranks, dmsg, dgb, num_edges, dim, act id, stream
     "film_bwd": (("film_common.cuh",), (_P,) * 5 + (_I,) * 3 + (_P,)),
     # msgs, g16, ranks, dw_t, num_edges, dim, dim_in, num_heads, stream
@@ -70,6 +73,15 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # gcb, t, type_col, w, wt, e_real, ranks, out, num_edges, dim, l_eff,
     # act id, stream
     "emlp1_src_bwd": (("film_common.cuh",), (_P,) * 8 + (_I,) * 4 + (_P,)),
+    # msgs, w, ranks, out, num_edges, dim, num_heads, stream
+    "wseg": (_WSEG_HEADERS, (_P,) * 4 + (_I,) * 3 + (_P,)),
+    # msgs, w, g16, ranks, dmsg, dw, num_edges, dim, num_heads, stream
+    "wseg_bwd": (_WSEG_HEADERS, (_P,) * 6 + (_I,) * 3 + (_P,)),
+    # msgs, gb, ranks, out, mask, num_edges, dim, lanes, act id, stream
+    "film_fwd_mask": (("film_common.cuh",), (_P,) * 5 + (_I,) * 4 + (_P,)),
+    # mask, c, ranks, out, num_edges, dim, lanes, leak, stream
+    "masked_segsum": (("film_common.cuh",),
+                      (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

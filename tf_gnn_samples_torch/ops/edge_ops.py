@@ -30,6 +30,16 @@ def gather_flat_tgt(table_flat, flat):
     return _take_clip(table_flat, flat.tgt_flat)
 
 
+def _rank_rows_to_table(rank_table, to_rank, table_rows: int, dtype):
+    """The node-table rows [table_rows, D] of a src-rank table: row i is
+    rank_table[to_rank[i]], 0 where to_rank is -1 (no edge reads the row)
+    and past to_rank's L * n_pad rows (a table may carry more)."""
+    d = rank_table.index_select(0, to_rank.clamp(min=0))
+    d = torch.where((to_rank >= 0)[:, None], d, 0.0).to(dtype)
+    pad = table_rows - d.shape[0]
+    return torch.nn.functional.pad(d, (0, 0, 0, pad)) if pad else d
+
+
 class _GatherRanked(torch.autograd.Function):
     """table[idx] whose backward sums the per-edge cotangent through the
     ranked segment-sum (K5a) instead of a scatter (the JAX package's
@@ -52,13 +62,8 @@ class _GatherRanked(torch.autograd.Function):
         rows = rs.src_rank_table_rows(ctx.table_rows, perm.shape[0], 256)
         g_perm = g.to(torch.bfloat16).index_select(0, perm)
         rank_table = rs.ranked_segment_sum_table(g_perm, sorted_rank, rows)
-        d = rank_table.index_select(0, to_rank.clamp(min=0))
-        d = torch.where((to_rank >= 0)[:, None], d, 0.0).to(ctx.table_dtype)
-        # to_rank covers the L * n_pad node rows; a table may carry more.
-        pad = ctx.table_rows - d.shape[0]
-        if pad:
-            d = torch.nn.functional.pad(d, (0, 0, 0, pad))
-        return d, None, None, None, None
+        return (_rank_rows_to_table(rank_table, to_rank, ctx.table_rows,
+                                    ctx.table_dtype), None, None, None, None)
 
 
 def gather_flat_src_ranked(table_flat, flat):
@@ -191,14 +196,8 @@ class _GatherSegsum(torch.autograd.Function):
         g_edge = gz.index_select(0, coarse_by_src.clamp(max=ctx.rows))
         dt_table = rs._segsum_table_impl(g_edge, stream_rank,
                                          table_rows=ctx.src_rows)
-        d = dt_table.index_select(0, src_to_rank.clamp(min=0))
-        d = torch.where((src_to_rank >= 0)[:, None], d, 0.0).to(
-            ctx.table_dtype)
-        # src_to_rank covers the L * n_pad node rows; a table may carry more.
-        pad = ctx.table_rows - d.shape[0]
-        if pad:
-            d = torch.nn.functional.pad(d, (0, 0, 0, pad))
-        return d, None, None, None, None, None, None, None
+        return (_rank_rows_to_table(dt_table, src_to_rank, ctx.table_rows,
+                                    ctx.table_dtype),) + (None,) * 7
 
 
 def _src_bwd_stream(flat):
@@ -244,6 +243,90 @@ def gather_aggregate_src(table_flat, graph, aggregation: str):
     if aggregation.endswith("sqrt_n"):
         count = torch.sqrt(count)
     return out / count[:, None]
+
+
+class _GatherSegsumFine(torch.autograd.Function):
+    """table_flat[src] (times the 1/c scale with `normalize`) summed per
+    FINE (receiver, type) rank (K5a), with a SOURCE-ORDER backward (the
+    JAX package's _gather_segsum_fine, the fine-rank sibling of
+    _GatherSegsum): each edge's cotangent is its fine group's row of the
+    table cotangent (times its scale), so the backward re-gathers that row
+    per edge of the src-sorted stream from the bf16 [fine_rows, D] table
+    cotangent and sums it per src rank (K5a again), without permuting an
+    [E, D] cotangent between edge orders. The scaled forward stream is f32
+    and K5a rounds each term to bf16 as it loads it, where the JAX kernel
+    rounds; the scaled backward term is rounded to bf16 before K5a, as JAX
+    does. `fine_by_src` / `stream_rank` are the src-order stream of
+    gather_aggregate_fine; its fill slots (SD_FILL keys) and padded edges
+    read zero rows."""
+
+    @staticmethod
+    def forward(ctx, table_flat, src_flat, tgt_rank, fine_by_src,
+                stream_rank, src_to_rank, norm_scale, perm_by_src, fine_rows,
+                src_rows, normalize):
+        m = _take_clip(table_flat, src_flat)
+        if normalize:
+            m = m.to(torch.float32) * norm_scale[:, None]
+            ctx.save_for_backward(fine_by_src, stream_rank, src_to_rank,
+                                  norm_scale.index_select(0, perm_by_src))
+        else:
+            ctx.save_for_backward(fine_by_src, stream_rank, src_to_rank)
+        ctx.fine_rows, ctx.src_rows, ctx.normalize = (fine_rows, src_rows,
+                                                      normalize)
+        ctx.table_rows, ctx.table_dtype = table_flat.shape[0], table_flat.dtype
+        return rs._segsum_table_impl(m, tgt_rank, table_rows=fine_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        fine_by_src, stream_rank, src_to_rank = ctx.saved_tensors[:3]
+        # Appended zero rows: the diluted stream's fill slots clamp onto
+        # the first of them, so they stay inert for any cotangent.
+        gz = rs._zero_extended(g.to(torch.bfloat16))
+        g_edge = gz.index_select(0, fine_by_src.clamp(max=ctx.fine_rows))
+        if ctx.normalize:
+            scale_by_src = ctx.saved_tensors[3]
+            g_edge = (g_edge.to(torch.float32)
+                      * scale_by_src[:, None]).to(torch.bfloat16)
+        dt_table = rs._segsum_table_impl(g_edge, stream_rank,
+                                         table_rows=ctx.src_rows)
+        return (_rank_rows_to_table(dt_table, src_to_rank, ctx.table_rows,
+                                    ctx.table_dtype),) + (None,) * 10
+
+
+def gather_aggregate_fine_ok(graph) -> bool:
+    """Eligibility of the fused gather + FINE-rank segment-sum: the JAX
+    package's gate with its semantic terms (the src-sorted fields exist, a
+    stream of whole STEP-edge rows) and without its device and VMEM terms
+    (the CUDA kernel keeps no table on chip)."""
+    flat = graph.flat
+    if (flat.src_sorted_rank is None or flat.src_to_rank is None
+            or flat.fine_rank_by_src is None):
+        return False
+    return rs.ranked_supported(flat.src_flat.shape[0])
+
+
+def gather_aggregate_fine(table_flat, graph, normalize: bool):
+    """ranked_segment_sum_table(gather_flat_src(table_flat) * norm) over
+    FINE (receiver, type) ranks as one op whose backward never
+    materialises an [E, D] reorder (see _GatherSegsumFine). table_flat:
+    type-stacked node table [L * n_pad (+ extra), D]; the caller checked
+    gather_aggregate_fine_ok. Returns the fine rank table [RPAD, D].
+
+    The backward takes the DILUTED src stream where its window engaged and
+    `normalize` is off; the normalised backward needs each edge's scale in
+    src order (norm_scale[perm_by_src]), which the diluted stream does not
+    carry, so it keeps the undiluted stream (as the JAX package)."""
+    flat = graph.flat
+    if not normalize and flat.win_sd:
+        fine_by_src, stream_rank = flat.sd_fine, flat.sd_rank
+    else:
+        fine_by_src, stream_rank = flat.fine_rank_by_src, flat.src_sorted_rank
+    # The backward's src-rank table is as high as src_from_rank (see
+    # gather_aggregate_src).
+    return _GatherSegsumFine.apply(
+        table_flat, flat.src_flat, flat.tgt_rank, fine_by_src, stream_rank,
+        flat.src_to_rank, flat.norm_scale, flat.perm_by_src,
+        flat.fine_to_flat.shape[0], flat.src_from_rank.shape[0], normalize)
 
 
 def _edge_mask(flat, like):
@@ -350,21 +433,26 @@ def dense_aggregate_linear(transformed, graph, normalize: bool):
 
 
 class _InjectiveTake(torch.autograd.Function):
-    """table[fwd_idx] whose backward is the INVERSE take through inv_idx
-    (-1 = no row): fwd_idx hits every real table slot at most once, and
-    the ranks it maps non-injectively (slack rows, the dump group) carry
-    exactly-zero cotangents."""
+    """table[fwd_idx], 0 where fwd_idx is -1, whose backward is the INVERSE
+    take through inv_idx (-1 = no row). Only the mutual pairs (fwd_idx[
+    inv_idx[i]] == i) carry a cotangent: fwd_idx hits every real table slot
+    at most once, and the rows it maps non-injectively (slack rows, the dump
+    group) get exactly zero."""
 
     @staticmethod
     def forward(ctx, table, fwd_idx, inv_idx):
-        ctx.save_for_backward(inv_idx)
-        return _take_clip(table, fwd_idx)
+        ctx.save_for_backward(fwd_idx, inv_idx)
+        rows = _take_clip(table, fwd_idx)
+        return torch.where((fwd_idx >= 0)[:, None], rows, 0.0)
 
     @staticmethod
     def backward(ctx, g):
-        (inv_idx,) = ctx.saved_tensors
-        d = g.index_select(0, inv_idx.clamp(min=0))
-        return torch.where((inv_idx >= 0)[:, None], d, 0.0), None, None
+        fwd_idx, inv_idx = ctx.saved_tensors
+        inv = inv_idx.clamp(min=0)
+        mutual = (inv_idx >= 0) & (fwd_idx.index_select(0, inv) == torch.arange(
+            inv_idx.shape[0], device=inv_idx.device, dtype=fwd_idx.dtype))
+        d = g.index_select(0, inv)
+        return torch.where(mutual[:, None], d, 0.0), None, None
 
 
 def take_by_fine_rank(table_flat, graph):
@@ -381,6 +469,14 @@ def take_by_tm_rank(table_flat, graph):
     flat = graph.flat
     return _InjectiveTake.apply(table_flat, flat.tm_to_flat,
                                 flat.tm_from_flat)
+
+
+def fine_table_to_flat(table, graph):
+    """Read a FINE rank table [RPAD, D] back into type-stacked node rows
+    [L * n_pad, D]: row l * n_pad + v is the row of group (v, l), or 0
+    where v has no incoming type-l edge."""
+    flat = graph.flat
+    return _InjectiveTake.apply(table, flat.fine_from_flat, flat.fine_to_flat)
 
 
 class _FineCombine(torch.autograd.Function):

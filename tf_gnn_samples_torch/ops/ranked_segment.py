@@ -2,12 +2,13 @@
 the ranked segment-sum / expand pair, the fused GNN-FiLM kernels, the
 head-major attention kernels of RGAT, the expand-add-activate /
 activate-aggregate pairs of GNN-Edge-MLP1, its typed dense aggregate and
-its source-order recompute).
+its source-order recompute, the row-major weighted segment-sum and the
+packed sign-mask variants of the FiLM kernels).
 
 The flat edge stream (ops/graph.py FlatEdges) is receiver-sorted with
 gap-free coarse (receiver) and fine (receiver, type) ranks; its src-sorted
-view has gap-free src ranks. Nineteen CUDA kernels (csrc/) work over those
-sorted ranks:
+view has gap-free src ranks. Twenty-three CUDA kernels (csrc/) work over
+those sorted ranks:
 
 * K5a `_segsum_table_impl`: table[r] = sum bf16(m_e) (the ranked
   segment-sum of RGCN/GGNN aggregation, and the VJP of K5b);
@@ -40,7 +41,16 @@ sorted ranks:
 * K10b `_typed_dense_agg_bwd_impl`: its dx (bf16) and dW (f32);
 * K14 `_emlp1_src_bwd_impl`: GNN-Edge-MLP1's message cotangent over the
   src-sorted stream, recomputing the hidden layer and both W1 products
-  (the backward of `emlp1_tm_pass`).
+  (the backward of `emlp1_tm_pass`);
+* K13a `_wseg_impl` / K13b `_wseg_bwd_impl`: K7a / K7b with row-major
+  [E, K] weights (`ranked_weighted_segment_sum`);
+* K15a `_film_fwd_mask_impl`: K1 that also writes each edge's packed sign
+  mask (z > 0), 16 bits to an f32 lane;
+* K15b `_masked_segsum_impl`: dt[r] = sum bf16(C_e * factor(mask_e)), the
+  relu / leaky_relu derivative taken from that mask.
+
+K13 and K15 are the JAX package's ops of the same names, which no model
+path of either package calls.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain PyTorch version beside it only
@@ -51,14 +61,14 @@ Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
 activation in K1, m * dz and dz in K2, act'(z) * C in K3, the head-major
 term in K6a, the weighted message in K7a, both halves of K9's row, dz in
-K11b, the activation in K12a and K10a, the message cotangent in K14) is
+K11b, the activation in K12a, K10a and K15a, the message cotangent in K14,
+the weighted message in K13a, the masked product in K15b) is
 rounded to bf16 before its f32 sum; K5b and K6b round each table value to
-bf16; K7b, K4 and K10b write d_msgs / dx in bf16; K7b and K8 keep d_w_t,
-K10b dW in f32. The typed products of K10 and K14 sum their f32 products
-in another order than the plain versions' matmuls. The
-kernels sum in stream order with atomics
-at chunk seams, so their sums differ from run to run in the last bits; the
-terms do not.
+bf16; K7b, K13b, K4 and K10b write d_msgs / dx in bf16; K7b and K8 keep
+d_w_t, K13b d_w, K10b dW in f32. The typed products of K10 and K14 sum
+their f32 products in another order than the plain versions' matmuls.
+The kernels sum in stream order with atomics at chunk seams, so their
+sums differ from run to run in the last bits; the terms do not.
 """
 
 import math
@@ -185,7 +195,9 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "rgat_src_bwd": 0, "expand_add_act": 0,
                             "expand_add_act_bwd": 0, "act_agg": 0,
                             "act_agg_bwd": 0, "typed_dense_agg": 0,
-                            "typed_dense_agg_bwd": 0, "emlp1_src_bwd": 0}
+                            "typed_dense_agg_bwd": 0, "emlp1_src_bwd": 0,
+                            "wseg": 0, "wseg_bwd": 0, "film_fwd_mask": 0,
+                            "masked_segsum": 0}
 
 
 def reset_launches() -> None:
@@ -317,6 +329,22 @@ def _wseg_t_dw_plain(msgs, g16, ranks, num_heads, d_used=None):
     dw = (msgs[:, :dim].to(torch.float32) * g_e).reshape(
         msgs.shape[0], num_heads, -1).sum(-1)
     return dw.t().contiguous()
+
+
+def _wseg_plain(msgs, w, ranks, table_rows):
+    dim = msgs.shape[1]
+    terms = _bf16_terms(msgs.to(torch.float32) * _head_replicate(w.t(), dim))
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=msgs.device)
+    return out.index_add_(0, ranks, terms)
+
+
+def _wseg_bwd_plain(msgs, w, g16, ranks):
+    e, dim = msgs.shape
+    g_e = g16.index_select(0, ranks).to(torch.float32)
+    dmsg = (g_e * _head_replicate(w.t(), dim)).to(torch.bfloat16)
+    dw = (msgs.to(torch.float32) * g_e).reshape(e, w.shape[1], -1).sum(-1)
+    return dmsg, dw
 
 
 def _rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, num_heads, clamp):
@@ -509,6 +537,117 @@ def _film_bwd_impl(msgs, gbg_table, ranks, *, block_edges=256, act, win=0):
         _call("film_bwd", (msgs, gbg_table, ranks, d_msgs, d_gb),
               (e, dim, ACT_IDS[act]))
     return d_msgs, d_gb
+
+
+# ---- the packed sign-mask variants of K1 and K3 (K15) ----------------------
+
+# Activations whose derivative is a function of the sign mask alone:
+# act'(z) = leak + (1 - leak) * (z > 0).
+MASKABLE_ACTS = {"relu": 0.0, "leaky_relu": 0.2}
+
+# Sign bits packed into one f32 lane as an exact small integer.
+_MASK_GROUP = 16
+
+
+def _mask_lanes(d: int) -> int:
+    """Packed-mask lanes of a D-column stream: ceil(D / 16) rounded up to
+    32 (the JAX package's layout; lanes past ceil(D / 16) hold 0)."""
+    return _ceil_mult(-(-d // _MASK_GROUP), 32)
+
+
+def _mask_pack(bits):
+    """[E, D] bool -> [E, _mask_lanes(D)] f32: lane g holds the exact
+    integer sum of 2^(j mod 16) over the set bits j of group g."""
+    e, d = bits.shape
+    groups = -(-d // _MASK_GROUP)
+    padded = torch.zeros((e, groups * _MASK_GROUP), dtype=torch.int32,
+                         device=bits.device)
+    padded[:, :d] = bits.to(torch.int32)
+    weights = 2 ** torch.arange(_MASK_GROUP, dtype=torch.int32,
+                                device=bits.device)
+    packed = (padded.reshape(e, groups, _MASK_GROUP) * weights).sum(-1)
+    out = torch.zeros((e, _mask_lanes(d)), dtype=torch.float32,
+                      device=bits.device)
+    out[:, :groups] = packed.to(torch.float32)
+    return out
+
+
+def mask_unpack(mask_packed, d: int):
+    """Inverse of the pack: [E, lanes] exact-integer f32 -> [E, d] 0/1 f32
+    (bit j mod 16 of lane j // 16)."""
+    j = torch.arange(d, device=mask_packed.device)
+    lanes = mask_packed.to(torch.int32).index_select(1, j // _MASK_GROUP)
+    return ((lanes >> (j % _MASK_GROUP)) & 1).to(torch.float32)
+
+
+def _film_fwd_mask_plain(msgs, gb_table, ranks, act):
+    d = msgs.shape[1]
+    gb = gb_table.index_select(0, ranks).to(torch.float32)
+    z = gb[:, :d] * msgs.to(torch.float32) + gb[:, d:]
+    out = torch.zeros((gb_table.shape[0], d), dtype=torch.float32,
+                      device=msgs.device)
+    out.index_add_(0, ranks, _bf16_terms(_ACTS[act][0](z)))
+    return out, _mask_pack(z > 0)
+
+
+def _masked_segsum_plain(mask_packed, c_e, ranks, table_rows, leak):
+    mask = mask_unpack(mask_packed, c_e.shape[1])
+    factor = mask if leak == 0.0 else leak + (1.0 - leak) * mask
+    out = torch.zeros((table_rows, c_e.shape[1]), dtype=torch.float32,
+                      device=c_e.device)
+    return out.index_add_(0, ranks,
+                          _bf16_terms(c_e.to(torch.float32) * factor))
+
+
+def _film_fwd_mask_impl(msgs, gb_table, ranks, *, block_edges=256, act,
+                        win=0):
+    """K15a: K1's table [RPAD, D] f32 (bit for bit) and the packed sign
+    mask of z = gamma * m + beta, f32 [E, _mask_lanes(D)] (lane g holds
+    the exact integer sum of 2^(j mod 16) over the columns j of group g
+    where z > 0), for bf16 m [E, D] and gamma|beta [RPAD, 2D]."""
+    e, dim = msgs.shape
+    rpad = gb_table.shape[0]
+    if gb_table.shape != (rpad, 2 * dim) or ranks.shape != (e,):
+        raise ValueError("film_fwd_mask: shapes %s, %s, %s" % (
+            tuple(msgs.shape), tuple(gb_table.shape), tuple(ranks.shape)))
+    if msgs.device.type == "cpu":
+        return _film_fwd_mask_plain(msgs, gb_table, ranks, act)
+    _check_dtype("film_fwd_mask", msgs, torch.bfloat16)
+    _check_dtype("film_fwd_mask", gb_table, torch.bfloat16)
+    _check_ranks("film_fwd_mask", ranks)
+    lanes = _mask_lanes(dim)
+    out = torch.zeros((rpad, dim), dtype=torch.float32, device=msgs.device)
+    mask = torch.empty((e, lanes), dtype=torch.float32, device=msgs.device)
+    if e:
+        _call("film_fwd_mask", (msgs, gb_table, ranks, out, mask),
+              (e, dim, lanes, ACT_IDS[act]))
+    return out, mask
+
+
+def _masked_segsum_impl(mask_packed, c_e, ranks, *, table_rows,
+                        block_edges=256, leak, win=0):
+    """K15b: dt[r] = sum_{rank_e = r} bf16(C_e * factor(mask_e)) f32
+    [table_rows, D], factor = mask (relu, leak 0) or leak + (1 - leak) *
+    mask (leaky_relu), from the packed mask [E, lanes] of K15a and the bf16
+    stream C [E, D] over nondecreasing gap-free int32 ranks (the src-sorted
+    stream)."""
+    e, dim = c_e.shape
+    if (mask_packed.dim() != 2 or mask_packed.shape[0] != e
+            or mask_packed.shape[1] * _MASK_GROUP < dim
+            or ranks.shape != (e,)):
+        raise ValueError("masked_segsum: shapes %s, %s, %s" % (
+            tuple(mask_packed.shape), tuple(c_e.shape), tuple(ranks.shape)))
+    if c_e.device.type == "cpu":
+        return _masked_segsum_plain(mask_packed, c_e, ranks, table_rows, leak)
+    _check_dtype("masked_segsum", mask_packed, torch.float32)
+    _check_dtype("masked_segsum", c_e, torch.bfloat16)
+    _check_ranks("masked_segsum", ranks)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=c_e.device)
+    if e:
+        _call("masked_segsum", (mask_packed, c_e, ranks, out),
+              (e, dim, mask_packed.shape[1], float(leak)))
+    return out
 
 
 # ---- the GNN-Edge-MLP1 kernels (K11, K12) ---------------------------------
@@ -906,6 +1045,54 @@ def _wseg_t_dw_impl(msgs, g16, ranks, *, num_heads, block_edges=256, win=0,
     return dw_t
 
 
+def _wseg_impl(msgs, w, ranks, *, table_rows, num_heads, block_edges=256,
+               win=0):
+    """K13a: table[r] = sum_{rank_e = r} bf16(m_e * rep(w[e])) for a bf16
+    stream m [E, D], f32 row-major weights w [E, K] (head k weighs columns
+    k * D/K ... (k+1) * D/K) and int32 ranks; f32 [table_rows, D] out."""
+    e, dim = msgs.shape
+    if w.shape != (e, num_heads) or ranks.shape != (e,):
+        raise ValueError("wseg: shapes %s, %s, %s" % (
+            tuple(msgs.shape), tuple(w.shape), tuple(ranks.shape)))
+    _check_heads("wseg", dim, num_heads)
+    if msgs.device.type == "cpu":
+        return _wseg_plain(msgs, w, ranks, table_rows)
+    _check_dtype("wseg", msgs, torch.bfloat16)
+    _check_dtype("wseg", w, torch.float32)
+    _check_ranks("wseg", ranks)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=msgs.device)
+    if e:
+        _call("wseg", (msgs, w, ranks, out), (e, dim, num_heads))
+    return out
+
+
+def _wseg_bwd_impl(msgs, w, g16, ranks, *, num_heads, block_edges=256, win=0):
+    """K13b: with g_e = g16[rank_e], d_msgs[e] = bf16(g_e * rep(w[e]))
+    [E, D] bf16 and d_w[e, k] = sum over head k's columns of m_e * g_e
+    [E, K] f32, from the bf16 stream m [E, D], the f32 row-major weights w
+    [E, K] and the bf16 table cotangent g16 [rows, D]."""
+    e, dim = msgs.shape
+    if (w.shape != (e, num_heads) or ranks.shape != (e,)
+            or g16.dim() != 2 or g16.shape[1] != dim):
+        raise ValueError("wseg_bwd: shapes %s, %s, %s, %s" % (
+            tuple(msgs.shape), tuple(w.shape), tuple(g16.shape),
+            tuple(ranks.shape)))
+    _check_heads("wseg_bwd", dim, num_heads)
+    if msgs.device.type == "cpu":
+        return _wseg_bwd_plain(msgs, w, g16, ranks)
+    _check_dtype("wseg_bwd", msgs, torch.bfloat16)
+    _check_dtype("wseg_bwd", g16, torch.bfloat16)
+    _check_dtype("wseg_bwd", w, torch.float32)
+    _check_ranks("wseg_bwd", ranks)
+    dmsg = torch.empty((e, dim), dtype=torch.bfloat16, device=msgs.device)
+    dw = torch.empty((e, num_heads), dtype=torch.float32, device=msgs.device)
+    if e:
+        _call("wseg_bwd", (msgs, w, g16, ranks, dmsg, dw),
+              (e, dim, num_heads))
+    return dmsg, dw
+
+
 # Most heads K9 takes: a block keeps 2 x 64 x K f32 values (the attention
 # weights and logit cotangents of its 64 edges) in 48 KB of shared memory.
 RGAT_SRC_MAX_HEADS = 96
@@ -1073,6 +1260,37 @@ def ranked_weighted_segment_sum_t(msgs, w_t, ranks, table_rows: int,
     [table_rows, D] f32. VJP: d_msgs (in msgs' dtype) and d_w_t."""
     return _RankedWeightedSegmentSumT.apply(msgs, w_t, ranks, table_rows,
                                             num_heads)
+
+
+class _RankedWeightedSegmentSum(torch.autograd.Function):
+    """K13a forward; K13b backward on the table cotangent rounded to bf16,
+    each half cast back to its primal's dtype (the JAX package's
+    ranked_weighted_segment_sum, _wseg_vjp_fwd / _wseg_vjp_bwd)."""
+
+    @staticmethod
+    def forward(ctx, msgs, w, ranks, table_rows, num_heads):
+        ctx.save_for_backward(msgs, w, ranks)
+        ctx.num_heads = num_heads
+        return _wseg_impl(msgs, w, ranks, table_rows=table_rows,
+                          num_heads=num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        msgs, w, ranks = ctx.saved_tensors
+        d_msgs, d_w = _wseg_bwd_impl(
+            msgs, w, g.to(torch.bfloat16).contiguous(), ranks,
+            num_heads=ctx.num_heads)
+        return d_msgs.to(msgs.dtype), d_w.to(w.dtype), None, None, None
+
+
+def ranked_weighted_segment_sum(msgs, w, ranks, table_rows: int,
+                                num_heads: int):
+    """Per-head weighted segment-sum with row-major weights: table[r] =
+    sum_{rank_e = r} m_e * rep(w[e]), [E, D] x [E, K] -> [table_rows, D]
+    f32. VJP: d_msgs (in msgs' dtype) and d_w. No layer of either package
+    calls it (RGAT takes the head-major ranked_weighted_segment_sum_t)."""
+    return _RankedWeightedSegmentSum.apply(msgs, w, ranks, table_rows,
+                                           num_heads)
 
 
 # ---- the gather-fused FiLM pass ---------------------------------------

@@ -236,7 +236,10 @@ class SparseGraphModel(ABC):
     # -------------------- forward and steps --------------------
 
     def _wants_dense_adj(self, graph) -> bool:
-        if self.layer_name not in ("rgcn", "ggnn"):
+        # RGDCN qualifies through its aggregate-first form: its per-type
+        # neighbour sums ride the same A_l matmuls (nn/layers.py
+        # _typed_neighbor_sums).
+        if self.layer_name not in ("rgcn", "ggnn", "rgdcn"):
             return False
         return use_dense_strategy(
             graph,
@@ -684,4 +687,46 @@ class RGIN_Model(SparseGraphModel):
             "num_edge_MLP_hidden_layers": self.params["graph_num_edge_MLP_hidden_layers"],
             "typed_edge_scan": self.params.get("typed_edge_scan", "auto"),
             "num_aggr_MLP_hidden_layers": self.params["graph_num_aggr_MLP_hidden_layers"],
+        }
+
+
+class RGDCN_Model(SparseGraphModel):
+    layer_name = "rgdcn"
+
+    @classmethod
+    def default_params(cls):
+        params = super().default_params()
+        params.update({
+            "max_nodes_in_batch": 25000,
+            "hidden_size": 128,
+            "num_channels": 8,
+            "use_full_state_for_channel_weights": False,
+            "tie_channel_weights": False,
+            "graph_activation_function": "ReLU",
+            "message_aggregation_function": "sum",
+            "graph_inter_layer_norm": True,
+        })
+        return params
+
+    @staticmethod
+    def name(params):
+        return "RGDCN"
+
+    def __init__(self, params, task, run_id, result_dir, device=None):
+        params["channel_dim"] = params["hidden_size"] // params["num_channels"]
+        super().__init__(params, task, run_id, result_dir, device=device)
+
+    def layer_kwargs(self):
+        return {
+            "num_channels": self.params["num_channels"],
+            "channel_dim": self.params["channel_dim"],
+            "use_full_state_for_channel_weights": self.params[
+                "use_full_state_for_channel_weights"],
+            "tie_channel_weights": self.params["tie_channel_weights"],
+            "typed_edge_scan": self.params.get("typed_edge_scan", "auto"),
+            "aggregation_strategy": self.params.get("aggregation_strategy",
+                                                    "auto"),
+            "activation_function": self.params["graph_activation_function"],
+            "message_aggregation_function": self.params[
+                "message_aggregation_function"],
         }

@@ -1,14 +1,14 @@
 """Name -> class registries and checkpoint restore (counterpart of
-tf_gnn_samples_tpu/utils/registry.py). Ported so far: the GGNN, RGCN, RGAT,
-RGIN, GNN-FiLM and GNN-Edge-MLP models and the QM9 task; every other name
-the JAX package knows raises "not yet ported"."""
+tf_gnn_samples_tpu/utils/registry.py). Ported so far: all seven model
+families (GGNN, RGCN, RGAT, RGIN, GNN-FiLM, GNN-Edge-MLP, RGDCN) and the
+QM9 task; every other task name the JAX package knows raises "not yet
+ported"."""
 
 import pickle
 from typing import Any, Dict, Tuple, Type
 
 _UNPORTED_TASKS = ("ppi", "varmisuse", "citationnetwork", "citation_network",
                    "cora", "citeseer", "pubmed")
-_UNPORTED_MODELS = ("rgdcn", "rgdcn_model")
 
 
 def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
@@ -56,9 +56,10 @@ def name_to_model_class(name: str) -> Tuple[Type, Dict[str, Any]]:
         from ..runtime.model import GNN_FiLM_Model
 
         return GNN_FiLM_Model, {}
-    if name in _UNPORTED_MODELS:
-        raise NotImplementedError(
-            "Model '%s' is not yet ported to the PyTorch package." % name)
+    if name in ("rgdcn", "rgdcn_model"):
+        from ..runtime.model import RGDCN_Model
+
+        return RGDCN_Model, {}
     raise ValueError("Unknown model type '%s'" % name)
 
 
