@@ -23,7 +23,12 @@ Phases, each of which raises on failure (no phase's failure is caught):
     on the same inputs), and K3, K9, K14 and K15b on the DILUTED src
     stream of a numpy-made graph of PPI-like degree (QM9's streams are
     undiluted);
- 4. the main paths: `tf_gnn_samples_torch.train` trains GNN-FiLM (with
+ 4. K16 (`k16_phase`): the two harnesses of tf_gnn_samples_torch/tools/
+    (the A/B variants of K1 and K2, and four row gathers beside
+    torch.index_select) at the JAX tools' default shapes and at the tuned
+    QM9 batch's, every K16 kernel launched, each variant then held
+    against its plain version;
+ 5. the main paths: `tf_gnn_samples_torch.train` trains GNN-FiLM (with
     and without normalised messages), RGCN, GGNN, RGAT (on its fused and
     on its streamed branch, one of the two through a forced gate), RGIN
     (ranked branch: K5a both ways), GNN-Edge-MLP1 (type-major branch; its
@@ -36,9 +41,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
     `tf_gnn_samples_torch.test` evaluates each written checkpoint; the
     kernel launch counters, set to 0 before each run and read after it,
     must show that every layer of every batch went through its kernels
-    (`expected_launches`) and through no other; K13 and K15 run on no
-    path, as in the JAX package;
- 5. a reference check per path: loss and gradients of the full-width
+    (`expected_launches`) and through no other; K13, K15 and K16 run on
+    no path, as in the JAX package;
+ 6. a reference check per path: loss and gradients of the full-width
     model on a small QM9 batch on the card (kernels) against the same
     model on the CPU (the kernels' plain versions), with the same gates
     forced.
@@ -56,12 +61,15 @@ import subprocess
 import sys
 import time
 
+# The port's package beside this script (absent there, the import fails
+# and the script prints no result).
+from tf_gnn_samples_torch.tools.timing import (BF16_TENSOR_FLOPS, F32_FLOPS,
+                                               HBM_BYTES_PER_S, cuda_ms,
+                                               cuda_queued_ms)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "data", "qm9")
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-BF16_TENSOR_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TUNED_OVERRIDES = {"max_epochs": 2}  # everything else: QM9_<model>.json
 # A main path: a model at its tuned config, the overrides that select the
 # path, for RGAT the branch it is, and the gate a path forces (`gate`,
@@ -116,7 +124,22 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     "wseg_bwd": "tf_gnn_samples_tpu/ops/ranked_segment.py:309",
     "film_fwd_mask": "tf_gnn_samples_tpu/ops/ranked_segment.py:398",
     "masked_segsum": "tf_gnn_samples_tpu/ops/ranked_segment.py:468",
+    # K16, the A/B variants of tools/ (tf_gnn_samples_torch/tools/), by
+    # kernel body; no model path runs them
+    "film_fwd_v3": "tools/film_fwd_ab.py:98",
+    "film_fwd_v2a": "tools/film_fwd_ab.py:46",
+    "film_fwd_v2b": "tools/film_fwd_ab.py:73",
+    "film_dgb_v3": "tools/film_fwd_ab.py:162",
+    "film_dgb_v4": "tools/film_fwd_ab.py:202",
+    "rowgather_loop": "tools/rowgather_prof.py:62",
+    "rowgather_loop8": "tools/rowgather_prof.py:92",
+    "rowgather_take": "tools/rowgather_prof.py:124",
+    "rowgather_onehot": "tools/rowgather_prof.py:152",
 }
+# The CUDA source of each K16 kernel body, by its counter's prefix.
+K16_SOURCES = {"film_fwd": "film_fwd_ab", "film_dgb": "film_dgb_ab",
+               "rowgather": "rowgather"}
+K16_KERNELS = tuple(k for k, v in REPLACES.items() if v.startswith("tools/"))
 
 
 @contextlib.contextmanager
@@ -158,46 +181,6 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, torch, warmup=3, iters=20) -> float:
-    """Median over `iters` single calls, each timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def cuda_queued_ms(fn, torch, iters=20) -> float:
-    """Device time of one call when the card never waits for the host: a
-    spin kernel keeps the card busy while the host enqueues `iters` calls
-    behind it, and CUDA events bracket those calls. `cuda_ms` times one
-    call at a time on an idle card, so it also holds the tens of
-    microseconds the host takes between the call's first and last launch;
-    the difference of the two is that host share."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # torch.cuda._sleep is private to PyTorch and spins for a number of
-    # clock cycles: 40 million are about 20 ms at a clock near 2 GHz. The
-    # result does not depend on that time, only on its outlasting the
-    # host's enqueueing of `iters` calls.
-    torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def hand_kernel_names():
@@ -297,6 +280,32 @@ def check_kernel(name, got, want, terms_abs, counts, torch, term_ulps=0,
     return max_err
 
 
+def film_terms(torch, rs, msgs, table, ranks, act):
+    """Per-edge bf16 terms of K1's function ([E, D], from a gamma|beta
+    table) or of K2's ([E, 2D], from gamma|beta|g), rounded where the
+    kernels round them."""
+    d = msgs.shape[1]
+    v = table.float().index_select(0, ranks)
+    m = msgs.float()
+    z = v[:, :d] * m + v[:, d:2 * d]
+    if table.shape[1] == 2 * d:
+        return rs._bf16_terms(rs._ACTS[act][0](z))
+    dz = rs._ACTS[act][1](z) * v[:, 2 * d:]
+    return torch.cat([rs._bf16_terms(m * dz), rs._bf16_terms(dz)], 1)
+
+
+def row_counts(torch, rows, ranks):
+    """f32 [rows]: the edges of each rank row."""
+    return torch.zeros(rows, device=ranks.device).index_add_(
+        0, ranks, torch.ones(ranks.shape[0], device=ranks.device))
+
+
+def row_abs_sums(torch, rows, ranks, terms):
+    """f32 [rows, C]: the sums of |terms| by rank row, for check_kernel."""
+    return torch.zeros((rows, terms.shape[1]), device=terms.device
+                       ).index_add_(0, ranks, terms.abs())
+
+
 def check_exact(name, got, want, torch):
     """got must equal want bit for bit (same shape and type)."""
     max_err = (float((got.double() - want.double()).abs().max())
@@ -330,20 +339,27 @@ def masked_terms(torch, rs, mask, c_e, leak):
                                    torch.arange(e, device=c_e.device), e, leak)
 
 
+def chunk_span(torch, ranks, rows):
+    """[rows] int64: for each rank row, the index of the last CHUNK-edge
+    block of the stream that holds one of its edges less that of the
+    first (negative for a row without edges)."""
+    block = torch.div(torch.arange(ranks.shape[0], device=ranks.device),
+                      64, rounding_mode="floor")
+    first = torch.full((rows,), 2 ** 62, dtype=torch.int64,
+                       device=ranks.device).scatter_reduce_(
+                           0, ranks.long(), block, "amin")
+    last = torch.full((rows,), -1, dtype=torch.int64,
+                      device=ranks.device).scatter_reduce_(
+                          0, ranks.long(), block, "amax")
+    return last - first
+
+
 def seam_rows(torch, ranks, rows):
     """[rows] bool: the rank rows whose edges span three or more CHUNK-edge
     blocks of the sorted-rank walk (film_common.cuh). Three or more
     partial sums reach such a row by atomicAdd in an order that changes
     from run to run; any other row is summed in a fixed order."""
-    chunk = torch.div(torch.arange(ranks.shape[0], device=ranks.device), 64,
-                      rounding_mode="floor")
-    first = torch.full((rows,), 2 ** 62, dtype=torch.int64,
-                       device=ranks.device).scatter_reduce_(
-                           0, ranks.long(), chunk, "amin")
-    last = torch.full((rows,), -1, dtype=torch.int64,
-                      device=ranks.device).scatter_reduce_(
-                          0, ranks.long(), chunk, "amax")
-    return (last - first) >= 2
+    return chunk_span(torch, ranks, rows) >= 2
 
 
 def per_row(torch, rows, ranks, x):
@@ -556,19 +572,11 @@ def kernel_phase(torch, rs, dev):
 
     act = "elu"
     dact = rs._ACTS[act][1]
-    ones = torch.ones(e, device=dev)
-
-    def counts(n, ranks):
-        return torch.zeros(n, device=dev).index_add_(0, ranks, ones)
-
-    def abs_sums(n, ranks, terms):
-        return torch.zeros((n, terms.shape[1]), device=dev).index_add_(
-            0, ranks, terms.abs())
 
     def order_check(name, n, ranks, terms):
         return lambda got, want: check_kernel(
-            name, got, want, abs_sums(n, ranks, terms), counts(n, ranks),
-            torch)
+            name, got, want, row_abs_sums(torch, n, ranks, terms),
+            row_counts(torch, n, ranks), torch)
 
     def exact_check(name):
         return lambda got, want: check_exact(name, got, want, torch)
@@ -612,12 +620,10 @@ def kernel_phase(torch, rs, dev):
                         table[fixed], k1[fixed], torch)
             check_exact("film_fwd_mask (%s) mask" % act_m, mask, mask_want,
                         torch)
-            return check_kernel(
-                "film_fwd_mask (%s) table" % act_m, table, table_want,
-                abs_sums(rpad, fine, rs._bf16_terms(
-                    rs._ACTS[act_m][0](g32[:, :d] * msgs.float()
-                                       + g32[:, d:]))),
-                counts(rpad, fine), torch)
+            return order_check(
+                "film_fwd_mask (%s) table" % act_m, rpad, fine,
+                film_terms(torch, rs, msgs, gb, fine, act_m))(table,
+                                                              table_want)
         return check
 
     def film_bwd_check(got, want):
@@ -631,13 +637,8 @@ def kernel_phase(torch, rs, dev):
     gcb, t = randn(e, 3 * d), randn(rsrc, d)
     # Per-edge bf16 terms of each FiLM kernel (for the order bound and for
     # the index_add_ yardstick, which sums precomputed terms only).
-    g32 = gb.float().index_select(0, fine)
-    k1_terms = rs._bf16_terms(rs._ACTS[act][0](g32[:, :d] * msgs.float()
-                                               + g32[:, d:]))
-    v = gbg.float().index_select(0, fine)
-    dz = dact(v[:, :d] * msgs.float() + v[:, d:2 * d]) * v[:, 2 * d:]
-    k2_terms = torch.cat([rs._bf16_terms(msgs.float() * dz),
-                          rs._bf16_terms(dz)], 1)
+    k1_terms = film_terms(torch, rs, msgs, gb, fine, act)
+    k2_terms = film_terms(torch, rs, msgs, gbg, fine, act)
     m = t.float().index_select(0, src)
     k3_terms = rs._bf16_terms(dact(gcb.float()[:, :d] * m + gcb.float()[:, d:2 * d])
                               * gcb.float()[:, 2 * d:])
@@ -1120,9 +1121,9 @@ def kernel_phase(torch, rs, dev):
                 worst = max(worst, spec["check"](got, spec["plain"]()))
                 timed = spec.get("timed", spec["kern"])
                 extra[spec["name"]][label] = {
-                    "edges": hi - lo, "ms": cuda_ms(timed, torch),
-                    "queued_ms": cuda_queued_ms(timed, torch),
-                    "plain_ms": cuda_ms(spec["plain"], torch),
+                    "edges": hi - lo, "ms": cuda_ms(timed),
+                    "queued_ms": cuda_queued_ms(timed),
+                    "plain_ms": cuda_ms(spec["plain"]),
                     "bound_ms": max(spec["nbytes"] / HBM_BYTES_PER_S,
                                     spec["nops"] / F32_FLOPS) * 1e3}
             return worst
@@ -1148,8 +1149,8 @@ def kernel_phase(torch, rs, dev):
         if name in also:
             max_err = max(max_err, also[name]())
         timed = spec.get("timed", spec["kern"])
-        ms = cuda_ms(timed, torch)
-        plain_ms = cuda_ms(spec["plain"], torch)
+        ms = cuda_ms(timed)
+        plain_ms = cuda_ms(spec["plain"])
         bound_bytes_ms = spec["nbytes"] / HBM_BYTES_PER_S * 1e3
         # Elementwise work at the f32 rate; typed products (K10, K14) at
         # the bf16 tensor-core rate, the least time they could take.
@@ -1164,15 +1165,15 @@ def kernel_phase(torch, rs, dev):
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
             "library_ms": None,
-            "queued_ms": cuda_queued_ms(timed, torch),
+            "queued_ms": cuda_queued_ms(timed),
         }
         if "library" in spec:
             what, fn = spec["library"]
-            row["library_ms"] = cuda_ms(fn, torch)
+            row["library_ms"] = cuda_ms(fn)
             other = "library (%s) %.4f ms" % (what, row["library_ms"])
         elif "yardstick" in spec:
             what, fn = spec["yardstick"]
-            row["yardstick_ms"] = cuda_ms(fn, torch)
+            row["yardstick_ms"] = cuda_ms(fn)
             row["yardstick"] = what
             other = ("no single PyTorch call computes this function; "
                      "yardstick: %s %.4f ms" % (what, row["yardstick_ms"]))
@@ -1209,7 +1210,169 @@ def kernel_phase(torch, rs, dev):
                   % (name, json.dumps(extra[name]), row["mean_slice_ms"],
                      row["mean_slice_queued_ms"]))
         results.append(row)
-    return results
+    return results, graph
+
+
+def film_variant_check(torch, rs, name, got, want, args, base_out, act):
+    """A K16 FiLM variant's output against its plain version's within the
+    order bound (check_kernel), and against K1's / K2's output on the same
+    inputs (`base_out`) bit for bit on every row one 64-edge chunk holds."""
+    msgs, table, ranks = args
+    rows = table.shape[0]
+    terms = film_terms(torch, rs, msgs, table, ranks, act)
+    err = check_kernel(name, got, want,
+                       row_abs_sums(torch, rows, ranks, terms),
+                       row_counts(torch, rows, ranks), torch)
+    # K1, K2 and each K16 FiLM variant, whose blocks are whole numbers of
+    # 64-edge chunks, sum a row that one chunk holds (or an empty one) in
+    # stream order from 0.
+    whole = chunk_span(torch, ranks, rows) <= 0
+    check_exact("%s = the shipped kernel's on %d of %d rows"
+                % (name, int(whole.sum()), rows), got[whole], base_out[whole],
+                torch)
+    return err
+
+
+def k16_phase(torch, rs, dev, graph):
+    """K16: drive the two harnesses of tf_gnn_samples_torch/tools/ (their
+    `run`, as their `main` does) with the launch counters set to 0, at the
+    JAX tools' default shapes and at the tuned QM9 batch's (FiLM: E =
+    161,792 on the batch's real fine ranks, D = 128; row gathers: E =
+    161,792, D = 128, the 51,472-row coarse table K5b expands, f32); every
+    K16 kernel must have launched. Then, with those launches read, hold
+    each variant against its plain version on the same inputs: the row
+    gathers exactly, the FiLM variants within the order bound and equal to
+    K1 / K2 on every row that one 64-edge chunk holds (relu, as timed, and
+    elu at the QM9 shape). Returns the kernels-line entries, one per
+    variant (FiLM: per group), at the default shapes (row gathers: bf16),
+    with the other shapes under `other_shapes`."""
+    from tf_gnn_samples_torch.tools import film_fwd_ab, rowgather_prof
+
+    flat = graph.flat
+    fine = flat.tgt_rank
+    e_qm9 = int(fine.numel())
+    rows_qm9 = rs.rank_table_rows(graph.n_pad, 256)
+    log = lambda line: print("  " + line)
+    rs.reset_launches()
+    t0 = time.time()
+    print("K16 film harness, the JAX tool's shapes:")
+    film = {"defaults": film_fwd_ab.run(301056, 320, device=dev, log=log)}
+    print("K16 film harness, the tuned QM9 batch's fine ranks:")
+    film["QM9"] = film_fwd_ab.run(e_qm9, 128, device=dev, ranks=fine,
+                                  rows=int(flat.fine_to_flat.numel()),
+                                  log=log)
+    print("K16 row-gather harness, the JAX tool's shapes:")
+    gathers = {"defaults": rowgather_prof.run(32768, 320, 8192, device=dev,
+                                              log=log)}
+    print("K16 row-gather harness, the tuned QM9 batch's K5b shapes:")
+    gathers["QM9"] = rowgather_prof.run(e_qm9, 128, rows_qm9, device=dev,
+                                        dtypes=("f32",), log=log)
+    launched = {k: rs.LAUNCHES[k] for k in K16_KERNELS}
+    print("K16 harnesses in %.1f s; launches %s" % (time.time() - t0,
+                                                    launched))
+    if not all(launched.values()):
+        raise AssertionError("K16 kernels not launched: %s" % launched)
+
+    entries = {}
+    nbytes = {}  # (entry, shape) -> bytes its function moves, for the print
+
+    def add(entry_name, kernel, label, row, err, other):
+        """Fold one measured shape of a variant into its entry."""
+        nbytes[entry_name, label] = row["nbytes"]
+        shape = {k: row[k] for k in ("ms", "queued_ms", "plain_ms",
+                                     "bound_ms", "launches")}
+        shape.update(other, max_abs_err=err)
+        if "zero_share" in row:
+            shape["zero_share"] = row["zero_share"]
+        entry = entries.get(entry_name)
+        if entry is None:
+            nops = row.get("nops", 0)
+            bytes_ms = row["nbytes"] / HBM_BYTES_PER_S * 1e3
+            entry = entries[entry_name] = dict(
+                name=entry_name, kernel=kernel, route="cuda",
+                source="tf_gnn_samples_torch/csrc/%s.cu"
+                       % K16_SOURCES[kernel.rsplit("_", 1)[0]],
+                replaces=REPLACES[kernel], launches=0, max_abs_err=0.0,
+                ms=row["ms"], queued_ms=row["queued_ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=("bytes" if bytes_ms >= nops / F32_FLOPS * 1e3
+                          else "operations"),
+                library_ms=other.get("library_ms"), shape=label,
+                other_shapes={})
+            entry.update((k, v) for k, v in other.items()
+                         if k != "library_ms")
+        else:
+            entry["other_shapes"][label] = shape
+        entry["launches"] += row["launches"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    for label, halves in film.items():
+        for half, rows in halves.items():
+            base, variants = ((rs._film_fwd_impl, film_fwd_ab.fwd_variants)
+                              if half == "fwd" else
+                              (rs._film_bwd_dgb_impl,
+                               film_fwd_ab.dgb_variants))
+            for act in ("relu", "elu") if label == "QM9" else ("relu",):
+                args = rows[0]["call"][2]
+                base_out = base(*args, act=act)
+                fns = {name: fn for name, _, fn in variants(act)}
+                for row in rows:
+                    plain = row["call"][1]
+                    name = "film_%s_%s" % (half, row["name"].replace(
+                        " g=", "_g"))
+                    got = fns[row["name"]](*args)
+                    torch.cuda.synchronize()
+                    err = film_variant_check(
+                        torch, rs, "%s (%s, %s)" % (name, label, act), got,
+                        plain(*args, act=act), args, base_out, act)
+                    if act == "relu":
+                        add(name, row["kernel"], label, row, err,
+                            dict(other=("K1 film_fwd" if half == "fwd"
+                                        else "K2 film_bwd_dgb"),
+                                 other_ms=row["base_ms"],
+                                 other_queued_ms=row["base_queued_ms"],
+                                 library_ms=None))
+    for label, rows in gathers.items():
+        for row in rows:
+            fn, plain, args = row["call"]
+            got = fn(*args)
+            torch.cuda.synchronize()
+            shape = "%s %s %s" % (label, row["dtype"], row["stream"])
+            err = check_exact("%s (%s)" % (row["kernel"], shape), got,
+                              plain(*args), torch)
+            if row["kernel"] == "rowgather_onehot":
+                # index_select computes no onehot function (no bf16
+                # rounding, no zero rows): a yardstick, not a library call.
+                other = dict(yardstick="torch.Tensor.index_select of the "
+                                       "windowed stream",
+                             yardstick_ms=row["library_ms"],
+                             yardstick_queued_ms=row["library_queued_ms"],
+                             library_ms=None)
+            else:
+                other = dict(library="torch.Tensor.index_select",
+                             library_ms=row["library_ms"],
+                             library_queued_ms=row["library_queued_ms"])
+            add(row["kernel"], row["kernel"], shape, row, err, other)
+
+    def versus(v):
+        """The time a shape is compared with: K1 / K2, the library call or
+        the yardstick."""
+        key = next(k for k in ("other", "library", "yardstick")
+                   if v.get(k + "_ms") is not None)
+        return "%s %.4f (%.4f queued)" % (v[key], v[key + "_ms"],
+                                          v[key + "_queued_ms"])
+
+    print("K16 kernels (queued time / bound):")
+    for entry in entries.values():
+        shapes = dict({entry["shape"]: entry}, **entry["other_shapes"])
+        print("  %s: %s" % (entry["name"], "; ".join(
+            "%s %.4f ms (%.4f queued, %.2fx the bound %.4f of %d bytes), "
+            "plain %.4f, %s"
+            % (label, v["ms"], v["queued_ms"],
+               v["queued_ms"] / v["bound_ms"], v["bound_ms"],
+               nbytes[entry["name"], label], v["plain_ms"], versus(v))
+            for label, v in shapes.items())))
+    return list(entries.values())
 
 
 def ppi_like_graph(dev, seed=0, num_nodes=8192, degree=14):
@@ -1374,7 +1537,7 @@ def rgat_branch_phase(torch, rs, dev, ppi_graph):
     for fused in (True, False, False, True) * 2:
         with rgat_branch(rs, fused):
             for name, fn in work.items():
-                times[fused][name].append(cuda_ms(fn, torch, warmup=2,
+                times[fused][name].append(cuda_ms(fn, warmup=2,
                                                   iters=10))
     result = {("fused" if fused else "streamed"): {
         name: statistics.median(v) for name, v in t.items()}
@@ -1558,9 +1721,9 @@ def step_times(rs, model, label):
     step_launches = {k: n for k, n in rs.LAUNCHES.items() if n}
     times = {"pack_ms": pack_ms,
              "train_step_ms": cuda_ms(lambda: model._train_step(dev_batch),
-                                      torch, warmup=2, iters=5),
+                                      warmup=2, iters=5),
              "eval_step_ms": cuda_ms(lambda: model._eval_step(dev_batch),
-                                     torch, warmup=2, iters=5),
+                                     warmup=2, iters=5),
              "train_step_host_ms": host_enqueue_ms(
                  lambda: model._train_step(dev_batch), torch)}
     times["train_step_busy_ms"], times["train_step_kernel_ms"] = (
@@ -1650,11 +1813,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(ROOT, "tf_gnn_samples_torch")):
-        print("chip_smoke: tf_gnn_samples_torch not found beside this script",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
     from tf_gnn_samples_torch.nn import layers
     from tf_gnn_samples_torch.ops import cuda_build
     from tf_gnn_samples_torch.ops import ranked_segment as rs
@@ -1677,11 +1835,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("  %s: %s" % (name, line.strip()))
 
-    kernels = kernel_phase(torch, rs, torch.device("cuda"))
+    kernels, graph = kernel_phase(torch, rs, torch.device("cuda"))
     kernel_ms = {k["name"]: k.get("mean_slice_ms", k["ms"]) for k in kernels}
     queued_ms = {k["name"]: k.get("mean_slice_queued_ms", k["queued_ms"])
                  for k in kernels}
-    total = {k["name"]: 0 for k in kernels}
+    kernels += k16_phase(torch, rs, torch.device("cuda"), graph)
+    del graph
+    total = {k: 0 for k in rs.LAUNCHES}
     ppi_graph = ppi_like_graph(torch.device("cuda"))
     diluted_phase(torch, rs, torch.device("cuda"), ppi_graph)
     # RGAT trains with its gate as it is on the branch the gate picks at
@@ -1712,7 +1872,12 @@ def main() -> int:
                   traced.items())}, sum(traced.values()),
                  100 * sum(traced.values()) / times["train_step_busy_ms"]))
     for k in kernels:
-        k["launches"] = total[k["name"]]
+        # K16 entries keep their harness launches; no model path runs them
+        # (expected_launches held their counters at 0 on every path).
+        if "kernel" in k:
+            k["launches_model_paths"] = total[k["kernel"]]
+        else:
+            k["launches"] = total[k["name"]]
     rgat_branch_phase(torch, rs, torch.device("cuda"), ppi_graph)
     for path in PATHS:
         with rgat_branch(rs, path.rgat_fused), forced_gate(rs, layers,

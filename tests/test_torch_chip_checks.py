@@ -1,5 +1,5 @@
 """The checks that `chip_smoke.py` and `tests/test_torch_cuda.py` hold the
-K10, K13, K14 and K15 kernels to, on the CPU: each accepts the kernel's
+K10, K13, K14, K15 and K16 FiLM kernels to, on the CPU: each accepts the kernel's
 math taken in another summation order (emulated here, independently of
 the checks' helpers) against the plain version's, and rejects a planted
 fault: a product that drops its last term, a dx sum that stops one column
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
-                        hand_kernel_names, hand_kernel_of, head_dw_check,
+                        film_variant_check, hand_kernel_names, hand_kernel_of, head_dw_check,
                         kernel_order_products, masked_terms,
                         seam_rows, typed_dense_agg_bounds,
                         typed_dense_agg_bwd_check)
@@ -322,3 +322,25 @@ def test_hand_kernel_names_read_from_the_sources():
     assert hand_kernel_of(
         "void at::native::vectorized_elementwise_kernel<4, ...>(int, ...)",
         names) is None
+
+
+@pytest.mark.parametrize("half", ["fwd", "dgb"])
+def test_film_variant_check_on_gapped_ranks(half):
+    """film_variant_check, the K16 FiLM variants' check, accepts K1's /
+    K2's function on a stream whose ranks have gaps, and rejects it with
+    one row a term short (a rank run that loses its last edge)."""
+    rng = np.random.RandomState(3)
+    ranks = 2 * sorted_ranks(rng, 2048, 500)
+    rows = int(ranks[-1]) + 2
+    msgs = bf16(rng, 2048, D)
+    table = bf16(rng, rows, (2 if half == "fwd" else 3) * D)
+    plain = (rs._film_fwd_plain if half == "fwd"
+             else rs._film_bwd_dgb_plain)
+    want = plain(msgs, table, ranks, "elu")
+    film_variant_check(torch, rs, half, want.clone(), want,
+                       (msgs, table, ranks), want, "elu")
+    e = int(torch.nonzero(ranks[1:] == ranks[:-1])[0])  # a 2-edge run
+    short = want - plain(msgs[e:e + 1], table, ranks[e:e + 1], "elu")
+    with pytest.raises(AssertionError):
+        film_variant_check(torch, rs, half, short, want,
+                           (msgs, table, ranks), want, "elu")

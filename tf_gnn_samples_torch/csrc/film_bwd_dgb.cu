@@ -12,52 +12,9 @@
 // table row per segment, an 8D-byte output row per rank). The TPU kernel's
 // windowed one-hot MXU products become the sorted-rank segment walk of
 // film_common.cuh: coalesced row reads, each table row read once per
-// segment, atomics only at the chunk seams.
-#include "film_common.cuh"
-
-namespace {
-
-template <int ACT>
-__global__ void __launch_bounds__(film::MAX_THREADS)
-film_bwd_dgb_kernel(const __nv_bfloat16* __restrict__ msgs,
-                    const __nv_bfloat16* __restrict__ gbg,
-                    const int* __restrict__ ranks, float* __restrict__ dgb,
-                    int num_edges, int dim) {
-  __shared__ int s_rank[film::CHUNK];
-  const int n = film::load_chunk_ranks(ranks, num_edges, s_rank);
-  const size_t e0 = static_cast<size_t>(blockIdx.x) * film::CHUNK;
-  const int first = s_rank[0];
-  for (int d = threadIdx.x; d < dim; d += blockDim.x) {
-    int cur = first;
-    const __nv_bfloat16* row = gbg + static_cast<size_t>(cur) * 3 * dim;
-    float gamma = film::ld(row + d), beta = film::ld(row + dim + d),
-          g = film::ld(row + 2 * dim + d);
-    float acc_g = 0.0f, acc_b = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const int r = s_rank[i];
-      if (r != cur) {
-        float* o = dgb + static_cast<size_t>(cur) * 2 * dim;
-        film::flush(o + d, acc_g, cur == first);
-        film::flush(o + dim + d, acc_b, cur == first);
-        cur = r;
-        acc_g = acc_b = 0.0f;
-        row = gbg + static_cast<size_t>(cur) * 3 * dim;
-        gamma = film::ld(row + d);
-        beta = film::ld(row + dim + d);
-        g = film::ld(row + 2 * dim + d);
-      }
-      const float m = film::ld(msgs + (e0 + i) * dim + d);
-      const float dz = film::dact<ACT>(gamma * m + beta) * g;
-      acc_g += film::round_bf16(m * dz);
-      acc_b += film::round_bf16(dz);
-    }
-    float* o = dgb + static_cast<size_t>(cur) * 2 * dim;
-    atomicAdd(o + d, acc_g);
-    atomicAdd(o + dim + d, acc_b);
-  }
-}
-
-}  // namespace
+// segment, atomics only at the chunk seams. The kernel,
+// film_bwd_dgb_kernel, is in film_walk.cuh.
+#include "film_walk.cuh"
 
 extern "C" int film_bwd_dgb_launch(const void* msgs, const void* gbg,
                                    const void* ranks, void* dgb,

@@ -1,5 +1,6 @@
 // Shared pieces of the fused GNN-FiLM kernels (film_fwd.cu, film_bwd.cu,
-// film_bwd_dgb.cu, film_src_bwd.cu, film_fwd_mask.cu) and of the other
+// film_bwd_dgb.cu, film_src_bwd.cu, film_fwd_mask.cu, film_walk.cuh and
+// the K16 variants film_fwd_ab.cu, film_dgb_ab.cu) and of the other
 // sorted-rank reductions and activation passes (segsum.cu, segsum_t.cu,
 // wseg_common.cuh, rgat_src_bwd.cu, expand_add_act.cu,
 // expand_add_act_bwd.cu, act_agg.cu, act_agg_bwd.cu, typed_dense_agg.cu,
@@ -90,11 +91,13 @@ __device__ __forceinline__ void flush(float* dst, float v, bool may_span) {
   }
 }
 
-// Loads the chunk's ranks into shared memory; returns the edge count.
+// Loads the ranks of block blockIdx.x's EDGES edges (a chunk unless the
+// caller walks more) into shared memory; returns the edge count.
+template <int EDGES = CHUNK>
 __device__ __forceinline__ int load_chunk_ranks(const int* __restrict__ ranks,
                                                 int num_edges, int* s_rank) {
-  const long e0 = static_cast<long>(blockIdx.x) * CHUNK;
-  const int n = min(CHUNK, static_cast<int>(num_edges - e0));
+  const long e0 = static_cast<long>(blockIdx.x) * EDGES;
+  const int n = min(EDGES, static_cast<int>(num_edges - e0));
   for (int i = threadIdx.x; i < n; i += blockDim.x) s_rank[i] = ranks[e0 + i];
   __syncthreads();
   return n;
@@ -134,6 +137,19 @@ inline int launch_smem(void (*kernel)(Params...), dim3 grid, dim3 block,
     case film::ELU: KERNEL<film::ELU><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__); break;               \
     case film::TANH: KERNEL<film::TANH><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__); break;             \
     case film::GELU: KERNEL<film::GELU><<<GRID, BLOCK, 0, STREAM>>>(__VA_ARGS__); break;             \
+    default: return static_cast<int>(cudaErrorInvalidValue);                  \
+  }
+
+// Returns FN<ACT>(...) for the runtime activation id `act`, or
+// cudaErrorInvalidValue for an unknown id.
+#define FILM_DISPATCH_ACT_CALL(act, FN, ...)                                  \
+  switch (act) {                                                              \
+    case film::LINEAR: return FN<film::LINEAR>(__VA_ARGS__);                  \
+    case film::RELU: return FN<film::RELU>(__VA_ARGS__);                      \
+    case film::LEAKY_RELU: return FN<film::LEAKY_RELU>(__VA_ARGS__);          \
+    case film::ELU: return FN<film::ELU>(__VA_ARGS__);                        \
+    case film::TANH: return FN<film::TANH>(__VA_ARGS__);                      \
+    case film::GELU: return FN<film::GELU>(__VA_ARGS__);                      \
     default: return static_cast<int>(cudaErrorInvalidValue);                  \
   }
 

@@ -12,44 +12,9 @@
 // windowed one-hot MXU products; here a block walks CHUNK edges in stream
 // order with one thread per column, so message rows and table rows are
 // read as contiguous, coalesced rows, each table row once per segment,
-// and the only atomics are at the two chunk seams (film_common.cuh).
-#include "film_common.cuh"
-
-namespace {
-
-template <int ACT>
-__global__ void __launch_bounds__(film::MAX_THREADS)
-film_fwd_kernel(const __nv_bfloat16* __restrict__ msgs,
-                const __nv_bfloat16* __restrict__ gb,
-                const int* __restrict__ ranks, float* __restrict__ out,
-                int num_edges, int dim) {
-  __shared__ int s_rank[film::CHUNK];
-  const int n = film::load_chunk_ranks(ranks, num_edges, s_rank);
-  const size_t e0 = static_cast<size_t>(blockIdx.x) * film::CHUNK;
-  const int first = s_rank[0];
-  for (int d = threadIdx.x; d < dim; d += blockDim.x) {
-    int cur = first;
-    const __nv_bfloat16* row = gb + static_cast<size_t>(cur) * 2 * dim;
-    float gamma = film::ld(row + d), beta = film::ld(row + dim + d);
-    float acc = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const int r = s_rank[i];
-      if (r != cur) {
-        film::flush(out + static_cast<size_t>(cur) * dim + d, acc, cur == first);
-        cur = r;
-        acc = 0.0f;
-        row = gb + static_cast<size_t>(cur) * 2 * dim;
-        gamma = film::ld(row + d);
-        beta = film::ld(row + dim + d);
-      }
-      const float m = film::ld(msgs + (e0 + i) * dim + d);
-      acc += film::round_bf16(film::act<ACT>(gamma * m + beta));
-    }
-    atomicAdd(out + static_cast<size_t>(cur) * dim + d, acc);
-  }
-}
-
-}  // namespace
+// and the only atomics are at the two chunk seams (film_common.cuh). The
+// kernel, film_fwd_kernel, is in film_walk.cuh.
+#include "film_walk.cuh"
 
 extern "C" int film_fwd_launch(const void* msgs, const void* gb,
                                const void* ranks, void* out, int num_edges,

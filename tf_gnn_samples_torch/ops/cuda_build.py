@@ -30,6 +30,8 @@ _FILM_ARGS = (_P,) * 4 + (_I,) * 3 + (_P,)
 # The per-head weighted segment-sums (K7a, K7b, K13a, K13b) share their
 # device code.
 _WSEG_HEADERS = ("wseg_common.cuh", "film_common.cuh")
+# K1 and K2 share their kernels with their K16 variants.
+_WALK_HEADERS = ("film_walk.cuh", "film_common.cuh")
 # name -> (headers the source includes, argument types of <name>_launch);
 # every entry point returns the CUDA error code of its launch.
 KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
@@ -37,8 +39,8 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "segsum": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
     # table, ranks, out, num_edges, dim, stream
     "expand": ((), (_P,) * 3 + (_I,) * 2 + (_P,)),
-    "film_fwd": (("film_common.cuh",), _FILM_ARGS),
-    "film_bwd_dgb": (("film_common.cuh",), _FILM_ARGS),
+    "film_fwd": (_WALK_HEADERS, _FILM_ARGS),
+    "film_bwd_dgb": (_WALK_HEADERS, _FILM_ARGS),
     "film_src_bwd": (("film_common.cuh",), _FILM_ARGS),
     # msgs_t, ranks, out, num_edges, rows, num_heads, stream
     "segsum_t": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
@@ -82,6 +84,14 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # mask, c, ranks, out, num_edges, dim, lanes, leak, stream
     "masked_segsum": (("film_common.cuh",),
                       (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
+    # K16, the A/B variants of tools/ (tf_gnn_samples_torch/tools/):
+    # msgs, gb, ranks, out, num_edges, dim, act id, variant, group, stream
+    "film_fwd_ab": (_WALK_HEADERS, (_P,) * 4 + (_I,) * 5 + (_P,)),
+    # msgs, gbg, ranks, dgb, num_edges, dim, act id, variant, group, stream
+    "film_dgb_ab": (_WALK_HEADERS, (_P,) * 4 + (_I,) * 5 + (_P,)),
+    # table, idx, starts, out, num_out, dim, rows, elem bytes, variant,
+    # win, stream
+    "rowgather": ((), (_P,) * 4 + (_I,) * 6 + (_P,)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

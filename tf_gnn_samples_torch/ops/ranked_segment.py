@@ -55,7 +55,8 @@ path of either package calls.
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain PyTorch version beside it only
 for tensors on the CPU. `LAUNCHES` counts kernel launches, one per wrapper
-call that reached its kernel.
+call that reached its kernel; it also counts those of the K16 variants of
+the harnesses in tf_gnn_samples_torch/tools/, one counter per kernel body.
 
 Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
@@ -197,7 +198,14 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "act_agg_bwd": 0, "typed_dense_agg": 0,
                             "typed_dense_agg_bwd": 0, "emlp1_src_bwd": 0,
                             "wseg": 0, "wseg_bwd": 0, "film_fwd_mask": 0,
-                            "masked_segsum": 0}
+                            "masked_segsum": 0,
+                            # K16, the A/B variants of the tools/ harnesses
+                            # (tf_gnn_samples_torch/tools/), by kernel body
+                            "film_fwd_v3": 0, "film_fwd_v2a": 0,
+                            "film_fwd_v2b": 0, "film_dgb_v3": 0,
+                            "film_dgb_v4": 0, "rowgather_loop": 0,
+                            "rowgather_loop8": 0, "rowgather_take": 0,
+                            "rowgather_onehot": 0}
 
 
 def reset_launches() -> None:
@@ -369,11 +377,12 @@ def _rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, num_heads, clamp):
         0, ranks, torch.cat([_bf16_terms(dmsg), _bf16_terms(dpre)], dim=1))
 
 
-def _call(kernel: str, tensors, ints):
+def _call(kernel: str, tensors, ints, counter: str = None):
     """Launch csrc/<kernel>.cu on PyTorch's current stream: its entry point
     takes the tensors' pointers, then `ints`, then the stream. Tensors must
     be contiguous and on one device; the types and shapes are the
-    wrapper's to check."""
+    wrapper's to check. The launch counts under `counter` (default: the
+    kernel's name) where one source holds several kernel bodies."""
     dev = tensors[-1].device
     for x in tensors:
         if x.device != dev or not x.is_contiguous():
@@ -386,7 +395,7 @@ def _call(kernel: str, tensors, ints):
     if rc != 0:
         raise RuntimeError("%s: kernel launch failed with CUDA error %d"
                            % (kernel, rc))
-    LAUNCHES[kernel] += 1
+    LAUNCHES[counter or kernel] += 1
 
 
 def _check_ranks(kernel: str, ranks):
