@@ -22,7 +22,10 @@ Phases, each of which raises on failure (no phase's failure is caught):
     relu and leaky_relu (timed with relu; K15a's table also against K1's
     on the same inputs), and K3, K9, K14 and K15b on the DILUTED src
     stream of a numpy-made graph of PPI-like degree (QM9's streams are
-    undiluted);
+    undiluted); K1 and K2 also against their earlier design (the K16 v3
+    variants at group 1) for elu, as the main path runs them, and relu,
+    as the harness times them: equal on every row of at most two chunks,
+    each timed beside that design in turns;
  4. K16 (`k16_phase`): the two harnesses of tf_gnn_samples_torch/tools/
     (the A/B variants of K1 and K2, and four row gathers beside
     torch.index_select) at the JAX tools' default shapes and at the tuned
@@ -634,6 +637,8 @@ def kernel_phase(torch, rs, dev):
             dgb, dgb_want))
 
     msgs, gb, gbg = randn(e, d), randn(rpad, 2 * d), randn(rpad, 3 * d)
+    # K2 as the fused FiLM backward calls it: gamma|beta and g apart.
+    gb2, g2 = gbg[:, :2 * d].contiguous(), gbg[:, 2 * d:].contiguous()
     gcb, t = randn(e, 3 * d), randn(rsrc, d)
     # Per-edge bf16 terms of each FiLM kernel (for the order bound and for
     # the index_add_ yardstick, which sums precomputed terms only).
@@ -832,7 +837,8 @@ def kernel_phase(torch, rs, dev):
              nops=4 * e * d,
              yardstick=(film_yardstick, index_add(rpad, fine, k1_terms))),
         dict(name="film_bwd_dgb",
-             kern=lambda: rs._film_bwd_dgb_impl(msgs, gbg, fine, act=act),
+             kern=lambda: rs._film_bwd_dgb_split_impl(msgs, gb2, g2, fine,
+                                                      act=act),
              plain=lambda: rs._film_bwd_dgb_plain(msgs, gbg, fine, act),
              check=order_check("film_bwd_dgb", rpad, fine, k2_terms),
              nbytes=e * d * 2 + e * 4 + n_fine * 3 * d * 2 + rpad * 2 * d * 4,
@@ -1140,6 +1146,25 @@ def kernel_phase(torch, rs, dev):
             rs._masked_segsum_plain(mask15, c15, src, rsrc, 0.2))
     also["act_agg"] = k12_also(0)
     also["act_agg_bwd"] = k12_also(1)
+    # K2 through its gamma|beta|g form too (two views of one table).
+    also["film_bwd_dgb"] = lambda: order_check(
+        "film_bwd_dgb (one gamma|beta|g table)", rpad, fine, k2_terms)(
+            rs._film_bwd_dgb_impl(msgs, gbg, fine, act=act),
+            rs._film_bwd_dgb_plain(msgs, gbg, fine, act))
+    from tf_gnn_samples_torch.tools import film_fwd_ab
+    designs = {
+        "film_fwd": lambda: earlier_design(
+            torch, "film_fwd",
+            lambda a: rs._film_fwd_impl(msgs, gb, fine, act=a),
+            lambda a: film_fwd_ab._impl_v3(msgs, gb, fine, act=a, group=1),
+            fine),
+        "film_bwd_dgb": lambda: earlier_design(
+            torch, "film_bwd_dgb",
+            lambda a: rs._film_bwd_dgb_split_impl(msgs, gb2, g2, fine, act=a),
+            lambda a: film_fwd_ab._impl_dgb_v3(msgs, gbg, fine, act=a,
+                                               group=1),
+            fine),
+    }
     results = []
     for spec in specs:
         name = spec["name"]
@@ -1167,6 +1192,8 @@ def kernel_phase(torch, rs, dev):
             "library_ms": None,
             "queued_ms": cuda_queued_ms(timed),
         }
+        if name in designs:
+            row["earlier_design"] = designs[name]()
         if "library" in spec:
             what, fn = spec["library"]
             row["library_ms"] = cuda_ms(fn)
@@ -1231,6 +1258,44 @@ def film_variant_check(torch, rs, name, got, want, args, base_out, act):
                 % (name, int(whole.sum()), rows), got[whole], base_out[whole],
                 torch)
     return err
+
+
+def film_design_check(torch, name, got, earlier, ranks):
+    """K1 / K2 (csrc/film_rows.cuh) against their earlier design (the
+    K16 v3 variants at group 1, csrc/film_walk.cuh) on the same inputs:
+    both sum each row's terms per 64-edge chunk in stream order from 0 and
+    add a row's chunk partials in f32, so every row that is not a seam row
+    (at most two partials, whose sum does not depend on their order) must
+    be equal bit for bit."""
+    rows = got.shape[0]
+    fixed = ~seam_rows(torch, ranks, rows)
+    return check_exact("%s = its earlier design's on %d of %d rows"
+                       % (name, int(fixed.sum()), rows), got[fixed],
+                       earlier[fixed], torch)
+
+
+def earlier_design(torch, name, new, earlier, ranks):
+    """K1 / K2 (`new(act)`) against their earlier design (`earlier(act)`)
+    for elu (the main path's) and relu (the harness's): film_design_check,
+    then each one's single-call and queued times, means of two timings
+    each taken in turns (earlier, new, new, earlier). Returns {act: times}."""
+    out = {}
+    for act in ("elu", "relu"):
+        fns = {"new": lambda: new(act), "earlier": lambda: earlier(act)}
+        got, want = fns["new"](), fns["earlier"]()
+        torch.cuda.synchronize()
+        film_design_check(torch, "%s (%s)" % (name, act), got, want, ranks)
+        taken = collections.defaultdict(list)
+        for which in ("earlier", "new", "new", "earlier"):
+            taken[which + "_ms"].append(cuda_ms(fns[which]))
+            taken[which + "_queued_ms"].append(cuda_queued_ms(fns[which]))
+        out[act] = {k: statistics.mean(v) for k, v in taken.items()}
+        print("  %s (%s): %.4f ms (%.4f queued); earlier design %.4f ms "
+              "(%.4f queued)" % (name, act, out[act]["new_ms"],
+                                 out[act]["new_queued_ms"],
+                                 out[act]["earlier_ms"],
+                                 out[act]["earlier_queued_ms"]))
+    return out
 
 
 def k16_phase(torch, rs, dev, graph):

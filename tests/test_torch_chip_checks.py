@@ -1,18 +1,21 @@
 """The checks that `chip_smoke.py` and `tests/test_torch_cuda.py` hold the
-K10, K13, K14, K15 and K16 FiLM kernels to, on the CPU: each accepts the kernel's
+K10, K13, K14, K15 and K16 FiLM kernels, and K1 / K2 against their earlier
+design, to, on the CPU: each accepts the kernel's
 math taken in another summation order (emulated here, independently of
 the checks' helpers) against the plain version's, and rejects a planted
 fault: a product that drops its last term, a dx sum that stops one column
 short, a zero or partial dW or d_w, an edge past e_real that is counted, a
 term dropped or weighted by the wrong head, a mask one bit off, the wrong
-leak. No kernel runs here; the faults are planted in the emulation."""
+leak, a row summed through its chunks or pairwise inside one. No kernel
+runs here; the faults are planted in the emulation."""
 
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
-                        film_variant_check, hand_kernel_names, hand_kernel_of, head_dw_check,
+                        film_design_check, film_terms, film_variant_check,
+                        hand_kernel_names, hand_kernel_of, head_dw_check,
                         kernel_order_products, masked_terms,
                         seam_rows, typed_dense_agg_bounds,
                         typed_dense_agg_bwd_check)
@@ -344,3 +347,69 @@ def test_film_variant_check_on_gapped_ranks(half):
     with pytest.raises(AssertionError):
         film_variant_check(torch, rs, half, short, want,
                            (msgs, table, ranks), want, "elu")
+
+
+# ---- K1 / K2 against their earlier design -----------------------------------
+
+def chunk_order_sums(terms, ranks, rows, fault="none", reverse=False):
+    """f32 per-row sums of `terms` in the FiLM kernels' order: a row's
+    terms in each 64-edge chunk summed in stream order from 0, the row's
+    chunk partials then added (in chunk order, or in reverse with
+    `reverse`: atomics meet in either). Planted faults: "straight", a row
+    summed through its chunks as one run; "tree", a pairwise sum inside a
+    chunk."""
+    out = torch.zeros((rows, terms.shape[1]))
+    e = len(ranks)
+    if fault == "straight":
+        for r in range(rows):
+            acc = torch.zeros(terms.shape[1])
+            for i in torch.nonzero(ranks == r).flatten().tolist():
+                acc = acc + terms[i]
+            out[r] = acc
+        return out
+    starts = list(range(0, e, 64))
+    for c0 in (starts[::-1] if reverse else starts):
+        chunk = ranks[c0:c0 + 64]
+        for r in torch.unique(chunk).tolist():
+            part = list(terms[c0:c0 + 64][chunk == r])
+            if fault == "tree":
+                while len(part) > 1:
+                    part = [part[i] + part[i + 1] if i + 1 < len(part)
+                            else part[i] for i in range(0, len(part), 2)]
+                acc = part[0]
+            else:
+                acc = torch.zeros(terms.shape[1])
+                for t in part:
+                    acc = acc + t
+            out[r] = out[r] + acc
+    return out
+
+
+@pytest.mark.parametrize("half", ["fwd", "dgb"])
+@pytest.mark.parametrize("fault", ["none", "straight", "tree"])
+def test_film_design_check_takes_the_chunk_order_and_rejects_others(
+        half, fault):
+    """film_design_check, which holds K1 / K2 to their earlier design on
+    the card, accepts the per-chunk order emulated with the partials
+    added in the other order, and rejects a two-chunk row summed straight
+    through and a pairwise sum inside a chunk. Runs of ~5-30 edges, so
+    rows of two chunks and of many terms in one chunk both occur."""
+    rng = np.random.RandomState(6)
+    sizes = rng.randint(5, 30, size=120)
+    ranks = torch.from_numpy(np.repeat(np.arange(120, dtype=np.int32),
+                                       sizes))
+    rows = 121
+    # Messages over 2^-12 .. 2^12: f32 sums of bf16 terms of one magnitude
+    # would be exact in any order.
+    msgs = (bf16(rng, len(ranks), D).float() * torch.from_numpy(
+        2.0 ** rng.randint(-12, 13, size=(len(ranks), D)))).to(torch.bfloat16)
+    table = bf16(rng, rows, (2 if half == "fwd" else 3) * D)
+    terms = film_terms(torch, rs, msgs, table, ranks, "elu")
+    earlier = chunk_order_sums(terms, ranks, rows)
+    got = chunk_order_sums(terms, ranks, rows, fault,
+                           reverse=fault == "none")
+    if fault == "none":
+        film_design_check(torch, half, got, earlier, ranks)
+    else:
+        with pytest.raises(AssertionError):
+            film_design_check(torch, half, got, earlier, ranks)

@@ -45,8 +45,8 @@ def film_inputs(dev, d, gaps=None):
     return m, gb, gbg, torch.from_numpy(ranks).to(dev)
 
 
-FWD = [name for name, _, _ in ffa.fwd_variants()] + ["v3 g=1"]
-DGB = [name for name, _, _ in ffa.dgb_variants()] + ["v3 g=1", "v4 g=8"]
+FWD = [name for name, _, _ in ffa.fwd_variants()]
+DGB = [name for name, _, _ in ffa.dgb_variants()] + ["v4 g=8"]
 
 
 def _variant(half, name, act):

@@ -1,6 +1,6 @@
 // Shared pieces of the fused GNN-FiLM kernels (film_fwd.cu, film_bwd.cu,
-// film_bwd_dgb.cu, film_src_bwd.cu, film_fwd_mask.cu, film_walk.cuh and
-// the K16 variants film_fwd_ab.cu, film_dgb_ab.cu) and of the other
+// film_bwd_dgb.cu, film_src_bwd.cu, film_fwd_mask.cu, film_rows.cuh,
+// film_walk.cuh and the K16 variants film_fwd_ab.cu, film_dgb_ab.cu) and of the other
 // sorted-rank reductions and activation passes (segsum.cu, segsum_t.cu,
 // wseg_common.cuh, rgat_src_bwd.cu, expand_add_act.cu,
 // expand_add_act_bwd.cu, act_agg.cu, act_agg_bwd.cu, typed_dense_agg.cu,
@@ -11,7 +11,8 @@
 //
 // These kernels are segmented reductions over a stream whose ranks are
 // nondecreasing and gap-free. A block owns CHUNK consecutive edges, its
-// threads span the feature columns, and each thread keeps a running f32
+// threads span the feature columns (film_rows.cuh: a lane owns 8 columns
+// of a chunk), and each thread keeps a running f32
 // sum while the rank is unchanged. At a rank change it flushes the sum:
 // the chunk's first and last segments may continue in a neighbouring chunk
 // and are added with atomicAdd, a segment wholly inside the chunk is

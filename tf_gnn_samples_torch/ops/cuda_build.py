@@ -30,7 +30,9 @@ _FILM_ARGS = (_P,) * 4 + (_I,) * 3 + (_P,)
 # The per-head weighted segment-sums (K7a, K7b, K13a, K13b) share their
 # device code.
 _WSEG_HEADERS = ("wseg_common.cuh", "film_common.cuh")
-# K1 and K2 share their kernels with their K16 variants.
+# K1 and K2 share their device code (film_rows.cuh); their K16 variants
+# share the earlier design's walk (film_walk.cuh).
+_ROWS_HEADERS = ("film_rows.cuh", "film_common.cuh")
 _WALK_HEADERS = ("film_walk.cuh", "film_common.cuh")
 # name -> (headers the source includes, argument types of <name>_launch);
 # every entry point returns the CUDA error code of its launch.
@@ -39,8 +41,9 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "segsum": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
     # table, ranks, out, num_edges, dim, stream
     "expand": ((), (_P,) * 3 + (_I,) * 2 + (_P,)),
-    "film_fwd": (_WALK_HEADERS, _FILM_ARGS),
-    "film_bwd_dgb": (_WALK_HEADERS, _FILM_ARGS),
+    "film_fwd": (_ROWS_HEADERS, _FILM_ARGS),
+    # msgs, gb, g, ranks, dgb, num_edges, dim, ld_gb, ld_g, act id, stream
+    "film_bwd_dgb": (_ROWS_HEADERS, (_P,) * 5 + (_I,) * 5 + (_P,)),
     "film_src_bwd": (("film_common.cuh",), _FILM_ARGS),
     # msgs_t, ranks, out, num_edges, rows, num_heads, stream
     "segsum_t": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),

@@ -14,7 +14,8 @@ those sorted ranks:
   segment-sum of RGCN/GGNN aggregation, and the VJP of K5b);
 * K5b `_expand_impl`: out[e] = bf16(table[rank_e]) (the VJP of K5a);
 * K1 `_film_fwd_impl`: table[r] = sum bf16(act(gamma[r] * m_e + beta[r]));
-* K2 `_film_bwd_dgb_impl`: d_gamma | d_beta of K1 in receiver order;
+* K2 `_film_bwd_dgb_impl`: d_gamma | d_beta of K1 in receiver order
+  (`_film_bwd_dgb_split_impl`: the same from gamma|beta and g apart);
 * K3 `_film_src_bwd_impl`: dt over the src-sorted stream, recomputing z;
 * K6a `_segsum_t_impl`: table_t[k, r] = sum bf16(m_t[k, e]), head-major
   [K, E] -> [K, R] (the RGAT softmax denominator, and the VJP of K6b);
@@ -377,16 +378,21 @@ def _rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, num_heads, clamp):
         0, ranks, torch.cat([_bf16_terms(dmsg), _bf16_terms(dpre)], dim=1))
 
 
-def _call(kernel: str, tensors, ints, counter: str = None):
+def _call(kernel: str, tensors, ints, counter: str = None, row_views=()):
     """Launch csrc/<kernel>.cu on PyTorch's current stream: its entry point
     takes the tensors' pointers, then `ints`, then the stream. Tensors must
-    be contiguous and on one device; the types and shapes are the
-    wrapper's to check. The launch counts under `counter` (default: the
-    kernel's name) where one source holds several kernel bodies."""
+    be on one device and contiguous, but those at the indices `row_views`:
+    2-D with unit column stride, whose row strides the wrapper passes in
+    `ints`. The types and shapes are the wrapper's to check. The launch
+    counts under `counter` (default: the kernel's name) where one source
+    holds several kernel bodies."""
     dev = tensors[-1].device
-    for x in tensors:
-        if x.device != dev or not x.is_contiguous():
-            raise ValueError("%s: inputs must be contiguous tensors on %s"
+    for i, x in enumerate(tensors):
+        laid_out = (x.dim() == 2 and x.stride(1) == 1 if i in row_views
+                    else x.is_contiguous())
+        if x.device != dev or not laid_out:
+            raise ValueError("%s: inputs must be contiguous tensors (row "
+                             "views: unit column stride) on %s"
                              % (kernel, dev))
     fn = getattr(cuda_build.load(kernel), kernel + "_launch")
     with torch.cuda.device(dev):
@@ -493,7 +499,7 @@ def _film_fwd_impl(msgs, gb_table, ranks, *, block_edges=256, act, win=0):
 def _film_bwd_dgb_impl(msgs, gbg_table, ranks, *, block_edges=256, act,
                        win=0):
     """K2: d_gamma | d_beta [RPAD, 2D] f32 of K1 from bf16 m [E, D] and
-    gamma|beta|g [RPAD, 3D]."""
+    gamma|beta|g [RPAD, 3D] (passed to the kernel as two views)."""
     e, dim = msgs.shape
     rpad = gbg_table.shape[0]
     if gbg_table.shape != (rpad, 3 * dim) or ranks.shape != (e,):
@@ -501,9 +507,35 @@ def _film_bwd_dgb_impl(msgs, gbg_table, ranks, *, block_edges=256, act,
             tuple(msgs.shape), tuple(gbg_table.shape), tuple(ranks.shape)))
     if msgs.device.type == "cpu":
         return _film_bwd_dgb_plain(msgs, gbg_table, ranks, act)
+    return _film_bwd_dgb_split_impl(msgs, gbg_table[:, :2 * dim],
+                                    gbg_table[:, 2 * dim:], ranks, act=act)
+
+
+def _film_bwd_dgb_split_impl(msgs, gb_table, g_table, ranks, *, act):
+    """K2 from two tables, bf16 gamma|beta [RPAD, 2D] and g [RPAD, D], each
+    row-major with unit column stride (whole tensors or column views);
+    f32 [RPAD, 2D] out. The fused FiLM backward passes its two tables as
+    they are, so no [RPAD, 3D] table is built for the kernel."""
+    e, dim = msgs.shape
+    rpad = gb_table.shape[0]
+    if (gb_table.shape != (rpad, 2 * dim) or g_table.shape != (rpad, dim)
+            or ranks.shape != (e,)):
+        raise ValueError("film_bwd_dgb: shapes %s, %s, %s, %s" % (
+            tuple(msgs.shape), tuple(gb_table.shape), tuple(g_table.shape),
+            tuple(ranks.shape)))
+    if msgs.device.type == "cpu":
+        return _film_bwd_dgb_plain(
+            msgs, torch.cat([gb_table, g_table], dim=1), ranks, act)
+    for x in (msgs, gb_table, g_table):
+        _check_dtype("film_bwd_dgb", x, torch.bfloat16)
+    _check_ranks("film_bwd_dgb", ranks)
     out = torch.zeros((rpad, 2 * dim), dtype=torch.float32,
                       device=msgs.device)
-    return _launch("film_bwd_dgb", (msgs, gbg_table, ranks), out, e, dim, act)
+    if e:
+        _call("film_bwd_dgb", (msgs, gb_table, g_table, ranks, out),
+              (e, dim, gb_table.stride(0), g_table.stride(0), ACT_IDS[act]),
+              row_views=(1, 2))
+    return out
 
 
 def _film_src_bwd_impl(gcb_src, t_ranked, ranks, *, table_rows, block_edges=256,
@@ -1348,9 +1380,8 @@ class _FilmFusedSrcPass(torch.autograd.Function):
         (m, gb16, t16, fine_rank_by_src, src_sorted_rank, src_to_rank,
          src_from_rank, ranks) = ctx.saved_tensors
         d = m.shape[1]
-        g16 = g.to(torch.bfloat16)
-        dgb = _film_bwd_dgb_impl(m, torch.cat([gb16, g16], dim=1), ranks,
-                                 act=ctx.act)
+        g16 = g.to(torch.bfloat16).contiguous()
+        dgb = _film_bwd_dgb_split_impl(m, gb16, g16, ranks, act=ctx.act)
         # Appended zero rows: the diluted stream's fill slots (SD_FILL fine
         # keys) clamp onto the first of them, so their recomputed dmsg is
         # zero whatever the cotangent; real and padded edges key rows

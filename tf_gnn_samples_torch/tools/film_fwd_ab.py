@@ -7,12 +7,15 @@ The variants compute the functions of the shipped FiLM kernels K1
 (csrc/film_fwd_ab.cu, csrc/film_dgb_ab.cu; each source says which TPU
 variant it answers and how):
 
-* forward v3, group G: K1's kernel over 64 * G edges a block;
+* forward v3, group G: K1's earlier design (csrc/film_walk.cuh, a thread
+  per column walking its block's edges) over 64 * G edges a block; at
+  G = 1 that design itself, the baseline of K1's redesign;
 * forward v2a "scratch": a block's rank window summed in shared memory
   and written once;
 * forward v2b "stepdot": bf16 terms staged in shared memory with 16-byte
   loads, then a column-parallel segmented sum;
-* d_gamma | d_beta v3, group G: K2's kernel over 64 * G edges a block;
+* d_gamma | d_beta v3, group G: K2's earlier design over 64 * G edges a
+  block (G = 1: that design itself);
 * d_gamma | d_beta v4, group G: the same with the two halves summed by
   two thread groups.
 
@@ -105,14 +108,15 @@ def _impl(variant, msgs, gb_table, ranks, *, act):
 
 
 def _impl_v3(msgs, gb_table, ranks, *, act, group):
-    """K1's function by v3: K1's walk over 64 * group edges a block."""
+    """K1's function by v3: K1's earlier walk over 64 * group edges a
+    block."""
     return _fwd("v3", msgs, gb_table, ranks, act, group)
 
 
 def _impl_dgb_v3(msgs, gbg_table, ranks, *, act, group):
     """K2's function (f32 [RPAD, 2D] d_gamma | d_beta from bf16 m [E, D]
-    and gamma|beta|g [RPAD, 3D]) by v3: K2's walk over 64 * group edges a
-    block, one thread per column for both halves."""
+    and gamma|beta|g [RPAD, 3D]) by v3: K2's earlier walk over 64 * group
+    edges a block, one thread per column for both halves."""
     return _dgb("v3", msgs, gbg_table, ranks, act, group)
 
 
@@ -124,10 +128,10 @@ def _impl_dgb_v4(msgs, gbg_table, ranks, *, act, group):
 
 def fwd_variants(act="relu"):
     """(name, launch counter, fn(m, gb, ranks)) of the forward variants
-    the JAX tool times."""
+    the JAX tool times, and v3 at group 1 (K1's earlier design)."""
     out = [("v2a", "film_fwd_v2a", functools.partial(_impl, "a", act=act)),
            ("v2b", "film_fwd_v2b", functools.partial(_impl, "b", act=act))]
-    for group in (2, 4, 8):
+    for group in GROUPS:
         out.append(("v3 g=%d" % group, "film_fwd_v3",
                     functools.partial(_impl_v3, act=act, group=group)))
     return out
@@ -135,10 +139,11 @@ def fwd_variants(act="relu"):
 
 def dgb_variants(act="relu"):
     """(name, launch counter, fn(m, gbg, ranks)) of the d_gamma | d_beta
-    variants the JAX tool times."""
+    variants the JAX tool times, and v3 at group 1 (K2's earlier
+    design)."""
     return ([("v3 g=%d" % g, "film_dgb_v3",
               functools.partial(_impl_dgb_v3, act=act, group=g))
-             for g in (2, 4, 8)]
+             for g in GROUPS]
             + [("v4 g=%d" % g, "film_dgb_v4",
                 functools.partial(_impl_dgb_v4, act=act, group=g))
                for g in (2, 4)])
