@@ -20,12 +20,16 @@ Phases, each of which raises on failure (no phase's failure is caught):
     the type-major stream (the shapes GNN-Edge-MLP1 gives them; they are
     timed on the largest) and over the whole stream, K15a and K15b for
     relu and leaky_relu (timed with relu; K15a's table also against K1's
-    on the same inputs), and K3, K9, K14 and K15b on the DILUTED src
-    stream of a numpy-made graph of PPI-like degree (QM9's streams are
-    undiluted); K1 and K2 also against their earlier design (the K16 v3
-    variants at group 1) for elu, as the main path runs them, and relu,
-    as the harness times them: equal on every row of at most two chunks,
-    each timed beside that design in turns;
+    on the same inputs), and K3 (both forms), K9, K14 and K15b on the
+    DILUTED src stream of a numpy-made graph of PPI-like degree (QM9's
+    streams are undiluted); K1-K4 also against their earlier designs (K1
+    / K2: the K16 v3 variants at group 1; K3 / K4: the bodies of
+    tools/earlier_designs.py) for elu, as the main path runs them, and
+    relu, as the harness times them: equal on every row of at most two
+    chunks, each timed beside that design in turns. K3 is timed in its
+    gather form (as the fused FiLM backward calls it) and held equal to
+    its stream form; K4 in its split form, held equal to its gamma|beta|g
+    form, its d_gb equal to K2's;
  4. K16 (`k16_phase`): the two harnesses of tf_gnn_samples_torch/tools/
     (the A/B variants of K1 and K2, and four row gathers beside
     torch.index_select) at the JAX tools' default shapes and at the tuned
@@ -41,7 +45,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
     branch), GNN-Edge-MLP0 (FiLM kernels) and RGDCN (class defaults,
     25,000-node packs; fine-rank neighbour sums, K5a both ways) on the
     bundled QM9 data at their tuned configs for 2 epochs each, then
-    `tf_gnn_samples_torch.test` evaluates each written checkpoint; the
+    `tf_gnn_samples_torch.test` evaluates each written checkpoint (each
+    path's train step also profiled: the hand kernels' device time and the
+    ten other device events with the most); the
     kernel launch counters, set to 0 before each run and read after it,
     must show that every layer of every batch went through its kernels
     (`expected_launches`) and through no other; K13, K15 and K16 run on
@@ -138,6 +144,11 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     "rowgather_loop8": "tools/rowgather_prof.py:92",
     "rowgather_take": "tools/rowgather_prof.py:124",
     "rowgather_onehot": "tools/rowgather_prof.py:152",
+    # the earlier designs of K3 and K4 (tf_gnn_samples_torch/tools/
+    # earlier_designs.py), the baselines of their redesign; no model path
+    # runs them
+    "film_src_bwd_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:493",
+    "film_bwd_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:526",
 }
 # The CUDA source of each K16 kernel body, by its counter's prefix.
 K16_SOURCES = {"film_fwd": "film_fwd_ab", "film_dgb": "film_dgb_ab",
@@ -206,13 +217,15 @@ def hand_kernel_of(key, names):
     return m.group(1) if m else None
 
 
-def device_profile(fn, torch, calls=3):
+def device_profile(fn, torch, calls=3, top=10):
     """Device time per call of `fn` that the card spends in kernels and
     copies (torch.profiler: the self device time of every device event of
-    `calls` calls, over `calls`), and the part of it spent in each of the
-    port's hand-written kernels, by __global__ name ({} where none ran).
-    The rest of a step's device-timeline time (`cuda_ms`) the card waits
-    for the host."""
+    `calls` calls, over `calls`), the part of it spent in each of the
+    port's hand-written kernels, by __global__ name ({} where none ran),
+    and the `top` other device events (PyTorch's kernels, copies and
+    fills) with the most device time: [name cut to 100 characters,
+    launches per call, ms per call]. The rest of a step's device-timeline
+    time (`cuda_ms`) the card waits for the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -230,11 +243,16 @@ def device_profile(fn, torch, calls=3):
         raise AssertionError("torch.profiler recorded no device time")
     names = hand_kernel_names()
     by_kernel = collections.Counter()
+    others = []
     for e in events:
         name = hand_kernel_of(e.key, names)
         if name is not None:
             by_kernel[name] += e.self_device_time_total / 1e3 / calls
-    return busy_us / 1e3 / calls, dict(by_kernel)
+        else:
+            others.append((e.key[:100], e.count / calls,
+                           e.self_device_time_total / 1e3 / calls))
+    others.sort(key=lambda x: -x[2])
+    return busy_us / 1e3 / calls, dict(by_kernel), others[:top]
 
 
 def device_busy_ms(fn, torch, calls=3) -> float:
@@ -295,6 +313,15 @@ def film_terms(torch, rs, msgs, table, ranks, act):
         return rs._bf16_terms(rs._ACTS[act][0](z))
     dz = rs._ACTS[act][1](z) * v[:, 2 * d:]
     return torch.cat([rs._bf16_terms(m * dz), rs._bf16_terms(dz)], 1)
+
+
+def src_terms(torch, rs, gcb, t, ranks, act):
+    """K3's per-edge bf16 terms bf16(act'(gamma t[s_e] + beta) * C), f32
+    [E, D], from its stream-form inputs."""
+    d = t.shape[1]
+    g = gcb.float()
+    z = g[:, :d] * t.float().index_select(0, ranks) + g[:, d:2 * d]
+    return rs._bf16_terms(rs._ACTS[act][1](z) * g[:, 2 * d:])
 
 
 def row_counts(torch, rows, ranks):
@@ -639,14 +666,29 @@ def kernel_phase(torch, rs, dev):
     msgs, gb, gbg = randn(e, d), randn(rpad, 2 * d), randn(rpad, 3 * d)
     # K2 as the fused FiLM backward calls it: gamma|beta and g apart.
     gb2, g2 = gbg[:, :2 * d].contiguous(), gbg[:, 2 * d:].contiguous()
-    gcb, t = randn(e, 3 * d), randn(rsrc, d)
+    # K3 as the fused FiLM backward calls it (its gather form): K2's
+    # gamma|beta and g tables, read at each src-sorted edge's fine rank,
+    # and the [L * n_pad, D] node table t, read at each src group's row;
+    # its stream form and its earlier design read the [E, 3D] stream and
+    # the t rows that the gather form spares the caller.
+    if flat.win_sd:
+        raise AssertionError("the QM9 src stream diluted")
+    fine_src, t_index = flat.fine_rank_by_src, flat.src_from_rank
+    t_rows = graph.num_edge_types * graph.n_pad
+    t16 = randn(t_rows, d)
+    gcb, t = rs._src_stream_inputs(gb2, g2, fine_src, t16, t_index)
+    used_fine = int(torch.unique(fine_src[fine_src < rpad]).numel())
+    # K3's gather form reads the used fine rows of gamma|beta|g, two ranks
+    # an edge, a rank and a t row per src group and writes the table; its
+    # stream form reads a gamma|beta|C row and a rank an edge instead.
+    k3_bytes = (used_fine * 6 * d + e * 8 + n_src * (2 * d + 4)
+                + rsrc * 4 * d)
+    k3_stream_bytes = e * 3 * d * 2 + e * 4 + n_src * d * 2 + rsrc * d * 4
     # Per-edge bf16 terms of each FiLM kernel (for the order bound and for
     # the index_add_ yardstick, which sums precomputed terms only).
     k1_terms = film_terms(torch, rs, msgs, gb, fine, act)
     k2_terms = film_terms(torch, rs, msgs, gbg, fine, act)
-    m = t.float().index_select(0, src)
-    k3_terms = rs._bf16_terms(dact(gcb.float()[:, :d] * m + gcb.float()[:, d:2 * d])
-                              * gcb.float()[:, 2 * d:])
+    k3_terms = src_terms(torch, rs, gcb, t, src, act)
     # K5 inputs: f32, as RGCN/GGNN messages (and table cotangents) are.
     m5 = torch.randn((e, d), generator=gen, device=dev)
     table5 = torch.randn((rows, d), generator=gen, device=dev)
@@ -844,13 +886,16 @@ def kernel_phase(torch, rs, dev):
              nbytes=e * d * 2 + e * 4 + n_fine * 3 * d * 2 + rpad * 2 * d * 4,
              nops=7 * e * d,
              yardstick=(film_yardstick, index_add(rpad, fine, k2_terms))),
+        # K3 in its gather form; the gamma * g product and five operations
+        # an element.
         dict(name="film_src_bwd",
-             kern=lambda: rs._film_src_bwd_impl(gcb, t, src, table_rows=rsrc,
-                                                act=act),
-             plain=lambda: rs._film_src_bwd_plain(gcb, t, src, rsrc, act),
+             kern=lambda: rs._film_src_bwd_gather_impl(
+                 gb2, g2, fine_src, t16, t_index, src, table_rows=rsrc,
+                 act=act),
+             plain=lambda: rs._film_src_bwd_gather_plain(
+                 gb2, g2, fine_src, t16, t_index, src, rsrc, act),
              check=order_check("film_src_bwd", rsrc, src, k3_terms),
-             nbytes=e * 3 * d * 2 + e * 4 + n_src * d * 2 + rsrc * d * 4,
-             nops=5 * e * d,
+             nbytes=k3_bytes, nops=6 * e * d,
              yardstick=(film_yardstick, index_add(rsrc, src, k3_terms))),
         # K5a reads the f32 stream and the ranks and writes the table; one
         # add per element. Library: index_add_ of the unrounded stream.
@@ -915,9 +960,11 @@ def kernel_phase(torch, rs, dev):
              nbytes=(2 * e * d * 2 + 2 * heads * e * 4 + e * 4
                      + n_rcv * d * 2),
              nops=3 * e * d),
-        # K4 is K2 plus the bf16 [E, D] message cotangent it writes.
+        # K4 is K2 plus the bf16 [E, D] message cotangent it writes; timed
+        # in its split form, as the FiLM aggregation's backward calls it.
         dict(name="film_bwd",
-             kern=lambda: rs._film_bwd_impl(msgs, gbg, fine, act=act),
+             kern=lambda: rs._film_bwd_split_impl(msgs, gb2, g2, fine,
+                                                  act=act),
              plain=lambda: rs._film_bwd_plain(msgs, gbg, fine, act),
              check=film_bwd_check,
              nbytes=(2 * e * d * 2 + e * 4 + n_fine * 3 * d * 2
@@ -1151,7 +1198,38 @@ def kernel_phase(torch, rs, dev):
         "film_bwd_dgb (one gamma|beta|g table)", rpad, fine, k2_terms)(
             rs._film_bwd_dgb_impl(msgs, gbg, fine, act=act),
             rs._film_bwd_dgb_plain(msgs, gbg, fine, act))
-    from tf_gnn_samples_torch.tools import film_fwd_ab
+    # K3's stream form (the JAX package's inputs): within the order bound,
+    # and equal to the gather form on every row that is not a seam row.
+    def k3_stream_also():
+        got = rs._film_src_bwd_impl(gcb, t, src, table_rows=rsrc, act=act)
+        err = order_check("film_src_bwd (stream form)", rsrc, src, k3_terms)(
+            got, rs._film_src_bwd_plain(gcb, t, src, rsrc, act))
+        film_design_check(
+            torch, "film_src_bwd gather form = stream form",
+            rs._film_src_bwd_gather_impl(gb2, g2, fine_src, t16, t_index, src,
+                                         table_rows=rsrc, act=act), got, src)
+        print("  film_src_bwd (stream form): bound %.4f ms (%d bytes at 3.35 "
+              "TB/s; the gather form's %d)"
+              % (k3_stream_bytes / HBM_BYTES_PER_S * 1e3, k3_stream_bytes,
+                 k3_bytes))
+        return err
+
+    def k4_also():
+        """K4's gamma|beta|g form (two views of one table) against its split
+        form, and its d_gb against K2's on the same inputs: the same terms
+        in the same order."""
+        split = rs._film_bwd_split_impl(msgs, gb2, g2, fine, act=act)
+        film_bwd_design_check(torch, "film_bwd gamma|beta|g form = split "
+                              "form", rs._film_bwd_impl(msgs, gbg, fine,
+                                                        act=act), split, fine)
+        film_design_check(torch, "film_bwd d_gb = film_bwd_dgb's", split[1],
+                          rs._film_bwd_dgb_split_impl(msgs, gb2, g2, fine,
+                                                      act=act), fine)
+        return 0.0
+
+    also["film_src_bwd"] = k3_stream_also
+    also["film_bwd"] = k4_also
+    from tf_gnn_samples_torch.tools import earlier_designs, film_fwd_ab
     designs = {
         "film_fwd": lambda: earlier_design(
             torch, "film_fwd",
@@ -1164,6 +1242,21 @@ def kernel_phase(torch, rs, dev):
             lambda a: film_fwd_ab._impl_dgb_v3(msgs, gbg, fine, act=a,
                                                group=1),
             fine),
+        # K3: the gather form and the stream form against the earlier body
+        # on the stream.
+        "film_src_bwd": lambda: earlier_design(
+            torch, "film_src_bwd",
+            lambda a: rs._film_src_bwd_gather_impl(
+                gb2, g2, fine_src, t16, t_index, src, table_rows=rsrc, act=a),
+            lambda a: earlier_designs.film_src_bwd_walk(
+                gcb, t, src, table_rows=rsrc, act=a),
+            src, other=lambda a: rs._film_src_bwd_impl(
+                gcb, t, src, table_rows=rsrc, act=a)),
+        "film_bwd": lambda: earlier_design(
+            torch, "film_bwd",
+            lambda a: rs._film_bwd_split_impl(msgs, gb2, g2, fine, act=a),
+            lambda a: earlier_designs.film_bwd_walk(msgs, gbg, fine, act=a),
+            fine, check=film_bwd_design_check),
     }
     results = []
     for spec in specs:
@@ -1261,40 +1354,73 @@ def film_variant_check(torch, rs, name, got, want, args, base_out, act):
 
 
 def film_design_check(torch, name, got, earlier, ranks):
-    """K1 / K2 (csrc/film_rows.cuh) against their earlier design (the
-    K16 v3 variants at group 1, csrc/film_walk.cuh) on the same inputs:
-    both sum each row's terms per 64-edge chunk in stream order from 0 and
-    add a row's chunk partials in f32, so every row that is not a seam row
-    (at most two partials, whose sum does not depend on their order) must
-    be equal bit for bit."""
+    """A FiLM table of csrc/film_rows.cuh (K1-K4) against another kernel's
+    on the same inputs that sums the same terms in the same order: their
+    earlier design (K1 / K2: the K16 v3 variants at group 1,
+    csrc/film_walk.cuh; K3 / K4: tools/earlier_designs.py), another form
+    of the same kernel, or K4's d_gb against K2's. Each sums a row's terms
+    per 64-edge chunk in stream order from 0 and adds the row's chunk
+    partials in f32, so every row that is not a seam row (at most two
+    partials, whose sum does not depend on their order) must be equal bit
+    for bit."""
     rows = got.shape[0]
     fixed = ~seam_rows(torch, ranks, rows)
-    return check_exact("%s = its earlier design's on %d of %d rows"
+    return check_exact("%s on %d of %d rows"
                        % (name, int(fixed.sum()), rows), got[fixed],
                        earlier[fixed], torch)
 
 
-def earlier_design(torch, name, new, earlier, ranks):
-    """K1 / K2 (`new(act)`) against their earlier design (`earlier(act)`)
-    for elu (the main path's) and relu (the harness's): film_design_check,
-    then each one's single-call and queued times, means of two timings
-    each taken in turns (earlier, new, new, earlier). Returns {act: times}."""
+def film_bwd_design_check(torch, name, got, earlier, ranks):
+    """K4's (d_msgs, d_gb) against another K4's on the same inputs: d_msgs,
+    one rounded product an element, bit for bit; d_gb as
+    film_design_check."""
+    (dm, dgb), (dm_want, dgb_want) = got, earlier
+    check_exact("%s d_msgs" % name, dm, dm_want, torch)
+    return film_design_check(torch, "%s d_gb" % name, dgb, dgb_want, ranks)
+
+
+def src_gather_check(torch, name, got, stream, ranks, fed):
+    """K3's gather form (`got`) against its stream form on the stream and
+    t rows that rs._src_stream_inputs builds from the same tables, over a
+    diluted stream: equal on every row that is not a seam row
+    (film_design_check), and zero on every row that no real edge feeds
+    (`fed` false): a fill slot must add an exact zero term."""
+    film_design_check(torch, name, got, stream, ranks)
+    if bool((got[~fed] != 0).any()):
+        raise AssertionError("%s: fill slots reached the table" % name)
+
+
+def earlier_design(torch, name, new, earlier, ranks, check=film_design_check,
+                   other=None):
+    """K1-K4 (`new(act)`) against their earlier design (`earlier(act)`) for
+    elu (the main path's) and relu (the harness's): `check` (the same sums
+    in the same order), then each one's single-call and queued times,
+    means of two timings each taken in turns (earlier, new, new, earlier;
+    with `other`, another form of the new kernel that is checked and timed
+    too: earlier, new, other, other, new, earlier). Returns {act: times}."""
     out = {}
     for act in ("elu", "relu"):
-        fns = {"new": lambda: new(act), "earlier": lambda: earlier(act)}
-        got, want = fns["new"](), fns["earlier"]()
-        torch.cuda.synchronize()
-        film_design_check(torch, "%s (%s)" % (name, act), got, want, ranks)
+        fns = {"earlier": lambda: earlier(act), "new": lambda: new(act)}
+        if other is not None:
+            fns["other"] = lambda: other(act)
+        want = fns["earlier"]()
+        for which in list(fns)[1:]:
+            got = fns[which]()
+            torch.cuda.synchronize()
+            check(torch, "%s (%s, %s) = its earlier design's"
+                  % (name, act, which), got, want, ranks)
         taken = collections.defaultdict(list)
-        for which in ("earlier", "new", "new", "earlier"):
+        for which in list(fns) + list(fns)[::-1]:
             taken[which + "_ms"].append(cuda_ms(fns[which]))
             taken[which + "_queued_ms"].append(cuda_queued_ms(fns[which]))
         out[act] = {k: statistics.mean(v) for k, v in taken.items()}
         print("  %s (%s): %.4f ms (%.4f queued); earlier design %.4f ms "
-              "(%.4f queued)" % (name, act, out[act]["new_ms"],
-                                 out[act]["new_queued_ms"],
-                                 out[act]["earlier_ms"],
-                                 out[act]["earlier_queued_ms"]))
+              "(%.4f queued)%s" % (
+                  name, act, out[act]["new_ms"], out[act]["new_queued_ms"],
+                  out[act]["earlier_ms"], out[act]["earlier_queued_ms"],
+                  "" if other is None else "; other form %.4f ms (%.4f "
+                  "queued)" % (out[act]["other_ms"],
+                               out[act]["other_queued_ms"])))
     return out
 
 
@@ -1464,9 +1590,11 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
     """K3, K9, K14 and K15b on a DILUTED src stream. The tuned QM9 batches have no
     fine rank window, so their src streams are undiluted; `graph`
     (ppi_like_graph) dilutes. Fill slots carry the SD_FILL key, which the
-    passes clamp onto a zero row appended to their side table: both
-    kernels are held against their plain versions on that stream, and the
-    rows no real edge feeds must be exactly zero."""
+    passes clamp onto a zero row appended to their side table (K3's
+    gather form: which adds zero without a table): each kernel is held
+    against its plain version on that stream, and the rows no real edge
+    feeds must be exactly zero. K3's gather form must also equal its
+    stream form on every row that is not a seam row."""
     from tf_gnn_samples_torch.nn.layers import src_stream
     from tf_gnn_samples_torch.ops.graph import SD_FILL
 
@@ -1510,6 +1638,23 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
           rs._film_src_bwd_plain(gcb3, t3, ranks, rsrc, act),
           torch.zeros((rsrc, d), device=dev).index_add_(0, ranks,
                                                         k3_terms.abs()))
+    # K3's gather form, as the fused FiLM backward calls it on this stream.
+    gb3, g3 = randn(rpad, 2 * d), randn(rpad, d)
+    t3n = randn(graph.num_edge_types * graph.n_pad, d)
+    gather = rs._film_src_bwd_gather_impl(gb3, g3, fine, t3n,
+                                          flat.src_from_rank, ranks,
+                                          table_rows=rsrc, act=act)
+    gcb3, t3 = rs._src_stream_inputs(gb3, g3, fine, t3n,
+                                 flat.src_from_rank)
+    check("film_src_bwd (gather form)", gather,
+          rs._film_src_bwd_gather_plain(gb3, g3, fine, t3n,
+                                        flat.src_from_rank, ranks, rsrc, act),
+          per_row(torch, rsrc, ranks,
+                  src_terms(torch, rs, gcb3, t3, ranks, act).abs()).float())
+    src_gather_check(torch, "film_src_bwd gather form = stream form "
+                     "(diluted)", gather,
+                     rs._film_src_bwd_impl(gcb3, t3, ranks, table_rows=rsrc,
+                                           act=act), ranks, fed)
     side = torch.randn((rpad, d + 3 * heads), generator=gen, device=dev)
     side[:, d + heads:d + 2 * heads] = 0.5 + 4 * torch.rand(
         (rpad, heads), generator=gen, device=dev)
@@ -1791,8 +1936,8 @@ def step_times(rs, model, label):
                                      warmup=2, iters=5),
              "train_step_host_ms": host_enqueue_ms(
                  lambda: model._train_step(dev_batch), torch)}
-    times["train_step_busy_ms"], times["train_step_kernel_ms"] = (
-        device_profile(lambda: model._train_step(dev_batch), torch))
+    (times["train_step_busy_ms"], times["train_step_kernel_ms"],
+     top) = device_profile(lambda: model._train_step(dev_batch), torch)
     print("%s: one batch of %d graphs: host packing %.1f ms, train step "
           "%.2f ms, eval step %.2f ms (device timeline); the host enqueues "
           "the train step in %.2f ms; the card is busy %.2f ms of the train "
@@ -1802,6 +1947,9 @@ def step_times(rs, model, label):
              times["train_step_host_ms"], times["train_step_busy_ms"],
              100 * max(0.0, 1 - times["train_step_busy_ms"]
                        / times["train_step_ms"])))
+    print("%s: the ten other device events with the most device time in one "
+          "train step (torch.profiler: name, launches, ms): %s"
+          % (label, json.dumps([[n, c, round(ms, 4)] for n, c, ms in top])))
     return times, step_launches
 
 

@@ -1,12 +1,14 @@
 """The checks that `chip_smoke.py` and `tests/test_torch_cuda.py` hold the
-K10, K13, K14, K15 and K16 FiLM kernels, and K1 / K2 against their earlier
-design, to, on the CPU: each accepts the kernel's
+K10, K13, K14, K15 and K16 FiLM kernels, K1-K4 against their earlier
+designs, K3's gather form against its stream form and K4's d_gb against
+K2's, to, on the CPU: each accepts the kernel's
 math taken in another summation order (emulated here, independently of
 the checks' helpers) against the plain version's, and rejects a planted
 fault: a product that drops its last term, a dx sum that stops one column
 short, a zero or partial dW or d_w, an edge past e_real that is counted, a
 term dropped or weighted by the wrong head, a mask one bit off, the wrong
-leak, a row summed through its chunks or pairwise inside one. No kernel
+leak, a row summed through its chunks or pairwise inside one, a fill slot
+that reads a real row, a message cotangent one bf16 step off. No kernel
 runs here; the faults are planted in the emulation."""
 
 import numpy as np
@@ -14,12 +16,14 @@ import pytest
 import torch
 
 from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
-                        film_design_check, film_terms, film_variant_check,
-                        hand_kernel_names, hand_kernel_of, head_dw_check,
-                        kernel_order_products, masked_terms,
-                        seam_rows, typed_dense_agg_bounds,
+                        film_bwd_design_check, film_design_check, film_terms,
+                        film_variant_check, hand_kernel_names, hand_kernel_of,
+                        head_dw_check, kernel_order_products, masked_terms,
+                        seam_rows, src_gather_check, src_terms,
+                        typed_dense_agg_bounds,
                         typed_dense_agg_bwd_check)
 from tf_gnn_samples_torch.ops import ranked_segment as rs
+from tf_gnn_samples_torch.ops.graph import SD_FILL
 
 D = 32
 
@@ -413,3 +417,120 @@ def test_film_design_check_takes_the_chunk_order_and_rejects_others(
     else:
         with pytest.raises(AssertionError):
             film_design_check(torch, half, got, earlier, ranks)
+
+
+# ---- K3 / K4 against their earlier designs, and their other forms -----------
+
+def run_ranks(rng, runs=120):
+    """Nondecreasing gap-free ranks of runs of 5-30 edges: rows of two
+    chunks and rows of many terms in one chunk both occur."""
+    sizes = rng.randint(5, 30, size=runs)
+    return torch.from_numpy(np.repeat(np.arange(runs, dtype=np.int32),
+                                      sizes))
+
+
+def spread(rng, x):
+    """x scaled by 2^-12 .. 2^12 per element: f32 sums of bf16 terms of one
+    magnitude would be exact in any order."""
+    return (x.float() * torch.from_numpy(
+        2.0 ** rng.randint(-12, 13, size=tuple(x.shape)))).to(torch.bfloat16)
+
+
+def k3_diluted_inputs(seed=7, rpad=300, t_rows=400):
+    """A src stream with fill slots: each edge's fine key (about one in
+    eight SD_FILL, and every key of one run, so a row no real edge feeds),
+    the gamma|beta and g tables, the node table t and each src group's t
+    row (some past the table: clipped)."""
+    rng = np.random.RandomState(seed)
+    ranks = run_ranks(rng)
+    rows = int(ranks[-1]) + 2
+    fine = torch.from_numpy(rng.randint(0, rpad, size=len(ranks)).astype(
+        np.int32))
+    fine[torch.from_numpy(rng.rand(len(ranks)) < 0.125)] = int(SD_FILL)
+    fine[ranks == 3] = int(SD_FILL)
+    t_index = torch.from_numpy(rng.randint(0, t_rows + 3, size=rows).astype(
+        np.int32))
+    return (ranks, rows, fine, bf16(rng, rpad, 2 * D), bf16(rng, rpad, D),
+            spread(rng, bf16(rng, t_rows, D)), t_index)
+
+
+@pytest.mark.parametrize("fault", ["none", "straight", "fill_reads_a_row"])
+def test_k3_gather_check_rejects_planted_faults(fault):
+    """src_gather_check, which holds K3's gather form to its stream form on
+    a diluted stream, accepts the per-chunk order (partials added in the
+    other order) and rejects a two-chunk row summed straight through and a
+    fill slot that reads the table's last row instead of adding zero."""
+    ranks, rows, fine, gb, g, t, t_index = k3_diluted_inputs()
+    rpad = g.shape[0]
+    gcb, t_r = rs._src_stream_inputs(gb, g, fine, t, t_index)
+    terms = src_terms(torch, rs, gcb, t_r, ranks, "elu")
+    stream = chunk_order_sums(terms, ranks, rows)
+    fed = torch.zeros(rows, dtype=torch.bool)
+    fed[ranks[fine < rpad].long()] = True
+    if fault == "fill_reads_a_row":
+        gcb, t_r = rs._src_stream_inputs(gb, g,
+                                     fine.clamp(max=rpad - 1), t, t_index)
+        terms = src_terms(torch, rs, gcb, t_r, ranks, "elu")
+    got = chunk_order_sums(terms, ranks, rows,
+                           "straight" if fault == "straight" else "none",
+                           reverse=True)
+    if fault == "none":
+        src_gather_check(torch, "film_src_bwd", got, stream, ranks, fed)
+    else:
+        with pytest.raises(AssertionError):
+            src_gather_check(torch, "film_src_bwd", got, stream, ranks, fed)
+
+
+@pytest.mark.parametrize("fault", ["none", "straight", "dmsg_one_step_off"])
+def test_k4_design_check_rejects_planted_faults(fault):
+    """film_bwd_design_check, which holds K4 to its earlier body and its
+    gamma|beta|g form to its split form, and film_design_check, which holds
+    K4's d_gb to K2's: the per-chunk order passes both; a two-chunk row
+    summed straight through fails both; a message cotangent one bf16 step
+    off fails the first."""
+    rng = np.random.RandomState(8)
+    ranks = run_ranks(rng)
+    rows = int(ranks[-1]) + 2
+    msgs = spread(rng, bf16(rng, len(ranks), D))
+    gbg = bf16(rng, rows, 3 * D)
+    dm, _ = rs._film_bwd_plain(msgs, gbg, ranks, "elu")
+    terms = film_terms(torch, rs, msgs, gbg, ranks, "elu")
+    earlier = (dm, chunk_order_sums(terms, ranks, rows))
+    got_dgb = chunk_order_sums(terms, ranks, rows,
+                               "straight" if fault == "straight" else "none",
+                               reverse=True)
+    got_dm = dm.clone()
+    if fault == "dmsg_one_step_off":
+        bits = got_dm.view(torch.int16)
+        bits[5, 3] += 1
+    if fault == "none":
+        film_bwd_design_check(torch, "film_bwd", (got_dm, got_dgb), earlier,
+                              ranks)
+        film_design_check(torch, "film_bwd d_gb = K2's", got_dgb, earlier[1],
+                          ranks)
+        return
+    with pytest.raises(AssertionError):
+        film_bwd_design_check(torch, "film_bwd", (got_dm, got_dgb), earlier,
+                              ranks)
+    if fault == "straight":
+        with pytest.raises(AssertionError):
+            film_design_check(torch, "film_bwd d_gb = K2's", got_dgb,
+                              earlier[1], ranks)
+
+
+@pytest.mark.parametrize("fault", ["none", "straight", "tree"])
+def test_k3_design_check_takes_the_chunk_order_and_rejects_others(fault):
+    """film_design_check as it holds K3 (both forms) to its earlier body:
+    the per-chunk order passes; a row summed straight through its chunks or
+    pairwise inside one fails."""
+    ranks, rows, fine, gb, g, t, t_index = k3_diluted_inputs(seed=9)
+    gcb, t_r = rs._src_stream_inputs(gb, g, fine, t, t_index)
+    terms = src_terms(torch, rs, gcb, t_r, ranks, "relu")
+    earlier = chunk_order_sums(terms, ranks, rows)
+    got = chunk_order_sums(terms, ranks, rows, fault,
+                           reverse=fault == "none")
+    if fault == "none":
+        film_design_check(torch, "film_src_bwd", got, earlier, ranks)
+    else:
+        with pytest.raises(AssertionError):
+            film_design_check(torch, "film_src_bwd", got, earlier, ranks)

@@ -1,6 +1,7 @@
 // Shared pieces of the fused GNN-FiLM kernels (film_fwd.cu, film_bwd.cu,
 // film_bwd_dgb.cu, film_src_bwd.cu, film_fwd_mask.cu, film_rows.cuh,
-// film_walk.cuh and the K16 variants film_fwd_ab.cu, film_dgb_ab.cu) and of the other
+// film_walk.cuh, the earlier designs film_src_bwd_walk.cu and
+// film_bwd_walk.cu, and the K16 variants film_fwd_ab.cu, film_dgb_ab.cu) and of the other
 // sorted-rank reductions and activation passes (segsum.cu, segsum_t.cu,
 // wseg_common.cuh, rgat_src_bwd.cu, expand_add_act.cu,
 // expand_add_act_bwd.cu, act_agg.cu, act_agg_bwd.cu, typed_dense_agg.cu,

@@ -30,8 +30,8 @@ _FILM_ARGS = (_P,) * 4 + (_I,) * 3 + (_P,)
 # The per-head weighted segment-sums (K7a, K7b, K13a, K13b) share their
 # device code.
 _WSEG_HEADERS = ("wseg_common.cuh", "film_common.cuh")
-# K1 and K2 share their device code (film_rows.cuh); their K16 variants
-# share the earlier design's walk (film_walk.cuh).
+# K1-K4 share their device code (film_rows.cuh); the K16 variants of K1
+# and K2 share those two's earlier walk (film_walk.cuh).
 _ROWS_HEADERS = ("film_rows.cuh", "film_common.cuh")
 _WALK_HEADERS = ("film_walk.cuh", "film_common.cuh")
 # name -> (headers the source includes, argument types of <name>_launch);
@@ -44,7 +44,10 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "film_fwd": (_ROWS_HEADERS, _FILM_ARGS),
     # msgs, gb, g, ranks, dgb, num_edges, dim, ld_gb, ld_g, act id, stream
     "film_bwd_dgb": (_ROWS_HEADERS, (_P,) * 5 + (_I,) * 5 + (_P,)),
-    "film_src_bwd": (("film_common.cuh",), _FILM_ARGS),
+    # gcb, gb, g, fine, t, t_index, ranks, dt, num_edges, dim, ld_gb, ld_g,
+    # rpad, t_rows, act id, stream (the stream form: null gb, g, fine,
+    # t_index; the gather form: null gcb)
+    "film_src_bwd": (_ROWS_HEADERS, (_P,) * 8 + (_I,) * 7 + (_P,)),
     # msgs_t, ranks, out, num_edges, rows, num_heads, stream
     "segsum_t": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
     # table_t, ranks, out, num_edges, rows, num_heads, stream
@@ -53,8 +56,9 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "wseg_t": (_WSEG_HEADERS, (_P,) * 4 + (_I,) * 4 + (_P,)),
     # msgs, w_t, g16, ranks, dmsg, dw_t, num_edges, dim, num_heads, stream
     "wseg_t_bwd": (_WSEG_HEADERS, (_P,) * 6 + (_I,) * 3 + (_P,)),
-    # msgs, gbg, ranks, dmsg, dgb, num_edges, dim, act id, stream
-    "film_bwd": (("film_common.cuh",), (_P,) * 5 + (_I,) * 3 + (_P,)),
+    # msgs, gb, g, ranks, dmsg, dgb, num_edges, dim, ld_gb, ld_g, act id,
+    # stream
+    "film_bwd": (_ROWS_HEADERS, (_P,) * 6 + (_I,) * 5 + (_P,)),
     # msgs, g16, ranks, dw_t, num_edges, dim, dim_in, num_heads, stream
     "wseg_t_dw": ((), (_P,) * 4 + (_I,) * 4 + (_P,)),
     # gcb, t_ext, ranks, out, num_edges, dim, num_heads, clamp, stream
@@ -87,6 +91,11 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # mask, c, ranks, out, num_edges, dim, lanes, leak, stream
     "masked_segsum": (("film_common.cuh",),
                       (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
+    # The earlier designs of K3 and K4 (tools/earlier_designs.py), on no
+    # model path: gcb, t, ranks, dt, num_edges, dim, act id, stream; msgs,
+    # gbg, ranks, dmsg, dgb, num_edges, dim, act id, stream
+    "film_src_bwd_walk": (("film_common.cuh",), _FILM_ARGS),
+    "film_bwd_walk": (("film_common.cuh",), (_P,) * 5 + (_I,) * 3 + (_P,)),
     # K16, the A/B variants of tools/ (tf_gnn_samples_torch/tools/):
     # msgs, gb, ranks, out, num_edges, dim, act id, variant, group, stream
     "film_fwd_ab": (_WALK_HEADERS, (_P,) * 4 + (_I,) * 5 + (_P,)),

@@ -16,7 +16,10 @@ those sorted ranks:
 * K1 `_film_fwd_impl`: table[r] = sum bf16(act(gamma[r] * m_e + beta[r]));
 * K2 `_film_bwd_dgb_impl`: d_gamma | d_beta of K1 in receiver order
   (`_film_bwd_dgb_split_impl`: the same from gamma|beta and g apart);
-* K3 `_film_src_bwd_impl`: dt over the src-sorted stream, recomputing z;
+* K3 `_film_src_bwd_impl`: dt over the src-sorted stream, recomputing z
+  (`_film_src_bwd_gather_impl`: the same reading gamma|beta, g and t
+  through the edges' fine ranks and the src groups' rows, as the fused
+  FiLM backward calls it);
 * K6a `_segsum_t_impl`: table_t[k, r] = sum bf16(m_t[k, e]), head-major
   [K, E] -> [K, R] (the RGAT softmax denominator, and the VJP of K6b);
 * K6b `_expand_t_impl`: out[k, e] = bf16(table_t[k, rank_e]) (the VJP of
@@ -25,7 +28,8 @@ those sorted ranks:
   attention-weighted aggregation with head-major [K, E] weights;
 * K7b `_wseg_t_bwd_impl`: d_msgs and d_w_t of K7a;
 * K4 `_film_bwd_impl`: d_msgs and d_gamma | d_beta of K1 in receiver order
-  (the VJP of `film_ranked_aggregate`, GNN-FiLM's normalised branch);
+  (the VJP of `film_ranked_aggregate`, GNN-FiLM's normalised branch;
+  `_film_bwd_split_impl`: the same from gamma|beta and g apart);
 * K8 `_wseg_t_dw_impl`: the d_w_t half of K7b alone;
 * K9 `_rgat_src_bwd_impl`: RGAT's message and source-logit cotangents over
   the src-sorted stream, recomputing the attention (with K8, the backward
@@ -57,7 +61,8 @@ Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; it runs the plain PyTorch version beside it only
 for tensors on the CPU. `LAUNCHES` counts kernel launches, one per wrapper
 call that reached its kernel; it also counts those of the K16 variants of
-the harnesses in tf_gnn_samples_torch/tools/, one counter per kernel body.
+the harnesses in tf_gnn_samples_torch/tools/, one counter per kernel body,
+and those of K3's and K4's earlier designs (tools/earlier_designs.py).
 
 Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
@@ -206,7 +211,10 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "film_fwd_v2b": 0, "film_dgb_v3": 0,
                             "film_dgb_v4": 0, "rowgather_loop": 0,
                             "rowgather_loop8": 0, "rowgather_take": 0,
-                            "rowgather_onehot": 0}
+                            "rowgather_onehot": 0,
+                            # the earlier designs of K3 and K4
+                            # (tools/earlier_designs.py)
+                            "film_src_bwd_walk": 0, "film_bwd_walk": 0}
 
 
 def reset_launches() -> None:
@@ -270,6 +278,28 @@ def _film_src_bwd_plain(gcb_src, t_ranked, ranks, table_rows, act):
                       device=gcb_src.device)
     return out.index_add_(0, ranks,
                           _bf16_terms(_ACTS[act][1](z) * gcb[:, 2 * d:]))
+
+
+def _src_stream_inputs(gb16, g16, fine_rank_by_src, t16, src_from_rank):
+    """K3's stream-form inputs as the fused FiLM backward built them before
+    the kernel read its rows itself (the JAX package's _ffsp_bwd still
+    does): the bf16 [E, 3D] gamma|beta|C stream, C = bf16(gamma * g),
+    gathered per edge at min(fine rank, RPAD) from the table with 8 zero
+    rows appended (the diluted stream's SD_FILL keys read a zero row), and
+    the bf16 t rows of the src groups, src_from_rank clipped to t16."""
+    d = g16.shape[1]
+    gcb_table = torch.cat([gb16, gb16[:, :d] * g16], dim=1)
+    gcb_src = _zero_extended(gcb_table).index_select(
+        0, fine_rank_by_src.clamp(max=gcb_table.shape[0]))
+    return gcb_src, t16.index_select(0, _clip(src_from_rank, t16.shape[0]))
+
+
+def _film_src_bwd_gather_plain(gb16, g16, fine_rank_by_src, t16,
+                               src_from_rank, ranks, table_rows, act):
+    """K3's gather form: its stream form on _src_stream_inputs."""
+    return _film_src_bwd_plain(
+        *_src_stream_inputs(gb16, g16, fine_rank_by_src, t16, src_from_rank),
+        ranks, table_rows, act)
 
 
 def _expand_add_act_plain(m, beta_table, ranks, act):
@@ -380,14 +410,17 @@ def _rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, num_heads, clamp):
 
 def _call(kernel: str, tensors, ints, counter: str = None, row_views=()):
     """Launch csrc/<kernel>.cu on PyTorch's current stream: its entry point
-    takes the tensors' pointers, then `ints`, then the stream. Tensors must
-    be on one device and contiguous, but those at the indices `row_views`:
-    2-D with unit column stride, whose row strides the wrapper passes in
-    `ints`. The types and shapes are the wrapper's to check. The launch
-    counts under `counter` (default: the kernel's name) where one source
-    holds several kernel bodies."""
+    takes the tensors' pointers (None: a null pointer, for an input that
+    the kernel's form does not read), then `ints`, then the stream. Tensors
+    must be on one device and contiguous, but those at the indices
+    `row_views`: 2-D with unit column stride, whose row strides the
+    wrapper passes in `ints`. The types and shapes are the wrapper's to
+    check. The launch counts under `counter` (default: the kernel's name)
+    where one source holds several kernel bodies."""
     dev = tensors[-1].device
     for i, x in enumerate(tensors):
+        if x is None:
+            continue
         laid_out = (x.dim() == 2 and x.stride(1) == 1 if i in row_views
                     else x.is_contiguous())
         if x.device != dev or not laid_out:
@@ -397,7 +430,8 @@ def _call(kernel: str, tensors, ints, counter: str = None, row_views=()):
     fn = getattr(cuda_build.load(kernel), kernel + "_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(x.data_ptr() for x in tensors), *ints, stream)
+        rc = fn(*(None if x is None else x.data_ptr() for x in tensors),
+                *ints, stream)
     if rc != 0:
         raise RuntimeError("%s: kernel launch failed with CUDA error %d"
                            % (kernel, rc))
@@ -550,10 +584,57 @@ def _film_src_bwd_impl(gcb_src, t_ranked, ranks, *, table_rows, block_edges=256,
             tuple(gcb_src.shape), tuple(t_ranked.shape), tuple(ranks.shape)))
     if gcb_src.device.type == "cpu":
         return _film_src_bwd_plain(gcb_src, t_ranked, ranks, table_rows, act)
+    for x in (gcb_src, t_ranked):
+        _check_dtype("film_src_bwd", x, torch.bfloat16)
+    _check_ranks("film_src_bwd", ranks)
     out = torch.zeros((table_rows, dim), dtype=torch.float32,
                       device=gcb_src.device)
-    return _launch("film_src_bwd", (gcb_src, t_ranked, ranks), out, e, dim,
-                   act)
+    if e:
+        _call("film_src_bwd",
+              (gcb_src, None, None, None, t_ranked, None, ranks, out),
+              (e, dim, 0, 0, 0, table_rows, ACT_IDS[act]))
+    return out
+
+
+def _film_src_bwd_gather_impl(gb16, g16, fine_rank_by_src, t16,
+                              src_from_rank, ranks, *, table_rows, act):
+    """K3 reading its rows through indices: dt[s] = sum_{src rank_e = s}
+    bf16(act'(z_e) * C_e) with gamma_e|beta_e = gb16[f_e], C_e =
+    bf16(gamma_e * g16[f_e]), f_e = fine_rank_by_src[e] (a key outside
+    [0, RPAD) adds zero: the diluted stream's SD_FILL slots), and z_e =
+    gamma_e * t16[clip(src_from_rank[s])] + beta_e; f32 [table_rows, D]
+    out. bf16 gamma|beta [RPAD, 2D] and g [RPAD, D] with unit column
+    stride; bf16 t [T, D]; int32 fine ranks and src ranks [E] and
+    src_from_rank [table_rows]. Equals _film_src_bwd_impl on
+    _src_stream_inputs' stream and t rows, without building them."""
+    e = ranks.shape[0]
+    rpad, dim = g16.shape
+    if (gb16.shape != (rpad, 2 * dim) or fine_rank_by_src.shape != (e,)
+            or t16.dim() != 2 or t16.shape[1] != dim
+            or src_from_rank.shape != (table_rows,)):
+        raise ValueError("film_src_bwd (gather): shapes %s, %s, %s, %s, %s, "
+                         "%s, table_rows %d" % (
+                             tuple(gb16.shape), tuple(g16.shape),
+                             tuple(fine_rank_by_src.shape), tuple(t16.shape),
+                             tuple(src_from_rank.shape), tuple(ranks.shape),
+                             table_rows))
+    if g16.device.type == "cpu":
+        return _film_src_bwd_gather_plain(gb16, g16, fine_rank_by_src, t16,
+                                          src_from_rank, ranks, table_rows,
+                                          act)
+    for x in (gb16, g16, t16):
+        _check_dtype("film_src_bwd", x, torch.bfloat16)
+    for x in (fine_rank_by_src, src_from_rank, ranks):
+        _check_ranks("film_src_bwd", x)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=g16.device)
+    if e:
+        _call("film_src_bwd",
+              (None, gb16, g16, fine_rank_by_src, t16, src_from_rank, ranks,
+               out),
+              (e, dim, gb16.stride(0), g16.stride(0), rpad, t16.shape[0],
+               ACT_IDS[act]), row_views=(1, 2))
+    return out
 
 
 def _film_bwd_impl(msgs, gbg_table, ranks, *, block_edges=256, act, win=0):
@@ -568,15 +649,36 @@ def _film_bwd_impl(msgs, gbg_table, ranks, *, block_edges=256, act, win=0):
             tuple(msgs.shape), tuple(gbg_table.shape), tuple(ranks.shape)))
     if msgs.device.type == "cpu":
         return _film_bwd_plain(msgs, gbg_table, ranks, act)
-    _check_dtype("film_bwd", msgs, torch.bfloat16)
-    _check_dtype("film_bwd", gbg_table, torch.bfloat16)
+    return _film_bwd_split_impl(msgs, gbg_table[:, :2 * dim],
+                                gbg_table[:, 2 * dim:], ranks, act=act)
+
+
+def _film_bwd_split_impl(msgs, gb_table, g_table, ranks, *, act):
+    """K4 from two tables, bf16 gamma|beta [RPAD, 2D] and g [RPAD, D], each
+    row-major with unit column stride (whole tensors or column views);
+    bf16 [E, D] d_msgs and f32 [RPAD, 2D] d_gb out. The FiLM aggregation's
+    backward passes its two tables as they are, so no [RPAD, 3D] table is
+    built for the kernel."""
+    e, dim = msgs.shape
+    rpad = gb_table.shape[0]
+    if (gb_table.shape != (rpad, 2 * dim) or g_table.shape != (rpad, dim)
+            or ranks.shape != (e,)):
+        raise ValueError("film_bwd: shapes %s, %s, %s, %s" % (
+            tuple(msgs.shape), tuple(gb_table.shape), tuple(g_table.shape),
+            tuple(ranks.shape)))
+    if msgs.device.type == "cpu":
+        return _film_bwd_plain(msgs, torch.cat([gb_table, g_table], dim=1),
+                               ranks, act)
+    for x in (msgs, gb_table, g_table):
+        _check_dtype("film_bwd", x, torch.bfloat16)
     _check_ranks("film_bwd", ranks)
     d_msgs = torch.empty((e, dim), dtype=torch.bfloat16, device=msgs.device)
     d_gb = torch.zeros((rpad, 2 * dim), dtype=torch.float32,
                        device=msgs.device)
     if e:
-        _call("film_bwd", (msgs, gbg_table, ranks, d_msgs, d_gb),
-              (e, dim, ACT_IDS[act]))
+        _call("film_bwd", (msgs, gb_table, g_table, ranks, d_msgs, d_gb),
+              (e, dim, gb_table.stride(0), g_table.stride(0), ACT_IDS[act]),
+              row_views=(1, 2))
     return d_msgs, d_gb
 
 
@@ -1353,9 +1455,10 @@ class _FilmFusedSrcPass(torch.autograd.Function):
 
     Forward: m = t_flat[src_idx] (bf16), then K1 over fine ranks.
     Backward: K2 gives d_gamma|d_beta in receiver order; dt is recomputed
-    in SOURCE order by K3 from the small tables (gamma|beta|C = gamma * g
-    gathered per edge by fine rank, t rows gathered by src rank), so no
-    [E, D] cotangent is permuted between edge orders. `fine_rank_by_src`
+    in SOURCE order by K3 from the small tables (gamma|beta and g read per
+    edge at its fine rank, C = gamma * g formed in the kernel, t rows read
+    by src rank), so no [E, D] cotangent is permuted between edge orders
+    and no per-edge stream is built for K3. `fine_rank_by_src`
     and `src_sorted_rank` are the src stream of nn/layers.py src_stream:
     undiluted [E], or diluted [E_sd] with SD_FILL fine keys. Returns d_t in
     t_flat's dtype (bf16 on the fused path) and dgb in gb_table's (f32).
@@ -1379,19 +1482,13 @@ class _FilmFusedSrcPass(torch.autograd.Function):
     def backward(ctx, g):
         (m, gb16, t16, fine_rank_by_src, src_sorted_rank, src_to_rank,
          src_from_rank, ranks) = ctx.saved_tensors
-        d = m.shape[1]
         g16 = g.to(torch.bfloat16).contiguous()
         dgb = _film_bwd_dgb_split_impl(m, gb16, g16, ranks, act=ctx.act)
-        # Appended zero rows: the diluted stream's fill slots (SD_FILL fine
-        # keys) clamp onto the first of them, so their recomputed dmsg is
-        # zero whatever the cotangent; real and padded edges key rows
-        # below it.
-        gcb_table = torch.cat([gb16, gb16[:, :d] * g16], dim=1)
-        gcb_src = _zero_extended(gcb_table).index_select(
-            0, fine_rank_by_src.clamp(max=gcb_table.shape[0]))
-        t_ranked = t16.index_select(0, _clip(src_from_rank, t16.shape[0]))
-        dt_table = _film_src_bwd_impl(
-            gcb_src, t_ranked, src_sorted_rank,
+        # The diluted stream's fill slots (SD_FILL fine keys, past the
+        # table) add zero whatever the cotangent; real and padded edges
+        # key rows of the table.
+        dt_table = _film_src_bwd_gather_impl(
+            gb16, g16, fine_rank_by_src, t16, src_from_rank, src_sorted_rank,
             table_rows=src_from_rank.shape[0], act=ctx.act)
         # Source groups with no real edge (src_to_rank -1) get zero.
         valid = (src_to_rank >= 0)[:, None]
@@ -1448,8 +1545,8 @@ class _FilmRankedAggregate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         msgs, gb16, ranks = ctx.saved_tensors
-        gbg = torch.cat([gb16, g.to(torch.bfloat16)], dim=1)
-        d_msgs, d_gb = _film_bwd_impl(msgs, gbg, ranks, act=ctx.act)
+        d_msgs, d_gb = _film_bwd_split_impl(
+            msgs, gb16, g.to(torch.bfloat16).contiguous(), ranks, act=ctx.act)
         return d_msgs.to(msgs.dtype), d_gb.to(ctx.gb_dtype), None, None
 
 
