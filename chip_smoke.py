@@ -17,19 +17,25 @@ Phases, each of which raises on failure (no phase's failure is caught):
     one PyTorch call computes the same function, that call; K6a and K6b
     are also held against their plain versions on the second table each
     meets on the RGAT path, K12a and K12b on every edge type's slice of
-    the type-major stream (the shapes GNN-Edge-MLP1 gives them; they are
-    timed on the largest) and over the whole stream, K15a and K15b for
+    the type-major stream (the shapes GNN-Edge-MLP1 gives them; K12a is
+    timed on one launch over the four streamed slices, as a layer calls
+    it, and on each slice; K12b on the largest) and over the whole
+    stream, K15a and K15b for
     relu and leaky_relu (timed with relu; K15a's table also against K1's
     on the same inputs), and K3 (both forms), K9, K14 and K15b on the
     DILUTED src stream of a numpy-made graph of PPI-like degree (QM9's
     streams are undiluted); K1-K4 also against their earlier designs (K1
     / K2: the K16 v3 variants at group 1; K3 / K4: the bodies of
     tools/earlier_designs.py) for elu, as the main path runs them, and
-    relu, as the harness times them: equal on every row of at most two
-    chunks, each timed beside that design in turns. K3 is timed in its
-    gather form (as the fused FiLM backward calls it) and held equal to
-    its stream form; K4 in its split form, held equal to its gamma|beta|g
-    form, its d_gb equal to K2's;
+    relu, as the harness times them, K12a against its earlier body (one
+    launch a slice) on the layer's four slices and on each, and K9
+    against its earlier body at the batch's D 128 with 8 heads and at D
+    320 with 4 heads (PPI's width, rows not 16-byte aligned): equal on
+    every row of at most two chunks, each timed beside that design in
+    turns. K3 and K9 are timed in their gather forms (as the fused FiLM
+    and RGAT backwards call them) and held equal to their stream forms;
+    K4 in its split form, held equal to its gamma|beta|g form, its d_gb
+    equal to K2's;
  4. K16 (`k16_phase`): the two harnesses of tf_gnn_samples_torch/tools/
     (the A/B variants of K1 and K2, and four row gathers beside
     torch.index_select) at the JAX tools' default shapes and at the tuned
@@ -50,8 +56,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
     ten other device events with the most); the
     kernel launch counters, set to 0 before each run and read after it,
     must show that every layer of every batch went through its kernels
-    (`expected_launches`) and through no other; K13, K15 and K16 run on
-    no path, as in the JAX package;
+    (`expected_launches`) and through no other, K9 in its gather form
+    (`rs.FORM_LAUNCHES`); K13, K15 and K16 run on no path, as in the JAX
+    package;
  6. a reference check per path: loss and gradients of the full-width
     model on a small QM9 batch on the card (kernels) against the same
     model on the CPU (the kernels' plain versions), with the same gates
@@ -149,6 +156,10 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     # runs them
     "film_src_bwd_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:493",
     "film_bwd_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:526",
+    # the earlier designs of K12a and K9, the same; kernels-line rows of
+    # their own
+    "act_agg_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:855",
+    "rgat_src_bwd_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:1985",
 }
 # The CUDA source of each K16 kernel body, by its counter's prefix.
 K16_SOURCES = {"film_fwd": "film_fwd_ab", "film_dgb": "film_dgb_ab",
@@ -427,6 +438,36 @@ def rgat_src_bwd_bounds(torch, rs, gcb, t_ext, ranks, rows, heads):
             per_row(torch, rows, ranks, per_edge))
 
 
+def rgat_side_inputs(torch, rs, gen, fine_key, rsrc, rpad, d, heads):
+    """K9's inputs at width `d` with `heads` heads, as the fused RGAT
+    backward builds them: a random bf16 [RPAD, D+3K] side table
+    (cotangent | target logits | a positive denominator | correction),
+    the [E, D+3K] stream its stream form reads (rs._side_rows: each edge's
+    row at its fine key) and a random bf16 [R_src, D+K] t | lsrc table."""
+    dev = fine_key.device
+    side = torch.randn((rpad, d + 3 * heads), generator=gen, device=dev)
+    side[:, d + heads:d + 2 * heads] = 0.5 + 4 * torch.rand(
+        (rpad, heads), generator=gen, device=dev)
+    side = side.to(torch.bfloat16)
+    t_ext = torch.randn((rsrc, d + heads), generator=gen, device=dev).to(
+        torch.bfloat16)
+    return side, rs._side_rows(side, fine_key), t_ext
+
+
+def rgat_src_bwd_bytes(torch, fine_key, ranks, rpad, rsrc, d, heads):
+    """Bytes K9 must move in its gather form (each used side row once, a
+    key and a rank an edge) and in its stream form (a row and a rank an
+    edge); both read a t | lsrc row per source group and write the
+    table."""
+    e = ranks.shape[0]
+    used = int(torch.unique(fine_key[(fine_key >= 0)
+                                     & (fine_key < rpad)]).numel())
+    groups = int(ranks[-1]) + 1 if e else 0
+    common = groups * (d + heads) * 2 + rsrc * (d + heads) * 4
+    return (used * (d + 3 * heads) * 2 + e * 8 + common,
+            e * (d + 3 * heads) * 2 + e * 4 + common)
+
+
 def kernel_order_products(torch, a, w, types):
     """y[e] = a_e @ w[type_e], f32 [E, D_out], summed as K10 and K14 sum
     their typed products: per output entry one f32 add per term, in index
@@ -579,6 +620,7 @@ def emlp1_src_bwd_bounds(torch, rs, gcb, t, cols, w, e_real, ranks, rows,
 
 def kernel_phase(torch, rs, dev):
     from tf_gnn_samples_torch.runtime.model import batch_to_device
+    from tf_gnn_samples_torch.tools import earlier_designs, film_fwd_ab
 
     _, batch = first_batch(50000, "TRAIN")
     graph = batch_to_device(batch, dev).graph
@@ -702,29 +744,51 @@ def kernel_phase(torch, rs, dev):
     w_t = torch.rand((heads, e), generator=gen, device=dev)
     k7_terms = rs._bf16_terms(m7.float() * rs._head_replicate(w_t, d))
     # K8 / K9 inputs, as the fused RGAT backward builds them: the [E, D+K]
-    # gathered stream (K8 reads its first D columns); the [E, D+3K] side
-    # stream of K9 (cotangent | target logits | a positive denominator |
-    # correction) and the [R_src, D+K] t | lsrc table.
+    # gathered stream (K8 reads its first D columns); K9's [RPAD, D+3K]
+    # side table, read at each src-sorted edge's fine key (its gather
+    # form, as the backward calls it; its stream form and its earlier body
+    # read the [E, D+3K] stream gathered from it), and the [R_src, D+K]
+    # t | lsrc table; also at PPI's width, D 320 with 4 heads (rows that
+    # are not 16-byte aligned), on the same stream.
     m8 = randn(e, d + heads)
-    gcb9 = torch.randn((e, d + 3 * heads), generator=gen, device=dev)
-    gcb9[:, d + heads:d + 2 * heads] = 0.5 + 4 * torch.rand(
-        (e, heads), generator=gen, device=dev)
-    gcb9 = gcb9.to(torch.bfloat16)
-    t9 = randn(rsrc, d + heads)
+    side9, gcb9, t9 = rgat_side_inputs(torch, rs, gen, fine_src, rsrc, rpad,
+                                       d, heads)
     k9_abs, k9_counts, k9_slack = rgat_src_bwd_bounds(
         torch, rs, gcb9, t9, src, rsrc, heads)
     k9_terms = rs._rgat_src_bwd_plain(
         gcb9, t9.index_select(0, src), torch.arange(e, device=dev), e, heads,
         50.0)  # edge by edge, for the index_add_ yardstick
+    k9_bytes, k9_stream_bytes = rgat_src_bwd_bytes(torch, fine_src, src, rpad,
+                                                   rsrc, d, heads)
+    k9_wide = {"D 128, 8 heads": (d, heads), "D 320, 4 heads": (320, 4)}
+    side9w, gcb9w, t9w = rgat_side_inputs(torch, rs, gen, fine_src, rsrc,
+                                          rpad, 320, 4)
+    k9_in = {"D 128, 8 heads": (side9, gcb9, t9),
+             "D 320, 4 heads": (side9w, gcb9w, t9w)}
+
+    def k9_form(form, v):
+        side_v, gcb_v, t_v = k9_in[v]
+        if form == "gather":
+            return rs._rgat_src_bwd_gather_impl(
+                side_v, fine_src, t_v, src, table_rows=rsrc,
+                num_heads=k9_wide[v][1], clamp=50.0)
+        if form == "stream":
+            return rs._rgat_src_bwd_impl(gcb_v, t_v, src, table_rows=rsrc,
+                                         num_heads=k9_wide[v][1], clamp=50.0)
+        return earlier_designs.rgat_src_bwd_walk(
+            gcb_v, t_v, src, table_rows=rsrc, num_heads=k9_wide[v][1],
+            clamp=50.0)
     film_yardstick = ("torch.Tensor.index_add_ of the precomputed terms "
                       "(leaves out the row gathers, the modulation and the "
                       "activation)")
     # K11 / K12 inputs, as GNN-Edge-MLP1 builds them over the type-major
     # stream: bf16 streams, the f32 beta table and the bf16 table cotangent
-    # over the (type, receiver) ranks; K11 runs elu, K12 gelu. K12 is
-    # called once per streamed edge type on that type's slice: the specs
-    # time the largest slice, `also` checks every slice and the whole
-    # stream, and `extra` times the other slices and the whole stream.
+    # over the (type, receiver) ranks; K11 runs elu, K12 gelu. K12a runs
+    # once a layer over the four streamed types' slices: its spec times
+    # that launch, `also` checks it on each slice alone and on the whole
+    # stream and `extra` times those. K12b runs once per streamed type's
+    # slice: its spec times the largest, `also` and `extra` the others and
+    # the whole stream.
     tm, offs = flat.tm_rank, flat.tm_offs
     if flat.tm_self != QM9_TM_SELF:
         raise AssertionError("QM9 self-loop types %s" % (flat.tm_self,))
@@ -741,56 +805,72 @@ def kernel_phase(torch, rs, dev):
     g12 = randn(rpad, d)
     gelu, dgelu = rs._ACTS["gelu"]
     dz11 = rs._expand_add_act_bwd_plain(x11, dx11, tm, rpad, "elu")[0].float()
-    table12 = torch.zeros((rpad, d), device=dev)  # K12a's shared table
+    table12 = torch.zeros((rpad, d), device=dev)  # K12a's timed table
     k12_terms = rs._bf16_terms(gelu(y12.float()))
     dgelu12 = dgelu(y12.float())
+    # The K12a launches held against the earlier body and timed: one over
+    # the layer's four streamed slices, one over each of them alone.
+    k12a_parts = {"layer": [slices[l] for l in sorted(slices)]}
+    k12a_parts.update({"type %d" % l: [slices[l]] for l in sorted(slices)})
+
+    def k12a(label, parts):
+        """The K12a spec of one launch over the stream slices `parts`
+        ([(lo, hi)]) into a table of their rank rows: it reads the slices'
+        messages and ranks and writes their rows of a table that the
+        caller zeroed (the check runs on a table of its own; the timed
+        call writes into one zeroed once, `out`); gelu through the erf
+        polynomial is about 30 operations an element."""
+        pieces = [(y12[lo:hi], tm[lo:hi]) for lo, hi in parts]
+        idx = torch.cat([torch.arange(lo, hi, device=dev) for lo, hi in parts])
+        ranks, terms = tm.index_select(0, idx), k12_terms.index_select(0, idx)
+        el = int(idx.numel())
+        n_l = sum(int(tm[hi - 1]) - int(tm[lo]) + 1 for lo, hi in parts)
+        abs_l = row_abs_sums(torch, rpad, ranks, terms)
+        counts_l = row_counts(torch, rpad, ranks)
+        return dict(
+            name="act_agg",
+            kern=lambda: rs._act_agg_slices_impl(pieces, table_rows=rpad,
+                                                 act="gelu"),
+            timed=lambda: rs._act_agg_slices_impl(pieces, table_rows=rpad,
+                                                  act="gelu", out=table12),
+            plain=lambda: rs._act_agg_slices_plain(pieces, rpad, "gelu"),
+            check=lambda got, want: check_kernel(
+                "act_agg (%s)" % label, got, want, abs_l, counts_l, torch),
+            nbytes=el * d * 2 + el * 4 + n_l * d * 4, nops=30 * el * d,
+            yardstick=("torch.Tensor.index_add_ of the precomputed terms "
+                       "(leaves out the activation)",
+                       lambda: torch.zeros((rpad, d), device=dev).index_add_(
+                           0, ranks, terms)))
+
+    def k12a_walk(v, out=None):
+        """K12a's earlier body on the slices of `v`, a launch a slice."""
+        if out is None:
+            out = torch.zeros((rpad, d), device=dev)
+        for lo, hi in k12a_parts[v]:
+            earlier_designs.act_agg_walk(y12[lo:hi], tm[lo:hi],
+                                         table_rows=rpad, act="gelu", out=out)
+        return out
 
     def k12(lo, hi):
-        """K12a and K12b specs on the stream slice [lo, hi)."""
+        """K12b's spec on the stream slice [lo, hi)."""
         el = hi - lo
         msg, ranks = y12[lo:hi], tm[lo:hi]
         n_l = int(ranks[-1]) - int(ranks[0]) + 1
-        terms, dact_l = k12_terms[lo:hi], dgelu12[lo:hi]
-        counts_l = torch.zeros(rpad, device=dev).index_add_(
-            0, ranks, torch.ones(el, device=dev))
-        abs_l = torch.zeros((rpad, d), device=dev).index_add_(0, ranks,
-                                                             terms.abs())
-        return (
-            # K12a reads the slice's messages and ranks and writes the
-            # slice's rank rows of a table that the caller zeroed once for
-            # all slices (`out`, as act_ranked_aggregate_slices calls it:
-            # that is what is timed; the check runs on a table of its own);
-            # gelu through the erf polynomial is about 30 operations an
-            # element.
-            dict(name="act_agg",
-                 kern=lambda: rs._act_agg_impl(msg, ranks, table_rows=rpad,
-                                               act="gelu"),
-                 timed=lambda: rs._act_agg_impl(msg, ranks, table_rows=rpad,
-                                                act="gelu", out=table12),
-                 plain=lambda: rs._act_agg_plain(msg, ranks, rpad, "gelu"),
-                 check=lambda got, want: check_kernel(
-                     "act_agg [%d:%d]" % (lo, hi), got, want, abs_l, counts_l,
-                     torch),
-                 nbytes=el * d * 2 + el * 4 + n_l * d * 4, nops=30 * el * d,
-                 yardstick=("torch.Tensor.index_add_ of the precomputed "
-                            "terms (leaves out the activation)",
-                            lambda: torch.zeros((rpad, d), device=dev
-                                                ).index_add_(0, ranks, terms))),
-            # K12b reads the messages, the ranks and the used rows of the
-            # bf16 cotangent table and writes [E_l, D] bf16; gelu' is about
-            # 45 operations an element.
-            dict(name="act_agg_bwd",
-                 kern=lambda: rs._act_agg_bwd_impl(msg, g12, ranks,
-                                                   act="gelu"),
-                 plain=lambda: rs._act_agg_bwd_plain(msg, g12, ranks, "gelu"),
-                 check=exact_check("act_agg_bwd [%d:%d]" % (lo, hi)),
-                 nbytes=2 * el * d * 2 + el * 4 + n_l * d * 2,
-                 nops=45 * el * d,
-                 yardstick=("index_select of the cotangent rows times the "
-                            "precomputed derivative, rounded (three PyTorch "
-                            "calls; leaves out gelu')",
-                            lambda: (dact_l * g12.index_select(0, ranks)
-                                     .float()).to(torch.bfloat16))))
+        dact_l = dgelu12[lo:hi]
+        # K12b reads the messages, the ranks and the used rows of the bf16
+        # cotangent table and writes [E_l, D] bf16; gelu' is about 45
+        # operations an element.
+        return dict(
+            name="act_agg_bwd",
+            kern=lambda: rs._act_agg_bwd_impl(msg, g12, ranks, act="gelu"),
+            plain=lambda: rs._act_agg_bwd_plain(msg, g12, ranks, "gelu"),
+            check=exact_check("act_agg_bwd [%d:%d]" % (lo, hi)),
+            nbytes=2 * el * d * 2 + el * 4 + n_l * d * 2, nops=45 * el * d,
+            yardstick=("index_select of the cotangent rows times the "
+                       "precomputed derivative, rounded (three PyTorch "
+                       "calls; leaves out gelu')",
+                       lambda: (dact_l * g12.index_select(0, ranks).float()
+                                ).to(torch.bfloat16)))
 
     def eaa_bwd_check(got, want):
         """K11b: d_m must equal the plain version's; d_beta sums it."""
@@ -986,21 +1066,19 @@ def kernel_phase(torch, rs, dev):
                         "already cut to D columns)",
                         lambda: (m7.float() * g7.index_select(0, rcv).float()
                                  ).reshape(e, heads, -1).sum(-1))),
-        # K9 reads the [E, D+3K] side stream, the ranks and the used rows of
-        # the t | lsrc table and writes the [R_src, D+K] table; per column a
+        # K9 in its gather form reads the used rows of the [RPAD, D+3K]
+        # side table, each edge's key and rank and the used rows of the
+        # t | lsrc table and writes the [R_src, D+K] table; per column a
         # product for the head's dot, one for the term and two adds, per
         # head the softmax recompute.
         dict(name="rgat_src_bwd",
-             kern=lambda: rs._rgat_src_bwd_impl(
-                 gcb9, t9, src, table_rows=rsrc, num_heads=heads, clamp=50.0),
-             plain=lambda: rs._rgat_src_bwd_plain(gcb9, t9, src, rsrc, heads,
-                                                  50.0),
+             kern=lambda: k9_form("gather", "D 128, 8 heads"),
+             plain=lambda: rs._rgat_src_bwd_gather_plain(
+                 side9, fine_src, t9, src, rsrc, heads, 50.0),
              check=lambda got, want: check_kernel(
-                 "rgat_src_bwd", got, want, k9_abs, k9_counts, torch,
-                 term_ulps=1, slack=k9_slack),
-             nbytes=(e * (d + 3 * heads) * 2 + e * 4
-                     + n_src * (d + heads) * 2 + rsrc * (d + heads) * 4),
-             nops=5 * e * d + 16 * e * heads,
+                 "rgat_src_bwd (gather form)", got, want, k9_abs, k9_counts,
+                 torch, term_ulps=1, slack=k9_slack),
+             nbytes=k9_bytes, nops=5 * e * d + 16 * e * heads,
              yardstick=("torch.Tensor.index_add_ of the precomputed terms "
                         "(leaves out the row gathers and the attention "
                         "recompute)", index_add(rsrc, src, k9_terms))),
@@ -1030,7 +1108,8 @@ def kernel_phase(torch, rs, dev):
              yardstick=("torch.Tensor.index_add_ of the precomputed dz "
                         "(leaves out the derivative and the d_m store)",
                         index_add(rpad, tm, dz11))),
-        *k12(*slices[big]),
+        k12a("layer", k12a_parts["layer"]),
+        k12(*slices[big]),
         # K10a reads the bf16 stream, the types, the ranks and the weights
         # and writes the used table rows; per element of the output a
         # D-long product (on the tensor cores: 2 E D^2 bf16 operations)
@@ -1158,23 +1237,30 @@ def kernel_phase(torch, rs, dev):
                 rs._expand_t_impl(table_rcv, rcv),
                 rs._expand_t_plain(table_rcv, rcv)),
     }
-    # K12 on the other streamed types' slices and over the whole stream
-    # (self-loop slice included): checked, then timed into `extra`.
+    # K12a on each streamed type's slice alone and K12b on the other
+    # streamed types' slices, both over the whole stream (self-loop slice
+    # included): checked, then timed into `extra`.
     extra = {"act_agg": {}, "act_agg_bwd": {}}
-    others = [("type %d" % l, rng_) for l, rng_ in slices.items() if l != big]
-    others.append(("whole stream", (0, e)))
+    whole = ("whole stream", [(0, e)])
+    others = {"act_agg": [(v, p) for v, p in k12a_parts.items()
+                          if v != "layer"] + [whole],
+              "act_agg_bwd": [("type %d" % l, [rng_])
+                              for l, rng_ in slices.items() if l != big]
+              + [whole]}
 
-    def k12_also(which):
+    def k12_also(name):
         def run():
             worst = 0.0
-            for label, (lo, hi) in others:
-                spec = k12(lo, hi)[which]
+            for label, parts in others[name]:
+                spec = (k12a(label, parts) if name == "act_agg"
+                        else k12(*parts[0]))
                 got = spec["kern"]()
                 torch.cuda.synchronize()
                 worst = max(worst, spec["check"](got, spec["plain"]()))
                 timed = spec.get("timed", spec["kern"])
                 extra[spec["name"]][label] = {
-                    "edges": hi - lo, "ms": cuda_ms(timed),
+                    "edges": sum(hi - lo for lo, hi in parts),
+                    "ms": cuda_ms(timed),
                     "queued_ms": cuda_queued_ms(timed),
                     "plain_ms": cuda_ms(spec["plain"]),
                     "bound_ms": max(spec["nbytes"] / HBM_BYTES_PER_S,
@@ -1191,8 +1277,8 @@ def kernel_phase(torch, rs, dev):
             rs._masked_segsum_impl(mask15, c15, src, table_rows=rsrc,
                                    leak=0.2),
             rs._masked_segsum_plain(mask15, c15, src, rsrc, 0.2))
-    also["act_agg"] = k12_also(0)
-    also["act_agg_bwd"] = k12_also(1)
+    also["act_agg"] = k12_also("act_agg")
+    also["act_agg_bwd"] = k12_also("act_agg_bwd")
     # K2 through its gamma|beta|g form too (two views of one table).
     also["film_bwd_dgb"] = lambda: order_check(
         "film_bwd_dgb (one gamma|beta|g table)", rpad, fine, k2_terms)(
@@ -1227,9 +1313,50 @@ def kernel_phase(torch, rs, dev):
                                                       act=act), fine)
         return 0.0
 
+    def k9_also():
+        """K9's stream form within the order bound of its plain version and
+        equal to the gather form on every row that is not a seam row, both
+        forms at D 128 with 8 heads and at D 320 with 4 heads."""
+        worst = 0.0
+        for v, (d_v, k_v) in k9_wide.items():
+            side_v, gcb_v, t_v = k9_in[v]
+            abs_v, counts_v, slack_v = rgat_src_bwd_bounds(
+                torch, rs, gcb_v, t_v, src, rsrc, k_v)
+            want = rs._rgat_src_bwd_plain(gcb_v, t_v, src, rsrc, k_v, 50.0)
+            got = {form: k9_form(form, v) for form in ("gather", "stream")}
+            for form, out in got.items():
+                worst = max(worst, check_kernel(
+                    "rgat_src_bwd (%s form, %s)" % (form, v), out, want,
+                    abs_v, counts_v, torch, term_ulps=1, slack=slack_v))
+            film_design_check(torch, "rgat_src_bwd gather form = stream form "
+                              "(%s)" % v, got["gather"], got["stream"], src)
+        print("  rgat_src_bwd (stream form): bound %.4f ms (%d bytes at 3.35 "
+              "TB/s; the gather form's %d)"
+              % (k9_stream_bytes / HBM_BYTES_PER_S * 1e3, k9_stream_bytes,
+                 k9_bytes))
+        return worst
+
     also["film_src_bwd"] = k3_stream_also
     also["film_bwd"] = k4_also
-    from tf_gnn_samples_torch.tools import earlier_designs, film_fwd_ab
+    also["rgat_src_bwd"] = k9_also
+    # Bounds of K9's forms and K12a's launches at the shapes timed against
+    # their earlier bodies (the earlier bodies read the stream as the
+    # stream form does; K12a's read what one launch over the same slices
+    # reads).
+    k9_bounds = {}
+    for v, (d_v, k_v) in k9_wide.items():
+        g_bytes, s_bytes = rgat_src_bwd_bytes(torch, fine_src, src, rpad,
+                                              rsrc, d_v, k_v)
+        ops = (5 * e * d_v + 16 * e * k_v) / F32_FLOPS
+        g_ms, s_ms = (max(b / HBM_BYTES_PER_S, ops) * 1e3
+                      for b in (g_bytes, s_bytes))
+        k9_bounds[v] = {"new": g_ms, "other": s_ms, "earlier": s_ms}
+    k12a_bounds = {}
+    for v, parts in k12a_parts.items():
+        spec = k12a(v, parts)
+        b = max(spec["nbytes"] / HBM_BYTES_PER_S,
+                spec["nops"] / F32_FLOPS) * 1e3
+        k12a_bounds[v] = {"new": b, "earlier": b}
     designs = {
         "film_fwd": lambda: earlier_design(
             torch, "film_fwd",
@@ -1257,6 +1384,29 @@ def kernel_phase(torch, rs, dev):
             lambda a: rs._film_bwd_split_impl(msgs, gb2, g2, fine, act=a),
             lambda a: earlier_designs.film_bwd_walk(msgs, gbg, fine, act=a),
             fine, check=film_bwd_design_check),
+        # K12a (gelu, as GNN-Edge-MLP1 runs it): one launch over the layer's
+        # four slices against four launches of the earlier body, and one
+        # launch over each slice against one; both timed into a table
+        # zeroed once, as the spec is.
+        "act_agg": lambda: earlier_design(
+            torch, "act_agg",
+            lambda v: rs._act_agg_slices_impl(
+                [(y12[lo:hi], tm[lo:hi]) for lo, hi in k12a_parts[v]],
+                table_rows=rpad, act="gelu"),
+            k12a_walk,
+            {v: [tm[lo:hi] for lo, hi in p] for v, p in k12a_parts.items()},
+            check=slices_design_check, variants=tuple(k12a_parts),
+            timed=lambda which, v: (
+                (lambda: k12a_walk(v, table12)) if which == "earlier"
+                else k12a(v, k12a_parts[v])["timed"]),
+            bounds=k12a_bounds),
+        # K9: the gather form and the stream form against the earlier body
+        # on the stream, at D 128 with 8 heads and at D 320 with 4.
+        "rgat_src_bwd": lambda: earlier_design(
+            torch, "rgat_src_bwd", lambda v: k9_form("gather", v),
+            lambda v: k9_form("walk", v), src,
+            other=lambda v: k9_form("stream", v), variants=tuple(k9_wide),
+            bounds=k9_bounds),
     }
     results = []
     for spec in specs:
@@ -1313,7 +1463,13 @@ def kernel_phase(torch, rs, dev):
               % (name, ms, row["queued_ms"], plain_ms, bound_ms,
                  bound_bytes_ms, bound_ops_ms, spec["nbytes"], spec["nops"],
                  spec.get("tensor_ops", 0), products, other))
-        if name in extra:
+        if name == "act_agg":
+            # The row is one launch over the layer's four streamed slices,
+            # as the main path launches it.
+            row["edges"] = sum(hi - lo for lo, hi in k12a_parts["layer"])
+            row["other_shapes"] = extra[name]
+            print("  act_agg on its other shapes: %s" % json.dumps(extra[name]))
+        elif name in extra:
             # The row is the largest slice; the main path launches the
             # kernel once per streamed type, so a launch's mean time over
             # those slices is what a step's kernel share is counted with.
@@ -1330,6 +1486,34 @@ def kernel_phase(torch, rs, dev):
                   % (name, json.dumps(extra[name]), row["mean_slice_ms"],
                      row["mean_slice_queued_ms"]))
         results.append(row)
+    # The earlier bodies of K12a and K9, rows of their own (no model path
+    # launches them): within the order bound of the plain version, timed in
+    # turns with the redesign above at the main path's shapes (K12a: the
+    # layer's four slices, a launch each; K9: D 128, 8 heads, on the
+    # stream). The plain version and the bound are their function's.
+    layer = k12a("layer", k12a_parts["layer"])
+    walks = {
+        "act_agg_walk": ("act_agg", "layer", lambda: layer["check"](
+            k12a_walk("layer"), layer["plain"]())),
+        "rgat_src_bwd_walk": ("rgat_src_bwd", "D 128, 8 heads",
+                              lambda: check_kernel(
+                                  "rgat_src_bwd_walk",
+                                  k9_form("walk", "D 128, 8 heads"),
+                                  rs._rgat_src_bwd_plain(gcb9, t9, src, rsrc,
+                                                         heads, 50.0),
+                                  k9_abs, k9_counts, torch, term_ulps=1,
+                                  slack=k9_slack))}
+    for name, (new_name, v, err) in walks.items():
+        new_row = next(r for r in results if r["name"] == new_name)
+        times = new_row["earlier_design"][v]
+        bound = times.get("earlier_bound_ms", new_row["bound_ms"])
+        results.append({
+            "name": name, "route": "cuda",
+            "source": "tf_gnn_samples_torch/csrc/%s.cu" % name,
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err(),
+            "ms": times["earlier_ms"], "plain_ms": new_row["plain_ms"],
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "queued_ms": times["earlier_queued_ms"], "shape": v})
     return results, graph
 
 
@@ -1370,6 +1554,21 @@ def film_design_check(torch, name, got, earlier, ranks):
                        earlier[fixed], torch)
 
 
+def slices_design_check(torch, name, got, earlier, slice_ranks):
+    """K12a's table over stream slices with disjoint rank rows against
+    another kernel's on the same slices that sums each slice's rank runs
+    in the same per-chunk order, chunks counted from the slice's own first
+    edge (its earlier body, one launch a slice): equal bit for bit on
+    every row that is not a seam row of its slice (film_design_check)."""
+    rows = got.shape[0]
+    seams = torch.zeros(rows, dtype=torch.bool, device=got.device)
+    for ranks in slice_ranks:
+        seams |= seam_rows(torch, ranks, rows)
+    return check_exact("%s on %d of %d rows" % (name, int((~seams).sum()),
+                                                 rows),
+                       got[~seams], earlier[~seams], torch)
+
+
 def film_bwd_design_check(torch, name, got, earlier, ranks):
     """K4's (d_msgs, d_gb) against another K4's on the same inputs: d_msgs,
     one rounded product an element, bit for bit; d_gb as
@@ -1380,47 +1579,64 @@ def film_bwd_design_check(torch, name, got, earlier, ranks):
 
 
 def src_gather_check(torch, name, got, stream, ranks, fed):
-    """K3's gather form (`got`) against its stream form on the stream and
-    t rows that rs._src_stream_inputs builds from the same tables, over a
-    diluted stream: equal on every row that is not a seam row
-    (film_design_check), and zero on every row that no real edge feeds
-    (`fed` false): a fill slot must add an exact zero term."""
+    """K3's or K9's gather form (`got`) against its stream form on the
+    stream (and K3's t rows) that rs._src_stream_inputs or rs._side_rows
+    builds from the same tables, over a diluted stream: equal on every row
+    that is not a seam row (film_design_check), and zero on every row that
+    no real edge feeds (`fed` false): a fill slot must add an exact zero
+    term."""
     film_design_check(torch, name, got, stream, ranks)
     if bool((got[~fed] != 0).any()):
         raise AssertionError("%s: fill slots reached the table" % name)
 
 
 def earlier_design(torch, name, new, earlier, ranks, check=film_design_check,
-                   other=None):
-    """K1-K4 (`new(act)`) against their earlier design (`earlier(act)`) for
-    elu (the main path's) and relu (the harness's): `check` (the same sums
-    in the same order), then each one's single-call and queued times,
-    means of two timings each taken in turns (earlier, new, new, earlier;
-    with `other`, another form of the new kernel that is checked and timed
-    too: earlier, new, other, other, new, earlier). Returns {act: times}."""
+                   other=None, variants=("elu", "relu"), timed=None,
+                   bounds=None):
+    """A redesigned kernel (`new(v)`) against its earlier design
+    (`earlier(v)`) for each variant v: the activations elu (the main
+    path's) and relu (the harness's) for K1-K4, the shapes for K9 and
+    K12a. `check` (the same sums in the same order; `ranks` the ranks it
+    takes, or a dict of them by variant), then each one's single-call and
+    queued times, means of two timings each taken in turns (earlier, new,
+    new, earlier; with `other`, another form of the new kernel that is
+    checked and timed too: earlier, new, other, other, new, earlier).
+    `timed(which, v)`, where given, is the call to time in place of the
+    checked one; `bounds[v]` ({which: bound ms}) adds each time's ratio
+    to its bound. Returns {v: times}."""
     out = {}
-    for act in ("elu", "relu"):
-        fns = {"earlier": lambda: earlier(act), "new": lambda: new(act)}
+    for v in variants:
+        fns = {"earlier": lambda: earlier(v), "new": lambda: new(v)}
         if other is not None:
-            fns["other"] = lambda: other(act)
+            fns["other"] = lambda: other(v)
+        rk = ranks[v] if isinstance(ranks, dict) else ranks
         want = fns["earlier"]()
         for which in list(fns)[1:]:
             got = fns[which]()
             torch.cuda.synchronize()
             check(torch, "%s (%s, %s) = its earlier design's"
-                  % (name, act, which), got, want, ranks)
+                  % (name, v, which), got, want, rk)
         taken = collections.defaultdict(list)
         for which in list(fns) + list(fns)[::-1]:
-            taken[which + "_ms"].append(cuda_ms(fns[which]))
-            taken[which + "_queued_ms"].append(cuda_queued_ms(fns[which]))
-        out[act] = {k: statistics.mean(v) for k, v in taken.items()}
+            fn = fns[which] if timed is None else timed(which, v)
+            taken[which + "_ms"].append(cuda_ms(fn))
+            taken[which + "_queued_ms"].append(cuda_queued_ms(fn))
+        out[v] = {k: statistics.mean(t) for k, t in taken.items()}
+        if bounds is not None:
+            for which, b in bounds[v].items():
+                out[v][which + "_bound_ms"] = b
+                out[v][which + "_queued_per_bound"] = (
+                    out[v][which + "_queued_ms"] / b)
         print("  %s (%s): %.4f ms (%.4f queued); earlier design %.4f ms "
-              "(%.4f queued)%s" % (
-                  name, act, out[act]["new_ms"], out[act]["new_queued_ms"],
-                  out[act]["earlier_ms"], out[act]["earlier_queued_ms"],
+              "(%.4f queued)%s%s" % (
+                  name, v, out[v]["new_ms"], out[v]["new_queued_ms"],
+                  out[v]["earlier_ms"], out[v]["earlier_queued_ms"],
                   "" if other is None else "; other form %.4f ms (%.4f "
-                  "queued)" % (out[act]["other_ms"],
-                               out[act]["other_queued_ms"])))
+                  "queued)" % (out[v]["other_ms"], out[v]["other_queued_ms"]),
+                  "" if bounds is None else "; queued / bound: %s" % (
+                      ", ".join("%s %.2f (bound %.4f ms)" % (
+                          which, out[v][which + "_queued_per_bound"], b)
+                          for which, b in bounds[v].items()))))
     return out
 
 
@@ -1587,14 +1803,14 @@ def ppi_like_graph(dev, seed=0, num_nodes=8192, degree=14):
 
 
 def diluted_phase(torch, rs, dev, graph, seed=0):
-    """K3, K9, K14 and K15b on a DILUTED src stream. The tuned QM9 batches have no
-    fine rank window, so their src streams are undiluted; `graph`
+    """K3, K9, K14 and K15b on a DILUTED src stream. The tuned QM9 batches
+    have no fine rank window, so their src streams are undiluted; `graph`
     (ppi_like_graph) dilutes. Fill slots carry the SD_FILL key, which the
-    passes clamp onto a zero row appended to their side table (K3's
-    gather form: which adds zero without a table): each kernel is held
-    against its plain version on that stream, and the rows no real edge
-    feeds must be exactly zero. K3's gather form must also equal its
-    stream form on every row that is not a seam row."""
+    passes clamp onto a zero row appended to their side table (K3's and
+    K9's gather forms: which add zero without a table): each kernel is
+    held against its plain version on that stream, and the rows no real
+    edge feeds must be exactly zero. K3's and K9's gather forms must also
+    equal their stream forms on every row that is not a seam row."""
     from tf_gnn_samples_torch.nn.layers import src_stream
     from tf_gnn_samples_torch.ops.graph import SD_FILL
 
@@ -1658,14 +1874,25 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
     side = torch.randn((rpad, d + 3 * heads), generator=gen, device=dev)
     side[:, d + heads:d + 2 * heads] = 0.5 + 4 * torch.rand(
         (rpad, heads), generator=gen, device=dev)
-    gcb9, t9 = gathered(side.to(torch.bfloat16)), randn(rsrc, d + heads)
+    side9 = side.to(torch.bfloat16)
+    gcb9, t9 = gathered(side9), randn(rsrc, d + heads)
     k9_abs, _, k9_slack = rgat_src_bwd_bounds(torch, rs, gcb9, t9, ranks,
                                               rsrc, heads)
-    check("rgat_src_bwd",
-          rs._rgat_src_bwd_impl(gcb9, t9, ranks, table_rows=rsrc,
-                                num_heads=heads, clamp=50.0),
+    stream9 = rs._rgat_src_bwd_impl(gcb9, t9, ranks, table_rows=rsrc,
+                                    num_heads=heads, clamp=50.0)
+    check("rgat_src_bwd", stream9,
           rs._rgat_src_bwd_plain(gcb9, t9, ranks, rsrc, heads, 50.0),
           k9_abs, term_ulps=1, slack=k9_slack)
+    # K9's gather form, as the fused RGAT backward calls it on this stream.
+    gather9 = rs._rgat_src_bwd_gather_impl(side9, fine, t9, ranks,
+                                           table_rows=rsrc, num_heads=heads,
+                                           clamp=50.0)
+    check("rgat_src_bwd (gather form)", gather9,
+          rs._rgat_src_bwd_gather_plain(side9, fine, t9, ranks, rsrc, heads,
+                                        50.0),
+          k9_abs, term_ulps=1, slack=k9_slack)
+    src_gather_check(torch, "rgat_src_bwd gather form = stream form "
+                     "(diluted)", gather9, stream9, ranks, fed)
     # K14 on the diluted stream: the graph's self-loop type has no column;
     # fill slots carry zero beta | g rows.
     cols14 = rs.src_rank_type_columns(flat.src_from_rank, graph.n_pad,
@@ -1794,10 +2021,10 @@ def expected_launches(label, layers, n_fwd, n_bwd):
     launches (K6a twice, K6b once) and K5a in the message gather's
     backward, the fused branch K8, K6a and K6b for the softmax correction,
     K6a for the target logits' cotangent and K9. GNN-Edge-MLP0 is the
-    fused FiLM pass (K1; K2 and K3). A GNN-Edge-MLP1 layer runs K11a once
-    and K12a once per streamed edge type forward; backward K12b per
-    streamed type, K11b and K5a (the type-major gather's backward), or in
-    its fused_src1 form K14 in place of that K5a. Its fused1 branch runs
+    fused FiLM pass (K1; K2 and K3). A GNN-Edge-MLP1 layer runs K11a and
+    one K12a launch over every streamed edge type's slice forward;
+    backward K12b per streamed type, K11b and K5a (the type-major gather's
+    backward), or in its fused_src1 form K14 in place of that K5a. Its fused1 branch runs
     K5b (the target halves' expand) and K10a forward; K10b and two K5a
     (the backwards of the expand and of the source gather) backward. RGIN
     and GNN-Edge-MLP without the target state run the fused gather +
@@ -1813,7 +2040,7 @@ def expected_launches(label, layers, n_fwd, n_bwd):
                     segsum=2 * layers * n_bwd)
     elif label == "GNN-Edge-MLP1-src":
         want.update(expand_add_act=layers * n_fwd,
-                    act_agg=layers * n_fwd * QM9_STREAMED_TYPES,
+                    act_agg=layers * n_fwd,
                     act_agg_bwd=layers * n_bwd * QM9_STREAMED_TYPES,
                     expand_add_act_bwd=layers * n_bwd,
                     emlp1_src_bwd=layers * n_bwd)
@@ -1825,7 +2052,7 @@ def expected_launches(label, layers, n_fwd, n_bwd):
                     segsum=layers * n_bwd)
     elif label == "GNN-Edge-MLP1":
         want.update(expand_add_act=layers * n_fwd,
-                    act_agg=layers * n_fwd * QM9_STREAMED_TYPES,
+                    act_agg=layers * n_fwd,
                     act_agg_bwd=layers * n_bwd * QM9_STREAMED_TYPES,
                     expand_add_act_bwd=layers * n_bwd, segsum=layers * n_bwd)
     elif label.startswith("RGAT"):
@@ -1862,6 +2089,7 @@ def main_path_phase(rs, path):
     t0 = time.time()
     (model,) = train_cli.run(args)
     launches = dict(rs.LAUNCHES)
+    forms = dict(rs.FORM_LAUNCHES)
     train_s = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers = (model.params["graph_num_layers"]
@@ -1875,6 +2103,14 @@ def main_path_phase(rs, path):
     if launches != want:
         raise AssertionError("kernel launches %s != expected %s"
                              % (launches, want))
+    # The fused RGAT backward reads the side table through K9's gather form.
+    want_forms = {"rgat_src_bwd gather": want["rgat_src_bwd"],
+                  "rgat_src_bwd stream": 0}
+    print("%s main path: K9 launches by form %s, expected %s"
+          % (path.label, forms, want_forms))
+    if forms != want_forms:
+        raise AssertionError("K9 forms %s != expected %s" % (forms,
+                                                             want_forms))
     for fold in ("Train", "Valid"):
         finite_log_values(model.log_file,
                           re.compile(r"^ %s: loss: (\S+) " % fold))

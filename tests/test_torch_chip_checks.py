@@ -1,15 +1,16 @@
 """The checks that `chip_smoke.py` and `tests/test_torch_cuda.py` hold the
-K10, K13, K14, K15 and K16 FiLM kernels, K1-K4 against their earlier
-designs, K3's gather form against its stream form and K4's d_gb against
-K2's, to, on the CPU: each accepts the kernel's
+K10, K13, K14, K15 and K16 FiLM kernels, K1-K4, K9 and K12a against their
+earlier designs, K3's and K9's gather forms against their stream forms
+and K4's d_gb against K2's, to, on the CPU: each accepts the kernel's
 math taken in another summation order (emulated here, independently of
 the checks' helpers) against the plain version's, and rejects a planted
 fault: a product that drops its last term, a dx sum that stops one column
 short, a zero or partial dW or d_w, an edge past e_real that is counted, a
 term dropped or weighted by the wrong head, a mask one bit off, the wrong
 leak, a row summed through its chunks or pairwise inside one, a fill slot
-that reads a real row, a message cotangent one bf16 step off. No kernel
-runs here; the faults are planted in the emulation."""
+that reads a real row, a message cotangent one bf16 step off, K12a's
+slices chunked from the layer's first edge. No kernel runs here; the
+faults are planted in the emulation."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,8 @@ from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
                         film_bwd_design_check, film_design_check, film_terms,
                         film_variant_check, hand_kernel_names, hand_kernel_of,
                         head_dw_check, kernel_order_products, masked_terms,
-                        seam_rows, src_gather_check, src_terms,
+                        seam_rows, slices_design_check, src_gather_check,
+                        src_terms,
                         typed_dense_agg_bounds,
                         typed_dense_agg_bwd_check)
 from tf_gnn_samples_torch.ops import ranked_segment as rs
@@ -534,3 +536,98 @@ def test_k3_design_check_takes_the_chunk_order_and_rejects_others(fault):
     else:
         with pytest.raises(AssertionError):
             film_design_check(torch, "film_src_bwd", got, earlier, ranks)
+
+
+# ---- K12a over several slices, K9's gather form ------------------------------
+
+def slices_of(rng, count=5):
+    """Stream slices of 150-400 edges (no multiple of 64) whose gap-free
+    rank runs of 5-30 edges take disjoint rows, one slice after the
+    other: [(lo, hi)], the ranks and the table height."""
+    ranks, bounds, base = [], [], 0
+    for _ in range(count):
+        run = run_ranks(rng, runs=rng.randint(10, 20)).numpy()
+        run = run[:rng.randint(150, min(400, len(run)))]
+        bounds.append((sum(len(r) for r in ranks), sum(len(r) for r in ranks)
+                       + len(run)))
+        ranks.append(base + run)
+        base += int(run[-1]) + 1
+    return bounds, torch.from_numpy(np.concatenate(ranks)), base + 2
+
+
+@pytest.mark.parametrize("fault", ["none", "layer_chunks", "straight"])
+def test_k12a_slices_design_check_takes_each_slices_chunks(fault):
+    """slices_design_check, which holds K12a's one launch over a layer's
+    slices to its earlier body (one launch a slice), accepts each slice's
+    rank runs summed per 64-edge chunk counted from the slice's own first
+    edge (partials added in the other order), and rejects chunks counted
+    from the layer's first edge and a row summed straight through its
+    chunks."""
+    rng = np.random.RandomState(12)
+    bounds, ranks, rows = slices_of(rng)
+    msgs = spread(rng, bf16(rng, len(ranks), D))
+    terms = rs._bf16_terms(rs._ACTS["gelu"][0](msgs.float()))
+    parts = [ranks[lo:hi] for lo, hi in bounds]
+
+    def per_slice(fault_="none", reverse=False):
+        return sum(chunk_order_sums(terms[lo:hi], ranks[lo:hi], rows, fault_,
+                                    reverse=reverse) for lo, hi in bounds)
+
+    earlier = per_slice()
+    if fault == "none":
+        slices_design_check(torch, "act_agg", per_slice(reverse=True),
+                            earlier, parts)
+        return
+    got = (chunk_order_sums(terms, ranks, rows) if fault == "layer_chunks"
+           else per_slice("straight"))
+    with pytest.raises(AssertionError):
+        slices_design_check(torch, "act_agg", got, earlier, parts)
+
+
+def k9_diluted_inputs(seed=13, rpad=300, k=4):
+    """A src stream with fill slots (run_ranks; about one key in eight
+    SD_FILL, every key of one run), K9's side table with a positive
+    denominator and a t | lsrc table over the src ranks."""
+    rng = np.random.RandomState(seed)
+    ranks = run_ranks(rng)
+    rows = int(ranks[-1]) + 2
+    fine = torch.from_numpy(rng.randint(0, rpad, size=len(ranks)).astype(
+        np.int32))
+    fine[torch.from_numpy(rng.rand(len(ranks)) < 0.125)] = int(SD_FILL)
+    fine[ranks == 3] = int(SD_FILL)
+    side = torch.from_numpy(rng.randn(rpad, D + 3 * k).astype(np.float32))
+    side[:, D + k:D + 2 * k] = torch.from_numpy(
+        0.5 + 4 * rng.rand(rpad, k).astype(np.float32))
+    return (ranks, rows, fine, spread(rng, side.to(torch.bfloat16)),
+            spread(rng, bf16(rng, rows, D + k)), k)
+
+
+@pytest.mark.parametrize("fault", ["none", "straight", "fill_reads_a_row"])
+def test_k9_gather_check_rejects_planted_faults(fault):
+    """src_gather_check, which holds K9's gather form to its stream form on
+    a diluted stream (and film_design_check, which holds both to K9's
+    earlier body), accepts the per-chunk order (partials added in the
+    other order) and rejects a two-chunk row summed straight through and
+    a fill slot that reads the side table's last row instead of adding
+    zero."""
+    ranks, rows, fine, side, t_ext, k = k9_diluted_inputs()
+    rpad, e = side.shape[0], len(ranks)
+
+    def terms_of(keys):
+        return rs._rgat_src_bwd_plain(
+            rs._side_rows(side, keys), t_ext.index_select(0, ranks),
+            torch.arange(e, dtype=torch.int32), e, k, 50.0)
+
+    stream = chunk_order_sums(terms_of(fine), ranks, rows)
+    fed = torch.zeros(rows, dtype=torch.bool)
+    fed[ranks[fine < rpad].long()] = True
+    keys = fine.clamp(max=rpad - 1) if fault == "fill_reads_a_row" else fine
+    got = chunk_order_sums(terms_of(keys), ranks, rows,
+                           "straight" if fault == "straight" else "none",
+                           reverse=True)
+    if fault == "none":
+        src_gather_check(torch, "rgat_src_bwd", got, stream, ranks, fed)
+        film_design_check(torch, "rgat_src_bwd", got, stream, ranks)
+    else:
+        with pytest.raises(AssertionError):
+            src_gather_check(torch, "rgat_src_bwd", got, stream, ranks, fed)

@@ -776,13 +776,14 @@ def test_edge_mlp_wrappers_refuse_what_the_kernels_do_not_take(dev,
 def test_edge_mlp_layer_on_card_matches_cpu(dev, ranked_graph, kind):
     """One GNN-Edge-MLP layer step, forward and gradients, on the card
     against the plain versions on the CPU. With one hidden layer the
-    type-major branch: K11a and one K12a per streamed type forward; K12b
-    per streamed type, K11b and (in the gather's backward) K5a backward.
+    type-major branch: K11a and one K12a launch over every streamed type's
+    slice forward; K12b per streamed type, K11b and (in the gather's
+    backward) K5a backward.
     Without, the FiLM kernels K1-K3 with gamma = 1."""
     streamed = sum(not s for s in ranked_graph.flat.tm_self)
     assert streamed == 4 and ranked_graph.flat.tm_self[0]
     own = (dict(expand_add_act=1, expand_add_act_bwd=1, segsum=1,
-                act_agg=streamed, act_agg_bwd=streamed) if kind
+                act_agg=1, act_agg_bwd=streamed) if kind
            else dict(film_fwd=1, film_bwd_dgb=1, film_src_bwd=1))
     rng = np.random.default_rng(6)
     num_types, d = ranked_graph.num_edge_types, 64
@@ -1001,7 +1002,7 @@ def test_new_branches_on_card_match_cpu(dev, ranked_graph, monkeypatch,
                    segsum=2)
     elif branch == "fused_src1":
         monkeypatch.setattr(rs, "ENABLE_EMLP1_SRC_PASS", True)
-        own = dict(expand_add_act=1, act_agg=streamed, act_agg_bwd=streamed,
+        own = dict(expand_add_act=1, act_agg=1, act_agg_bwd=streamed,
                    expand_add_act_bwd=1, emlp1_src_bwd=1)
     else:
         own = dict(segsum=2)

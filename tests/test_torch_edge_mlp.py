@@ -448,10 +448,14 @@ def test_tmajor1_branch_matches_jax_auto(loop_graphs, ppi_graphs, interpret,
                num_edge_hidden_layers=1, typed_edge_scan="auto")
     params, h, w = layer_inputs(tg, 1, True, seed=5)
     jcalls = count_calls(monkeypatch, j_rs, "expand_add_act")
-    tcalls = count_calls(monkeypatch, t_rs, "_act_agg_impl")
+    slices = []
+    agg = t_rs._act_agg_slices_impl
+    monkeypatch.setattr(t_rs, "_act_agg_slices_impl",
+                        lambda s, **kw: slices.append(len(s)) or agg(s, **kw))
     want = jax_layer(jg, params, h, w, **cfg)
     got = torch_layer(tg, params, h, w, **cfg)
-    assert jcalls and len(tcalls) == sum(not s for s in tg.flat.tm_self)
+    # K12a: one call over every streamed type's slice.
+    assert jcalls and slices == [sum(not s for s in tg.flat.tm_self)]
     compare_layers(tg, got, want, SAME_OUT, SAME_GRAD)
     # And against JAX's unrolled f32 branch, as JAX's own test does.
     monkeypatch.setattr(j_rs, "_FORCE_INTERPRET", False)

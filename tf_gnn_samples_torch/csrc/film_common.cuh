@@ -1,20 +1,22 @@
 // Shared pieces of the fused GNN-FiLM kernels (film_fwd.cu, film_bwd.cu,
 // film_bwd_dgb.cu, film_src_bwd.cu, film_fwd_mask.cu, film_rows.cuh,
 // film_walk.cuh, the earlier designs film_src_bwd_walk.cu and
-// film_bwd_walk.cu, and the K16 variants film_fwd_ab.cu, film_dgb_ab.cu) and of the other
-// sorted-rank reductions and activation passes (segsum.cu, segsum_t.cu,
-// wseg_common.cuh, rgat_src_bwd.cu, expand_add_act.cu,
-// expand_add_act_bwd.cu, act_agg.cu, act_agg_bwd.cu, typed_dense_agg.cu,
-// typed_dense_agg_bwd.cu, emlp1_src_bwd.cu, masked_segsum.cu): the
-// activations of the JAX package's
-// `_ACTS` table (tf_gnn_samples_tpu/ops/ranked_segment.py), bf16 rounding,
-// the segment flush of the sorted-rank reduction and the launches.
+// film_bwd_walk.cu, and the K16 variants film_fwd_ab.cu, film_dgb_ab.cu)
+// and of the other sorted-rank reductions and activation passes
+// (segsum.cu, segsum_t.cu, wseg_common.cuh, rgat_src_bwd.cu,
+// expand_add_act.cu, expand_add_act_bwd.cu, act_agg.cu, act_agg_bwd.cu,
+// typed_dense_agg.cu, typed_dense_agg_bwd.cu, emlp1_src_bwd.cu,
+// masked_segsum.cu, the earlier designs act_agg_walk.cu and
+// rgat_src_bwd_walk.cu): the activations of the JAX package's `_ACTS`
+// table (tf_gnn_samples_tpu/ops/ranked_segment.py), bf16 rounding, the
+// segment flush of the sorted-rank reduction and the launches.
 //
 // These kernels are segmented reductions over a stream whose ranks are
 // nondecreasing and gap-free. A block owns CHUNK consecutive edges, its
 // threads span the feature columns (film_rows.cuh: a lane owns 8 columns
-// of a chunk), and each thread keeps a running f32
-// sum while the rank is unchanged. At a rank change it flushes the sum:
+// of a chunk; act_agg.cu and rgat_src_bwd.cu: 2), and each thread keeps a
+// running f32 sum while the rank is unchanged. At a rank change it flushes
+// the sum:
 // the chunk's first and last segments may continue in a neighbouring chunk
 // and are added with atomicAdd, a segment wholly inside the chunk is
 // stored. The output is zeroed by the caller.
@@ -90,6 +92,22 @@ __device__ __forceinline__ void flush(float* dst, float v, bool may_span) {
     atomicAdd(dst, v);
   } else {
     *dst = v;
+  }
+}
+
+// flush for a run's two sums (`valid` of them), one 8-byte store with V2
+// (dst 8-byte aligned).
+template <bool V2>
+__device__ __forceinline__ void flush2(float* dst, float a0, float a1,
+                                       int valid, bool may_span) {
+  if (may_span) {
+    atomicAdd(dst, a0);
+    if (valid > 1) atomicAdd(dst + 1, a1);
+  } else if (V2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a0, a1);
+  } else {
+    dst[0] = a0;
+    if (valid > 1) dst[1] = a1;
   }
 }
 

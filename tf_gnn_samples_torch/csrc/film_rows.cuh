@@ -1,5 +1,6 @@
 // The row walks of K1 (film_fwd.cu), K2 (film_bwd_dgb.cu), K3
-// (film_src_bwd.cu) and K4 (film_bwd.cu), designed for Hopper. Each source
+// (film_src_bwd.cu) and K4 (film_bwd.cu), designed for Hopper; K12a
+// (act_agg.cu) and K9 (rgat_src_bwd.cu) build on its pieces. Each source
 // builds into a library of its own, so the kernels have internal linkage.
 //
 // All four are bound by bytes: per edge a 2D-byte message row (K1, K2,
@@ -144,9 +145,10 @@ struct Item {
 };
 
 // Ints a block stages per array: the edges of the most chunks its items
-// reach.
+// reach, for lanes of W columns.
+template <int W = VEC>
 __host__ __device__ __forceinline__ int rows_cap(int dim) {
-  const int slots = (dim + VEC - 1) / VEC;
+  const int slots = (dim + W - 1) / W;
   return ((THREADS - 1) / slots + 2) * film::CHUNK;
 }
 
@@ -156,17 +158,20 @@ struct NoStage {
 };
 
 // Items are numbered chunk-major (chunk * slots + column slot), THREADS a
-// block. Stages the ranks of the block's chunks in shared memory, calls
-// stage(i, e, rank) for each of those edges (local index i, edge e) to
-// stage more, and sets the lane's item; false for a lane past the last
-// item.
-template <typename Stage = NoStage>
-__device__ __forceinline__ bool load_item(const int* __restrict__ ranks,
-                                          int num_edges, int dim, int* s_rank,
-                                          Item& it, Stage stage = Stage()) {
-  const long long slots = (dim + VEC - 1) / VEC;
+// block, a slot being W columns. Stages the ranks of block `block`'s
+// chunks in shared memory, calls stage(i, e, rank) for each of those edges
+// (local index i, edge e) to stage more, and sets the lane's item; false
+// for a lane past the last item. `block` is the block's index in the
+// stream's own grid (K12a walks several streams in one grid).
+template <int W = VEC, typename Stage = NoStage>
+__device__ __forceinline__ bool load_item_at(long long block,
+                                             const int* __restrict__ ranks,
+                                             int num_edges, int dim,
+                                             int* s_rank, Item& it,
+                                             Stage stage = Stage()) {
+  const long long slots = (dim + W - 1) / W;
   const long long chunks = (num_edges + film::CHUNK - 1) / film::CHUNK;
-  const long long item0 = static_cast<long long>(blockIdx.x) * THREADS;
+  const long long item0 = block * THREADS;
   const long long c_lo = item0 / slots;
   const long long last = (item0 + THREADS - 1) / slots + 1;
   const long long c_hi = last < chunks ? last : chunks;
@@ -186,23 +191,34 @@ __device__ __forceinline__ bool load_item(const int* __restrict__ ranks,
   it.n = min(film::CHUNK, static_cast<int>(num_edges - it.e0));
   it.off = static_cast<int>(it.e0 - e_lo);
   it.rk = s_rank + it.off;
-  it.c = static_cast<int>(item - chunk * slots) * VEC;
-  it.valid = min(VEC, dim - it.c);
+  it.c = static_cast<int>(item - chunk * slots) * W;
+  it.valid = min(W, dim - it.c);
   return true;
 }
 
-// Launch shape: blocks of THREADS items, and shared memory for `arrays`
-// staged int arrays (the ranks, and K3's fine ranks and t rows) of the
-// most chunks a block's items reach.
+// load_item_at for the block's own index in the grid.
+template <typename Stage = NoStage>
+__device__ __forceinline__ bool load_item(const int* __restrict__ ranks,
+                                          int num_edges, int dim, int* s_rank,
+                                          Item& it, Stage stage = Stage()) {
+  return load_item_at<VEC>(blockIdx.x, ranks, num_edges, dim, s_rank, it,
+                           stage);
+}
+
+// Launch shape: blocks of THREADS items of W columns, and shared memory
+// for `arrays` staged int arrays (the ranks, and K3's fine ranks and t
+// rows) of the most chunks a block's items reach.
+template <int W = VEC>
 inline dim3 rows_grid(int num_edges, int dim) {
   const long long items =
       static_cast<long long>((num_edges + film::CHUNK - 1) / film::CHUNK) *
-      ((dim + VEC - 1) / VEC);
+      ((dim + W - 1) / W);
   return dim3(static_cast<unsigned int>((items + THREADS - 1) / THREADS));
 }
 
+template <int W = VEC>
 inline size_t rows_smem(int dim, int arrays = 1) {
-  return static_cast<size_t>(arrays) * rows_cap(dim) * sizeof(int);
+  return static_cast<size_t>(arrays) * rows_cap<W>(dim) * sizeof(int);
 }
 
 inline bool aligned16(const void* p) {

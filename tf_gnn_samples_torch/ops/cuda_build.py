@@ -2,13 +2,14 @@
 
 Each source compiles with nvcc into its own shared library with a plain C
 interface, loaded with ctypes. Each kernel declares the headers its
-source includes and the C signature of its `<name>_launch` entry point
-(`KERNELS`). Libraries are named by a hash of the source, its headers and
-the flags, under `build/torch_kernels/` at the
-repository root (listed in .gitignore), so a changed source rebuilds and
-an unchanged one is reused. Nothing is built at import time: the first
-wrapper call on a CUDA tensor builds what it needs; `build_all()` builds
-every kernel at once, one nvcc process per source, all started together.
+source includes and the C signature of its entry point (`KERNELS`;
+`<name>_launch`, or the name `ENTRY` gives). Libraries are named by a
+hash of the source, its headers and the flags, under
+`build/torch_kernels/` at the repository root (listed in .gitignore), so
+a changed source rebuilds and an unchanged one is reused. Nothing is
+built at import time: the first wrapper call on a CUDA tensor builds what
+it needs; `build_all()` builds every kernel at once, one nvcc process per
+source, all started together.
 """
 
 import ctypes
@@ -34,8 +35,8 @@ _WSEG_HEADERS = ("wseg_common.cuh", "film_common.cuh")
 # and K2 share those two's earlier walk (film_walk.cuh).
 _ROWS_HEADERS = ("film_rows.cuh", "film_common.cuh")
 _WALK_HEADERS = ("film_walk.cuh", "film_common.cuh")
-# name -> (headers the source includes, argument types of <name>_launch);
-# every entry point returns the CUDA error code of its launch.
+# name -> (headers the source includes, argument types of its entry
+# point); every entry point returns the CUDA error code of its launch.
 KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # msgs, ranks, out, num_edges, dim, stream type id, stream
     "segsum": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
@@ -61,16 +62,20 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "film_bwd": (_ROWS_HEADERS, (_P,) * 6 + (_I,) * 5 + (_P,)),
     # msgs, g16, ranks, dw_t, num_edges, dim, dim_in, num_heads, stream
     "wseg_t_dw": ((), (_P,) * 4 + (_I,) * 4 + (_P,)),
-    # gcb, t_ext, ranks, out, num_edges, dim, num_heads, clamp, stream
+    # gcb, side, fine, t_ext, ranks, out, num_edges, dim, num_heads, rpad,
+    # clamp, stream (the stream form: null side and fine; the gather form:
+    # null gcb)
     "rgat_src_bwd": (("film_common.cuh",),
-                     (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
+                     (_P,) * 6 + (_I,) * 4 + (ctypes.c_float, _P)),
     # m, beta, ranks, x, num_edges, dim, act id, stream
     "expand_add_act": (("film_common.cuh",), _FILM_ARGS),
     # x, dx, ranks, dm, dbeta, num_edges, dim, act id, stream
     "expand_add_act_bwd": (("film_common.cuh",),
                            (_P,) * 5 + (_I,) * 3 + (_P,)),
-    # msgs, ranks, out, num_edges, dim, act id, stream
-    "act_agg": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
+    # act_agg_slices_launch: host arrays of the slices' message pointers,
+    # rank pointers and edge counts, the slice count, out, dim, act id,
+    # stream
+    "act_agg": (_ROWS_HEADERS, (_P,) * 3 + (_I, _P, _I, _I, _P)),
     # msgs, g16, ranks, dmsg, num_edges, dim, act id, stream
     "act_agg_bwd": (("film_common.cuh",), _FILM_ARGS),
     # x, w, types, ranks, out, num_edges, dh, dim, num_types, act id, stream
@@ -96,6 +101,12 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # gbg, ranks, dmsg, dgb, num_edges, dim, act id, stream
     "film_src_bwd_walk": (("film_common.cuh",), _FILM_ARGS),
     "film_bwd_walk": (("film_common.cuh",), (_P,) * 5 + (_I,) * 3 + (_P,)),
+    # The earlier designs of K12a and K9: msgs, ranks, out, num_edges, dim,
+    # act id, stream; gcb, t_ext, ranks, out, num_edges, dim, num_heads,
+    # clamp, stream
+    "act_agg_walk": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
+    "rgat_src_bwd_walk": (("film_common.cuh",),
+                          (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
     # K16, the A/B variants of tools/ (tf_gnn_samples_torch/tools/):
     # msgs, gb, ranks, out, num_edges, dim, act id, variant, group, stream
     "film_fwd_ab": (_WALK_HEADERS, (_P,) * 4 + (_I,) * 5 + (_P,)),
@@ -105,6 +116,8 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # win, stream
     "rowgather": ((), (_P,) * 4 + (_I,) * 6 + (_P,)),
 }
+# Entry points not named <name>_launch.
+ENTRY = {"act_agg": "act_agg_slices_launch"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -159,13 +172,18 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     return paths
 
 
+def entry(name: str) -> str:
+    """The C entry point of kernel `name`."""
+    return ENTRY.get(name, name + "_launch")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed, with the
-    argument types of its `<name>_launch` entry point set from `KERNELS`."""
+    argument types of its entry point set from `KERNELS`."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(build_all([name])[name])
-        fn = getattr(lib, name + "_launch")
+        fn = getattr(lib, entry(name))
         fn.argtypes = list(KERNELS[name][1])
         fn.restype = ctypes.c_int
         _LIBS[name] = lib

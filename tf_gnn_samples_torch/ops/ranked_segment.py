@@ -32,14 +32,18 @@ those sorted ranks:
   `_film_bwd_split_impl`: the same from gamma|beta and g apart);
 * K8 `_wseg_t_dw_impl`: the d_w_t half of K7b alone;
 * K9 `_rgat_src_bwd_impl`: RGAT's message and source-logit cotangents over
-  the src-sorted stream, recomputing the attention (with K8, the backward
-  of `rgat_fused_pass`);
+  the src-sorted stream, recomputing the attention
+  (`_rgat_src_bwd_gather_impl`: the same reading each edge's row of the
+  side table through its fine key; with K8, the backward of
+  `rgat_fused_pass`);
 * K11a `_expand_add_act_impl`: x[e] = bf16(act(m_e + bf16(beta[rank_e])))
   (the hidden assembly of GNN-Edge-MLP1 over the type-major ranks);
 * K11b `_expand_add_act_bwd_impl`: dz = bf16(act'(x) * dx) with act' taken
   from the OUTPUT x, written per edge and summed per rank (d_beta);
-* K12a `_act_agg_impl`: table[r] = sum bf16(act(msg_e)) (K1 without the
-  modulation tables; one call per edge type's slice of the stream);
+* K12a `_act_agg_slices_impl`: table[r] = sum bf16(act(msg_e)) over
+  several stream slices with disjoint rank rows (K1 without the
+  modulation tables; one launch for all of a layer's edge type slices;
+  `_act_agg_impl`: one slice);
 * K12b `_act_agg_bwd_impl`: d_msg[e] = bf16(act'(msg_e) * g[rank_e]);
 * K10a `_typed_dense_agg_impl`: table[r] = sum bf16(act(x_e @ W[type_e]))
   (GNN-Edge-MLP1's `fused1` branch);
@@ -62,7 +66,8 @@ the kernel does not take; it runs the plain PyTorch version beside it only
 for tensors on the CPU. `LAUNCHES` counts kernel launches, one per wrapper
 call that reached its kernel; it also counts those of the K16 variants of
 the harnesses in tf_gnn_samples_torch/tools/, one counter per kernel body,
-and those of K3's and K4's earlier designs (tools/earlier_designs.py).
+and those of the earlier designs of K3, K4, K9 and K12a
+(tools/earlier_designs.py). `FORM_LAUNCHES` counts K9's launches by form.
 
 Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
@@ -78,6 +83,7 @@ The kernels sum in stream order with atomics at chunk seams, so their
 sums differ from run to run in the last bits; the terms do not.
 """
 
+import ctypes
 import math
 from typing import Dict
 
@@ -212,14 +218,20 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "film_dgb_v4": 0, "rowgather_loop": 0,
                             "rowgather_loop8": 0, "rowgather_take": 0,
                             "rowgather_onehot": 0,
-                            # the earlier designs of K3 and K4
+                            # the earlier designs of K3, K4, K12a and K9
                             # (tools/earlier_designs.py)
-                            "film_src_bwd_walk": 0, "film_bwd_walk": 0}
+                            "film_src_bwd_walk": 0, "film_bwd_walk": 0,
+                            "act_agg_walk": 0, "rgat_src_bwd_walk": 0}
+# K9's launches (counted in LAUNCHES["rgat_src_bwd"]) by the form the
+# wrapper launched.
+FORM_LAUNCHES: Dict[str, int] = {"rgat_src_bwd gather": 0,
+                                 "rgat_src_bwd stream": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, FORM_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _bf16_terms(x):
@@ -323,6 +335,12 @@ def _act_agg_plain(msgs, ranks, table_rows, act, out=None):
         0, ranks, _bf16_terms(_ACTS[act][0](msgs.to(torch.float32))))
 
 
+def _act_agg_slices_plain(slices, table_rows, act, out=None):
+    for msgs, ranks in slices:
+        out = _act_agg_plain(msgs, ranks, table_rows, act, out)
+    return out
+
+
 def _act_agg_bwd_plain(msgs, g16, ranks, act):
     g_e = g16.index_select(0, ranks).to(torch.float32)
     return (_ACTS[act][1](msgs.to(torch.float32)) * g_e).to(torch.bfloat16)
@@ -408,6 +426,22 @@ def _rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, num_heads, clamp):
         0, ranks, torch.cat([_bf16_terms(dmsg), _bf16_terms(dpre)], dim=1))
 
 
+def _side_rows(side, fine_key):
+    """K9's gather-form rows as its stream form reads them: row f_e of the
+    side table, a zero row for a key outside [0, RPAD)."""
+    rpad = side.shape[0]
+    inside = (fine_key >= 0) & (fine_key < rpad)
+    return _zero_extended(side).index_select(
+        0, torch.where(inside, fine_key, rpad))
+
+
+def _rgat_src_bwd_gather_plain(side, fine_key, t_ext, ranks, table_rows,
+                               num_heads, clamp):
+    """K9's gather form: its stream form on _side_rows."""
+    return _rgat_src_bwd_plain(_side_rows(side, fine_key), t_ext, ranks,
+                               table_rows, num_heads, clamp)
+
+
 def _call(kernel: str, tensors, ints, counter: str = None, row_views=()):
     """Launch csrc/<kernel>.cu on PyTorch's current stream: its entry point
     takes the tensors' pointers (None: a null pointer, for an input that
@@ -418,6 +452,12 @@ def _call(kernel: str, tensors, ints, counter: str = None, row_views=()):
     check. The launch counts under `counter` (default: the kernel's name)
     where one source holds several kernel bodies."""
     dev = tensors[-1].device
+    _check_laid_out(kernel, tensors, dev, row_views)
+    _run(kernel, dev, (*(None if x is None else x.data_ptr()
+                         for x in tensors), *ints), counter)
+
+
+def _check_laid_out(kernel: str, tensors, dev, row_views=()):
     for i, x in enumerate(tensors):
         if x is None:
             continue
@@ -427,11 +467,15 @@ def _call(kernel: str, tensors, ints, counter: str = None, row_views=()):
             raise ValueError("%s: inputs must be contiguous tensors (row "
                              "views: unit column stride) on %s"
                              % (kernel, dev))
-    fn = getattr(cuda_build.load(kernel), kernel + "_launch")
+
+
+def _run(kernel: str, dev, args, counter: str = None):
+    """Call csrc/<kernel>.cu's entry point with `args` and the stream, and
+    count the launch."""
+    fn = getattr(cuda_build.load(kernel), cuda_build.entry(kernel))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(None if x is None else x.data_ptr() for x in tensors),
-                *ints, stream)
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError("%s: kernel launch failed with CUDA error %d"
                            % (kernel, rc))
@@ -846,31 +890,63 @@ def _expand_add_act_bwd_impl(x, dx, ranks, *, table_rows, block_edges=256,
     return dm, dbeta
 
 
+# Slices one K12a launch takes (csrc/act_agg.cu MAX_SLICES); more take
+# one launch for each such group.
+ACT_AGG_MAX_SLICES = 32
+
+
+def _act_agg_slices_impl(slices, *, table_rows, act, out=None):
+    """K12a over several stream slices: table[r] = sum over the slices'
+    edges of rank r of bf16(act(msg_e)), f32 [table_rows, D]. `slices` is
+    a non-empty sequence of (bf16 msgs [E_l, D], nondecreasing gap-free
+    int32 ranks [E_l] below `table_rows`) whose rank rows are DISJOINT (the
+    edge types' slices of the type-major stream): any lengths, ranks that
+    start anywhere. One launch takes every non-empty slice, up to
+    ACT_AGG_MAX_SLICES of them. `out` is a table to write into in place of
+    a new zeroed one; the rows of the slices' ranks must still be zero in
+    it."""
+    if not slices:
+        raise ValueError("act_agg: no slices")
+    dim = slices[0][0].shape[-1]
+    for msgs, ranks in slices:
+        if (msgs.dim() != 2 or msgs.shape[1] != dim
+                or ranks.shape != (msgs.shape[0],)):
+            raise ValueError("act_agg: shapes %s, %s" % (
+                tuple(msgs.shape), tuple(ranks.shape)))
+    if out is not None and out.shape != (table_rows, dim):
+        raise ValueError("act_agg: out %s, not (%d, %d)" % (
+            tuple(out.shape), table_rows, dim))
+    dev = slices[0][0].device
+    if dev.type == "cpu":
+        return _act_agg_slices_plain(slices, table_rows, act, out)
+    for msgs, ranks in slices:
+        _check_dtype("act_agg", msgs, torch.bfloat16)
+        _check_ranks("act_agg", ranks)
+        _check_laid_out("act_agg", (msgs, ranks), dev)
+    if out is None:
+        out = torch.zeros((table_rows, dim), dtype=torch.float32, device=dev)
+    _check_dtype("act_agg", out, torch.float32)
+    _check_laid_out("act_agg", (out,), dev)
+    live = [(m, r) for m, r in slices if r.shape[0]]
+    for g in range(0, len(live), ACT_AGG_MAX_SLICES):
+        group = live[g:g + ACT_AGG_MAX_SLICES]
+        n = len(group)
+        _run("act_agg", dev, (
+            (ctypes.c_void_p * n)(*(m.data_ptr() for m, _ in group)),
+            (ctypes.c_void_p * n)(*(r.data_ptr() for _, r in group)),
+            (ctypes.c_int * n)(*(r.shape[0] for _, r in group)), n,
+            out.data_ptr(), dim, ACT_IDS[act]))
+    return out
+
+
 def _act_agg_impl(msgs, ranks, *, table_rows, block_edges=256, act, win=0,
                   out=None):
-    """K12a: table[r] = sum_{rank_e = r} bf16(act(msg_e)) for a bf16 stream
-    [E, D] and nondecreasing gap-free int32 ranks below `table_rows`; f32
-    [table_rows, D] out. The stream may be one edge type's slice of the
-    type-major stream: any length, ranks that start anywhere. `out` is a
-    table to write into in place of a new zeroed one; the rows of this
-    stream's ranks must still be zero in it (the rank rows of two edge
-    types are disjoint, so one table takes every type's slice)."""
-    e, dim = msgs.shape
-    if ranks.shape != (e,) or (out is not None
-                               and out.shape != (table_rows, dim)):
-        raise ValueError("act_agg: shapes %s, %s" % (tuple(msgs.shape),
-                                                     tuple(ranks.shape)))
-    if msgs.device.type == "cpu":
-        return _act_agg_plain(msgs, ranks, table_rows, act, out)
-    _check_dtype("act_agg", msgs, torch.bfloat16)
-    _check_ranks("act_agg", ranks)
-    if out is None:
-        out = torch.zeros((table_rows, dim), dtype=torch.float32,
-                          device=msgs.device)
-    _check_dtype("act_agg", out, torch.float32)
-    if e:
-        _call("act_agg", (msgs, ranks, out), (e, dim, ACT_IDS[act]))
-    return out
+    """K12a on one stream: table[r] = sum_{rank_e = r} bf16(act(msg_e)) for
+    a bf16 stream [E, D] and nondecreasing gap-free int32 ranks below
+    `table_rows`; f32 [table_rows, D] out (_act_agg_slices_impl of one
+    slice)."""
+    return _act_agg_slices_impl([(msgs, ranks)], table_rows=table_rows,
+                                act=act, out=out)
 
 
 def _act_agg_bwd_impl(msgs, g16, ranks, *, block_edges=256, act, win=0):
@@ -1236,9 +1312,39 @@ def _wseg_bwd_impl(msgs, w, g16, ranks, *, num_heads, block_edges=256, win=0):
     return dmsg, dw
 
 
-# Most heads K9 takes: a block keeps 2 x 64 x K f32 values (the attention
-# weights and logit cotangents of its 64 edges) in 48 KB of shared memory.
+# Most heads K9 takes: a block keeps its 64-edge chunk's rows and 2 x 64 x
+# K f32 values (the attention weights and logit cotangents) in shared
+# memory; at 96 heads the latter alone are 48 KB, what a block gets by
+# default, so the launcher opts in to more.
 RGAT_SRC_MAX_HEADS = 96
+
+
+def _rgat_src_bwd_launch(form, rows, fine_key, t_ext, ranks, num_heads,
+                         table_rows, rpad, clamp):
+    """Launch K9 in `form` ("stream": `rows` the [E, D + 3K] stream and no
+    keys; "gather": `rows` the side table, read at `fine_key`) into a new
+    zeroed f32 [table_rows, D + K] table."""
+    k = num_heads
+    dim = t_ext.shape[1] - k
+    if k > RGAT_SRC_MAX_HEADS:
+        raise ValueError("rgat_src_bwd: at most %d heads, got %d"
+                         % (RGAT_SRC_MAX_HEADS, k))
+    _check_dtype("rgat_src_bwd", rows, torch.bfloat16)
+    _check_dtype("rgat_src_bwd", t_ext, torch.bfloat16)
+    _check_ranks("rgat_src_bwd", ranks)
+    if fine_key is not None:
+        _check_ranks("rgat_src_bwd", fine_key)
+    out = torch.zeros((table_rows, dim + k), dtype=torch.float32,
+                      device=rows.device)
+    e = ranks.shape[0]
+    if e:
+        gather = form == "gather"
+        _call("rgat_src_bwd",
+              (None if gather else rows, rows if gather else None, fine_key,
+               t_ext, ranks, out),
+              (e, dim, k, rpad, float(clamp)))
+        FORM_LAUNCHES["rgat_src_bwd " + form] += 1
+    return out
 
 
 def _rgat_src_bwd_impl(gcb_src, t_ext, ranks, *, table_rows, num_heads,
@@ -1263,18 +1369,32 @@ def _rgat_src_bwd_impl(gcb_src, t_ext, ranks, *, table_rows, num_heads,
     if gcb_src.device.type == "cpu":
         return _rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, k,
                                    clamp)
-    if k > RGAT_SRC_MAX_HEADS:
-        raise ValueError("rgat_src_bwd: at most %d heads, got %d"
-                         % (RGAT_SRC_MAX_HEADS, k))
-    _check_dtype("rgat_src_bwd", gcb_src, torch.bfloat16)
-    _check_dtype("rgat_src_bwd", t_ext, torch.bfloat16)
-    _check_ranks("rgat_src_bwd", ranks)
-    out = torch.zeros((table_rows, dim + k), dtype=torch.float32,
-                      device=gcb_src.device)
-    if e:
-        _call("rgat_src_bwd", (gcb_src, t_ext, ranks, out),
-              (e, dim, k, float(clamp)))
-    return out
+    return _rgat_src_bwd_launch("stream", gcb_src, None, t_ext, ranks, k,
+                                table_rows, 0, clamp)
+
+
+def _rgat_src_bwd_gather_impl(side, fine_key, t_ext, ranks, *, table_rows,
+                              num_heads, clamp):
+    """K9 reading each edge's dagg | lt | den | s_cor row of the bf16
+    [RPAD, D + 3K] side table at its fine key (int32 [E]; a key outside
+    [0, RPAD), the diluted stream's SD_FILL slots, reads nothing and adds
+    exact zeros), t_ext and the src ranks as _rgat_src_bwd_impl takes
+    them; f32 [table_rows, D + K] out. Equals _rgat_src_bwd_impl on
+    _side_rows' stream without building it."""
+    e, k = ranks.shape[0], num_heads
+    dim = t_ext.shape[1] - k
+    if (ranks.dim() != 1 or t_ext.dim() != 2 or dim <= 0 or side.dim() != 2
+            or side.shape[1] != dim + 3 * k or fine_key.shape != (e,)
+            or t_ext.shape[0] != table_rows):
+        raise ValueError("rgat_src_bwd (gather): shapes %s, %s, %s, %s" % (
+            tuple(side.shape), tuple(fine_key.shape), tuple(t_ext.shape),
+            tuple(ranks.shape)))
+    _check_heads("rgat_src_bwd", dim, k)
+    if side.device.type == "cpu":
+        return _rgat_src_bwd_gather_plain(side, fine_key, t_ext, ranks,
+                                          table_rows, k, clamp)
+    return _rgat_src_bwd_launch("gather", side, fine_key, t_ext, ranks, k,
+                                table_rows, side.shape[0], clamp)
 
 
 # ---- public segment-sum / expand, each the other's VJP ------------------
@@ -1596,9 +1716,10 @@ def expand_add_act(m, beta_table, ranks, act: str):
 
 
 class _ActRankedAggregate(torch.autograd.Function):
-    """K12a forward and K12b backward, once per stream slice, on the table
-    cotangent cast to bf16 (the JAX package's act_ranked_aggregate,
-    _aagg_fwd / _aagg_bwd, summed over the slices)."""
+    """K12a forward, one launch over all the stream slices, and K12b
+    backward, once per slice, on the table cotangent cast to bf16 (the JAX
+    package's act_ranked_aggregate, _aagg_fwd / _aagg_bwd, summed over the
+    slices)."""
 
     @staticmethod
     def forward(ctx, table_rows, act, num_slices, *streams_and_ranks):
@@ -1606,11 +1727,8 @@ class _ActRankedAggregate(torch.autograd.Function):
         ranks = streams_and_ranks[num_slices:]
         ctx.save_for_backward(*streams_and_ranks)
         ctx.act, ctx.num_slices = act, num_slices
-        table = torch.zeros((table_rows, streams[0].shape[1]),
-                            dtype=torch.float32, device=streams[0].device)
-        for msgs, rk in zip(streams, ranks):
-            _act_agg_impl(msgs, rk, table_rows=table_rows, act=act, out=table)
-        return table
+        return _act_agg_slices_impl(list(zip(streams, ranks)),
+                                    table_rows=table_rows, act=act)
 
     @staticmethod
     def backward(ctx, g):
@@ -1630,7 +1748,7 @@ def act_ranked_aggregate_slices(slices, table_rows: int, act: str = "relu"):
     whole table per slice; with disjoint rows that sum only ever adds
     zeros, so here every slice's kernel writes into the one table (the
     same values, without a zero fill, an add and a cotangent cast of the
-    whole table per slice)."""
+    whole table per slice), in one K12a launch."""
     streams, ranks = zip(*slices)
     return _ActRankedAggregate.apply(table_rows, act.lower(), len(slices),
                                      *streams, *ranks)
@@ -1935,11 +2053,11 @@ class _RgatFusedPass(torch.autograd.Function):
         d_lt = _segsum_t_impl(dpre_t, tgt_rank, table_rows=rpad).t()
 
         # Source-order half: one [RPAD, D+3K] bf16 side table holds every
-        # receiver-keyed value an edge needs, gathered per src-sorted edge.
-        # Dump fine ranks (fine_to_rcv == n_pad: padded edges) read the
-        # coarse table's LAST slack row, whose cotangent, denominator and
-        # correction are structurally zero, so their dmsg and dpre vanish
-        # without a positional mask.
+        # receiver-keyed value an edge needs; K9 reads each src-sorted
+        # edge's row at its fine key. Dump fine ranks (fine_to_rcv ==
+        # n_pad: padded edges) read the coarse table's LAST slack row, whose
+        # cotangent, denominator and correction are structurally zero, so
+        # their dmsg and dpre vanish without a positional mask.
         cof = torch.where(
             fine_to_rcv >= n_pad, rows - 1,
             node_to_rank.index_select(0, fine_to_rcv.clamp(max=n_pad - 1)))
@@ -1949,15 +2067,14 @@ class _RgatFusedPass(torch.autograd.Function):
             den.t().to(torch.bfloat16).index_select(0, cof),
             s_tab.t().to(torch.bfloat16).index_select(0, cof),
         ], dim=1)
-        # Appended zero rows: the diluted stream's fill slots (SD_FILL fine
-        # keys) clamp onto the first of them.
-        gcb_src = _zero_extended(side).index_select(
-            0, fine_rank_by_src.clamp(max=rpad))
+        # The diluted stream's fill slots (SD_FILL fine keys, outside the
+        # table) read nothing and add zeros.
         t_rank_ext = t_ext.index_select(0, _clip(src_from_rank,
                                                  t_ext.shape[0]))
-        dtp = _rgat_src_bwd_impl(gcb_src, t_rank_ext, src_sorted_rank,
-                                 table_rows=src_from_rank.shape[0],
-                                 num_heads=k, clamp=50.0)
+        dtp = _rgat_src_bwd_gather_impl(side, fine_rank_by_src, t_rank_ext,
+                                        src_sorted_rank,
+                                        table_rows=src_from_rank.shape[0],
+                                        num_heads=k, clamp=50.0)
         dt_table, dp_table = dtp[:, :d], dtp[:, d:]
         # Node-side completion from the per-rank dpre sums (m and the
         # type's attention vector are constant within a src rank, an exact
@@ -1998,8 +2115,9 @@ def rgat_fused_pass(t_flat, lt_table, att_src, src_idx, fine_rank_by_src,
     the raw per-edge attention cotangents, narrow [K, E] math and two
     ranked segment-sums (K6a) the softmax correction table and
     d(lt_table), and K9 recomputes attention and logit cotangents in
-    SOURCE order from one [E, D+3K] bf16 row gather, summing the message
-    cotangent straight into the src rank table. `fine_rank_by_src` and
+    SOURCE order, reading each edge's row of one [RPAD, D+3K] bf16 side
+    table at its fine key, and sums the message cotangent straight into
+    the src rank table. `fine_rank_by_src` and
     `src_sorted_rank` are the src stream of nn/layers.py src_stream.
     Receiver-keyed values ride bf16 through the side table."""
     return _RgatFusedPass.apply(

@@ -1,11 +1,14 @@
-"""The earlier designs of K3 (`film_src_bwd`) and K4 (`film_bwd`): a
-thread per column walking a 64-edge chunk with 2-byte loads
-(csrc/film_src_bwd_walk.cu, csrc/film_bwd_walk.cu, unchanged from before
-their redesign in csrc/film_rows.cuh). No model path calls them:
-chip_smoke.py and the card tests hold the redesigned kernels to them (the
-same sums in the same order on every row of at most two 64-edge chunks)
-and time the two in turns. Launches count under "film_src_bwd_walk" and
-"film_bwd_walk". Tensors on the CPU take the kernels' plain versions."""
+"""The earlier designs of K3 (`film_src_bwd`), K4 (`film_bwd`), K12a
+(`act_agg`) and K9 (`rgat_src_bwd`): a thread per column walking a 64-edge
+chunk with 2-byte loads (csrc/film_src_bwd_walk.cu, csrc/film_bwd_walk.cu,
+csrc/act_agg_walk.cu, csrc/rgat_src_bwd_walk.cu, unchanged from before
+their redesign; K12a's takes one stream slice a launch). No model path
+calls them: chip_smoke.py and the card tests hold the redesigned kernels
+to them (the same sums in the same order on every row of at most two
+64-edge chunks) and time the two in turns. Launches count under
+"film_src_bwd_walk", "film_bwd_walk", "act_agg_walk" and
+"rgat_src_bwd_walk". Tensors on the CPU take the kernels' plain
+versions."""
 
 import torch
 
@@ -56,3 +59,59 @@ def film_bwd_walk(msgs, gbg_table, ranks, *, act):
         rs._call("film_bwd_walk", (msgs, gbg_table, ranks, d_msgs, d_gb),
                  (e, dim, rs.ACT_IDS[act]))
     return d_msgs, d_gb
+
+
+# Most heads K9's earlier body takes: its block keeps 2 x 64 x K f32
+# values and 64 ranks in the 48 KB of shared memory a block gets without
+# opting in.
+RGAT_SRC_WALK_MAX_HEADS = 95
+
+
+def act_agg_walk(msgs, ranks, *, table_rows, act, out=None):
+    """K12a's function by its earlier design, on one stream slice: bf16
+    msgs [E, D] and int32 ranks [E] (the inputs of `_act_agg_impl`); f32
+    [table_rows, D] out, or `out` added into (its rows of these ranks
+    zero)."""
+    e, dim = msgs.shape
+    if ranks.shape != (e,) or (out is not None
+                               and out.shape != (table_rows, dim)):
+        raise ValueError("act_agg_walk: shapes %s, %s" % (
+            tuple(msgs.shape), tuple(ranks.shape)))
+    if msgs.device.type == "cpu":
+        return rs._act_agg_plain(msgs, ranks, table_rows, act, out)
+    rs._check_dtype("act_agg_walk", msgs, torch.bfloat16)
+    rs._check_ranks("act_agg_walk", ranks)
+    if out is None:
+        out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                          device=msgs.device)
+    rs._check_dtype("act_agg_walk", out, torch.float32)
+    if e:
+        rs._call("act_agg_walk", (msgs, ranks, out), (e, dim, rs.ACT_IDS[act]))
+    return out
+
+
+def rgat_src_bwd_walk(gcb_src, t_ext, ranks, *, table_rows, num_heads, clamp):
+    """K9's function by its earlier design, from the bf16 [E, D + 3K]
+    stream and the bf16 [table_rows, D + K] t | lsrc table (the inputs of
+    `_rgat_src_bwd_impl`); f32 [table_rows, D + K] out."""
+    e, k = ranks.shape[0], num_heads
+    dim = t_ext.shape[1] - k
+    if (gcb_src.shape != (e, dim + 3 * k) or t_ext.shape[0] != table_rows
+            or dim <= 0 or dim % k):
+        raise ValueError("rgat_src_bwd_walk: shapes %s, %s, %s" % (
+            tuple(gcb_src.shape), tuple(t_ext.shape), tuple(ranks.shape)))
+    if gcb_src.device.type == "cpu":
+        return rs._rgat_src_bwd_plain(gcb_src, t_ext, ranks, table_rows, k,
+                                      clamp)
+    if k > RGAT_SRC_WALK_MAX_HEADS:
+        raise ValueError("rgat_src_bwd_walk: at most %d heads, got %d"
+                         % (RGAT_SRC_WALK_MAX_HEADS, k))
+    for x in (gcb_src, t_ext):
+        rs._check_dtype("rgat_src_bwd_walk", x, torch.bfloat16)
+    rs._check_ranks("rgat_src_bwd_walk", ranks)
+    out = torch.zeros((table_rows, dim + k), dtype=torch.float32,
+                      device=gcb_src.device)
+    if e:
+        rs._call("rgat_src_bwd_walk", (gcb_src, t_ext, ranks, out),
+                 (e, dim, k, float(clamp)))
+    return out

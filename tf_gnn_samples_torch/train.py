@@ -25,8 +25,9 @@ HYPERS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def get_train_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("MODEL_NAME",
-                        help="GGNN, RGCN, RGAT, GNN-FiLM, GNN-Edge-MLP0 or "
-                             "GNN-Edge-MLP1 (the ported models)")
+                        help="GGNN, RGCN, RGAT, RGIN, GNN-Edge-MLP "
+                             "(GNN-Edge-MLP0 or GNN-Edge-MLP1), RGDCN or "
+                             "GNN-FiLM: the seven ported model families")
     parser.add_argument("TASK_NAME", help="QM9 (the ported task)")
     parser.add_argument("--data-path", default=None)
     parser.add_argument("--result-dir", default="trained_models")
