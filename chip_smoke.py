@@ -28,11 +28,18 @@ Phases, each of which raises on failure (no phase's failure is caught):
     / K2: the K16 v3 variants at group 1; K3 / K4: the bodies of
     tools/earlier_designs.py) for elu, as the main path runs them, and
     relu, as the harness times them, K12a against its earlier body (one
-    launch a slice) on the layer's four slices and on each, and K9
-    against its earlier body at the batch's D 128 with 8 heads and at D
-    320 with 4 heads (PPI's width, rows not 16-byte aligned): equal on
-    every row of at most two chunks, each timed beside that design in
-    turns. K3 and K9 are timed in their gather forms (as the fused FiLM
+    launch a slice) on the layer's four slices and on each, K9 against
+    its earlier body at the batch's D 128 with 8 heads and at D 320 with
+    4 heads (PPI's width, rows not 16-byte aligned), and K7a against its
+    earlier body on the streamed branch's [E, D] stream, on the fused
+    branch's [E, D+K] stream through d_used and on that stream at D 320
+    with 4 heads (648-byte rows, the 2-byte path): equal on every row of
+    at most two chunks; K6a against its earlier body on its receiver and
+    its fine table: equal on every row of at most two 8-edge runs; each
+    timed beside that design in turns, with its queued time over its
+    bound. K7a's fused streams are also held against its plain version,
+    and K13a, which shares K7a's body, equal to K7a on the same inputs.
+    K3 and K9 are timed in their gather forms (as the fused FiLM
     and RGAT backwards call them) and held equal to their stream forms;
     K4 in its split form, held equal to its gamma|beta|g form, its d_gb
     equal to K2's;
@@ -160,6 +167,9 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     # their own
     "act_agg_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:855",
     "rgat_src_bwd_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:1985",
+    # the earlier designs of K7a and K6a, the same
+    "wseg_t_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:1314",
+    "segsum_t_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:1280",
 }
 # The CUDA source of each K16 kernel body, by its counter's prefix.
 K16_SOURCES = {"film_fwd": "film_fwd_ab", "film_dgb": "film_dgb_ab",
@@ -380,12 +390,13 @@ def masked_terms(torch, rs, mask, c_e, leak):
                                    torch.arange(e, device=c_e.device), e, leak)
 
 
-def chunk_span(torch, ranks, rows):
-    """[rows] int64: for each rank row, the index of the last CHUNK-edge
-    block of the stream that holds one of its edges less that of the
-    first (negative for a row without edges)."""
+def chunk_span(torch, ranks, rows, edges=64):
+    """[rows] int64: for each rank row, the index of the last block of
+    `edges` consecutive edges (default a CHUNK) of the stream that holds
+    one of its edges less that of the first (negative for a row without
+    edges)."""
     block = torch.div(torch.arange(ranks.shape[0], device=ranks.device),
-                      64, rounding_mode="floor")
+                      edges, rounding_mode="floor")
     first = torch.full((rows,), 2 ** 62, dtype=torch.int64,
                        device=ranks.device).scatter_reduce_(
                            0, ranks.long(), block, "amin")
@@ -1226,6 +1237,29 @@ def kernel_phase(torch, rs, dev):
     # seams per thread), K6b also expands the denominator over the
     # receiver ranks. These are checked only; the specs above are timed.
     table_rcv = torch.randn((heads, rows), generator=gen, device=dev)
+    # K7a on the three streams RGAT gives it: the streamed branch's [E, D]
+    # messages, the fused branch's [E, D+K] gather (K8's stream, read
+    # through d_used) and that gather at PPI's D 320 with 4 heads, whose
+    # 648-byte rows are not 16-byte aligned (the 2-byte path). Each is
+    # (stream, weights, heads, d_used).
+    k7_forms = {
+        "streamed D 128, 8 heads": (m7, w_t, heads, d),
+        "fused [E, D+K], D 128, 8 heads": (m8, w_t, heads, d),
+        "fused [E, D+K], D 320, 4 heads": (
+            randn(e, 320 + 4), torch.rand((4, e), generator=gen, device=dev),
+            4, 320)}
+
+    def k7a(which, v):
+        """K7a (`which` "new") or its earlier body on the stream `v`."""
+        stream, w_v, k_v, d_v = k7_forms[v]
+        fn = (rs._wseg_t_impl if which == "new"
+              else earlier_designs.wseg_t_walk)
+        return fn(stream, w_v, rcv, table_rows=rows, num_heads=k_v,
+                  d_used=d_v)
+
+    # K6a on the two tables RGAT gives it: the softmax denominator over the
+    # receiver ranks and the target logits' cotangent over the fine ranks.
+    k6_tables = {"receiver table": (rcv, rows), "fine table": (fine, rpad)}
     also = {
         "segsum_t": lambda: order_check(
             "segsum_t (fine ranks, %d rows)" % rpad, rpad, fine,
@@ -1339,6 +1373,35 @@ def kernel_phase(torch, rs, dev):
     also["film_src_bwd"] = k3_stream_also
     also["film_bwd"] = k4_also
     also["rgat_src_bwd"] = k9_also
+
+    def k7_also():
+        """K7a on the fused branch's streams (d_used < dim_in; at D 320 the
+        2-byte path) within the order bound of its plain version."""
+        worst = 0.0
+        for v in list(k7_forms)[1:]:
+            stream, w_v, _, d_v = k7_forms[v]
+            terms = rs._bf16_terms(stream[:, :d_v].float()
+                                   * rs._head_replicate(w_v, d_v))
+            worst = max(worst, check_kernel(
+                "wseg_t (%s)" % v, k7a("new", v),
+                rs._wseg_t_plain(stream, w_v, rcv, rows, d_v),
+                row_abs_sums(torch, rows, rcv, terms),
+                row_counts(torch, rows, rcv), torch))
+        return worst
+
+    def k13_also():
+        """K13a against K7a on the same stream and the same weights laid
+        out head-major: one template walks both, so every row that is not
+        a seam row is equal bit for bit."""
+        film_design_check(
+            torch, "wseg = wseg_t on the transposed weights",
+            rs._wseg_impl(m13, w13, rcv, table_rows=rows, num_heads=heads),
+            rs._wseg_t_impl(m13, w13.t().contiguous(), rcv, table_rows=rows,
+                            num_heads=heads), rcv)
+        return 0.0
+
+    also["wseg_t"] = k7_also
+    also["wseg"] = k13_also
     # Bounds of K9's forms and K12a's launches at the shapes timed against
     # their earlier bodies (the earlier bodies read the stream as the
     # stream form does; K12a's read what one launch over the same slices
@@ -1357,6 +1420,15 @@ def kernel_phase(torch, rs, dev):
         b = max(spec["nbytes"] / HBM_BYTES_PER_S,
                 spec["nops"] / F32_FLOPS) * 1e3
         k12a_bounds[v] = {"new": b, "earlier": b}
+    k7a_bounds, k6a_bounds = {}, {}
+    for v, (_, _, k_v, d_v) in k7_forms.items():
+        b = max((e * d_v * 2 + k_v * e * 4 + e * 4 + rows * d_v * 4)
+                / HBM_BYTES_PER_S, 2 * e * d_v / F32_FLOPS) * 1e3
+        k7a_bounds[v] = {"new": b, "earlier": b}
+    for v, (_, rows_v) in k6_tables.items():
+        b = max((heads * e * 4 + e * 4 + heads * rows_v * 4)
+                / HBM_BYTES_PER_S, heads * e / F32_FLOPS) * 1e3
+        k6a_bounds[v] = {"new": b, "earlier": b}
     designs = {
         "film_fwd": lambda: earlier_design(
             torch, "film_fwd",
@@ -1407,6 +1479,23 @@ def kernel_phase(torch, rs, dev):
             lambda v: k9_form("walk", v), src,
             other=lambda v: k9_form("stream", v), variants=tuple(k9_wide),
             bounds=k9_bounds),
+        # K7a on the streamed branch's stream, the fused branch's [E, D+K]
+        # gather and that gather at D 320 with 4 heads.
+        "wseg_t": lambda: earlier_design(
+            torch, "wseg_t", lambda v: k7a("new", v),
+            lambda v: k7a("earlier", v), rcv, variants=tuple(k7_forms),
+            bounds=k7a_bounds),
+        # K6a on its receiver and fine tables: equal on every row of at
+        # most two 8-edge runs.
+        "segsum_t": lambda: earlier_design(
+            torch, "segsum_t",
+            lambda v: rs._segsum_t_impl(m_t, k6_tables[v][0],
+                                        table_rows=k6_tables[v][1]),
+            lambda v: earlier_designs.segsum_t_walk(
+                m_t, k6_tables[v][0], table_rows=k6_tables[v][1]),
+            {v: t[0] for v, t in k6_tables.items()},
+            check=segsum_t_design_check, variants=tuple(k6_tables),
+            bounds=k6a_bounds),
     }
     results = []
     for spec in specs:
@@ -1486,11 +1575,13 @@ def kernel_phase(torch, rs, dev):
                   % (name, json.dumps(extra[name]), row["mean_slice_ms"],
                      row["mean_slice_queued_ms"]))
         results.append(row)
-    # The earlier bodies of K12a and K9, rows of their own (no model path
-    # launches them): within the order bound of the plain version, timed in
-    # turns with the redesign above at the main path's shapes (K12a: the
-    # layer's four slices, a launch each; K9: D 128, 8 heads, on the
-    # stream). The plain version and the bound are their function's.
+    # The earlier bodies of K12a, K9, K7a and K6a, rows of their own (no
+    # model path launches them): within the order bound of the plain
+    # version, timed in turns with the redesign above at the main path's
+    # shapes (K12a: the layer's four slices, a launch each; K9: D 128, 8
+    # heads, on the stream; K7a: the streamed branch's stream; K6a: the
+    # receiver table). The plain version and the bound are their
+    # function's.
     layer = k12a("layer", k12a_parts["layer"])
     walks = {
         "act_agg_walk": ("act_agg", "layer", lambda: layer["check"](
@@ -1502,7 +1593,19 @@ def kernel_phase(torch, rs, dev):
                                   rs._rgat_src_bwd_plain(gcb9, t9, src, rsrc,
                                                          heads, 50.0),
                                   k9_abs, k9_counts, torch, term_ulps=1,
-                                  slack=k9_slack))}
+                                  slack=k9_slack)),
+        "wseg_t_walk": ("wseg_t", "streamed D 128, 8 heads",
+                        lambda: order_check("wseg_t_walk", rows, rcv,
+                                            k7_terms)(
+                            k7a("earlier", "streamed D 128, 8 heads"),
+                            rs._wseg_t_plain(m7, w_t, rcv, rows))),
+        "segsum_t_walk": ("segsum_t", "receiver table",
+                          lambda: order_check(
+                              "segsum_t_walk", rows, rcv,
+                              rs._bf16_terms(m_t).t())(
+                                  earlier_designs.segsum_t_walk(
+                                      m_t, rcv, table_rows=rows).t(),
+                                  rs._segsum_t_plain(m_t, rcv, rows).t()))}
     for name, (new_name, v, err) in walks.items():
         new_row = next(r for r in results if r["name"] == new_name)
         times = new_row["earlier_design"][v]
@@ -1569,6 +1672,20 @@ def slices_design_check(torch, name, got, earlier, slice_ranks):
                        got[~seams], earlier[~seams], torch)
 
 
+def segsum_t_design_check(torch, name, got, earlier, ranks):
+    """K6a's [K, rows] table against its earlier body's on the same inputs
+    (csrc/segsum_t.cu, csrc/segsum_t_walk.cu). Both sum a row's terms in
+    each run of 8 edges (runs aligned to multiples of 8) in stream order
+    from 0, so every row whose edges lie in at most two runs (two partials,
+    whose f32 sum does not depend on their order) must be equal bit for
+    bit; a row over three or more runs meets its partials in the
+    redesign's scan order and in the earlier body's atomic order."""
+    fixed = chunk_span(torch, ranks, got.shape[1], edges=8) <= 1
+    return check_exact("%s on %d of %d rows"
+                       % (name, int(fixed.sum()), got.shape[1]),
+                       got[:, fixed], earlier[:, fixed], torch)
+
+
 def film_bwd_design_check(torch, name, got, earlier, ranks):
     """K4's (d_msgs, d_gb) against another K4's on the same inputs: d_msgs,
     one rounded product an element, bit for bit; d_gb as
@@ -1595,9 +1712,11 @@ def earlier_design(torch, name, new, earlier, ranks, check=film_design_check,
                    bounds=None):
     """A redesigned kernel (`new(v)`) against its earlier design
     (`earlier(v)`) for each variant v: the activations elu (the main
-    path's) and relu (the harness's) for K1-K4, the shapes for K9 and
-    K12a. `check` (the same sums in the same order; `ranks` the ranks it
-    takes, or a dict of them by variant), then each one's single-call and
+    path's) and relu (the harness's) for K1-K4, the shapes for K9, K12a
+    and K7a, the tables for K6a. `check` (the same sums in the same order:
+    film_design_check, or K12a's slices_design_check, K4's
+    film_bwd_design_check, K6a's segsum_t_design_check; `ranks` the ranks
+    it takes, or a dict of them by variant), then each one's single-call and
     queued times, means of two timings each taken in turns (earlier, new,
     new, earlier; with `other`, another form of the new kernel that is
     checked and timed too: earlier, new, other, other, new, earlier).

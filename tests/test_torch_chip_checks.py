@@ -1,6 +1,6 @@
 """The checks that `chip_smoke.py` and `tests/test_torch_cuda.py` hold the
-K10, K13, K14, K15 and K16 FiLM kernels, K1-K4, K9 and K12a against their
-earlier designs, K3's and K9's gather forms against their stream forms
+K10, K13, K14, K15 and K16 FiLM kernels, K1-K4, K9, K12a and K6a against
+their earlier designs, K3's and K9's gather forms against their stream forms
 and K4's d_gb against K2's, to, on the CPU: each accepts the kernel's
 math taken in another summation order (emulated here, independently of
 the checks' helpers) against the plain version's, and rejects a planted
@@ -9,8 +9,9 @@ short, a zero or partial dW or d_w, an edge past e_real that is counted, a
 term dropped or weighted by the wrong head, a mask one bit off, the wrong
 leak, a row summed through its chunks or pairwise inside one, a fill slot
 that reads a real row, a message cotangent one bf16 step off, K12a's
-slices chunked from the layer's first edge. No kernel runs here; the
-faults are planted in the emulation."""
+slices chunked from the layer's first edge, K6a's rows summed in 64-edge
+chunks in place of its 8-edge runs. No kernel runs here; the faults are
+planted in the emulation."""
 
 import numpy as np
 import pytest
@@ -20,8 +21,8 @@ from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
                         film_bwd_design_check, film_design_check, film_terms,
                         film_variant_check, hand_kernel_names, hand_kernel_of,
                         head_dw_check, kernel_order_products, masked_terms,
-                        seam_rows, slices_design_check, src_gather_check,
-                        src_terms,
+                        seam_rows, segsum_t_design_check, slices_design_check,
+                        src_gather_check, src_terms,
                         typed_dense_agg_bounds,
                         typed_dense_agg_bwd_check)
 from tf_gnn_samples_torch.ops import ranked_segment as rs
@@ -357,13 +358,14 @@ def test_film_variant_check_on_gapped_ranks(half):
 
 # ---- K1 / K2 against their earlier design -----------------------------------
 
-def chunk_order_sums(terms, ranks, rows, fault="none", reverse=False):
+def chunk_order_sums(terms, ranks, rows, fault="none", reverse=False,
+                     edges=64):
     """f32 per-row sums of `terms` in the FiLM kernels' order: a row's
-    terms in each 64-edge chunk summed in stream order from 0, the row's
-    chunk partials then added (in chunk order, or in reverse with
-    `reverse`: atomics meet in either). Planted faults: "straight", a row
-    summed through its chunks as one run; "tree", a pairwise sum inside a
-    chunk."""
+    terms in each chunk of `edges` edges (64; K6a's runs: 8) summed in
+    stream order from 0, the row's chunk partials then added (in chunk
+    order, or in reverse with `reverse`: atomics meet in either). Planted
+    faults: "straight", a row summed through its chunks as one run;
+    "tree", a pairwise sum inside a chunk."""
     out = torch.zeros((rows, terms.shape[1]))
     e = len(ranks)
     if fault == "straight":
@@ -373,11 +375,11 @@ def chunk_order_sums(terms, ranks, rows, fault="none", reverse=False):
                 acc = acc + terms[i]
             out[r] = acc
         return out
-    starts = list(range(0, e, 64))
+    starts = list(range(0, e, edges))
     for c0 in (starts[::-1] if reverse else starts):
-        chunk = ranks[c0:c0 + 64]
+        chunk = ranks[c0:c0 + edges]
         for r in torch.unique(chunk).tolist():
-            part = list(terms[c0:c0 + 64][chunk == r])
+            part = list(terms[c0:c0 + edges][chunk == r])
             if fault == "tree":
                 while len(part) > 1:
                     part = [part[i] + part[i + 1] if i + 1 < len(part)
@@ -419,6 +421,31 @@ def test_film_design_check_takes_the_chunk_order_and_rejects_others(
     else:
         with pytest.raises(AssertionError):
             film_design_check(torch, half, got, earlier, ranks)
+
+
+@pytest.mark.parametrize("fault", ["none", "straight", "tree", "chunks"])
+def test_k6a_design_check_takes_the_run_order_and_rejects_others(fault):
+    """segsum_t_design_check, which holds K6a's [K, rows] table to its
+    earlier body, accepts each row's 8-edge runs summed in stream order
+    with the runs' partials added in the other order, and rejects a row
+    over two runs summed straight through, a pairwise sum inside a run and
+    64-edge chunks in place of the runs. Rank runs of 1-6 edges (the sizes
+    of K6a's receiver and fine rows) and a few of 9-30."""
+    rng = np.random.RandomState(15)
+    sizes = rng.randint(1, 7, size=150)
+    sizes[::25] = rng.randint(9, 31, size=6)
+    ranks = torch.from_numpy(np.repeat(np.arange(150, dtype=np.int32),
+                                       sizes))
+    terms = rs._bf16_terms(spread(rng, bf16(rng, len(ranks), 3)).float())
+    earlier = chunk_order_sums(terms, ranks, 151, edges=8).t()
+    if fault == "none":
+        segsum_t_design_check(torch, "segsum_t", chunk_order_sums(
+            terms, ranks, 151, reverse=True, edges=8).t(), earlier, ranks)
+        return
+    got = (chunk_order_sums(terms, ranks, 151) if fault == "chunks"
+           else chunk_order_sums(terms, ranks, 151, fault, edges=8))
+    with pytest.raises(AssertionError):
+        segsum_t_design_check(torch, "segsum_t", got.t(), earlier, ranks)
 
 
 # ---- K3 / K4 against their earlier designs, and their other forms -----------

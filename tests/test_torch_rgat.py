@@ -44,6 +44,7 @@ from tf_gnn_samples_torch.ops import ranked_segment as t_rs
 from tf_gnn_samples_torch.runtime import model as t_model
 from tf_gnn_samples_torch.tasks import base as t_base
 from tf_gnn_samples_torch.tasks import qm9 as t_qm9
+from tf_gnn_samples_torch.tools import earlier_designs as t_ed
 from tf_gnn_samples_torch.utils import registry as t_registry
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -204,6 +205,47 @@ def test_wseg_t_plain_matches_pallas(qm9, which, k, dim, extra):
     terms = bf16_terms(tm[:, :dim].float().numpy()
                        * np.repeat(w.T, dim // k, axis=1))
     terms_abs, counts = scatter_abs(terms, ranks, rows, axis=0)
+    singles = assert_order_bound(got.numpy(), want, terms_abs, counts)
+    assert singles or which == "qm9_rcv"
+
+
+@pytest.mark.parametrize("kernel", ["segsum_t_walk", "wseg_t_walk"])
+@pytest.mark.parametrize("which", STREAMS)
+def test_earlier_k6a_k7a_bodies_take_plain_versions_matching_pallas(
+        qm9, which, kernel):
+    """tools/earlier_designs.py's K6a and K7a bodies, the baselines of
+    their redesign: on CPU tensors they take the plain versions (no
+    launch), within the order bound of the Pallas kernels in interpret
+    mode; K7a on a [E, D + K] stream read through d_used, as the fused
+    RGAT branch feeds it."""
+    ranks, rows, win = stream(qm9, which)
+    rng = np.random.RandomState(len(kernel) + len(which))
+    e, k = ranks.shape[0], 8
+    before = dict(t_rs.LAUNCHES)
+    if kernel == "segsum_t_walk":
+        m = (3 * rng.randn(k, e)).astype(np.float32)
+        want = np.asarray(j_rs._segsum_t_impl(
+            jnp.asarray(m), i32(ranks), table_rows=rows, block_edges=256,
+            win=win))
+        got = t_ed.segsum_t_walk(torch.from_numpy(m), ranks,
+                                 table_rows=rows)
+        assert got.shape == (k, rows)
+        terms, axis = bf16_terms(m), 1
+    else:
+        m = rng.randn(e, D + k).astype(np.float32)
+        w = rng.rand(k, e).astype(np.float32)
+        kw = dict(table_rows=rows, num_heads=k, d_used=D)
+        want = np.asarray(j_rs._wseg_t_impl(
+            jnp.asarray(m).astype(jnp.bfloat16), jnp.asarray(w), i32(ranks),
+            block_edges=256, win=win, **kw))
+        tm = torch.from_numpy(m).to(torch.bfloat16)
+        got = t_ed.wseg_t_walk(tm, torch.from_numpy(w), ranks, **kw)
+        assert got.shape == (rows, D)
+        terms = bf16_terms(tm[:, :D].float().numpy()
+                           * np.repeat(w.T, D // k, axis=1))
+        axis = 0
+    assert got.dtype == torch.float32 and t_rs.LAUNCHES == before
+    terms_abs, counts = scatter_abs(terms, ranks, rows, axis=axis)
     singles = assert_order_bound(got.numpy(), want, terms_abs, counts)
     assert singles or which == "qm9_rcv"
 

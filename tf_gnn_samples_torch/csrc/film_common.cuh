@@ -6,8 +6,8 @@
 // (segsum.cu, segsum_t.cu, wseg_common.cuh, rgat_src_bwd.cu,
 // expand_add_act.cu, expand_add_act_bwd.cu, act_agg.cu, act_agg_bwd.cu,
 // typed_dense_agg.cu, typed_dense_agg_bwd.cu, emlp1_src_bwd.cu,
-// masked_segsum.cu, the earlier designs act_agg_walk.cu and
-// rgat_src_bwd_walk.cu): the activations of the JAX package's `_ACTS`
+// masked_segsum.cu, the earlier designs act_agg_walk.cu,
+// rgat_src_bwd_walk.cu, wseg_t_walk.cu and segsum_t_walk.cu): the activations of the JAX package's `_ACTS`
 // table (tf_gnn_samples_tpu/ops/ranked_segment.py), bf16 rounding, the
 // segment flush of the sorted-rank reduction and the launches.
 //

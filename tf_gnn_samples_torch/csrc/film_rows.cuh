@@ -1,6 +1,7 @@
 // The row walks of K1 (film_fwd.cu), K2 (film_bwd_dgb.cu), K3
 // (film_src_bwd.cu) and K4 (film_bwd.cu), designed for Hopper; K12a
-// (act_agg.cu) and K9 (rgat_src_bwd.cu) build on its pieces. Each source
+// (act_agg.cu), K9 (rgat_src_bwd.cu) and K7a / K13a (wseg_common.cuh)
+// build on its pieces. Each source
 // builds into a library of its own, so the kernels have internal linkage.
 //
 // All four are bound by bytes: per edge a 2D-byte message row (K1, K2,
@@ -163,6 +164,21 @@ struct NoStage {
 // (local index i, edge e) to stage more, and sets the lane's item; false
 // for a lane past the last item. `block` is the block's index in the
 // stream's own grid (K12a walks several streams in one grid).
+// The edges of the chunks that the items of block `block` reach: the
+// first one (e_lo), and their count (returned).
+template <int W = VEC>
+__device__ __forceinline__ int block_edges(long long block, int num_edges,
+                                           int dim, long long& e_lo) {
+  const long long slots = (dim + W - 1) / W;
+  const long long chunks = (num_edges + film::CHUNK - 1) / film::CHUNK;
+  const long long item0 = block * THREADS;
+  const long long last = (item0 + THREADS - 1) / slots + 1;
+  const long long c_hi = last < chunks ? last : chunks;
+  e_lo = item0 / slots * film::CHUNK;
+  const long long e_hi = c_hi * film::CHUNK;
+  return static_cast<int>((e_hi < num_edges ? e_hi : num_edges) - e_lo);
+}
+
 template <int W = VEC, typename Stage = NoStage>
 __device__ __forceinline__ bool load_item_at(long long block,
                                              const int* __restrict__ ranks,
@@ -172,12 +188,8 @@ __device__ __forceinline__ bool load_item_at(long long block,
   const long long slots = (dim + W - 1) / W;
   const long long chunks = (num_edges + film::CHUNK - 1) / film::CHUNK;
   const long long item0 = block * THREADS;
-  const long long c_lo = item0 / slots;
-  const long long last = (item0 + THREADS - 1) / slots + 1;
-  const long long c_hi = last < chunks ? last : chunks;
-  const long long e_lo = c_lo * film::CHUNK;
-  const long long e_hi = c_hi * film::CHUNK;
-  const int n_rk = static_cast<int>((e_hi < num_edges ? e_hi : num_edges) - e_lo);
+  long long e_lo;
+  const int n_rk = block_edges<W>(block, num_edges, dim, e_lo);
   for (int i = threadIdx.x; i < n_rk; i += THREADS) {
     const int r = ranks[e_lo + i];
     s_rank[i] = r;

@@ -11,8 +11,8 @@
 // Bound on the card: bytes (a 2D-byte message row, 4K bytes of weights
 // and a 4-byte rank per edge, a 4D-byte store per used table row; one
 // multiply and one add per element). The design, shared with K7a's
-// head-major weights, is wseg_common.cuh's: a block stages its CHUNK
-// edges' weight rows, which are contiguous in w, with coalesced loads.
+// head-major weights, is wseg_common.cuh's: a block stages the weight rows
+// of its chunks' edges, which are contiguous in w, in shared memory.
 #include "wseg_common.cuh"
 
 extern "C" int wseg_launch(const void* msgs, const void* w, const void* ranks,

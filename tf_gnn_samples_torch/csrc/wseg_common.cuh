@@ -11,12 +11,35 @@
 // by the caller. The product is taken in f32, rounded to bf16 (the TPU
 // kernels' cast before their one-hot MXU dot) and summed in f32. The TPU
 // kernels replicate the weights to D lanes with a thin MXU contraction in
-// VMEM; here it is the chunked sorted-rank walk of the FiLM kernels
-// (film_common.cuh) with another term: a block owns CHUNK consecutive
-// edges, stages their K x CHUNK weights in shared memory with coalesced
-// loads (along the edge axis of w_t, along the contiguous rows of w), and
-// each thread walks the chunk for its column, reading the weight of its
-// column's head as a shared-memory broadcast.
+// VMEM. Bound on the card: bytes (a 2D-byte message row, 4K bytes of
+// weights and a 4-byte rank an edge, a 4D-byte row of the table), against
+// a multiply and an add an element. The walk is K1's (film_rows.cuh), with
+// a weight for the gamma|beta rows:
+// * a lane owns VEC = 8 consecutive columns of one 64-edge chunk, so every
+//   message load is 16 bytes and every store two float4s; a D or a row
+//   stride dim_in that is not a multiple of 8, or a pointer that is not
+//   16-byte aligned (the fused RGAT branch's [E, D+K] stream at PPI's D
+//   320 with 4 heads: 648-byte rows), takes 2-byte loads and 4-byte
+//   stores (template parameter V false);
+// * the next WSEG_AHEAD = 16 edges' message rows are loaded into
+//   registers before their sums (at the QM9 batch 8 edges ran much
+//   slower, 12-24 about as fast, 32 slower: exploratory runs on the H100);
+// * a run that may continue in a neighbouring chunk is added with two
+//   float4 atomicAdds on the 16-byte path (flush_row); with scalar ones
+//   the kernel ran markedly slower there;
+// * a block stages the ranks and the K weights of every edge of the chunks
+//   its items reach in shared memory, loaded along the edge axis of w_t
+//   (along the contiguous rows of w); a lane whose 8 columns lie in one
+//   head (Dh a multiple of 8) reads one weight an edge, else each column
+//   its own head's (a lane may straddle heads, e.g. D 100 with 4 heads).
+// Its earlier design (wseg_t_walk.cu, kept as K7a's A/B baseline) gave
+// each column a thread with 2-byte loads, one in flight: 2.7x the byte
+// bound at the QM9 batch. A lane sums each rank run of its chunk in stream
+// order from 0.0f as that thread did, and flushes it as film_common.cuh
+// says (the chunk's first and last runs by atomicAdd), so every row that
+// one or two chunks hold is equal to the earlier design's bit for bit; a
+// row over three or more chunks (the dump rank's run of padded edges)
+// meets its partials in atomic order.
 //
 // Backward (wseg_bwd_kernel): with g_e = g16[rank_e] the table cotangent
 // of edge e's receiver, rounded to bf16 by the caller,
@@ -37,73 +60,149 @@
 
 #include <cstdint>
 
-#include "film_common.cuh"
+#include "film_rows.cuh"
 
 namespace wseg {
 
 constexpr int BWD_THREADS = 256;
+constexpr int WSEG_AHEAD = 16;  // edges whose message loads a lane issues ahead
 
-// Weight of head k for the chunk-local edge i of the block starting at e0.
-template <bool HEAD_MAJOR>
-__device__ __forceinline__ size_t weight_index(size_t e0, int i, int k,
-                                               int num_edges, int num_heads) {
-  return HEAD_MAJOR ? static_cast<size_t>(k) * num_edges + e0 + i
-                    : (e0 + i) * num_heads + k;
+// flush8 whose atomics are two float4 atomicAdds (sm_90, global memory)
+// on the 16-byte path: four times fewer atomic instructions for the runs
+// that may continue in a neighbouring chunk. Each element is added on its
+// own, so the sums are flush8's.
+template <bool V>
+__device__ __forceinline__ void flush_row(float* dst, const float (&acc)[VEC],
+                                          int valid, bool may_span) {
+  if (V && may_span) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(acc[0], acc[1], acc[2], acc[3]));
+    atomicAdd(reinterpret_cast<float4*>(dst) + 1,
+              make_float4(acc[4], acc[5], acc[6], acc[7]));
+  } else {
+    flush8<V>(dst, acc, valid, may_span);
+  }
 }
 
-template <bool HEAD_MAJOR>
-__global__ void __launch_bounds__(film::MAX_THREADS)
+// The forward row walk. V: 16-byte message loads and float4 stores (D and
+// the row stride dim_in multiples of 8, pointers aligned), else 2-byte
+// loads masked to the last column. ONE_HEAD: Dh is a multiple of 8, so a
+// lane's 8 columns lie in one head and an edge's weight is one
+// shared-memory load; else each column reads its own head's weight.
+template <bool HEAD_MAJOR, bool V, bool ONE_HEAD>
+__global__ void __launch_bounds__(THREADS)
 wseg_kernel(const __nv_bfloat16* __restrict__ msgs,
             const float* __restrict__ w, const int* __restrict__ ranks,
             float* __restrict__ out, int num_edges, int dim, int dim_in,
             int num_heads) {
-  extern __shared__ float s_w[];  // [num_heads][CHUNK]
-  __shared__ int s_rank[film::CHUNK];
-  const int n = film::load_chunk_ranks(ranks, num_edges, s_rank);
-  const size_t e0 = static_cast<size_t>(blockIdx.x) * film::CHUNK;
-  for (int idx = threadIdx.x; idx < num_heads * film::CHUNK; idx += blockDim.x) {
-    // Consecutive threads take consecutive addresses in either layout.
-    const int k = HEAD_MAJOR ? idx / film::CHUNK : idx % num_heads;
-    const int i = HEAD_MAJOR ? idx % film::CHUNK : idx / num_heads;
-    if (i < n) {
-      s_w[k * film::CHUNK + i] =
-          w[weight_index<HEAD_MAJOR>(e0, i, k, num_edges, num_heads)];
+  extern __shared__ int s_rank[];
+  const int cap = rows_cap(dim);
+  float* s_w = reinterpret_cast<float*>(s_rank + cap);  // [num_heads][cap]
+  Item it;
+  bool live;
+  if constexpr (HEAD_MAJOR) {
+    // Each edge's K weights by the thread that stages its rank:
+    // consecutive threads take consecutive edges, along the edge axis.
+    live = load_item(ranks, num_edges, dim, s_rank, it,
+                     [&](int i, size_t e, int) {
+                       for (int k = 0; k < num_heads; ++k) {
+                         s_w[k * cap + i] =
+                             w[static_cast<size_t>(k) * num_edges + e];
+                       }
+                     });
+  } else {
+    // The block's edges' weight rows are contiguous in w: consecutive
+    // threads take consecutive weights (load_item's barrier covers them).
+    long long e_lo;
+    const int n_w = block_edges(blockIdx.x, num_edges, dim, e_lo) * num_heads;
+    for (int j = threadIdx.x; j < n_w; j += THREADS) {
+      s_w[(j % num_heads) * cap + j / num_heads] = w[e_lo * num_heads + j];
     }
+    live = load_item(ranks, num_edges, dim, s_rank, it);
   }
-  __syncthreads();
+  if (!live) return;
   const int head_dim = dim / num_heads;
-  const int first = s_rank[0];
-  for (int d = threadIdx.x; d < dim; d += blockDim.x) {
-    const float* wk = s_w + (d / head_dim) * film::CHUNK;
-    int cur = first;
-    float acc = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const int r = s_rank[i];
-      if (r != cur) {
-        film::flush(out + static_cast<size_t>(cur) * dim + d, acc, cur == first);
-        cur = r;
-        acc = 0.0f;
-      }
-      acc += film::round_bf16(film::ld(msgs + (e0 + i) * dim_in + d) * wk[i]);
-    }
-    atomicAdd(out + static_cast<size_t>(cur) * dim + d, acc);
+  const float* wk[ONE_HEAD ? 1 : VEC];
+#pragma unroll
+  for (int k = 0; k < (ONE_HEAD ? 1 : VEC); ++k) {
+    // Columns past D (masked) read the last head's weight.
+    wk[k] = s_w + it.off +
+            static_cast<size_t>(min((it.c + k) / head_dim, num_heads - 1)) * cap;
   }
+  const __nv_bfloat16* m_col = msgs + it.e0 * dim_in + it.c;
+  const int first = it.rk[0];
+  int cur = first;
+  float acc[VEC] = {};
+#pragma unroll 1
+  for (int i0 = 0; i0 < it.n; i0 += WSEG_AHEAD) {
+    int r[WSEG_AHEAD];
+    uint4 mv[WSEG_AHEAD];
+#pragma unroll
+    for (int u = 0; u < WSEG_AHEAD; ++u) {
+      // Past the chunk's end: the last edge again, loaded but not summed.
+      const int i = min(i0 + u, it.n - 1);
+      r[u] = it.rk[i];
+      mv[u] = load8<V>(m_col + static_cast<size_t>(i) * dim_in, it.valid);
+    }
+#pragma unroll
+    for (int u = 0; u < WSEG_AHEAD; ++u) {
+      const int i = i0 + u;
+      if (i >= it.n) break;
+      if (r[u] != cur) {
+        flush_row<V>(out + static_cast<size_t>(cur) * dim + it.c, acc,
+                     it.valid, cur == first);
+        cur = r[u];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        acc[k] += film::round_bf16(bf(mv[u], k) * wk[ONE_HEAD ? 0 : k][i]);
+      }
+    }
+  }
+  flush_row<V>(out + static_cast<size_t>(cur) * dim + it.c, acc, it.valid,
+               true);
 }
 
-// dim must be a multiple of num_heads, and num_heads * CHUNK floats must
-// fit the 48 KB of static-limit shared memory (the wrappers check both).
+template <bool HEAD_MAJOR, bool V, bool ONE_HEAD>
+inline int launch_fwd_as(const void* msgs, const void* w, const void* ranks,
+                         void* out, int num_edges, int dim, int dim_in,
+                         int num_heads, cudaStream_t stream) {
+  return film::launch_smem(
+      wseg_kernel<HEAD_MAJOR, V, ONE_HEAD>, rows_grid(num_edges, dim),
+      dim3(THREADS), rows_smem(dim, 1 + num_heads), stream,
+      static_cast<const __nv_bfloat16*>(msgs), static_cast<const float*>(w),
+      static_cast<const int*>(ranks), static_cast<float*>(out), num_edges, dim,
+      dim_in, num_heads);
+}
+
+// dim must be a multiple of num_heads, and num_heads at most 128 (the
+// wrappers check both): the block's ranks and weights, (1 + K) ints and
+// floats for each edge of the chunks its items reach, then take at most
+// 182 KB of shared memory (D 120, 120 heads), opted in above 48 KB.
 template <bool HEAD_MAJOR>
 inline int launch_fwd(const void* msgs, const void* w, const void* ranks,
                       void* out, int num_edges, int dim, int dim_in,
                       int num_heads, void* stream) {
   if (num_edges <= 0 || dim <= 0) return 0;
-  const size_t smem = static_cast<size_t>(num_heads) * film::CHUNK * sizeof(float);
-  wseg_kernel<HEAD_MAJOR><<<film::grid_for(num_edges), film::block_for(dim),
-                            smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(msgs), static_cast<const float*>(w),
-      static_cast<const int*>(ranks), static_cast<float*>(out), num_edges, dim,
-      dim_in, num_heads);
-  return static_cast<int>(cudaGetLastError());
+  if (num_heads <= 0 || dim % num_heads != 0 || dim > dim_in) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = dim % VEC == 0 && dim_in % VEC == 0 && aligned16(msgs) &&
+                   aligned16(out);
+  const bool one = (dim / num_heads) % VEC == 0;
+  if (vec) {
+    return one ? launch_fwd_as<HEAD_MAJOR, true, true>(
+                     msgs, w, ranks, out, num_edges, dim, dim_in, num_heads, s)
+               : launch_fwd_as<HEAD_MAJOR, true, false>(
+                     msgs, w, ranks, out, num_edges, dim, dim_in, num_heads, s);
+  }
+  return one ? launch_fwd_as<HEAD_MAJOR, false, true>(
+                   msgs, w, ranks, out, num_edges, dim, dim_in, num_heads, s)
+             : launch_fwd_as<HEAD_MAJOR, false, false>(
+                   msgs, w, ranks, out, num_edges, dim, dim_in, num_heads, s);
 }
 
 __device__ __forceinline__ float lo_bf16(unsigned x) {

@@ -29,8 +29,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # act id, stream).
 _FILM_ARGS = (_P,) * 4 + (_I,) * 3 + (_P,)
 # The per-head weighted segment-sums (K7a, K7b, K13a, K13b) share their
-# device code.
-_WSEG_HEADERS = ("wseg_common.cuh", "film_common.cuh")
+# device code; the forward walks K1's rows (film_rows.cuh).
+_WSEG_HEADERS = ("wseg_common.cuh", "film_rows.cuh", "film_common.cuh")
 # K1-K4 share their device code (film_rows.cuh); the K16 variants of K1
 # and K2 share those two's earlier walk (film_walk.cuh).
 _ROWS_HEADERS = ("film_rows.cuh", "film_common.cuh")
@@ -107,6 +107,11 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "act_agg_walk": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
     "rgat_src_bwd_walk": (("film_common.cuh",),
                           (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
+    # The earlier designs of K7a and K6a: msgs, w_t, ranks, out, num_edges,
+    # dim, dim_in, num_heads, stream; msgs_t, ranks, out, num_edges, rows,
+    # num_heads, stream
+    "wseg_t_walk": (("film_common.cuh",), (_P,) * 4 + (_I,) * 4 + (_P,)),
+    "segsum_t_walk": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
     # K16, the A/B variants of tools/ (tf_gnn_samples_torch/tools/):
     # msgs, gb, ranks, out, num_edges, dim, act id, variant, group, stream
     "film_fwd_ab": (_WALK_HEADERS, (_P,) * 4 + (_I,) * 5 + (_P,)),

@@ -66,7 +66,7 @@ the kernel does not take; it runs the plain PyTorch version beside it only
 for tensors on the CPU. `LAUNCHES` counts kernel launches, one per wrapper
 call that reached its kernel; it also counts those of the K16 variants of
 the harnesses in tf_gnn_samples_torch/tools/, one counter per kernel body,
-and those of the earlier designs of K3, K4, K9 and K12a
+and those of the earlier designs of K3, K4, K9, K12a, K7a and K6a
 (tools/earlier_designs.py). `FORM_LAUNCHES` counts K9's launches by form.
 
 Numerics follow the TPU kernels' rounding points: z is computed in f32
@@ -218,10 +218,11 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "film_dgb_v4": 0, "rowgather_loop": 0,
                             "rowgather_loop8": 0, "rowgather_take": 0,
                             "rowgather_onehot": 0,
-                            # the earlier designs of K3, K4, K12a and K9
-                            # (tools/earlier_designs.py)
+                            # the earlier designs of K3, K4, K12a, K9, K7a
+                            # and K6a (tools/earlier_designs.py)
                             "film_src_bwd_walk": 0, "film_bwd_walk": 0,
-                            "act_agg_walk": 0, "rgat_src_bwd_walk": 0}
+                            "act_agg_walk": 0, "rgat_src_bwd_walk": 0,
+                            "wseg_t_walk": 0, "segsum_t_walk": 0}
 # K9's launches (counted in LAUNCHES["rgat_src_bwd"]) by the form the
 # wrapper launched.
 FORM_LAUNCHES: Dict[str, int] = {"rgat_src_bwd gather": 0,
@@ -1134,9 +1135,11 @@ def _emlp1_src_bwd_impl(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
 # ---- the head-major attention kernels (K6, K7, K8, K9) -------------------
 
 # Most heads the wrappers of K7a and K7b accept. It is a round number well
-# above any config's 8, not either kernel's own limit: K7a stages K x 64
-# f32 weights in at most 48 KB of shared memory (K <= 192), K7b gives each
-# (edge, head) pair one of a block's 256 threads (K <= 256).
+# above any config's 8, and within both kernels' own limits: K7a stages
+# the ranks and K f32 weights of the up to 4,160 edges of a block's chunks
+# in shared memory (at 128 heads at most 182 KB of the 227 KB a block may
+# opt into; its earlier body, K x 64 weights in 48 KB: K <= 192), K7b
+# gives each (edge, head) pair one of a block's 256 threads (K <= 256).
 MAX_HEADS = 128
 
 

@@ -1,14 +1,16 @@
 """The earlier designs of K3 (`film_src_bwd`), K4 (`film_bwd`), K12a
-(`act_agg`) and K9 (`rgat_src_bwd`): a thread per column walking a 64-edge
-chunk with 2-byte loads (csrc/film_src_bwd_walk.cu, csrc/film_bwd_walk.cu,
-csrc/act_agg_walk.cu, csrc/rgat_src_bwd_walk.cu, unchanged from before
-their redesign; K12a's takes one stream slice a launch). No model path
-calls them: chip_smoke.py and the card tests hold the redesigned kernels
-to them (the same sums in the same order on every row of at most two
-64-edge chunks) and time the two in turns. Launches count under
-"film_src_bwd_walk", "film_bwd_walk", "act_agg_walk" and
-"rgat_src_bwd_walk". Tensors on the CPU take the kernels' plain
-versions."""
+(`act_agg`), K9 (`rgat_src_bwd`), K7a (`wseg_t`) and K6a (`segsum_t`): a
+thread per column walking a 64-edge chunk with 2-byte loads
+(csrc/film_src_bwd_walk.cu, csrc/film_bwd_walk.cu, csrc/act_agg_walk.cu,
+csrc/rgat_src_bwd_walk.cu, csrc/wseg_t_walk.cu), or, for K6a, a thread
+per run of 8 edges of one head (csrc/segsum_t_walk.cu), unchanged from
+before their redesign; K12a's takes one stream slice a launch. No model
+path calls them: chip_smoke.py and the card tests hold the redesigned
+kernels to them (the same sums in the same order on every row of at most
+two 64-edge chunks; K6a's: of at most two 8-edge runs) and time the two in
+turns. Launches count under "film_src_bwd_walk", "film_bwd_walk",
+"act_agg_walk", "rgat_src_bwd_walk", "wseg_t_walk" and "segsum_t_walk".
+Tensors on the CPU take the kernels' plain versions."""
 
 import torch
 
@@ -114,4 +116,48 @@ def rgat_src_bwd_walk(gcb_src, t_ext, ranks, *, table_rows, num_heads, clamp):
     if e:
         rs._call("rgat_src_bwd_walk", (gcb_src, t_ext, ranks, out),
                  (e, dim, k, float(clamp)))
+    return out
+
+
+def wseg_t_walk(msgs, w_t, ranks, *, table_rows, num_heads, d_used=None):
+    """K7a's function by its earlier design, from a bf16 stream [E, D
+    (+ extra)] of which the first `d_used` (default: all) columns are
+    aggregated, f32 head-major weights [K, E] and int32 ranks (the inputs
+    of `_wseg_t_impl`); f32 [table_rows, D] out."""
+    e, dim_in = msgs.shape
+    dim = d_used or dim_in
+    if (w_t.shape != (num_heads, e) or ranks.shape != (e,)
+            or dim > dim_in):
+        raise ValueError("wseg_t_walk: shapes %s, %s, %s, d_used %s" % (
+            tuple(msgs.shape), tuple(w_t.shape), tuple(ranks.shape), d_used))
+    rs._check_heads("wseg_t_walk", dim, num_heads)
+    if msgs.device.type == "cpu":
+        return rs._wseg_t_plain(msgs, w_t, ranks, table_rows, d_used)
+    rs._check_dtype("wseg_t_walk", msgs, torch.bfloat16)
+    rs._check_dtype("wseg_t_walk", w_t, torch.float32)
+    rs._check_ranks("wseg_t_walk", ranks)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=msgs.device)
+    if e:
+        rs._call("wseg_t_walk", (msgs, w_t, ranks, out),
+                 (e, dim, dim_in, num_heads))
+    return out
+
+
+def segsum_t_walk(msgs_t, ranks, *, table_rows):
+    """K6a's function by its earlier design, from an f32 head-major stream
+    [K, E] and int32 ranks (the inputs of `_segsum_t_impl`); f32
+    [K, table_rows] out."""
+    k, e = msgs_t.shape
+    if ranks.shape != (e,):
+        raise ValueError("segsum_t_walk: shapes %s, %s" % (
+            tuple(msgs_t.shape), tuple(ranks.shape)))
+    if msgs_t.device.type == "cpu":
+        return rs._segsum_t_plain(msgs_t, ranks, table_rows)
+    rs._check_dtype("segsum_t_walk", msgs_t, torch.float32)
+    rs._check_ranks("segsum_t_walk", ranks)
+    out = torch.zeros((k, table_rows), dtype=torch.float32,
+                      device=msgs_t.device)
+    if e and k:
+        rs._call("segsum_t_walk", (msgs_t, ranks, out), (e, table_rows, k))
     return out
