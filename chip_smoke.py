@@ -35,10 +35,16 @@ Phases, each of which raises on failure (no phase's failure is caught):
     branch's [E, D+K] stream through d_used and on that stream at D 320
     with 4 heads (648-byte rows, the 2-byte path): equal on every row of
     at most two chunks; K6a against its earlier body on its receiver and
-    its fine table: equal on every row of at most two 8-edge runs; each
-    timed beside that design in turns, with its queued time over its
-    bound. K7a's fused streams are also held against its plain version,
-    and K13a, which shares K7a's body, equal to K7a on the same inputs.
+    its fine table: equal on every row of at most two 8-edge runs; K10a
+    and K10b (tensor cores, gelu) beside their earlier bodies (scalar
+    f32 products): their sums take other orders, so each is held to the
+    plain version instead, the redesigns within an order-free bound
+    (typed_dense_agg_tc_check) and the earlier bodies within their
+    kernel-order one; each timed beside that design in turns, with its
+    queued time over its bound. Library calls and yardstick
+    compositions are timed queued too. K7a's fused streams are also held
+    against its plain version, and K13a, which shares K7a's body, equal
+    to K7a on the same inputs.
     K3 and K9 are timed in their gather forms (as the fused FiLM
     and RGAT backwards call them) and held equal to their stream forms;
     K4 in its split form, held equal to its gamma|beta|g form, its d_gb
@@ -170,6 +176,10 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     # the earlier designs of K7a and K6a, the same
     "wseg_t_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:1314",
     "segsum_t_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:1280",
+    # the earlier designs of K10a and K10b, the same
+    "typed_dense_agg_scalar": "tf_gnn_samples_tpu/ops/ranked_segment.py:1084",
+    "typed_dense_agg_bwd_scalar":
+        "tf_gnn_samples_tpu/ops/ranked_segment.py:1108",
 }
 # The CUDA source of each K16 kernel body, by its counter's prefix.
 K16_SOURCES = {"film_fwd": "film_fwd_ab", "film_dgb": "film_dgb_ab",
@@ -500,7 +510,8 @@ def kernel_order_products(torch, a, w, types):
     return y
 
 
-# The checks of K10 and K14 compute each edge's terms as the kernel does:
+# The checks of K14 and of K10's earlier bodies (typed_dense_agg_scalar,
+# typed_dense_agg_bwd_scalar) compute each edge's terms as the kernel does:
 # its typed products in its own order (kernel_order_products), and its
 # activations, their derivatives and the bf16 roundings by the plain
 # version's f32 expressions, which the kernels evaluate in the same
@@ -513,7 +524,9 @@ def kernel_order_products(torch, a, w, types):
 # round apart, and a dropped, doubled or misplaced term of any product
 # shows at once (tests/test_torch_chip_checks.py plants such faults). A
 # kernel that changes its order of the products changes
-# kernel_order_products with it.
+# kernel_order_products with it. K10a and K10b sum their products on the
+# tensor cores, in an order of their own: they are held by an order-free
+# bound instead (typed_dense_agg_tc_check, typed_dense_agg_bwd_tc_check).
 
 
 def typed_dense_agg_bounds(torch, rs, x, w, types, ranks, rows, act):
@@ -590,6 +603,186 @@ def typed_dense_agg_bwd_check(torch, rs, got, want, x, w, g16, types, ranks,
         raise AssertionError("typed_dense_agg_bwd disagrees with its plain "
                              "version")
     return max(float(err.max()), float(err_w.max()))
+
+
+# K10a and K10b form their typed products on the tensor cores
+# (csrc/typed_mma.cuh), which add each k-step's 16 exact bf16 products to
+# the f32 accumulator aligned to the largest addend and truncate the bits
+# shifted out, in an order of their own: an error below one f32 ulp
+# (2^-23) of the largest addend per addend and per normalisation. Their
+# checks take twice that, TC_UNIT = 2^-22 per term, and no order: an n-long
+# product sum lies within gamma_n = n TC_UNIT / (1 - n TC_UNIT) of
+# sum |a_k b_k| of its exact value, y computed in f64 here. An elementwise
+# function of y (the activation, its derivative) then lies in its range
+# over y's interval, widened by ACT_F32_SLACK (1 + |y|) for its own f32
+# evaluation, and a bf16 rounding of it between the roundings of that
+# range's ends (rounding is monotone): the bf16 neighbours y's interval
+# reaches. Within [y - b, y + b] a function is monotone between the points
+# of ACT_EXTREMA / DACT_EXTREMA, where its range's ends are taken too.
+TC_UNIT = 2.0 ** -22
+ACT_F32_SLACK = 2.0 ** -19
+ACT_EXTREMA = {"gelu": (-0.7517915,)}
+DACT_EXTREMA = {"gelu": (-math.sqrt(2.0), math.sqrt(2.0)), "tanh": (0.0,)}
+
+
+def tc_gamma(n):
+    """gamma_n at the tensor cores' unit TC_UNIT."""
+    return n * TC_UNIT / (1 - n * TC_UNIT)
+
+
+def typed_products_f64(torch, a, w, types):
+    """(y, s), f64 [E, D_out]: y[e] = a_e @ w[type_e] and s[e] = |a_e| @
+    |w[type_e]|, exact but for f64 rounding; 0 for an edge whose type is
+    not in [0, L)."""
+    y = torch.zeros((a.shape[0], w.shape[2]), dtype=torch.float64,
+                    device=a.device)
+    s = torch.zeros_like(y)
+    for l in range(w.shape[0]):
+        sel = (types == l).nonzero(as_tuple=True)[0]
+        if sel.numel():
+            al, wl = a.index_select(0, sel).double(), w[l].double()
+            y.index_copy_(0, sel, al @ wl)
+            s.index_copy_(0, sel, al.abs() @ wl.abs())
+    return y, s
+
+
+def fn_range(torch, fn, extrema, lo, hi):
+    """f64 (min, max) of the elementwise `fn` over [lo, hi], `fn` monotone
+    between the points `extrema`, widened by its f32 evaluation's slack."""
+    pts = [lo, hi] + [torch.minimum(torch.maximum(torch.full_like(lo, c), lo),
+                                     hi) for c in extrema]
+    vals = torch.stack([fn(p).double() for p in pts])
+    slack = ACT_F32_SLACK * (1 + torch.maximum(lo.abs(), hi.abs()))
+    return vals.min(0).values - slack, vals.max(0).values + slack
+
+
+def bf16_of(torch, v):
+    """The bf16 rounding of f64 values through f32 (as the kernels round
+    an f32 value), as f64: monotone, so it maps an interval's ends to the
+    ends of the roundings of every value inside."""
+    return v.float().to(torch.bfloat16).double()
+
+
+def typed_dz_interval(torch, rs, x, w, g16, types, ranks, act):
+    """(lo, hi), f64 [E, D]: the bf16 values dz = bf16(act'(y) g[rank]) may
+    take for y in its order-free interval; 0 for an edge of no type."""
+    y, s = typed_products_f64(torch, x, w, types)
+    b = tc_gamma(w.shape[1]) * s
+    dlo, dhi = fn_range(torch, rs._ACTS[act][1], DACT_EXTREMA.get(act, ()),
+                        y - b, y + b)
+    g = g16.index_select(0, ranks).double()
+    valid = ((types >= 0) & (types < w.shape[0]))[:, None]
+    lo = torch.where(valid, bf16_of(torch, torch.minimum(dlo * g, dhi * g)),
+                     0.0)
+    hi = torch.where(valid, bf16_of(torch, torch.maximum(dlo * g, dhi * g)),
+                     0.0)
+    return lo, hi
+
+
+def outside(torch, got, lo, hi):
+    """Entries of `got` outside [lo, hi] (elementwise), and whether all are
+    finite."""
+    v = got.double()
+    return int(((v < lo) | (v > hi)).sum()), bool(torch.isfinite(v).all())
+
+
+def typed_dense_agg_tc_check(torch, rs, got, want, x, w, types, ranks, rows,
+                             act):
+    """K10a's table (`got`) and the plain version's (`want`) on the same
+    inputs, each within the order-free bound: every term bf16(act(y_e))
+    one of the bf16 values y's interval reaches, [t_lo, t_hi], and the
+    table row the f32 sum of its n terms, in any order (chunk partials,
+    atomics): within sum t_lo - B and sum t_hi + B, B = 2 gamma_{n-1}
+    sum max|t| + n FLT_MIN (2^-24 units, as check_kernel). The two tables
+    cannot be held equal: they sum their products in other orders. Returns
+    max |kernel - plain|."""
+    y, s = typed_products_f64(torch, x, w, types)
+    b = tc_gamma(w.shape[1]) * s
+    flo, fhi = fn_range(torch, rs._ACTS[act][0], ACT_EXTREMA.get(act, ()),
+                        y - b, y + b)
+    valid = ((types >= 0) & (types < w.shape[0]))[:, None]
+    tlo = torch.where(valid, bf16_of(torch, flo), 0.0)
+    thi = torch.where(valid, bf16_of(torch, fhi), 0.0)
+    counts = row_counts(torch, rows, ranks).double()[:, None]
+    g = (counts - 1).clamp(min=0) * 2.0 ** -24
+    order = (2 * g / (1 - g) * per_row(torch, rows, ranks,
+                                       torch.maximum(tlo.abs(), thi.abs()))
+             + counts * 2.0 ** -126)
+    lo = per_row(torch, rows, ranks, tlo) - order
+    hi = per_row(torch, rows, ranks, thi) + order
+    bad, finite = outside(torch, got, lo, hi)
+    bad_plain, _ = outside(torch, want, lo, hi)
+    err = float((got.double() - want.double()).abs().max())
+    print("  typed_dense_agg: max |kernel - plain| = %.3e; entries outside "
+          "the order-free bound (unit 2^-22): kernel %d, plain %d; entries "
+          "whose terms may round two ways: %d of %d"
+          % (err, bad, bad_plain, int((tlo != thi).sum()), tlo.numel()))
+    if bad or bad_plain or not finite:
+        raise AssertionError("typed_dense_agg disagrees with its plain "
+                             "version")
+    return err
+
+
+def typed_dense_agg_bwd_tc_check(torch, rs, got, want, x, w, g16, types,
+                                 ranks, act):
+    """K10b's (dx, dW) (`got`) and the plain version's (`want`) on the same
+    inputs, within the order-free bound: dz one of the bf16 values
+    [z_lo, z_hi] that y's interval reaches (typed_dz_interval); dx =
+    bf16(dz W^T) summed over D in any order, so between the bf16 roundings
+    of mid W^T -+ (half |W|^T + gamma_D max|z| |W|^T), mid and half the
+    centre and half-width of the dz interval (0 for an edge of no type).
+    dW[l] sums the type's n exact products x * dz in f32 (the tensor cores
+    within blocks, atomics across them), in another order on every run:
+    elementwise within |x_l|^T half + gamma_n |x_l|^T max|z| (+ n FLT_MIN)
+    of x_l^T mid, a guard only at n near 10^5; and per type by norm,
+    |dW - dW_plain| <= 1e-4 |dW_plain| + | |x_l|^T (z_hi - z_lo) |: both
+    dz lie in the interval, and f32 rounding of n-term sums grows about as
+    sqrt(n) u. Returns the larger max |kernel - plain|."""
+    (dx, dw), (dx_want, dw_want) = got, want
+    zlo, zhi = typed_dz_interval(torch, rs, x, w, g16, types, ranks, act)
+    mid, half = (zlo + zhi) / 2, (zhi - zlo) / 2
+    zmax = torch.maximum(zlo.abs(), zhi.abs())
+    valid = ((types >= 0) & (types < w.shape[0]))[:, None]
+    wt = w.transpose(1, 2)
+    dxm, _ = typed_products_f64(torch, mid, wt, types)
+    dxh, _ = typed_products_f64(torch, half, wt.abs(), types)
+    _, dxs = typed_products_f64(torch, zmax, wt, types)
+    reach = dxh + tc_gamma(w.shape[2]) * dxs
+    dlo = torch.where(valid, bf16_of(torch, dxm - reach), 0.0)
+    dhi = torch.where(valid, bf16_of(torch, dxm + reach), 0.0)
+    bad, finite = outside(torch, dx, dlo, dhi)
+    bad_plain, _ = outside(torch, dx_want, dlo, dhi)
+    bad_w, worst_norm = 0, 0.0
+    for l in range(w.shape[0]):
+        sel = (types == l).nonzero(as_tuple=True)[0]
+        n = sel.numel()
+        xl = x.index_select(0, sel).double()
+        ref = xl.t() @ mid.index_select(0, sel)
+        allowed = (xl.abs().t() @ half.index_select(0, sel)
+                   + tc_gamma(n) * (xl.abs().t() @ zmax.index_select(0, sel))
+                   + n * 2.0 ** -126)
+        for got_w in (dw[l], dw_want[l]):
+            bad_w += int(((got_w.double() - ref).abs() > allowed).sum())
+        spread = float(torch.linalg.norm(
+            xl.abs().t() @ (zhi - zlo).index_select(0, sel)))
+        want_norm = float(torch.linalg.norm(dw_want[l].double()))
+        diff = float(torch.linalg.norm(dw[l].double() - dw_want[l].double()))
+        if diff > 1e-4 * want_norm + spread:
+            bad_w += 1
+        worst_norm = max(worst_norm, diff / max(want_norm, 1e-30))
+    err_x = float((dx.double() - dx_want.double()).abs().max())
+    err_w = float((dw.double() - dw_want.double()).abs().max())
+    print("  typed_dense_agg_bwd: max |kernel - plain| = %.3e (dx; entries "
+          "outside the order-free bound: kernel %d, plain %d; dz entries "
+          "that may round two ways: %d of %d), %.3e (dW; |dW - dW_plain| / "
+          "|dW_plain| <= %.3e per type); dW entries and types over the "
+          "bound: %d" % (err_x, bad, bad_plain, int((zlo != zhi).sum()),
+                         zlo.numel(), err_w, worst_norm, bad_w))
+    if (bad or bad_plain or bad_w or not finite
+            or not bool(torch.isfinite(dw).all())):
+        raise AssertionError("typed_dense_agg_bwd disagrees with its plain "
+                             "version")
+    return max(err_x, err_w)
 
 
 def emlp1_src_bwd_terms(torch, rs, gcb, t_rows, cols, w, e_real, act):
@@ -901,6 +1094,7 @@ def kernel_phase(torch, rs, dev):
     x10, g10 = randn(e, d), randn(rows, d)
     w10 = (torch.randn((n_types, d, d), generator=gen, device=dev)
            / math.sqrt(d)).to(torch.bfloat16)
+    # The kernel-order bound of K10a's earlier body (typed_dense_agg_scalar).
     k10_abs, k10_counts, k10_slack = typed_dense_agg_bounds(
         torch, rs, x10, w10, types, rcv, rows, "gelu")
     sizes10 = torch.bincount(types, minlength=n_types).tolist()
@@ -1124,16 +1318,16 @@ def kernel_phase(torch, rs, dev):
         # K10a reads the bf16 stream, the types, the ranks and the weights
         # and writes the used table rows; per element of the output a
         # D-long product (on the tensor cores: 2 E D^2 bf16 operations)
-        # and gelu.
+        # and gelu. Held to the plain version by the order-free bound
+        # (typed_dense_agg_tc_check).
         dict(name="typed_dense_agg",
              kern=lambda: rs._typed_dense_agg_impl(x10, w10, types,
                                                    rcv, table_rows=rows,
                                                    act="gelu"),
              plain=lambda: rs._typed_dense_agg_plain(x10, w10, types, rcv,
                                                      rows, "gelu"),
-             check=lambda got, want: check_kernel(
-                 "typed_dense_agg", got, want, k10_abs, k10_counts, torch,
-                 slack=k10_slack),
+             check=lambda got, want: typed_dense_agg_tc_check(
+                 torch, rs, got, want, x10, w10, types, rcv, rows, "gelu"),
              nbytes=(e * d * 2 + 2 * e * 4 + n_types * d * d * 2
                      + n_rcv * d * 4),
              nops=30 * e * d, tensor_ops=2 * e * d * d,
@@ -1142,13 +1336,14 @@ def kernel_phase(torch, rs, dev):
         # K10b reads the stream, the types, the ranks, the weights and the
         # used rows of the bf16 cotangent table and writes dx (bf16) and
         # dW (f32); three D-long products per element (6 E D^2 bf16
-        # operations on the tensor cores) and gelu'.
+        # operations on the tensor cores) and gelu'. Held by the
+        # order-free bound (typed_dense_agg_bwd_tc_check).
         dict(name="typed_dense_agg_bwd",
              kern=lambda: rs._typed_dense_agg_bwd_impl(x10, w10, g10, types,
                                                        rcv, act="gelu"),
              plain=lambda: rs._typed_dense_agg_bwd_plain(x10, w10, g10,
                                                          types, rcv, "gelu"),
-             check=lambda got, want: typed_dense_agg_bwd_check(
+             check=lambda got, want: typed_dense_agg_bwd_tc_check(
                  torch, rs, got, want, x10, w10, g10, types, rcv, "gelu"),
              nbytes=(2 * e * d * 2 + 2 * e * 4 + n_rcv * d * 2
                      + n_types * d * d * (2 + 4)),
@@ -1429,6 +1624,49 @@ def kernel_phase(torch, rs, dev):
         b = max((heads * e * 4 + e * 4 + heads * rows_v * 4)
                 / HBM_BYTES_PER_S, heads * e / F32_FLOPS) * 1e3
         k6a_bounds[v] = {"new": b, "earlier": b}
+    k10_bounds = {
+        name: {"gelu": {"new": b, "earlier": b}} for name, b in (
+            ("typed_dense_agg", max(
+                (e * d * 2 + 2 * e * 4 + n_types * d * d * 2 + n_rcv * d * 4)
+                / HBM_BYTES_PER_S, 2 * e * d * d / BF16_TENSOR_FLOPS,
+                30 * e * d / F32_FLOPS) * 1e3),
+            ("typed_dense_agg_bwd", max(
+                (2 * e * d * 2 + 2 * e * 4 + n_rcv * d * 2
+                 + n_types * d * d * (2 + 4)) / HBM_BYTES_PER_S,
+                6 * e * d * d / BF16_TENSOR_FLOPS,
+                45 * e * d / F32_FLOPS) * 1e3))}
+
+    def k10_design_check(new_check, earlier_check):
+        """K10a's or K10b's redesign (`got`) against its earlier body
+        (`earlier`), gelu: the two sum their typed products in other orders
+        (the tensor cores' against the index order), so no entry need be
+        equal; each is held to the plain version instead, the redesign by
+        the order-free bound and the earlier body by the kernel-order
+        one."""
+        def check(torch, name, got, earlier, ranks):
+            print("  %s, each against the plain version:" % name)
+            new_check(got, "gelu")
+            earlier_check(earlier, "gelu")
+        return check
+
+    def k10a_plain(act_v):
+        return rs._typed_dense_agg_plain(x10, w10, types, rcv, rows, act_v)
+
+    def k10b_plain(act_v):
+        return rs._typed_dense_agg_bwd_plain(x10, w10, g10, types, rcv, act_v)
+
+    def k10a_earlier_check(got, act_v):
+        """K10a's earlier body within the kernel-order bound."""
+        abs_v, counts_v, slack_v = typed_dense_agg_bounds(
+            torch, rs, x10, w10, types, rcv, rows, act_v)
+        return check_kernel("typed_dense_agg_scalar", got, k10a_plain(act_v),
+                            abs_v, counts_v, torch, slack=slack_v)
+
+    def k10b_earlier_check(got, act_v):
+        """K10b's earlier body within the kernel-order bound."""
+        return typed_dense_agg_bwd_check(torch, rs, got, k10b_plain(act_v),
+                                         x10, w10, g10, types, rcv, act_v)
+
     designs = {
         "film_fwd": lambda: earlier_design(
             torch, "film_fwd",
@@ -1496,6 +1734,33 @@ def kernel_phase(torch, rs, dev):
             {v: t[0] for v, t in k6_tables.items()},
             check=segsum_t_design_check, variants=tuple(k6_tables),
             bounds=k6a_bounds),
+        # K10a and K10b (gelu, as GNN-Edge-MLP1 runs them) against their
+        # earlier bodies (scalar f32 products) on the fused1 branch's
+        # inputs at the QM9 batch.
+        "typed_dense_agg": lambda: earlier_design(
+            torch, "typed_dense_agg",
+            lambda a: rs._typed_dense_agg_impl(x10, w10, types, rcv,
+                                               table_rows=rows, act=a),
+            lambda a: earlier_designs.typed_dense_agg_scalar(
+                x10, w10, types, rcv, table_rows=rows, act=a),
+            rcv, variants=("gelu",),
+            check=k10_design_check(
+                lambda got, a: typed_dense_agg_tc_check(
+                    torch, rs, got, k10a_plain(a), x10, w10, types, rcv, rows,
+                    a), k10a_earlier_check),
+            bounds=k10_bounds["typed_dense_agg"]),
+        "typed_dense_agg_bwd": lambda: earlier_design(
+            torch, "typed_dense_agg_bwd",
+            lambda a: rs._typed_dense_agg_bwd_impl(x10, w10, g10, types, rcv,
+                                                   act=a),
+            lambda a: earlier_designs.typed_dense_agg_bwd_scalar(
+                x10, w10, g10, types, rcv, act=a),
+            rcv, variants=("gelu",),
+            check=k10_design_check(
+                lambda got, a: typed_dense_agg_bwd_tc_check(
+                    torch, rs, got, k10b_plain(a), x10, w10, g10, types, rcv,
+                    a), k10b_earlier_check),
+            bounds=k10_bounds["typed_dense_agg_bwd"]),
     }
     results = []
     for spec in specs:
@@ -1526,22 +1791,28 @@ def kernel_phase(torch, rs, dev):
         }
         if name in designs:
             row["earlier_design"] = designs[name]()
+        # The library call and the yardstick are timed both ways too, so
+        # that each compares with the kernel's queued time like for like.
         if "library" in spec:
             what, fn = spec["library"]
             row["library_ms"] = cuda_ms(fn)
-            other = "library (%s) %.4f ms" % (what, row["library_ms"])
+            row["library_queued_ms"] = cuda_queued_ms(fn)
+            other = "library (%s) %.4f ms (%.4f queued)" % (
+                what, row["library_ms"], row["library_queued_ms"])
         elif "yardstick" in spec:
             what, fn = spec["yardstick"]
             row["yardstick_ms"] = cuda_ms(fn)
+            row["yardstick_queued_ms"] = cuda_queued_ms(fn)
             row["yardstick"] = what
             other = ("no single PyTorch call computes this function; "
-                     "yardstick: %s %.4f ms" % (what, row["yardstick_ms"]))
+                     "yardstick: %s %.4f ms (%.4f queued)"
+                     % (what, row["yardstick_ms"], row["yardstick_queued_ms"]))
         else:
             other = "no single PyTorch call computes this function"
         # The bound's two terms, and for K10 and K14 what their typed
-        # products take at the f32 rate (the kernels form them with scalar
-        # f32 multiplies and adds): computed, not measured, so printed
-        # here and kept out of the kernels line.
+        # products take at the f32 rate (K14 and K10's earlier bodies form
+        # them with scalar f32 multiplies and adds): computed, not
+        # measured, so printed here and kept out of the kernels line.
         products = ("; the typed products at the f32 rate %.4f ms"
                     % (spec["tensor_ops"] / F32_FLOPS * 1e3)
                     if "tensor_ops" in spec else "")
@@ -1575,13 +1846,13 @@ def kernel_phase(torch, rs, dev):
                   % (name, json.dumps(extra[name]), row["mean_slice_ms"],
                      row["mean_slice_queued_ms"]))
         results.append(row)
-    # The earlier bodies of K12a, K9, K7a and K6a, rows of their own (no
-    # model path launches them): within the order bound of the plain
-    # version, timed in turns with the redesign above at the main path's
-    # shapes (K12a: the layer's four slices, a launch each; K9: D 128, 8
-    # heads, on the stream; K7a: the streamed branch's stream; K6a: the
-    # receiver table). The plain version and the bound are their
-    # function's.
+    # The earlier bodies of K12a, K9, K7a, K6a, K10a and K10b, rows of
+    # their own (no model path launches them): within the order bound of
+    # the plain version, timed in turns with the redesign above at the main
+    # path's shapes (K12a: the layer's four slices, a launch each; K9: D
+    # 128, 8 heads, on the stream; K7a: the streamed branch's stream; K6a:
+    # the receiver table; K10: the fused1 branch's inputs, gelu). The plain
+    # version and the bound are their function's.
     layer = k12a("layer", k12a_parts["layer"])
     walks = {
         "act_agg_walk": ("act_agg", "layer", lambda: layer["check"](
@@ -1605,7 +1876,16 @@ def kernel_phase(torch, rs, dev):
                               rs._bf16_terms(m_t).t())(
                                   earlier_designs.segsum_t_walk(
                                       m_t, rcv, table_rows=rows).t(),
-                                  rs._segsum_t_plain(m_t, rcv, rows).t()))}
+                                  rs._segsum_t_plain(m_t, rcv, rows).t())),
+        "typed_dense_agg_scalar": (
+            "typed_dense_agg", "gelu", lambda: k10a_earlier_check(
+                earlier_designs.typed_dense_agg_scalar(
+                    x10, w10, types, rcv, table_rows=rows, act="gelu"),
+                "gelu")),
+        "typed_dense_agg_bwd_scalar": (
+            "typed_dense_agg_bwd", "gelu", lambda: k10b_earlier_check(
+                earlier_designs.typed_dense_agg_bwd_scalar(
+                    x10, w10, g10, types, rcv, act="gelu"), "gelu"))}
     for name, (new_name, v, err) in walks.items():
         new_row = next(r for r in results if r["name"] == new_name)
         times = new_row["earlier_design"][v]
@@ -1712,11 +1992,12 @@ def earlier_design(torch, name, new, earlier, ranks, check=film_design_check,
                    bounds=None):
     """A redesigned kernel (`new(v)`) against its earlier design
     (`earlier(v)`) for each variant v: the activations elu (the main
-    path's) and relu (the harness's) for K1-K4, the shapes for K9, K12a
-    and K7a, the tables for K6a. `check` (the same sums in the same order:
-    film_design_check, or K12a's slices_design_check, K4's
-    film_bwd_design_check, K6a's segsum_t_design_check; `ranks` the ranks
-    it takes, or a dict of them by variant), then each one's single-call and
+    path's) and relu (the harness's) for K1-K4, gelu for K10, the shapes
+    for K9, K12a and K7a, the tables for K6a. `check` (the same sums in
+    the same order: film_design_check, or K12a's slices_design_check, K4's
+    film_bwd_design_check, K6a's segsum_t_design_check; for K10, whose
+    orders differ, each held to the plain version; `ranks` the ranks it
+    takes, or a dict of them by variant), then each one's single-call and
     queued times, means of two timings each taken in turns (earlier, new,
     new, earlier; with `other`, another form of the new kernel that is
     checked and timed too: earlier, new, other, other, new, earlier).

@@ -1,11 +1,14 @@
 """The checks that `chip_smoke.py` and `tests/test_torch_cuda.py` hold the
-K10, K13, K14, K15 and K16 FiLM kernels, K1-K4, K9, K12a and K6a against
-their earlier designs, K3's and K9's gather forms against their stream forms
-and K4's d_gb against K2's, to, on the CPU: each accepts the kernel's
-math taken in another summation order (emulated here, independently of
-the checks' helpers) against the plain version's, and rejects a planted
-fault: a product that drops its last term, a dx sum that stops one column
-short, a zero or partial dW or d_w, an edge past e_real that is counted, a
+K10, K13, K14, K15 and K16 FiLM kernels, K10's earlier bodies, K1-K4, K9,
+K12a and K6a against their earlier designs, K3's and K9's gather forms
+against their stream forms and K4's d_gb against K2's, to, on the CPU:
+each accepts the kernel's math taken in another summation order (emulated
+here, independently of the checks' helpers; K10's on the tensor cores:
+16-product k-steps truncated into an f32 accumulator) against the plain
+version's, and rejects a planted fault: a product that drops its last
+term, a dx sum that stops one column short, a zero or partial dW or d_w,
+one edge's product taken with another type's weights, an edge past
+e_real that is counted, a
 term dropped or weighted by the wrong head, a mask one bit off, the wrong
 leak, a row summed through its chunks or pairwise inside one, a fill slot
 that reads a real row, a message cotangent one bf16 step off, K12a's
@@ -22,9 +25,10 @@ from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
                         film_variant_check, hand_kernel_names, hand_kernel_of,
                         head_dw_check, kernel_order_products, masked_terms,
                         seam_rows, segsum_t_design_check, slices_design_check,
-                        src_gather_check, src_terms,
-                        typed_dense_agg_bounds,
-                        typed_dense_agg_bwd_check)
+                        src_gather_check, src_terms, tc_gamma,
+                        typed_dense_agg_bounds, typed_dense_agg_bwd_check,
+                        typed_dense_agg_bwd_tc_check,
+                        typed_dense_agg_tc_check)
 from tf_gnn_samples_torch.ops import ranked_segment as rs
 from tf_gnn_samples_torch.ops.graph import SD_FILL
 
@@ -115,6 +119,144 @@ def test_k10_checks_accept_the_kernel_order_and_reject_planted_faults(
                 check()
         else:
             check()
+
+
+def rz_f32(v):
+    """f64 values rounded toward zero to f32 (as f64)."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)),
+                       f).double()
+
+
+def tc_order_products(a, w, types, k_step=16):
+    """y[e] = a_e @ w[type_e], f32 [E, D_out], summed as the tensor cores
+    sum it: each k-step's `k_step` exact products added to the f32
+    accumulator and the sum truncated toward zero; 0 for an edge of no
+    type."""
+    y = torch.zeros((a.shape[0], w.shape[2]), device=a.device)
+    for l in range(w.shape[0]):
+        sel = (types == l).nonzero(as_tuple=True)[0]
+        if not sel.numel():
+            continue
+        al, wl = a.index_select(0, sel).double(), w[l].double()
+        acc = torch.zeros((sel.numel(), w.shape[2]), dtype=torch.float64,
+                          device=a.device)
+        for k0 in range(0, w.shape[1], k_step):
+            acc = rz_f32(acc + al[:, k0:k0 + k_step] @ wl[k0:k0 + k_step])
+        y.index_copy_(0, sel, acc.float())
+    return y
+
+
+def k10_tc_emulated(fault, x, w, g16, types, ranks, rows, act, k_step=16):
+    """K10a's table and K10b's (dx, dW) as the tensor-core kernels form
+    them (tc_order_products; dW over 16-edge k-steps of each type's edges,
+    the table summed in reverse stream order), with `fault` planted."""
+    fn, dact = rs._ACTS[act]
+    n_types = w.shape[0]
+    xk, wk, kinds = x, w, types
+    if fault == "product_drops_last_term":
+        xk, wk = x[:, :-1], w[:, :-1]
+    if fault == "wrong_type_weight":
+        kinds = types.clone()
+        e = int(((types >= 0) & (types < n_types)).nonzero()[0])
+        kinds[e] = (types[e] + 1) % n_types
+    y = tc_order_products(xk, wk, kinds, k_step)
+    table = torch.zeros((rows, w.shape[2]), device=x.device).index_add_(
+        0, ranks.flip(0), rs._bf16_terms(fn(y)).flip(0))
+    valid = ((kinds >= 0) & (kinds < n_types))[:, None]
+    dz = torch.where(valid, dact(y) * g16.index_select(0, ranks).float(),
+                     0.0).to(torch.bfloat16)
+    wt = w.transpose(1, 2)
+    if fault == "dx_drops_last_term":
+        dx = tc_order_products(dz[:, :-1], wt[:, :-1], kinds, k_step)
+    else:
+        dx = tc_order_products(dz, wt, kinds, k_step)
+    dw = torch.zeros(w.shape, device=x.device)
+    first = 128 if fault == "dw_drops_block" else 0
+    for l in range(n_types):
+        sel = (kinds[first:] == l).nonzero(as_tuple=True)[0] + first
+        xl, zl = x.index_select(0, sel).double(), dz.index_select(
+            0, sel).double()
+        acc = torch.zeros(w.shape[1:], dtype=torch.float64, device=x.device)
+        for k0 in range(0, sel.numel(), 16):
+            acc = rz_f32(acc + xl[k0:k0 + 16].t() @ zl[k0:k0 + 16])
+        dw[l] = acc.float()
+    if fault == "dw_zero":
+        dw.zero_()
+    return table, (dx.to(torch.bfloat16), dw)
+
+
+def k10_tc_checks(table, grads, x, w, g16, types, ranks, rows, act):
+    """The order-free checks of K10a and K10b on an emulated output."""
+    def fwd():
+        typed_dense_agg_tc_check(
+            torch, rs, table,
+            rs._typed_dense_agg_plain(x, w, types, ranks, rows, act),
+            x, w, types, ranks, rows, act)
+
+    def bwd():
+        typed_dense_agg_bwd_tc_check(
+            torch, rs, grads,
+            rs._typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act),
+            x, w, g16, types, ranks, act)
+
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu", "tanh"])
+@pytest.mark.parametrize("fault", ["none", "product_drops_last_term",
+                                   "dx_drops_last_term", "dw_zero",
+                                   "dw_drops_block", "wrong_type_weight"])
+def test_k10_tc_checks_accept_a_tensor_core_order_and_reject_planted_faults(
+        fault, act):
+    x, w, g16, types, ranks, rows = k10_inputs()
+    table, grads = k10_tc_emulated(fault, x, w, g16, types, ranks, rows, act)
+    fwd, bwd = k10_tc_checks(table, grads, x, w, g16, types, ranks, rows,
+                             act)
+    for check, planted in ((fwd, fault in ("product_drops_last_term",
+                                           "wrong_type_weight")),
+                           (bwd, fault != "none")):
+        if planted:
+            with pytest.raises(AssertionError):
+                check()
+        else:
+            check()
+
+
+@pytest.mark.parametrize("act", ["relu", "elu", "gelu"])
+@pytest.mark.parametrize("order", ["index", "k_step 8", "k_step 32"])
+def test_k10_tc_checks_take_any_summation_order(order, act):
+    """The order-free checks also take the earlier bodies' index order and
+    tensor cores that add 8 or 32 products a step."""
+    x, w, g16, types, ranks, rows = k10_inputs(seed=3)
+    if order == "index":
+        table, grads = k10_emulated("none", x, w, g16, types, ranks, rows,
+                                    act)
+    else:
+        table, grads = k10_tc_emulated("none", x, w, g16, types, ranks, rows,
+                                       act, k_step=int(order.split()[1]))
+    for check in k10_tc_checks(table, grads, x, w, g16, types, ranks, rows,
+                               act):
+        check()
+
+
+def test_tensor_core_order_truncates_within_the_stated_unit():
+    """The emulated tensor-core sums differ from round-to-nearest ones and
+    stay within tc_gamma(K) sum |a_k b_k| of the exact product."""
+    x, w, _, types, _, _ = k10_inputs(seed=4)
+    y = tc_order_products(x, w, types)
+    n_types = w.shape[0]
+    valid = (types >= 0) & (types < n_types)
+    exact = torch.zeros(y.shape, dtype=torch.float64)
+    mags = torch.zeros_like(exact)
+    for l in range(n_types):
+        sel = (types == l).nonzero(as_tuple=True)[0]
+        exact[sel] = x[sel].double() @ w[l].double()
+        mags[sel] = x[sel].double().abs() @ w[l].double().abs()
+    err = (y.double() - exact).abs()
+    assert bool((err <= tc_gamma(w.shape[1]) * mags).all())
+    assert bool((y[valid] != exact[valid].float()).any())
 
 
 def k14_inputs(seed=1, e=2048, l_eff=3):

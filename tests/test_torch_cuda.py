@@ -21,8 +21,11 @@ import torch
 from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
                         head_dw_check, masked_terms, rgat_src_bwd_bounds,
                         seam_rows, typed_dense_agg_bounds,
-                        typed_dense_agg_bwd_check)
-from test_torch_chip_checks import k10_emulated, k14_emulated
+                        typed_dense_agg_bwd_check,
+                        typed_dense_agg_bwd_tc_check,
+                        typed_dense_agg_tc_check)
+from test_torch_chip_checks import k10_tc_emulated, k14_emulated
+from tf_gnn_samples_torch.tools import earlier_designs
 from tf_gnn_samples_torch.nn import layers
 from tf_gnn_samples_torch.ops import ranked_segment as rs
 from tf_gnn_samples_torch.ops.graph import (SD_FILL, graph_to_device,
@@ -820,8 +823,9 @@ def test_edge_mlp_layer_on_card_matches_cpu(dev, ranked_graph, kind):
 
 # ---- K10, K14: the typed dense aggregate and the Edge-MLP1 source pass -------
 
-# (D_h, D): the tuned width, two widths that are no multiple of 8 and D_h
-# != D; K10b stages 128 x (D_h + D) bf16 values, above 48 KB from 96 on.
+# (D_h, D): the tuned width, two widths that are no multiple of 8 (the
+# tensor-core kernels pad them to 16 in shared memory, with 2-byte loads)
+# and D_h != D.
 K10_CASES = [(128, 128), (44, 44), (64, 200)]
 
 
@@ -830,11 +834,13 @@ K10_CASES = [(128, 128), (44, 44), (64, 200)]
 def test_typed_dense_agg_matches_plain_on_card(dev, ranked_graph, act, dh, d):
     """K10a and K10b against their plain versions over the receiver-sorted
     stream and its edge types (a few set out of range: they add nothing).
-    The kernels form each product in f32 in another order than the plain
-    version's matmul: each output may differ from the plain version's by no
-    more than the same math in the kernel's order does, plus the order
-    bound of the sums (typed_dense_agg_bounds and typed_dense_agg_bwd_check
-    state the bounds; dW is also held by norm)."""
+    The kernels sum each product on the tensor cores, in an order of their
+    own: each output within the order-free bound (typed_dense_agg_tc_check,
+    typed_dense_agg_bwd_tc_check: y within gamma_Dh sum |x w| of its f64
+    value at the unit 2^-22; dW also held by norm). Their earlier bodies
+    (tools/earlier_designs.py, scalar f32 products in index order) within
+    the kernel-order bound (typed_dense_agg_bounds,
+    typed_dense_agg_bwd_check)."""
     flat = ranked_graph.flat
     ranks, rows = flat.rcv_rank, rs.rank_table_rows(ranked_graph.n_pad, 256)
     e = ranks.shape[0]
@@ -849,27 +855,41 @@ def test_typed_dense_agg_matches_plain_on_card(dev, ranked_graph, act, dh, d):
     got = rs._typed_dense_agg_impl(x, w, types, ranks, table_rows=rows,
                                    act=act)
     dx, dw = rs._typed_dense_agg_bwd_impl(x, w, g16, types, ranks, act=act)
+    earlier = earlier_designs.typed_dense_agg_scalar(x, w, types, ranks,
+                                                     table_rows=rows, act=act)
+    earlier_bwd = earlier_designs.typed_dense_agg_bwd_scalar(
+        x, w, g16, types, ranks, act=act)
     torch.cuda.synchronize()
     assert {k: rs.LAUNCHES[k] - before[k] for k in before} == dict(
-        {k: 0 for k in before}, typed_dense_agg=1, typed_dense_agg_bwd=1)
+        {k: 0 for k in before}, typed_dense_agg=1, typed_dense_agg_bwd=1,
+        typed_dense_agg_scalar=1, typed_dense_agg_bwd_scalar=1)
     assert got.dtype == torch.float32 and got.shape == (rows, d)
     assert dx.dtype == torch.bfloat16 and dx.shape == (e, dh)
     assert dw.dtype == torch.float32 and dw.shape == w.shape
+    plain = rs._typed_dense_agg_plain(x, w, types, ranks, rows, act)
+    typed_dense_agg_tc_check(torch, rs, got, plain, x, w, types, ranks, rows,
+                             act)
+    plain_bwd = rs._typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act)
+    typed_dense_agg_bwd_tc_check(torch, rs, (dx, dw), plain_bwd, x, w, g16,
+                                 types, ranks, act)
+    assert (dx[types >= ranked_graph.num_edge_types] == 0).all()
     abs_sums, counts, slack = typed_dense_agg_bounds(torch, rs, x, w, types,
                                                      ranks, rows, act)
-    check_kernel("typed_dense_agg", got,
-                 rs._typed_dense_agg_plain(x, w, types, ranks, rows, act),
-                 abs_sums, counts, torch, slack=slack)
-    plain_bwd = rs._typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act)
-    typed_dense_agg_bwd_check(torch, rs, (dx, dw), plain_bwd, x, w, g16,
+    check_kernel("typed_dense_agg_scalar", earlier, plain, abs_sums, counts,
+                 torch, slack=slack)
+    typed_dense_agg_bwd_check(torch, rs, earlier_bwd, plain_bwd, x, w, g16,
                               types, ranks, act)
-    assert (dx[types >= ranked_graph.num_edge_types] == 0).all()
-    # The same check fails a planted dW = 0 and a dx sum one column short.
-    for fault in ("dw_zero", "dx_drops_last_term"):
-        _, planted = k10_emulated(fault, x, w, g16, types, ranks, rows, act)
+    # The same checks fail a planted dW = 0, a dx sum one column short and
+    # one edge's products taken with another type's weights.
+    for fault in ("dw_zero", "dx_drops_last_term", "wrong_type_weight"):
+        table, planted = k10_tc_emulated(fault, x, w, g16, types, ranks, rows,
+                                         act)
         with pytest.raises(AssertionError):
-            typed_dense_agg_bwd_check(torch, rs, planted, plain_bwd, x, w,
-                                      g16, types, ranks, act)
+            typed_dense_agg_bwd_tc_check(torch, rs, planted, plain_bwd, x, w,
+                                         g16, types, ranks, act)
+    with pytest.raises(AssertionError):
+        typed_dense_agg_tc_check(torch, rs, table, plain, x, w, types, ranks,
+                                 rows, act)
 
 
 @pytest.mark.parametrize("d", [128, 44])
@@ -941,6 +961,14 @@ def test_k10_k14_wrappers_refuse_what_the_kernels_do_not_take(dev,
     with pytest.raises(ValueError):  # a stream that is a column slice
         rs._typed_dense_agg_impl(torch.zeros((e, 32), **bf)[:, :16], w, types,
                                  ranks, table_rows=8, act="gelu")
+    with pytest.raises(ValueError):  # nine types
+        rs._typed_dense_agg_impl(x, torch.zeros((9, 16, 16), **bf), types,
+                                 ranks, table_rows=8, act="gelu")
+    with pytest.raises(ValueError):  # K10b's rows over its shared memory
+        rs._typed_dense_agg_bwd_impl(torch.zeros((e, 256), **bf),
+                                     torch.zeros((5, 256, 256), **bf),
+                                     torch.zeros((8, 256), **bf), types,
+                                     ranks, act="gelu")
     src = flat.src_sorted_rank
     rows = flat.src_from_rank.shape[0]
     cols = torch.zeros(rows, device=dev, dtype=torch.int32)

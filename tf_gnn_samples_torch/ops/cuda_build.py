@@ -35,6 +35,9 @@ _WSEG_HEADERS = ("wseg_common.cuh", "film_rows.cuh", "film_common.cuh")
 # and K2 share those two's earlier walk (film_walk.cuh).
 _ROWS_HEADERS = ("film_rows.cuh", "film_common.cuh")
 _WALK_HEADERS = ("film_walk.cuh", "film_common.cuh")
+# K10a and K10b form their typed products on the tensor cores through one
+# tile (typed_mma.cuh).
+_MMA_HEADERS = ("typed_mma.cuh", "film_common.cuh")
 # name -> (headers the source includes, argument types of its entry
 # point); every entry point returns the CUDA error code of its launch.
 KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
@@ -79,11 +82,10 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # msgs, g16, ranks, dmsg, num_edges, dim, act id, stream
     "act_agg_bwd": (("film_common.cuh",), _FILM_ARGS),
     # x, w, types, ranks, out, num_edges, dh, dim, num_types, act id, stream
-    "typed_dense_agg": (("film_common.cuh",), (_P,) * 5 + (_I,) * 5 + (_P,)),
-    # x, w, wt, g16, types, ranks, dx, dw, num_edges, dh, dim, num_types,
-    # act id, stream
-    "typed_dense_agg_bwd": (("film_common.cuh",),
-                            (_P,) * 8 + (_I,) * 5 + (_P,)),
+    "typed_dense_agg": (_MMA_HEADERS, (_P,) * 5 + (_I,) * 5 + (_P,)),
+    # x, w, g16, types, ranks, dx, dw, num_edges, dh, dim, num_types, act
+    # id, stream
+    "typed_dense_agg_bwd": (_MMA_HEADERS, (_P,) * 7 + (_I,) * 5 + (_P,)),
     # gcb, t, type_col, w, wt, e_real, ranks, out, num_edges, dim, l_eff,
     # act id, stream
     "emlp1_src_bwd": (("film_common.cuh",), (_P,) * 8 + (_I,) * 4 + (_P,)),
@@ -112,6 +114,14 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # num_heads, stream
     "wseg_t_walk": (("film_common.cuh",), (_P,) * 4 + (_I,) * 4 + (_P,)),
     "segsum_t_walk": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
+    # The earlier designs of K10a and K10b: x, w, types, ranks, out,
+    # num_edges, dh, dim, num_types, act id, stream; x, w, wt (w
+    # transposed), g16, types, ranks, dx, dw, num_edges, dh, dim,
+    # num_types, act id, stream
+    "typed_dense_agg_scalar": (("film_common.cuh",),
+                               (_P,) * 5 + (_I,) * 5 + (_P,)),
+    "typed_dense_agg_bwd_scalar": (("film_common.cuh",),
+                                   (_P,) * 8 + (_I,) * 5 + (_P,)),
     # K16, the A/B variants of tools/ (tf_gnn_samples_torch/tools/):
     # msgs, gb, ranks, out, num_edges, dim, act id, variant, group, stream
     "film_fwd_ab": (_WALK_HEADERS, (_P,) * 4 + (_I,) * 5 + (_P,)),

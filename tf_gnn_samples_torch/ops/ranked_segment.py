@@ -66,8 +66,8 @@ the kernel does not take; it runs the plain PyTorch version beside it only
 for tensors on the CPU. `LAUNCHES` counts kernel launches, one per wrapper
 call that reached its kernel; it also counts those of the K16 variants of
 the harnesses in tf_gnn_samples_torch/tools/, one counter per kernel body,
-and those of the earlier designs of K3, K4, K9, K12a, K7a and K6a
-(tools/earlier_designs.py). `FORM_LAUNCHES` counts K9's launches by form.
+and those of the earlier designs of K3, K4, K9, K12a, K7a, K6a, K10a and
+K10b (tools/earlier_designs.py). `FORM_LAUNCHES` counts K9's launches by form.
 
 Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
@@ -78,7 +78,8 @@ the weighted message in K13a, the masked product in K15b) is
 rounded to bf16 before its f32 sum; K5b and K6b round each table value to
 bf16; K7b, K13b, K4 and K10b write d_msgs / dx in bf16; K7b and K8 keep
 d_w_t, K13b d_w, K10b dW in f32. The typed products of K10 and K14 sum
-their f32 products in another order than the plain versions' matmuls.
+their f32 products in another order than the plain versions' matmuls
+(K10's on the tensor cores, whose f32 accumulation truncates).
 The kernels sum in stream order with atomics at chunk seams, so their
 sums differ from run to run in the last bits; the terms do not.
 """
@@ -218,11 +219,13 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "film_dgb_v4": 0, "rowgather_loop": 0,
                             "rowgather_loop8": 0, "rowgather_take": 0,
                             "rowgather_onehot": 0,
-                            # the earlier designs of K3, K4, K12a, K9, K7a
-                            # and K6a (tools/earlier_designs.py)
+                            # the earlier designs of K3, K4, K12a, K9, K7a,
+                            # K6a, K10a and K10b (tools/earlier_designs.py)
                             "film_src_bwd_walk": 0, "film_bwd_walk": 0,
                             "act_agg_walk": 0, "rgat_src_bwd_walk": 0,
-                            "wseg_t_walk": 0, "segsum_t_walk": 0}
+                            "wseg_t_walk": 0, "segsum_t_walk": 0,
+                            "typed_dense_agg_scalar": 0,
+                            "typed_dense_agg_bwd_scalar": 0}
 # K9's launches (counted in LAUNCHES["rgat_src_bwd"]) by the form the
 # wrapper launched.
 FORM_LAUNCHES: Dict[str, int] = {"rgat_src_bwd gather": 0,
@@ -1032,13 +1035,41 @@ def _emlp1_src_bwd_plain(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
     return out.index_add_(0, ranks, _bf16_terms(dm))
 
 
+# What the tensor-core kernels K10a and K10b stage in a block's shared
+# memory (csrc/typed_dense_agg.cu, csrc/typed_dense_agg_bwd.cu `smem_bytes`
+# and SMEM_MAX; bf16 rows padded to 16 columns plus 8): at most these many
+# bytes beside their static arrays, for at most TYPED_MMA_MAX_TYPES edge
+# types.
+TYPED_MMA_SMEM = {False: 232448 - 5120, True: 232448 - 2048}
+TYPED_MMA_MAX_TYPES = 8
+
+
+def typed_dense_agg_fits(n_types: int, dh: int, d: int, backward: bool
+                         ) -> bool:
+    """Whether K10a (`backward` False: every type's weights for a column
+    tile of at least 16 columns, a 65-row x tile and a 64-row term tile)
+    or K10b (two types' weights, two batches' 48 x rows and cotangent rows,
+    48 dz rows and a block's 2,048 edges and ranks) fits a block's shared
+    memory."""
+    if not 1 <= n_types <= TYPED_MMA_MAX_TYPES:
+        return False
+    dh_p, d_p = _ceil_mult(dh, 16), _ceil_mult(d, 16)
+    if backward:
+        need = (2 * (2 * dh_p * (d_p + 8) + 96 * (dh_p + 8)
+                     + 144 * (d_p + 8)) + 8 * 2048)
+    else:
+        need = 2 * (n_types * dh_p * 24 + 65 * (dh_p + 8) + 64 * 18)
+    return need <= TYPED_MMA_SMEM[backward]
+
+
 def _typed_dense_agg_impl(x, w, types, ranks, *, table_rows, block_edges=256,
                           act, win=0):
     """K10a: table[r] = sum_{rank_e = r} bf16(act(x_e @ w[type_e])) for a
     bf16 stream x [E, Dh], bf16 weights w [L, Dh, D], int32 types and
     nondecreasing gap-free int32 ranks [E]; f32 [table_rows, D] out. Each
-    product sums in f32; an edge whose type is not in [0, L) adds
-    nothing."""
+    product sums in f32 (on the card on the tensor cores, for L <= 8 and
+    widths that typed_dense_agg_fits); an edge whose type is not in
+    [0, L) adds nothing."""
     e, dh = x.shape
     if (w.dim() != 3 or w.shape[1] != dh or types.shape != (e,)
             or ranks.shape != (e,)):
@@ -1051,6 +1082,9 @@ def _typed_dense_agg_impl(x, w, types, ranks, *, table_rows, block_edges=256,
     _check_dtype("typed_dense_agg", w, torch.bfloat16)
     _check_dtype("typed_dense_agg", types, torch.int32)
     _check_ranks("typed_dense_agg", ranks)
+    if not typed_dense_agg_fits(w.shape[0], dh, w.shape[2], False):
+        raise ValueError("typed_dense_agg: %d types of %d x %d weights do not "
+                         "fit the kernel" % tuple(w.shape))
     out = torch.zeros((table_rows, w.shape[2]), dtype=torch.float32,
                       device=x.device)
     if e:
@@ -1065,8 +1099,10 @@ def _typed_dense_agg_bwd_impl(x, w, g16, types, ranks, *, block_edges=256,
     bf16(act'(y_e) * g16[rank_e]), returns dx [E, Dh] bf16, dx_e =
     bf16(dz_e @ w[type_e]^T), and dW [L, Dh, D] f32, dW[l] = sum_{type_e =
     l} x_e^T dz_e, from the bf16 stream x, bf16 weights w, the bf16 table
-    cotangent g16 [rows, D], int32 types and ranks. On the card dW sums in
-    another order on every run (atomics)."""
+    cotangent g16 [rows, D], int32 types and ranks. On the card the
+    products run on the tensor cores (for L <= 8 and widths that
+    typed_dense_agg_fits) and dW sums in another order on every run
+    (atomics)."""
     e, dh = x.shape
     if (w.dim() != 3 or w.shape[1] != dh or types.shape != (e,)
             or ranks.shape != (e,) or g16.dim() != 2
@@ -1081,13 +1117,13 @@ def _typed_dense_agg_bwd_impl(x, w, g16, types, ranks, *, block_edges=256,
     _check_dtype("typed_dense_agg_bwd", g16, torch.bfloat16)
     _check_dtype("typed_dense_agg_bwd", types, torch.int32)
     _check_ranks("typed_dense_agg_bwd", ranks)
+    if not typed_dense_agg_fits(w.shape[0], dh, w.shape[2], True):
+        raise ValueError("typed_dense_agg_bwd: %d types of %d x %d weights "
+                         "do not fit the kernel" % tuple(w.shape))
     dx = torch.empty((e, dh), dtype=torch.bfloat16, device=x.device)
     dw = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
     if e:
-        # The kernel reads the weights both ways; W^T [L, D, Dh] keeps its
-        # loads of the dx product contiguous.
-        wt = w.transpose(1, 2).contiguous()
-        _call("typed_dense_agg_bwd", (x, w, wt, g16, types, ranks, dx, dw),
+        _call("typed_dense_agg_bwd", (x, w, g16, types, ranks, dx, dw),
               (e, dh, w.shape[2], w.shape[0], ACT_IDS[act]))
     return dx, dw
 
@@ -1771,8 +1807,9 @@ def typed_dense_agg_supported(n_types: int, act: str) -> bool:
     """Eligibility of the typed dense aggregate: the JAX package's gate
     with its semantic terms (a known activation; at most 8 types, so that
     VarMisuse-scale type counts go where they go there). Its stream-length
-    and width terms are dropped: the CUDA kernel walks any stream at any
-    width."""
+    and width terms are dropped: the CUDA kernels walk any stream, at any
+    width that typed_dense_agg_fits (Dh = D up to about 160; the wrappers
+    raise past it)."""
     return act in _ACTS and n_types <= 8
 
 

@@ -1,16 +1,21 @@
 """The earlier designs of K3 (`film_src_bwd`), K4 (`film_bwd`), K12a
-(`act_agg`), K9 (`rgat_src_bwd`), K7a (`wseg_t`) and K6a (`segsum_t`): a
-thread per column walking a 64-edge chunk with 2-byte loads
-(csrc/film_src_bwd_walk.cu, csrc/film_bwd_walk.cu, csrc/act_agg_walk.cu,
-csrc/rgat_src_bwd_walk.cu, csrc/wseg_t_walk.cu), or, for K6a, a thread
-per run of 8 edges of one head (csrc/segsum_t_walk.cu), unchanged from
-before their redesign; K12a's takes one stream slice a launch. No model
-path calls them: chip_smoke.py and the card tests hold the redesigned
-kernels to them (the same sums in the same order on every row of at most
-two 64-edge chunks; K6a's: of at most two 8-edge runs) and time the two in
-turns. Launches count under "film_src_bwd_walk", "film_bwd_walk",
-"act_agg_walk", "rgat_src_bwd_walk", "wseg_t_walk" and "segsum_t_walk".
-Tensors on the CPU take the kernels' plain versions."""
+(`act_agg`), K9 (`rgat_src_bwd`), K7a (`wseg_t`), K6a (`segsum_t`), K10a
+(`typed_dense_agg`) and K10b (`typed_dense_agg_bwd`): a thread per column
+walking a 64-edge chunk with 2-byte loads (csrc/film_src_bwd_walk.cu,
+csrc/film_bwd_walk.cu, csrc/act_agg_walk.cu, csrc/rgat_src_bwd_walk.cu,
+csrc/wseg_t_walk.cu), or, for K6a, a thread per run of 8 edges of one head
+(csrc/segsum_t_walk.cu), or, for K10, typed products by scalar f32
+multiply-adds (csrc/typed_dense_agg_scalar.cu,
+csrc/typed_dense_agg_bwd_scalar.cu), unchanged from before their
+redesign; K12a's takes one stream slice a launch. No model path calls
+them: chip_smoke.py and the card tests hold the redesigned kernels to
+them (the same sums in the same order on every row of at most two 64-edge
+chunks; K6a's: of at most two 8-edge runs; K10's sum their products in
+other orders, so each is held to the plain version instead) and time the
+two in turns. Launches count under "film_src_bwd_walk", "film_bwd_walk",
+"act_agg_walk", "rgat_src_bwd_walk", "wseg_t_walk", "segsum_t_walk",
+"typed_dense_agg_scalar" and "typed_dense_agg_bwd_scalar". Tensors on the
+CPU take the kernels' plain versions."""
 
 import torch
 
@@ -161,3 +166,55 @@ def segsum_t_walk(msgs_t, ranks, *, table_rows):
     if e and k:
         rs._call("segsum_t_walk", (msgs_t, ranks, out), (e, table_rows, k))
     return out
+
+
+def typed_dense_agg_scalar(x, w, types, ranks, *, table_rows, act):
+    """K10a's function by its earlier design (scalar f32 products), from
+    the inputs of `_typed_dense_agg_impl`; f32 [table_rows, D] out."""
+    e, dh = x.shape
+    if (w.dim() != 3 or w.shape[1] != dh or types.shape != (e,)
+            or ranks.shape != (e,)):
+        raise ValueError("typed_dense_agg_scalar: shapes %s, %s, %s, %s" % (
+            tuple(x.shape), tuple(w.shape), tuple(types.shape),
+            tuple(ranks.shape)))
+    if x.device.type == "cpu":
+        return rs._typed_dense_agg_plain(x, w, types, ranks, table_rows, act)
+    for t in (x, w):
+        rs._check_dtype("typed_dense_agg_scalar", t, torch.bfloat16)
+    rs._check_dtype("typed_dense_agg_scalar", types, torch.int32)
+    rs._check_ranks("typed_dense_agg_scalar", ranks)
+    out = torch.zeros((table_rows, w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    if e:
+        rs._call("typed_dense_agg_scalar", (x, w, types, ranks, out),
+                 (e, dh, w.shape[2], w.shape[0], rs.ACT_IDS[act]))
+    return out
+
+
+def typed_dense_agg_bwd_scalar(x, w, g16, types, ranks, *, act):
+    """K10b's function by its earlier design (scalar f32 products, dW added
+    by one atomicAdd per 128-edge block, type and entry), from the inputs
+    of `_typed_dense_agg_bwd_impl`; bf16 dx [E, Dh] and f32 dW [L, Dh, D]
+    out. The body reads W both ways: the wrapper passes W^T too."""
+    e, dh = x.shape
+    if (w.dim() != 3 or w.shape[1] != dh or types.shape != (e,)
+            or ranks.shape != (e,) or g16.dim() != 2
+            or g16.shape[1] != w.shape[2]):
+        raise ValueError("typed_dense_agg_bwd_scalar: shapes %s, %s, %s, "
+                         "%s, %s" % (tuple(x.shape), tuple(w.shape),
+                                     tuple(g16.shape), tuple(types.shape),
+                                     tuple(ranks.shape)))
+    if x.device.type == "cpu":
+        return rs._typed_dense_agg_bwd_plain(x, w, g16, types, ranks, act)
+    for t in (x, w, g16):
+        rs._check_dtype("typed_dense_agg_bwd_scalar", t, torch.bfloat16)
+    rs._check_dtype("typed_dense_agg_bwd_scalar", types, torch.int32)
+    rs._check_ranks("typed_dense_agg_bwd_scalar", ranks)
+    dx = torch.empty((e, dh), dtype=torch.bfloat16, device=x.device)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
+    if e:
+        wt = w.transpose(1, 2).contiguous()
+        rs._call("typed_dense_agg_bwd_scalar",
+                 (x, w, wt, g16, types, ranks, dx, dw),
+                 (e, dh, w.shape[2], w.shape[0], rs.ACT_IDS[act]))
+    return dx, dw
