@@ -35,11 +35,15 @@ Phases, each of which raises on failure (no phase's failure is caught):
     branch's [E, D+K] stream through d_used and on that stream at D 320
     with 4 heads (648-byte rows, the 2-byte path): equal on every row of
     at most two chunks; K6a against its earlier body on its receiver and
-    its fine table: equal on every row of at most two 8-edge runs; K10a
-    and K10b (tensor cores, gelu) beside their earlier bodies (scalar
-    f32 products): their sums take other orders, so each is held to the
-    plain version instead, the redesigns within an order-free bound
-    (typed_dense_agg_tc_check) and the earlier bodies within their
+    its fine table: equal on every row of at most two 8-edge runs; K15a
+    (K1's row walk with a mask epilogue, relu and leaky_relu) against its
+    earlier body (K1's earlier walk): the mask bit for bit, the table on
+    every row of at most two chunks; K10a, K10b and K14 (tensor cores,
+    gelu) beside their earlier bodies (scalar f32 products): their sums
+    take other orders, so each is held to the plain version instead, the
+    redesigns within an order-free bound (typed_dense_agg_tc_check,
+    typed_dense_agg_bwd_tc_check, emlp1_src_bwd_tc_check: K14's chained
+    through da, dx and each term) and the earlier bodies within their
     kernel-order one; each timed beside that design in turns, with its
     queued time over its bound. Library calls and yardstick
     compositions are timed queued too. K7a's fused streams are also held
@@ -81,6 +85,7 @@ Usage: python3 chip_smoke.py
 
 import collections
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -180,6 +185,9 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     "typed_dense_agg_scalar": "tf_gnn_samples_tpu/ops/ranked_segment.py:1084",
     "typed_dense_agg_bwd_scalar":
         "tf_gnn_samples_tpu/ops/ranked_segment.py:1108",
+    # the earlier designs of K14 and K15a, the same
+    "emlp1_src_bwd_scalar": "tf_gnn_samples_tpu/ops/ranked_segment.py:2305",
+    "film_fwd_mask_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:398",
 }
 # The CUDA source of each K16 kernel body, by its counter's prefix.
 K16_SOURCES = {"film_fwd": "film_fwd_ab", "film_dgb": "film_dgb_ab",
@@ -510,11 +518,11 @@ def kernel_order_products(torch, a, w, types):
     return y
 
 
-# The checks of K14 and of K10's earlier bodies (typed_dense_agg_scalar,
-# typed_dense_agg_bwd_scalar) compute each edge's terms as the kernel does:
-# its typed products in its own order (kernel_order_products), and its
-# activations, their derivatives and the bf16 roundings by the plain
-# version's f32 expressions, which the kernels evaluate in the same
+# The checks of K10's and K14's earlier bodies (typed_dense_agg_scalar,
+# typed_dense_agg_bwd_scalar, emlp1_src_bwd_scalar) compute each edge's
+# terms as the kernel does: its typed products in its own order
+# (kernel_order_products), and its activations, their derivatives and the
+# bf16 roundings by the plain version's f32 expressions, which the kernels evaluate in the same
 # operation order (film_common.cuh; K11a and K12b are held to them
 # exactly). The plain version sums the products in another order
 # (torch.matmul), which can round a y, and so a dz or da, or a dx to the
@@ -524,9 +532,11 @@ def kernel_order_products(torch, a, w, types):
 # round apart, and a dropped, doubled or misplaced term of any product
 # shows at once (tests/test_torch_chip_checks.py plants such faults). A
 # kernel that changes its order of the products changes
-# kernel_order_products with it. K10a and K10b sum their products on the
-# tensor cores, in an order of their own: they are held by an order-free
-# bound instead (typed_dense_agg_tc_check, typed_dense_agg_bwd_tc_check).
+# kernel_order_products with it. K10a, K10b and K14 sum their products on
+# the tensor cores, in an order of their own: they are held by an
+# order-free bound instead (typed_dense_agg_tc_check,
+# typed_dense_agg_bwd_tc_check, emlp1_src_bwd_tc_check); K14's earlier
+# body (emlp1_src_bwd_scalar) keeps the kernel-order one.
 
 
 def typed_dense_agg_bounds(torch, rs, x, w, types, ranks, rows, act):
@@ -785,6 +795,104 @@ def typed_dense_agg_bwd_tc_check(torch, rs, got, want, x, w, g16, types,
     return max(err_x, err_w)
 
 
+def emlp1_src_bwd_intervals(torch, rs, gcb, t, cols, w, e_real, ranks,
+                            act):
+    """The order-free chained intervals of K14's per-edge values, as K10b's
+    check takes them, f64 [E, D] each: with x = elu(m + beta) as the
+    kernel and the plain version compute it, da one of the bf16 values
+    [z_lo, z_hi] that y = bf16(x) W[l]'s interval reaches
+    (typed_dz_interval, fed the edge's own g); dx = da W[l]^T, kept in
+    f32, within mid W^T -+ (half |W|^T + gamma_D max|z| |W|^T) (mid, half
+    the centre and half-width of the da interval); the term bf16(elu'(x)
+    dx) (elu' >= 0) between the bf16 roundings of elu'(x) times that
+    interval's ends, [t_lo, t_hi]. An edge at or past e_real or of no type
+    in [0, L) has all four 0. Returns (z_lo, z_hi, t_lo, t_hi)."""
+    e, d = ranks.shape[0], t.shape[1]
+    g = gcb.float()
+    x = rs._elu(t.index_select(0, ranks).float() + g[:, :d])
+    c = cols.index_select(0, ranks.long())
+    live = torch.arange(e, device=c.device) < e_real.to(c.device)
+    types = torch.where(live, c, -1)
+    every = torch.arange(e, device=c.device)
+    zlo, zhi = typed_dz_interval(torch, rs, x.to(torch.bfloat16), w,
+                                 gcb[:, d:], types, every, act)
+    mid, half = (zlo + zhi) / 2, (zhi - zlo) / 2
+    zmax = torch.maximum(zlo.abs(), zhi.abs())
+    wt = w.transpose(1, 2)
+    dxm, _ = typed_products_f64(torch, mid, wt, types)
+    dxh, _ = typed_products_f64(torch, half, wt.abs(), types)
+    _, dxs = typed_products_f64(torch, zmax, wt, types)
+    reach = dxh + tc_gamma(d) * dxs
+    de = rs._ACTS_FROM_OUT["elu"](x).double()
+    valid = ((types >= 0) & (types < w.shape[0]))[:, None]
+    tlo = torch.where(valid, bf16_of(torch, de * (dxm - reach)), 0.0)
+    thi = torch.where(valid, bf16_of(torch, de * (dxm + reach)), 0.0)
+    return zlo, zhi, tlo, thi
+
+
+def spec_bound_ms(spec):
+    """(bytes ms, operations ms) of a kernel spec: its bytes at the HBM
+    rate; its elementwise work at the f32 rate and its typed products
+    (K10, K14) at the bf16 tensor-core rate, the least time they could
+    take. Its bound is the larger."""
+    return (spec["nbytes"] / HBM_BYTES_PER_S * 1e3,
+            max(spec["nops"] / F32_FLOPS,
+                spec.get("tensor_ops", 0) / BF16_TENSOR_FLOPS) * 1e3)
+
+
+def emlp1_src_bwd_fits_check(rs):
+    """K14's gate (ops/ranked_segment.py emlp1_src_bwd_fits, a copy of the
+    kernel's shared-memory layout that runs where nothing is built) and
+    the kernel's own answer (csrc/emlp1_src_bwd.cu emlp1_src_bwd_fits)
+    agree on every width up to 320 at 0 to 9 types."""
+    from tf_gnn_samples_torch.ops import cuda_build
+
+    fits = cuda_build.load("emlp1_src_bwd").emlp1_src_bwd_fits
+    fits.argtypes, fits.restype = [ctypes.c_int] * 2, ctypes.c_int
+    differ = [(l_eff, d) for l_eff in range(10) for d in range(1, 321)
+              if bool(fits(d, l_eff)) != rs.emlp1_src_bwd_fits(l_eff, d)]
+    if differ:
+        raise AssertionError("emlp1_src_bwd_fits: the kernel and the gate "
+                             "differ at (types, width) %s" % differ[:8])
+    print("  emlp1_src_bwd_fits: the gate agrees with the kernel on 3,200 "
+          "(types, width) pairs")
+
+
+def emlp1_src_bwd_tc_check(torch, rs, got, want, gcb, t, cols, w, e_real,
+                           ranks, rows, act):
+    """K14's src-rank table (`got`) and the plain version's (`want`) on the
+    same inputs, each within the order-free chained bound: every term in
+    its interval [t_lo, t_hi] (emlp1_src_bwd_intervals), so each table
+    row within the f32 sums of its terms' lower and upper ends, -+ B = 2
+    gamma_{n-1} sum max|t| + n FLT_MIN (2^-24 units, as check_kernel),
+    whatever order the sums take. Prints how many da and terms may round
+    two ways and how wide the bound is against the row's sum of |term|.
+    Returns max |kernel - plain|."""
+    zlo, zhi, tlo, thi = emlp1_src_bwd_intervals(torch, rs, gcb, t, cols, w,
+                                                 e_real, ranks, act)
+    counts = row_counts(torch, rows, ranks).double()[:, None]
+    gam = (counts - 1).clamp(min=0) * 2.0 ** -24
+    tmax = per_row(torch, rows, ranks, torch.maximum(tlo.abs(), thi.abs()))
+    order = 2 * gam / (1 - gam) * tmax + counts * 2.0 ** -126
+    lo = per_row(torch, rows, ranks, tlo) - order
+    hi = per_row(torch, rows, ranks, thi) + order
+    bad, finite = outside(torch, got, lo, hi)
+    bad_plain, _ = outside(torch, want, lo, hi)
+    err = float((got.double() - want.double()).abs().max())
+    width = ((hi - lo) / tmax)[tmax > 0]
+    print("  emlp1_src_bwd: max |kernel - plain| = %.3e; entries outside the "
+          "order-free bound (unit 2^-22): kernel %d, plain %d; da entries "
+          "that may round two ways: %d, terms: %d, of %d; bound width / row "
+          "sum of |term|: median %.3e, max %.3e"
+          % (err, bad, bad_plain, int((zlo != zhi).sum()),
+             int((tlo != thi).sum()), tlo.numel(),
+             float(width.median()) if width.numel() else 0.0,
+             float(width.max()) if width.numel() else 0.0))
+    if bad or bad_plain or not finite:
+        raise AssertionError("emlp1_src_bwd disagrees with its plain version")
+    return err
+
+
 def emlp1_src_bwd_terms(torch, rs, gcb, t_rows, cols, w, e_real, act):
     """K14's per-edge terms as the kernel computes them, f32 [E, D]: x =
     elu(m + beta), y = bf16(x) @ W[col] and dx = da @ W[col]^T summed in
@@ -882,25 +990,13 @@ def kernel_phase(torch, rs, dev):
         return max(err_m, head_dw_check("wseg_bwd d_w", dw, dw_want, m13,
                                         g7.index_select(0, rcv), torch))
 
-    def film_fwd_mask_check(act_m):
-        """K15a: its table must equal K1's on the same inputs wherever K1
-        sums in a fixed order (rows of at most two chunks' partials, all
-        but a few dump rows), and lie within the order bound of the plain
-        version's everywhere; its mask must equal the plain version's."""
-        def check(got, want):
-            (table, mask), (table_want, mask_want) = got, want
-            k1 = rs._film_fwd_impl(msgs, gb, fine, act=act_m)
-            fixed = ~seam_rows(torch, fine, rpad)
-            check_exact("film_fwd_mask (%s) table = film_fwd's on %d of %d "
-                        "rows" % (act_m, int(fixed.sum()), rpad),
-                        table[fixed], k1[fixed], torch)
-            check_exact("film_fwd_mask (%s) mask" % act_m, mask, mask_want,
-                        torch)
-            return order_check(
-                "film_fwd_mask (%s) table" % act_m, rpad, fine,
-                film_terms(torch, rs, msgs, gb, fine, act_m))(table,
-                                                              table_want)
-        return check
+    def k15a_check(act_m):
+        """K15a (film_fwd_mask_check): the mask bit for bit, the table
+        equal to K1's on the same inputs on every row that is not a seam
+        row and within the order bound of the plain version's."""
+        return lambda got, want: film_fwd_mask_check(
+            torch, rs, got, want, rs._film_fwd_impl(msgs, gb, fine, act=act_m),
+            msgs, gb, fine, act_m)
 
     def film_bwd_check(got, want):
         """K4: d_msgs must equal the plain version's; d_gb as K2."""
@@ -1131,8 +1227,13 @@ def kernel_phase(torch, rs, dev):
     w14 = (torch.randn((QM9_STREAMED_TYPES, d, d), generator=gen, device=dev)
            / math.sqrt(d)).to(torch.bfloat16)
     e_real14 = flat.mask.sum().to(torch.int32).reshape(1)
-    e14_live = int(((cols14.index_select(0, src.long()) >= 0)
-                    & (torch.arange(e, device=dev) < e_real14)).sum())
+    # K14's work is that of its live edges (a streamed type's, before
+    # e_real): the self-loop type's edges and the tail add nothing, so
+    # their beta | g and t rows need not be read.
+    live14 = ((cols14.index_select(0, src.long()) >= 0)
+              & (torch.arange(e, device=dev) < e_real14))
+    e14_live = int(live14.sum())
+    n14_src_live = int(torch.unique_consecutive(src[live14]).numel())
     k14_abs, k14_counts, k14_slack = emlp1_src_bwd_bounds(
         torch, rs, gcb14, t14, cols14, w14, e_real14, src, rsrc, "gelu")
     k14_terms = rs._emlp1_src_bwd_plain(
@@ -1351,23 +1452,25 @@ def kernel_phase(torch, rs, dev):
              yardstick=("the matching composition: a stable sort by type, "
                         "a row gather of the cotangent, three torch.matmul "
                         "per type, gelu' and index_copy_", k10b_other)),
-        # K14 reads the [E, 2D] beta | g stream, the ranks, the used rows
-        # of the t table and of the type column and the weights and writes
-        # the src-rank table; two D-long products per element of a live
-        # edge of a streamed type (4 E_live D^2 bf16 operations) and the
-        # elu / gelu' recompute.
+        # K14 reads the beta | g rows of the live edges, the ranks, the
+        # type column of the used src ranks, the t rows of the live ones
+        # and the weights and writes the src-rank table; two D-long
+        # products per element of a live edge (4 E_live D^2 bf16
+        # operations on the tensor cores) and the elu / gelu' recompute.
+        # Held to the plain version by the order-free chained bound
+        # (emlp1_src_bwd_tc_check).
         dict(name="emlp1_src_bwd",
              kern=lambda: rs._emlp1_src_bwd_impl(
                  gcb14, t14, cols14, w14, e_real14, src, table_rows=rsrc,
                  act="gelu"),
              plain=lambda: rs._emlp1_src_bwd_plain(
                  gcb14, t14, cols14, w14, e_real14, src, rsrc, "gelu"),
-             check=lambda got, want: check_kernel(
-                 "emlp1_src_bwd", got, want, k14_abs, k14_counts, torch,
-                 slack=k14_slack),
-             nbytes=(e * 2 * d * 2 + e * 4 + n_src * (d * 2 + 4)
-                     + 4 * d * d * 2 + rsrc * d * 4),
-             nops=60 * e * d, tensor_ops=4 * e14_live * d * d,
+             check=lambda got, want: emlp1_src_bwd_tc_check(
+                 torch, rs, got, want, gcb14, t14, cols14, w14, e_real14,
+                 src, rsrc, "gelu"),
+             nbytes=(e14_live * 2 * d * 2 + e * 4 + n_src * 4
+                     + n14_src_live * d * 2 + 4 * d * d * 2 + rsrc * d * 4),
+             nops=60 * e14_live * d, tensor_ops=4 * e14_live * d * d,
              yardstick=("torch.Tensor.index_add_ of the precomputed terms "
                         "(leaves out the row gathers and the two typed "
                         "products per edge)", index_add(rsrc, src, k14_terms))),
@@ -1402,7 +1505,7 @@ def kernel_phase(torch, rs, dev):
         dict(name="film_fwd_mask",
              kern=lambda: rs._film_fwd_mask_impl(msgs, gb, fine, act="relu"),
              plain=lambda: rs._film_fwd_mask_plain(msgs, gb, fine, "relu"),
-             check=film_fwd_mask_check("relu"),
+             check=k15a_check("relu"),
              nbytes=(e * d * 2 + e * 4 + n_fine * 2 * d * 2 + rpad * d * 4
                      + e * lanes * 4),
              nops=6 * e * d,
@@ -1492,13 +1595,12 @@ def kernel_phase(torch, rs, dev):
                     "ms": cuda_ms(timed),
                     "queued_ms": cuda_queued_ms(timed),
                     "plain_ms": cuda_ms(spec["plain"]),
-                    "bound_ms": max(spec["nbytes"] / HBM_BYTES_PER_S,
-                                    spec["nops"] / F32_FLOPS) * 1e3}
+                    "bound_ms": max(spec_bound_ms(spec))}
             return worst
         return run
 
     # K15a and K15b are timed with relu; leaky_relu is checked only.
-    also["film_fwd_mask"] = lambda: film_fwd_mask_check("leaky_relu")(
+    also["film_fwd_mask"] = lambda: k15a_check("leaky_relu")(
         rs._film_fwd_mask_impl(msgs, gb, fine, act="leaky_relu"),
         rs._film_fwd_mask_plain(msgs, gb, fine, "leaky_relu"))
     also["masked_segsum"] = lambda: order_check(
@@ -1624,25 +1726,23 @@ def kernel_phase(torch, rs, dev):
         b = max((heads * e * 4 + e * 4 + heads * rows_v * 4)
                 / HBM_BYTES_PER_S, heads * e / F32_FLOPS) * 1e3
         k6a_bounds[v] = {"new": b, "earlier": b}
-    k10_bounds = {
-        name: {"gelu": {"new": b, "earlier": b}} for name, b in (
-            ("typed_dense_agg", max(
-                (e * d * 2 + 2 * e * 4 + n_types * d * d * 2 + n_rcv * d * 4)
-                / HBM_BYTES_PER_S, 2 * e * d * d / BF16_TENSOR_FLOPS,
-                30 * e * d / F32_FLOPS) * 1e3),
-            ("typed_dense_agg_bwd", max(
-                (2 * e * d * 2 + 2 * e * 4 + n_rcv * d * 2
-                 + n_types * d * d * (2 + 4)) / HBM_BYTES_PER_S,
-                6 * e * d * d / BF16_TENSOR_FLOPS,
-                45 * e * d / F32_FLOPS) * 1e3))}
+    def spec_bounds(name, variants):
+        """{v: {"new": b, "earlier": b}}: the bound of spec `name` (its
+        redesign and earlier body do the same work) for each variant."""
+        b = max(spec_bound_ms(next(sp for sp in specs
+                                   if sp["name"] == name)))
+        return {v: {"new": b, "earlier": b} for v in variants}
 
-    def k10_design_check(new_check, earlier_check):
-        """K10a's or K10b's redesign (`got`) against its earlier body
-        (`earlier`), gelu: the two sum their typed products in other orders
-        (the tensor cores' against the index order), so no entry need be
-        equal; each is held to the plain version instead, the redesign by
-        the order-free bound and the earlier body by the kernel-order
-        one."""
+    k10_bounds = {name: spec_bounds(name, ("gelu",))
+                  for name in ("typed_dense_agg", "typed_dense_agg_bwd")}
+
+    def tc_design_check(new_check, earlier_check):
+        """K10a's, K10b's or K14's redesign (`got`) against its earlier
+        body (`earlier`), gelu: the two sum their typed products in other
+        orders (the tensor cores' against the index order), so no entry
+        need be equal; each is held to the plain version instead, the
+        redesign by the order-free bound and the earlier body by the
+        kernel-order one."""
         def check(torch, name, got, earlier, ranks):
             print("  %s, each against the plain version:" % name)
             new_check(got, "gelu")
@@ -1666,6 +1766,18 @@ def kernel_phase(torch, rs, dev):
         """K10b's earlier body within the kernel-order bound."""
         return typed_dense_agg_bwd_check(torch, rs, got, k10b_plain(act_v),
                                          x10, w10, g10, types, rcv, act_v)
+
+    def k14_plain(act_v):
+        return rs._emlp1_src_bwd_plain(gcb14, t14, cols14, w14, e_real14, src,
+                                       rsrc, act_v)
+
+    def k14_earlier_check(got, act_v):
+        """K14's earlier body within the kernel-order bound."""
+        return check_kernel("emlp1_src_bwd_scalar", got, k14_plain(act_v),
+                            k14_abs, k14_counts, torch, slack=k14_slack)
+
+    k14_bounds = spec_bounds("emlp1_src_bwd", ("gelu",))
+    k15a_bounds = spec_bounds("film_fwd_mask", ("relu", "leaky_relu"))
 
     designs = {
         "film_fwd": lambda: earlier_design(
@@ -1744,7 +1856,7 @@ def kernel_phase(torch, rs, dev):
             lambda a: earlier_designs.typed_dense_agg_scalar(
                 x10, w10, types, rcv, table_rows=rows, act=a),
             rcv, variants=("gelu",),
-            check=k10_design_check(
+            check=tc_design_check(
                 lambda got, a: typed_dense_agg_tc_check(
                     torch, rs, got, k10a_plain(a), x10, w10, types, rcv, rows,
                     a), k10a_earlier_check),
@@ -1756,11 +1868,38 @@ def kernel_phase(torch, rs, dev):
             lambda a: earlier_designs.typed_dense_agg_bwd_scalar(
                 x10, w10, g10, types, rcv, act=a),
             rcv, variants=("gelu",),
-            check=k10_design_check(
+            check=tc_design_check(
                 lambda got, a: typed_dense_agg_bwd_tc_check(
                     torch, rs, got, k10b_plain(a), x10, w10, g10, types, rcv,
                     a), k10b_earlier_check),
             bounds=k10_bounds["typed_dense_agg_bwd"]),
+        # K14 (gelu, as the fused_src1 backward runs it) against its
+        # earlier body (scalar f32 products) on the branch's inputs at the
+        # QM9 batch.
+        "emlp1_src_bwd": lambda: earlier_design(
+            torch, "emlp1_src_bwd",
+            lambda a: rs._emlp1_src_bwd_impl(
+                gcb14, t14, cols14, w14, e_real14, src, table_rows=rsrc,
+                act=a),
+            lambda a: earlier_designs.emlp1_src_bwd_scalar(
+                gcb14, t14, cols14, w14, e_real14, src, table_rows=rsrc,
+                act=a),
+            src, variants=("gelu",),
+            check=tc_design_check(
+                lambda got, a: emlp1_src_bwd_tc_check(
+                    torch, rs, got, k14_plain(a), gcb14, t14, cols14, w14,
+                    e_real14, src, rsrc, a), k14_earlier_check),
+            bounds=k14_bounds),
+        # K15a against its earlier body (K1's earlier walk): the mask bit
+        # for bit, the table on every row that is not a seam row; timed
+        # with relu, leaky_relu too.
+        "film_fwd_mask": lambda: earlier_design(
+            torch, "film_fwd_mask",
+            lambda a: rs._film_fwd_mask_impl(msgs, gb, fine, act=a),
+            lambda a: earlier_designs.film_fwd_mask_walk(msgs, gb, fine,
+                                                         act=a),
+            fine, check=film_fwd_mask_design_check,
+            variants=("relu", "leaky_relu"), bounds=k15a_bounds),
     }
     results = []
     for spec in specs:
@@ -1773,11 +1912,7 @@ def kernel_phase(torch, rs, dev):
         timed = spec.get("timed", spec["kern"])
         ms = cuda_ms(timed)
         plain_ms = cuda_ms(spec["plain"])
-        bound_bytes_ms = spec["nbytes"] / HBM_BYTES_PER_S * 1e3
-        # Elementwise work at the f32 rate; typed products (K10, K14) at
-        # the bf16 tensor-core rate, the least time they could take.
-        bound_ops_ms = max(spec["nops"] / F32_FLOPS,
-                           spec.get("tensor_ops", 0) / BF16_TENSOR_FLOPS) * 1e3
+        bound_bytes_ms, bound_ops_ms = spec_bound_ms(spec)
         bound_ms = max(bound_bytes_ms, bound_ops_ms)
         row = {
             "name": name, "route": "cuda",
@@ -1810,9 +1945,9 @@ def kernel_phase(torch, rs, dev):
         else:
             other = "no single PyTorch call computes this function"
         # The bound's two terms, and for K10 and K14 what their typed
-        # products take at the f32 rate (K14 and K10's earlier bodies form
-        # them with scalar f32 multiplies and adds): computed, not
-        # measured, so printed here and kept out of the kernels line.
+        # products take at the f32 rate (their earlier bodies form them
+        # with scalar f32 multiplies and adds): computed, not measured, so
+        # printed here and kept out of the kernels line.
         products = ("; the typed products at the f32 rate %.4f ms"
                     % (spec["tensor_ops"] / F32_FLOPS * 1e3)
                     if "tensor_ops" in spec else "")
@@ -1846,12 +1981,13 @@ def kernel_phase(torch, rs, dev):
                   % (name, json.dumps(extra[name]), row["mean_slice_ms"],
                      row["mean_slice_queued_ms"]))
         results.append(row)
-    # The earlier bodies of K12a, K9, K7a, K6a, K10a and K10b, rows of
-    # their own (no model path launches them): within the order bound of
-    # the plain version, timed in turns with the redesign above at the main
-    # path's shapes (K12a: the layer's four slices, a launch each; K9: D
-    # 128, 8 heads, on the stream; K7a: the streamed branch's stream; K6a:
-    # the receiver table; K10: the fused1 branch's inputs, gelu). The plain
+    # The earlier bodies of K12a, K9, K7a, K6a, K10a, K10b, K14 and K15a,
+    # rows of their own (no model path launches them): within the order
+    # bound of the plain version, timed in turns with the redesign above
+    # at the main path's shapes (K12a: the layer's four slices, a launch
+    # each; K9: D 128, 8 heads, on the stream; K7a: the streamed branch's
+    # stream; K6a: the receiver table; K10: the fused1 branch's inputs,
+    # gelu; K14: the fused_src1 branch's, gelu; K15a: relu). The plain
     # version and the bound are their function's.
     layer = k12a("layer", k12a_parts["layer"])
     walks = {
@@ -1885,7 +2021,17 @@ def kernel_phase(torch, rs, dev):
         "typed_dense_agg_bwd_scalar": (
             "typed_dense_agg_bwd", "gelu", lambda: k10b_earlier_check(
                 earlier_designs.typed_dense_agg_bwd_scalar(
-                    x10, w10, g10, types, rcv, act="gelu"), "gelu"))}
+                    x10, w10, g10, types, rcv, act="gelu"), "gelu")),
+        "emlp1_src_bwd_scalar": (
+            "emlp1_src_bwd", "gelu", lambda: k14_earlier_check(
+                earlier_designs.emlp1_src_bwd_scalar(
+                    gcb14, t14, cols14, w14, e_real14, src, table_rows=rsrc,
+                    act="gelu"), "gelu")),
+        "film_fwd_mask_walk": (
+            "film_fwd_mask", "relu", lambda: k15a_check("relu")(
+                earlier_designs.film_fwd_mask_walk(msgs, gb, fine,
+                                                   act="relu"),
+                rs._film_fwd_mask_plain(msgs, gb, fine, "relu")))}
     for name, (new_name, v, err) in walks.items():
         new_row = next(r for r in results if r["name"] == new_name)
         times = new_row["earlier_design"][v]
@@ -1898,6 +2044,32 @@ def kernel_phase(torch, rs, dev):
             "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
             "queued_ms": times["earlier_queued_ms"], "shape": v})
     return results, graph
+
+
+def film_fwd_mask_check(torch, rs, got, want, k1, msgs, gb, ranks, act):
+    """K15a's (table, mask) (`got`) against the plain version's (`want`)
+    and K1's table (`k1`) on the same inputs: the mask bit for bit; the
+    table equal to K1's on every row that is not a seam row (one walk, one
+    sum order: film_design_check) and within the order bound of the plain
+    version's everywhere. Returns max |kernel - plain| of the table."""
+    (table, mask), (table_want, mask_want) = got, want
+    rows = table.shape[0]
+    film_design_check(torch, "film_fwd_mask (%s) table = film_fwd's" % act,
+                      table, k1, ranks)
+    check_exact("film_fwd_mask (%s) mask" % act, mask, mask_want, torch)
+    terms = film_terms(torch, rs, msgs, gb, ranks, act)
+    return check_kernel("film_fwd_mask (%s) table" % act, table, table_want,
+                        row_abs_sums(torch, rows, ranks, terms),
+                        row_counts(torch, rows, ranks), torch)
+
+
+def film_fwd_mask_design_check(torch, name, got, earlier, ranks):
+    """K15a's (table, mask) against its earlier body's on the same inputs:
+    the mask bit for bit, the table as film_design_check (the same sums in
+    the same order on every row that is not a seam row)."""
+    (table, mask), (table_e, mask_e) = got, earlier
+    check_exact("%s mask" % name, mask, mask_e, torch)
+    return film_design_check(torch, "%s table" % name, table, table_e, ranks)
 
 
 def film_variant_check(torch, rs, name, got, want, args, base_out, act):
@@ -2304,14 +2476,15 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
     w14 = (torch.randn((n_types - 1, d, d), generator=gen, device=dev)
            / math.sqrt(d)).to(torch.bfloat16)
     e_real = torch.tensor([e_sd], dtype=torch.int32, device=dev)
-    k14_abs, _, k14_slack = emlp1_src_bwd_bounds(
-        torch, rs, gcb14, t14, cols14, w14, e_real, ranks, rsrc, "gelu")
-    check("emlp1_src_bwd",
-          rs._emlp1_src_bwd_impl(gcb14, t14, cols14, w14, e_real, ranks,
-                                 table_rows=rsrc, act="gelu"),
-          rs._emlp1_src_bwd_plain(gcb14, t14, cols14, w14, e_real, ranks,
-                                  rsrc, "gelu"),
-          k14_abs, slack=k14_slack)
+    got14 = rs._emlp1_src_bwd_impl(gcb14, t14, cols14, w14, e_real, ranks,
+                                   table_rows=rsrc, act="gelu")
+    emlp1_src_bwd_tc_check(
+        torch, rs, got14, rs._emlp1_src_bwd_plain(
+            gcb14, t14, cols14, w14, e_real, ranks, rsrc, "gelu"),
+        gcb14, t14, cols14, w14, e_real, ranks, rsrc, "gelu")
+    if bool((got14[~fed] != 0).any()):
+        raise AssertionError("emlp1_src_bwd: fill slots reached the table")
+    emlp1_src_bwd_fits_check(rs)
     # K15b on the diluted stream: the C rows gathered from a fine-rank
     # table (fill slots read its zero row), a random packed mask.
     lanes = rs._mask_lanes(d)

@@ -1,14 +1,15 @@
 """The checks that `chip_smoke.py` and `tests/test_torch_cuda.py` hold the
-K10, K13, K14, K15 and K16 FiLM kernels, K10's earlier bodies, K1-K4, K9,
-K12a and K6a against their earlier designs, K3's and K9's gather forms
-against their stream forms and K4's d_gb against K2's, to, on the CPU:
-each accepts the kernel's math taken in another summation order (emulated
-here, independently of the checks' helpers; K10's on the tensor cores:
-16-product k-steps truncated into an f32 accumulator) against the plain
-version's, and rejects a planted fault: a product that drops its last
-term, a dx sum that stops one column short, a zero or partial dW or d_w,
-one edge's product taken with another type's weights, an edge past
-e_real that is counted, a
+K10, K13, K14, K15 and K16 FiLM kernels, K10's and K14's earlier bodies,
+K1-K4, K9, K12a, K6a and K15a against their earlier designs, K3's and
+K9's gather forms against their stream forms and K4's d_gb against K2's,
+to, on the CPU: each accepts the kernel's math taken in another
+summation order (emulated here, independently of the checks' helpers;
+K10's and K14's on the tensor cores: 16-product k-steps truncated into
+an f32 accumulator) against the plain version's, and rejects a planted
+fault: a product that drops its last term, a dx sum that stops one
+column short, a zero or partial dW or d_w, one edge's product taken with
+another type's weights, an edge past e_real that is counted, an edge
+dropped, a term one bf16 step past its order-free interval, a
 term dropped or weighted by the wrong head, a mask one bit off, the wrong
 leak, a row summed through its chunks or pairwise inside one, a fill slot
 that reads a real row, a message cotangent one bf16 step off, K12a's
@@ -21,8 +22,11 @@ import pytest
 import torch
 
 from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
-                        film_bwd_design_check, film_design_check, film_terms,
-                        film_variant_check, hand_kernel_names, hand_kernel_of,
+                        emlp1_src_bwd_intervals, emlp1_src_bwd_tc_check,
+                        film_bwd_design_check, film_design_check,
+                        film_fwd_mask_check, film_fwd_mask_design_check,
+                        film_terms, film_variant_check, hand_kernel_names,
+                        hand_kernel_of,
                         head_dw_check, kernel_order_products, masked_terms,
                         seam_rows, segsum_t_design_check, slices_design_check,
                         src_gather_check, src_terms, tc_gamma,
@@ -320,6 +324,104 @@ def test_k14_check_accepts_the_kernel_order_and_rejects_planted_faults(
             check()
 
 
+def k14_tc_emulated(fault, gcb, t, cols, w, e_real, ranks, rows, act,
+                    k_step=16):
+    """K14's src-rank table as the tensor-core kernel forms it (both
+    products by tc_order_products, the table summed in reverse stream
+    order), with `fault` planted: a term one bf16 step past its interval's
+    upper end, a live edge dropped, the
+    padded tail counted, a product that drops its last term, one edge's
+    products taken with another type's weights, a dx sum one column short,
+    one edge's dx (alone) taken with another type's weights."""
+    d, e = t.shape[1], ranks.shape[0]
+    n_types = w.shape[0]
+    c = cols.index_select(0, ranks.long())
+    n_live = e if fault == "tail_counted" else int(e_real)
+    kinds = torch.where(torch.arange(e, device=c.device) < n_live, c, -1)
+    valid = (kinds >= 0) & (kinds < n_types)
+    if fault == "wrong_type_weight":
+        first = int(valid.nonzero()[0])
+        kinds = kinds.clone()
+        kinds[first] = (kinds[first] + 1) % n_types
+    g = gcb.float()
+    x = rs._elu(t.index_select(0, ranks).float() + g[:, :d])
+    x16, wk = x.to(torch.bfloat16), w
+    if fault == "product_drops_last_term":
+        x16, wk = x16[:, :-1], w[:, :-1]
+    y = tc_order_products(x16, wk, kinds, k_step)
+    da = torch.where(valid[:, None], rs._ACTS[act][1](y) * g[:, d:],
+                     0.0).to(torch.bfloat16)
+    da16, wt, dx_kinds = da, w.transpose(1, 2), kinds
+    if fault == "dx_drops_last_term":
+        da16, wt = da[:, :-1], wt[:, :-1]
+    if fault == "dx_wrong_type_weight":
+        first = int(valid.nonzero()[0])
+        dx_kinds = kinds.clone()
+        dx_kinds[first] = (kinds[first] + 1) % n_types
+    dx = tc_order_products(da16, wt, dx_kinds, k_step)
+    terms = rs._bf16_terms(torch.where(
+        valid[:, None], rs._ACTS_FROM_OUT["elu"](x) * dx, 0.0))
+    if fault == "edge_dropped":
+        terms[int(valid.nonzero()[len(valid.nonzero()) // 2])] = 0.0
+    if fault == "term_one_ulp_past":
+        # The largest term whose row's terms in its column each have one
+        # value they may take (so the row sums exactly those), one bf16
+        # step past it.
+        _, _, tlo, thi = emlp1_src_bwd_intervals(torch, rs, gcb, t, cols, w,
+                                                 e_real, ranks, act)
+        loose = torch.zeros((rows, d), device=c.device).index_add_(
+            0, ranks, (tlo != thi).float())
+        pinned = (loose.index_select(0, ranks) == 0) & valid[:, None]
+        e0, k = divmod(int(torch.where(pinned, thi.abs(), -1.0).argmax()), d)
+        bits = thi[e0, k].float().to(torch.bfloat16).view(torch.int16) + 1
+        terms[e0, k] = bits.view(torch.bfloat16).float()
+    return torch.zeros((rows, d), device=c.device).index_add_(
+        0, ranks.flip(0), terms.flip(0))
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+@pytest.mark.parametrize("fault", ["none", "term_one_ulp_past",
+                                   "edge_dropped", "tail_counted",
+                                   "product_drops_last_term",
+                                   "wrong_type_weight", "dx_drops_last_term",
+                                   "dx_wrong_type_weight"])
+def test_k14_tc_check_accepts_a_tensor_core_order_and_rejects_planted_faults(
+        fault, act):
+    gcb, t, cols, w, e_real, ranks, rows = k14_inputs()
+    got = k14_tc_emulated(fault, gcb, t, cols, w, e_real, ranks, rows, act)
+    want = rs._emlp1_src_bwd_plain(gcb, t, cols, w, e_real, ranks, rows, act)
+
+    def check():
+        emlp1_src_bwd_tc_check(torch, rs, got, want, gcb, t, cols, w, e_real,
+                               ranks, rows, act)
+
+    if fault == "none":
+        check()
+    else:
+        with pytest.raises(AssertionError):
+            check()
+
+
+@pytest.mark.parametrize("order", ["index", "k_step 8", "k_step 32"])
+def test_k14_tc_check_takes_any_summation_order(order):
+    """The order-free check also takes the earlier body's index order and
+    tensor cores that add 8 or 32 products a step, and the plain
+    version's output."""
+    gcb, t, cols, w, e_real, ranks, rows = k14_inputs(seed=5)
+    if order == "index":
+        got = k14_emulated("none", gcb, t, cols, w, e_real, ranks, rows,
+                           "gelu")
+    else:
+        got = k14_tc_emulated("none", gcb, t, cols, w, e_real, ranks, rows,
+                              "gelu", k_step=int(order.split()[1]))
+    want = rs._emlp1_src_bwd_plain(gcb, t, cols, w, e_real, ranks, rows,
+                                   "gelu")
+    emlp1_src_bwd_tc_check(torch, rs, got, want, gcb, t, cols, w, e_real,
+                           ranks, rows, "gelu")
+    emlp1_src_bwd_tc_check(torch, rs, want, want, gcb, t, cols, w, e_real,
+                           ranks, rows, "gelu")
+
+
 def test_kernel_order_products_sum_in_index_order():
     """Three terms whose f32 sum depends on the order: 2^24 + 1 - 2^24 is 0
     in index order (the 1 is lost to the first add), 2^24 - 2^24 + 1 is 1."""
@@ -443,6 +545,52 @@ def test_k15a_mask_check_rejects_one_bit_off():
     off[3, 0] = float(int(off[3, 0]) ^ 1)
     with pytest.raises(AssertionError):
         check_exact("film_fwd_mask mask", off, mask, torch)
+
+
+@pytest.mark.parametrize("fault", ["none", "mask_one_bit_flipped",
+                                   "table_straight_through_chunks",
+                                   "table_term_dropped"])
+def test_k15a_checks_reject_planted_faults(fault):
+    """K15a's check against the plain version and K1's table
+    (film_fwd_mask_check) and against its earlier body
+    (film_fwd_mask_design_check): an emulated kernel (K1's chunk order,
+    the partials met in reverse; the plain version's mask) passes both;
+    a mask with one bit flipped, a table whose two-chunk rows are summed
+    straight through, or one term dropped fails. Messages over 2^-12 ..
+    2^12 and runs of 5-30 edges, as the K1 design check's test."""
+    rng = np.random.RandomState(9)
+    sizes = rng.randint(5, 30, size=120)
+    ranks = torch.from_numpy(np.repeat(np.arange(120, dtype=np.int32),
+                                       sizes))
+    rows = 121
+    msgs = (bf16(rng, len(ranks), D).float() * torch.from_numpy(
+        2.0 ** rng.randint(-12, 13, size=(len(ranks), D)))).to(torch.bfloat16)
+    gb = bf16(rng, rows, 2 * D)
+    want = rs._film_fwd_mask_plain(msgs, gb, ranks, "relu")
+    terms = film_terms(torch, rs, msgs, gb, ranks, "relu")
+    k1 = chunk_order_sums(terms, ranks, rows)
+    if fault == "table_term_dropped":
+        terms = terms.clone()
+        terms[100] = 0.0
+    table = chunk_order_sums(
+        terms, ranks, rows,
+        "straight" if fault == "table_straight_through_chunks" else "none",
+        reverse=True)
+    mask = want[1].clone()
+    if fault == "mask_one_bit_flipped":
+        mask[5, 1] = float(int(mask[5, 1]) ^ 8)
+
+    def checks():
+        film_fwd_mask_check(torch, rs, (table, mask), want, k1, msgs, gb,
+                            ranks, "relu")
+        film_fwd_mask_design_check(torch, "film_fwd_mask", (table, mask),
+                                   (k1, want[1]), ranks)
+
+    if fault == "none":
+        checks()
+    else:
+        with pytest.raises(AssertionError):
+            checks()
 
 
 def test_seam_rows_marks_rows_over_three_chunks():

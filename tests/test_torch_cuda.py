@@ -4,7 +4,8 @@ segment-sum for an f32 and a bf16 stream, the ranked expand exactly, the
 head-major attention kernels K6, K7 and K8, K9 and K14 on an undiluted
 and a diluted src stream, the GNN-Edge-MLP1 kernels K10, K11 and K12, the
 row-major weighted segment-sum K13, the sign-mask kernels K15, K15b on
-both streams), the wrappers' checks and launch counts, and the GNN-FiLM
+both streams; K14, on the tensor cores, and K15a also against their
+earlier bodies), the wrappers' checks and launch counts, and the GNN-FiLM
 (fused and normalised), RGCN, GGNN, RGAT (fused and streamed), RGIN,
 GNN-Edge-MLP (type-major with and without K14, fused1, fused0, ranked)
 and RGDCN (fine form) layers on the card against the CPU.
@@ -19,12 +20,14 @@ import pytest
 import torch
 
 from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
+                        emlp1_src_bwd_fits_check, emlp1_src_bwd_tc_check,
+                        film_fwd_mask_check, film_fwd_mask_design_check,
                         head_dw_check, masked_terms, rgat_src_bwd_bounds,
-                        seam_rows, typed_dense_agg_bounds,
-                        typed_dense_agg_bwd_check,
+                        typed_dense_agg_bounds, typed_dense_agg_bwd_check,
                         typed_dense_agg_bwd_tc_check,
                         typed_dense_agg_tc_check)
-from test_torch_chip_checks import k10_tc_emulated, k14_emulated
+from test_torch_chip_checks import (k10_tc_emulated, k14_emulated,
+                                    k14_tc_emulated)
 from tf_gnn_samples_torch.tools import earlier_designs
 from tf_gnn_samples_torch.nn import layers
 from tf_gnn_samples_torch.ops import ranked_segment as rs
@@ -892,21 +895,17 @@ def test_typed_dense_agg_matches_plain_on_card(dev, ranked_graph, act, dh, d):
                                  rows, act)
 
 
-@pytest.mark.parametrize("d", [128, 44])
-@pytest.mark.parametrize("stream", ["undiluted", "diluted"])
-def test_emlp1_src_bwd_matches_plain_on_card(dev, ranked_graph, diluted_graph,
-                                            stream, d):
-    """K14 over the src-sorted stream of a graph with a self-loop type
-    (its src ranks get no column) and over a diluted one (zero beta | g
-    rows at the fill slots): within the order bound of the sums plus what
-    the terms in the kernel's order differ by from the plain version's
-    (emlp1_src_bwd_bounds); slots at or past e_real add nothing."""
-    g = ranked_graph if stream == "undiluted" else diluted_graph
-    flat = g.flat
+def _k14_inputs(dev, graph, stream, d):
+    """K14's inputs over the src-sorted stream of `graph` (undiluted) or
+    its diluted one (zero beta | g rows at the fill slots): ranks, table
+    rows, each src rank's column, the bf16 stream, t table and weights of
+    the non-self types, and a real-edge count 500 short of the stream."""
+    flat = graph.flat
     ranks = flat.src_sorted_rank if stream == "undiluted" else flat.sd_rank
     e, rows = ranks.shape[0], flat.src_from_rank.shape[0]
     nonself = [l for l, s in enumerate(flat.tm_self) if not s]
-    cols = rs.src_rank_type_columns(flat.src_from_rank, g.n_pad, flat.tm_self)
+    cols = rs.src_rank_type_columns(flat.src_from_rank, graph.n_pad,
+                                    flat.tm_self)
     assert any(flat.tm_self) and (cols >= 0).any()
     gen = torch.Generator(device=dev).manual_seed(d)
     gcb = torch.randn((e, 2 * d), generator=gen, device=dev)
@@ -917,27 +916,85 @@ def test_emlp1_src_bwd_matches_plain_on_card(dev, ranked_graph, diluted_graph,
     w = (torch.randn((len(nonself), d, d), generator=gen, device=dev)
          / np.sqrt(d)).to(torch.bfloat16)
     e_real = torch.tensor([e - 500], dtype=torch.int32, device=dev)
-    before = rs.LAUNCHES["emlp1_src_bwd"]
+    return ranks, rows, cols, gcb, t, w, e_real
+
+
+@pytest.mark.parametrize("d", [128, 44])
+@pytest.mark.parametrize("stream", ["undiluted", "diluted"])
+def test_emlp1_src_bwd_matches_plain_on_card(dev, ranked_graph, diluted_graph,
+                                            stream, d):
+    """K14 (both products on the tensor cores) over the src-sorted stream
+    of a graph with a self-loop type (its src ranks get no column) and
+    over a diluted one: within the order-free chained bound of its plain
+    version (emlp1_src_bwd_tc_check: da, dx and each term within the
+    intervals that y's interval reaches, at the unit 2^-22), which the
+    plain version meets too; slots at or past e_real add nothing. The same
+    check fails a dropped edge, a term one bf16 step past its interval, a
+    dx sum one column short, one edge's dx taken with another type's
+    weights and (undiluted) a counted tail, emulated on the card."""
+    g = ranked_graph if stream == "undiluted" else diluted_graph
+    ranks, rows, cols, gcb, t, w, e_real = _k14_inputs(dev, g, stream, d)
+    e = ranks.shape[0]
+    before = dict(rs.LAUNCHES)
     got = rs._emlp1_src_bwd_impl(gcb, t, cols, w, e_real, ranks,
                                  table_rows=rows, act="gelu")
     torch.cuda.synchronize()
-    assert rs.LAUNCHES["emlp1_src_bwd"] == before + 1
+    assert {k: rs.LAUNCHES[k] - before[k] for k in before} == dict(
+        {k: 0 for k in before}, emlp1_src_bwd=1)
     assert got.dtype == torch.float32 and got.shape == (rows, d)
     want = rs._emlp1_src_bwd_plain(gcb, t, cols, w, e_real, ranks, rows,
                                    "gelu")
-    abs_sums, counts, slack = emlp1_src_bwd_bounds(
-        torch, rs, gcb, t, cols, w, e_real, ranks, rows, "gelu")
-    check_kernel("emlp1_src_bwd", got, want, abs_sums, counts, torch,
-                 slack=slack)
-    # The same check fails a planted dx sum one column short.
-    planted = k14_emulated("dx_drops_last_term", gcb, t, cols, w, e_real,
+    emlp1_src_bwd_tc_check(torch, rs, got, want, gcb, t, cols, w, e_real,
                            ranks, rows, "gelu")
-    with pytest.raises(AssertionError):
-        check_kernel("emlp1_src_bwd", planted, want, abs_sums, counts, torch,
-                     slack=slack)
+    # On the diluted stream the last slots are fill slots (zero beta | g
+    # rows, zero terms), so counting them shows nowhere.
+    faults = ("edge_dropped", "term_one_ulp_past", "dx_drops_last_term",
+              "dx_wrong_type_weight") + (
+        ("tail_counted",) if stream == "undiluted" else ())
+    for fault in faults:
+        planted = k14_tc_emulated(fault, gcb, t, cols, w, e_real, ranks,
+                                  rows, "gelu")
+        with pytest.raises(AssertionError):
+            emlp1_src_bwd_tc_check(torch, rs, planted, want, gcb, t, cols,
+                                   w, e_real, ranks, rows, "gelu")
     fed = torch.zeros(rows, dtype=torch.bool, device=dev)
     fed[ranks[:e - 500].long()] = True
     assert (got[~fed] == 0).all()
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("d", [128, 44])
+def test_emlp1_src_bwd_earlier_body_against_redesign_on_card(
+        dev, ranked_graph, act, d):
+    """K14's earlier body (tools/earlier_designs.py: scalar f32 products
+    in index order, the wrapper's transposed weights) beside the
+    redesign on the same inputs. The two sum their products in other
+    orders, so no entry need be equal: the earlier body within the
+    kernel-order bound of the plain version (emlp1_src_bwd_bounds, which
+    also fails a dx sum one column short), the redesign within the
+    order-free one."""
+    ranks, rows, cols, gcb, t, w, e_real = _k14_inputs(dev, ranked_graph,
+                                                       "undiluted", d)
+    before = dict(rs.LAUNCHES)
+    new = rs._emlp1_src_bwd_impl(gcb, t, cols, w, e_real, ranks,
+                                 table_rows=rows, act=act)
+    earlier = earlier_designs.emlp1_src_bwd_scalar(
+        gcb, t, cols, w, e_real, ranks, table_rows=rows, act=act)
+    torch.cuda.synchronize()
+    assert {k: rs.LAUNCHES[k] - before[k] for k in before} == dict(
+        {k: 0 for k in before}, emlp1_src_bwd=1, emlp1_src_bwd_scalar=1)
+    want = rs._emlp1_src_bwd_plain(gcb, t, cols, w, e_real, ranks, rows, act)
+    emlp1_src_bwd_tc_check(torch, rs, new, want, gcb, t, cols, w, e_real,
+                           ranks, rows, act)
+    abs_sums, counts, slack = emlp1_src_bwd_bounds(
+        torch, rs, gcb, t, cols, w, e_real, ranks, rows, act)
+    check_kernel("emlp1_src_bwd_scalar", earlier, want, abs_sums, counts,
+                 torch, slack=slack)
+    planted = k14_emulated("dx_drops_last_term", gcb, t, cols, w, e_real,
+                           ranks, rows, act)
+    with pytest.raises(AssertionError):
+        check_kernel("emlp1_src_bwd", planted, want, abs_sums, counts, torch,
+                     slack=slack)
 
 
 def test_k10_k14_wrappers_refuse_what_the_kernels_do_not_take(dev,
@@ -978,7 +1035,17 @@ def test_k10_k14_wrappers_refuse_what_the_kernels_do_not_take(dev,
                                torch.zeros((rows, 16), **bf), cols,
                                torch.zeros((1, 16, 16), **bf), e_real.long(),
                                src, table_rows=rows, act="gelu")
+    with pytest.raises(ValueError):  # four types' weights past 128 columns
+        rs._emlp1_src_bwd_impl(torch.zeros((e, 288), **bf),
+                               torch.zeros((rows, 144), **bf), cols,
+                               torch.zeros((4, 144, 144), **bf), e_real,
+                               src, table_rows=rows, act="gelu")
     assert rs.LAUNCHES == before  # nothing refused was launched
+
+
+def test_emlp1_src_bwd_gate_agrees_with_the_kernel_on_card(dev):
+    """The widths K14's gate admits are the widths its kernel takes."""
+    emlp1_src_bwd_fits_check(rs)
 
 
 def _layer_on_card_and_cpu(dev, graph, apply, params, d, seed, **kw):
@@ -1165,34 +1232,54 @@ def test_ranked_weighted_segment_sum_grad_on_card(dev, graph):
                   msgs.detach(), g.bfloat16().index_select(0, ranks), torch)
 
 
-@pytest.mark.parametrize("d", [128, 200, 48, 40])
+@pytest.mark.parametrize("d", [128, 200, 48, 40, 24])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu", "elu"])
 def test_film_fwd_mask_matches_plain_and_film_fwd_on_card(dev, graph, act, d):
-    """K15a: the mask equals the plain version's bit for bit (D = 40 and
-    200 leave a part-filled 16-column group, 48 and 40 a part-filled
-    warp), and the same exact check rejects a mask one bit off; the table
-    equals K1's on the same inputs on every row that K1 sums in a fixed
-    order and lies within the order bound of the plain version's."""
+    """K15a (K1's row walk with the mask epilogue): the mask equals the
+    plain version's bit for bit (D = 40, 200 and 24 leave a part-filled
+    16-column group, 40, 200 and 24 an odd number of 8-column lanes, so a
+    pad lane), and the same exact check rejects a mask one bit off; the
+    table equals K1's on the same inputs on every row that is not a seam
+    row and lies within the order bound of the plain version's
+    (film_fwd_mask_check)."""
     msgs, gb, ranks = _inputs("film_fwd", graph.flat, d, dev)
-    rows = gb.shape[0]
     before = rs.LAUNCHES["film_fwd_mask"]
     table, mask = rs._film_fwd_mask_impl(msgs, gb, ranks, act=act)
     torch.cuda.synchronize()
     assert rs.LAUNCHES["film_fwd_mask"] == before + 1
     assert mask.dtype == torch.float32
     assert mask.shape == (ranks.shape[0], rs._mask_lanes(d))
-    t_want, m_want = rs._film_fwd_mask_plain(msgs, gb, ranks, act)
-    check_exact("film_fwd_mask mask", mask, m_want, torch)
+    want = rs._film_fwd_mask_plain(msgs, gb, ranks, act)
+    film_fwd_mask_check(torch, rs, (table, mask), want,
+                        rs._film_fwd_impl(msgs, gb, ranks, act=act), msgs, gb,
+                        ranks, act)
     off = mask.clone()
     off[7, 0] = float(int(off[7, 0]) ^ 1)
     with pytest.raises(AssertionError):
-        check_exact("film_fwd_mask mask (one bit off)", off, m_want, torch)
-    fixed = ~seam_rows(torch, ranks, rows)
-    k1 = rs._film_fwd_impl(msgs, gb, ranks, act=act)
-    check_exact("film_fwd_mask table", table[fixed], k1[fixed], torch)
-    check_kernel("film_fwd_mask", table, t_want,
-                 *_terms_and_counts("film_fwd", act, (msgs, gb, ranks),
-                                    graph.flat, dev), torch)
+        check_exact("film_fwd_mask mask (one bit off)", off, want[1], torch)
+
+
+@pytest.mark.parametrize("d", [128, 200, 40])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu"])
+def test_film_fwd_mask_earlier_body_against_redesign_on_card(dev, graph, act,
+                                                             d):
+    """K15a's earlier body (tools/earlier_designs.py: K1's earlier walk, a
+    thread a column) against the redesign on the same inputs: the mask
+    bit for bit and the table on every row that is not a seam row (the
+    same sums in the same order: film_fwd_mask_design_check); the
+    earlier body also within film_fwd_mask_check."""
+    msgs, gb, ranks = _inputs("film_fwd", graph.flat, d, dev)
+    before = dict(rs.LAUNCHES)
+    new = rs._film_fwd_mask_impl(msgs, gb, ranks, act=act)
+    earlier = earlier_designs.film_fwd_mask_walk(msgs, gb, ranks, act=act)
+    torch.cuda.synchronize()
+    assert {k: rs.LAUNCHES[k] - before[k] for k in before} == dict(
+        {k: 0 for k in before}, film_fwd_mask=1, film_fwd_mask_walk=1)
+    film_fwd_mask_design_check(torch, "film_fwd_mask", new, earlier, ranks)
+    film_fwd_mask_check(torch, rs, earlier,
+                        rs._film_fwd_mask_plain(msgs, gb, ranks, act),
+                        rs._film_fwd_impl(msgs, gb, ranks, act=act), msgs, gb,
+                        ranks, act)
 
 
 @pytest.mark.parametrize("d", [128, 200, 40])

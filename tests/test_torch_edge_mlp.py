@@ -281,7 +281,7 @@ def test_edge_mlp_wrappers_check_their_arguments():
     assert t_rs.expand_add_act_supported("ELU")
     assert not t_rs.expand_add_act_supported("gelu")
     assert t_rs.ENABLE_EMLP1_SRC_PASS is False
-    assert t_rs.emlp1_src_supported("gelu", 1) is False
+    assert t_rs.emlp1_src_supported("gelu", 16, 1) is False
     assert (j_rs.ENABLE_EMLP1_SRC_PASS is False
             and set(t_rs._ACTS_FROM_OUT) == set(j_rs._ACTS_FROM_OUT))
 

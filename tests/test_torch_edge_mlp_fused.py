@@ -322,8 +322,8 @@ def test_fused_src1_branch_matches_jax_auto(multi, monkeypatch):
     params, h, w = layer_inputs(tg, 1, True, seed=10)
     monkeypatch.setattr(j_rs, "ENABLE_EMLP1_SRC_PASS", True)
     monkeypatch.setattr(t_rs, "ENABLE_EMLP1_SRC_PASS", True)
-    assert t_rs.emlp1_src_supported("gelu", 4)
-    assert not t_rs.emlp1_src_supported("gelu", 5)
+    assert t_rs.emlp1_src_supported("gelu", D, 4)
+    assert not t_rs.emlp1_src_supported("gelu", D, 5)
     jcalls = count_calls(monkeypatch, j_rs, "emlp1_tm_pass")
     tcalls = count_calls(monkeypatch, t_rs, "emlp1_tm_pass")
     want = jax_layer(jg, params, h, w, **cfg)
@@ -338,7 +338,7 @@ def test_gates_and_flag_defaults(multi):
     _, tg = multi
     assert t_rs.ENABLE_EMLP1_SRC_PASS is False
     assert j_rs.ENABLE_EMLP1_SRC_PASS is False
-    assert not t_rs.emlp1_src_supported("gelu", 4)
+    assert not t_rs.emlp1_src_supported("gelu", D, 4)
     assert t_rs.typed_dense_agg_supported(8, "gelu")
     assert not t_rs.typed_dense_agg_supported(9, "gelu")
     assert not t_rs.typed_dense_agg_supported(4, "selu")

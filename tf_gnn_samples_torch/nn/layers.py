@@ -648,7 +648,8 @@ def gnn_edge_mlp_apply(
             beta = take_by_tm_rank(_flat(tt), graph)  # [RPAD, D]
             rows = rs.fine_rank_table_rows(n_pad, num_types,
                                            flat.tm_rank.shape[0], 256)
-            if rs.emlp1_src_supported(act_name, self_types.count(False)):
+            if rs.emlp1_src_supported(act_name, W1.shape[-1],
+                                      self_types.count(False)):
                 # fused_src1: the same forward inside one op whose backward
                 # recomputes the message cotangent in source order (K14)
                 # in place of the gather's [E, D] cotangent permute.

@@ -31,12 +31,12 @@ _FILM_ARGS = (_P,) * 4 + (_I,) * 3 + (_P,)
 # The per-head weighted segment-sums (K7a, K7b, K13a, K13b) share their
 # device code; the forward walks K1's rows (film_rows.cuh).
 _WSEG_HEADERS = ("wseg_common.cuh", "film_rows.cuh", "film_common.cuh")
-# K1-K4 share their device code (film_rows.cuh); the K16 variants of K1
-# and K2 share those two's earlier walk (film_walk.cuh).
+# K1-K4 and K15a share their device code (film_rows.cuh); the K16
+# variants of K1 and K2 share those two's earlier walk (film_walk.cuh).
 _ROWS_HEADERS = ("film_rows.cuh", "film_common.cuh")
 _WALK_HEADERS = ("film_walk.cuh", "film_common.cuh")
-# K10a and K10b form their typed products on the tensor cores through one
-# tile (typed_mma.cuh).
+# K10a, K10b and K14 form their typed products on the tensor cores through
+# one tile (typed_mma.cuh).
 _MMA_HEADERS = ("typed_mma.cuh", "film_common.cuh")
 # name -> (headers the source includes, argument types of its entry
 # point); every entry point returns the CUDA error code of its launch.
@@ -86,15 +86,15 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # x, w, g16, types, ranks, dx, dw, num_edges, dh, dim, num_types, act
     # id, stream
     "typed_dense_agg_bwd": (_MMA_HEADERS, (_P,) * 7 + (_I,) * 5 + (_P,)),
-    # gcb, t, type_col, w, wt, e_real, ranks, out, num_edges, dim, l_eff,
-    # act id, stream
-    "emlp1_src_bwd": (("film_common.cuh",), (_P,) * 8 + (_I,) * 4 + (_P,)),
+    # gcb, t, type_col, w, e_real, ranks, out, num_edges, dim, l_eff, act
+    # id, stream
+    "emlp1_src_bwd": (_MMA_HEADERS, (_P,) * 7 + (_I,) * 4 + (_P,)),
     # msgs, w, ranks, out, num_edges, dim, num_heads, stream
     "wseg": (_WSEG_HEADERS, (_P,) * 4 + (_I,) * 3 + (_P,)),
     # msgs, w, g16, ranks, dmsg, dw, num_edges, dim, num_heads, stream
     "wseg_bwd": (_WSEG_HEADERS, (_P,) * 6 + (_I,) * 3 + (_P,)),
     # msgs, gb, ranks, out, mask, num_edges, dim, lanes, act id, stream
-    "film_fwd_mask": (("film_common.cuh",), (_P,) * 5 + (_I,) * 4 + (_P,)),
+    "film_fwd_mask": (_ROWS_HEADERS, (_P,) * 5 + (_I,) * 4 + (_P,)),
     # mask, c, ranks, out, num_edges, dim, lanes, leak, stream
     "masked_segsum": (("film_common.cuh",),
                       (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
@@ -122,6 +122,14 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
                                (_P,) * 5 + (_I,) * 5 + (_P,)),
     "typed_dense_agg_bwd_scalar": (("film_common.cuh",),
                                    (_P,) * 8 + (_I,) * 5 + (_P,)),
+    # The earlier designs of K14 and K15a: gcb, t, type_col, w, wt (w
+    # transposed), e_real, ranks, out, num_edges, dim, l_eff, act id,
+    # stream; msgs, gb, ranks, out, mask, num_edges, dim, lanes, act id,
+    # stream
+    "emlp1_src_bwd_scalar": (("film_common.cuh",),
+                             (_P,) * 8 + (_I,) * 4 + (_P,)),
+    "film_fwd_mask_walk": (("film_common.cuh",),
+                           (_P,) * 5 + (_I,) * 4 + (_P,)),
     # K16, the A/B variants of tools/ (tf_gnn_samples_torch/tools/):
     # msgs, gb, ranks, out, num_edges, dim, act id, variant, group, stream
     "film_fwd_ab": (_WALK_HEADERS, (_P,) * 4 + (_I,) * 5 + (_P,)),

@@ -66,8 +66,8 @@ the kernel does not take; it runs the plain PyTorch version beside it only
 for tensors on the CPU. `LAUNCHES` counts kernel launches, one per wrapper
 call that reached its kernel; it also counts those of the K16 variants of
 the harnesses in tf_gnn_samples_torch/tools/, one counter per kernel body,
-and those of the earlier designs of K3, K4, K9, K12a, K7a, K6a, K10a and
-K10b (tools/earlier_designs.py). `FORM_LAUNCHES` counts K9's launches by form.
+and those of the earlier designs of K3, K4, K9, K12a, K7a, K6a, K10a,
+K10b, K14 and K15a (tools/earlier_designs.py). `FORM_LAUNCHES` counts K9's launches by form.
 
 Numerics follow the TPU kernels' rounding points: z is computed in f32
 from bf16 operands, and every summed term (the message in K5a, the
@@ -79,7 +79,7 @@ rounded to bf16 before its f32 sum; K5b and K6b round each table value to
 bf16; K7b, K13b, K4 and K10b write d_msgs / dx in bf16; K7b and K8 keep
 d_w_t, K13b d_w, K10b dW in f32. The typed products of K10 and K14 sum
 their f32 products in another order than the plain versions' matmuls
-(K10's on the tensor cores, whose f32 accumulation truncates).
+(on the tensor cores, whose f32 accumulation truncates).
 The kernels sum in stream order with atomics at chunk seams, so their
 sums differ from run to run in the last bits; the terms do not.
 """
@@ -220,12 +220,15 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "rowgather_loop8": 0, "rowgather_take": 0,
                             "rowgather_onehot": 0,
                             # the earlier designs of K3, K4, K12a, K9, K7a,
-                            # K6a, K10a and K10b (tools/earlier_designs.py)
+                            # K6a, K10a, K10b, K14 and K15a
+                            # (tools/earlier_designs.py)
                             "film_src_bwd_walk": 0, "film_bwd_walk": 0,
                             "act_agg_walk": 0, "rgat_src_bwd_walk": 0,
                             "wseg_t_walk": 0, "segsum_t_walk": 0,
                             "typed_dense_agg_scalar": 0,
-                            "typed_dense_agg_bwd_scalar": 0}
+                            "typed_dense_agg_bwd_scalar": 0,
+                            "emlp1_src_bwd_scalar": 0,
+                            "film_fwd_mask_walk": 0}
 # K9's launches (counted in LAUNCHES["rgat_src_bwd"]) by the form the
 # wrapper launched.
 FORM_LAUNCHES: Dict[str, int] = {"rgat_src_bwd gather": 0,
@@ -1039,8 +1042,9 @@ def _emlp1_src_bwd_plain(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
 # memory (csrc/typed_dense_agg.cu, csrc/typed_dense_agg_bwd.cu `smem_bytes`
 # and SMEM_MAX; bf16 rows padded to 16 columns plus 8): at most these many
 # bytes beside their static arrays, for at most TYPED_MMA_MAX_TYPES edge
-# types.
-TYPED_MMA_SMEM = {False: 232448 - 5120, True: 232448 - 2048}
+# types. A block may opt into SMEM_OPTIN bytes on the H100.
+SMEM_OPTIN = 232448
+TYPED_MMA_SMEM = {False: SMEM_OPTIN - 5120, True: SMEM_OPTIN - 2048}
 TYPED_MMA_MAX_TYPES = 8
 
 
@@ -1128,6 +1132,27 @@ def _typed_dense_agg_bwd_impl(x, w, g16, types, ranks, *, block_edges=256,
     return dx, dw
 
 
+# What K14 stages in a block's shared memory (csrc/emlp1_src_bwd.cu
+# `smem_bytes` and SMEM_MAX; bf16 rows padded to 16 columns plus 8): every
+# non-self type's weights and, for each of its two warp groups, a 32-edge
+# chunk's bf16(x), da and g rows (bf16) and elu'(x) rows (f32). The
+# kernel's own emlp1_src_bwd_fits is held equal to this one on the card.
+EMLP1_SRC_SMEM = SMEM_OPTIN - 3072
+EMLP1_SRC_ROWS = 2 * 32  # two warp groups' 32-edge chunks
+
+
+def emlp1_src_bwd_fits(l_eff: int, d: int) -> bool:
+    """Whether K14's block holds `l_eff` types' D x D weights and a chunk's
+    rows in shared memory (D up to 128 at four types, the gate's most)."""
+    if d <= 0 or not 1 <= l_eff <= TYPED_MMA_MAX_TYPES:
+        return False
+    d_p = _ceil_mult(d, 16)
+    ld = d_p + 8
+    need = (2 * (l_eff * d_p * ld + 3 * EMLP1_SRC_ROWS * ld)
+            + 4 * EMLP1_SRC_ROWS * ld)
+    return need <= EMLP1_SRC_SMEM
+
+
 def _emlp1_src_bwd_impl(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
                         *, table_rows, block_edges=256, act, win=0):
     """K14: the source-order half of the Edge-MLP1 backward. Edge e of src
@@ -1140,7 +1165,10 @@ def _emlp1_src_bwd_impl(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
     D]. Edges at or past e_real (an int32 [1] tensor: the padded tail of
     the src-sorted stream, whose type decode is garbage) and edges of no
     non-self type add nothing. The JAX package takes the type from a
-    one-hot over the non-self types; `type_col` is its column index."""
+    one-hot over the non-self types; `type_col` is its column index. On
+    the card both products run on the tensor cores (for widths that
+    emlp1_src_bwd_fits: the wrapper raises past them) and read w_stack
+    both ways, so no transposed copy is made."""
     e = ranks.shape[0]
     dim = t_ranked.shape[1]
     if (gcb_src.shape != (e, 2 * dim) or t_ranked.shape[0] != table_rows
@@ -1158,12 +1186,14 @@ def _emlp1_src_bwd_impl(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
     _check_dtype("emlp1_src_bwd", type_col, torch.int32)
     _check_dtype("emlp1_src_bwd", e_real, torch.int32)
     _check_ranks("emlp1_src_bwd", ranks)
+    if not emlp1_src_bwd_fits(w_stack.shape[0], dim):
+        raise ValueError("emlp1_src_bwd: %d types of %d x %d weights do not "
+                         "fit the kernel" % tuple(w_stack.shape))
     out = torch.zeros((table_rows, dim), dtype=torch.float32,
                       device=gcb_src.device)
     if e:
-        wt = w_stack.transpose(1, 2).contiguous()
-        _call("emlp1_src_bwd", (gcb_src, t_ranked, type_col, w_stack, wt,
-                                e_real, ranks, out),
+        _call("emlp1_src_bwd", (gcb_src, t_ranked, type_col, w_stack, e_real,
+                                ranks, out),
               (e, dim, w_stack.shape[0], ACT_IDS[act]))
     return out
 
@@ -1856,14 +1886,18 @@ def typed_dense_aggregate(x, w, types, ranks, table_rows: int,
 ENABLE_EMLP1_SRC_PASS = False
 
 
-def emlp1_src_supported(act: str, l_eff: int) -> bool:
+def emlp1_src_supported(act: str, dim: int, l_eff: int) -> bool:
     """Eligibility of the Edge-MLP1 source-order recompute backward for
-    `l_eff` non-self edge types: the JAX package's gate with its semantic
-    terms (the flag, a known activation, 1 to 4 non-self types) and
-    without its VMEM, stream-length and slice-alignment terms (the CUDA
-    kernels keep no table on chip and K12a takes any slice)."""
+    `l_eff` non-self edge types of width `dim`: the JAX package's gate
+    with its semantic terms (the flag, a known activation, 1 to 4 non-self
+    types) and, in place of its VMEM term, K14's shared memory
+    (emlp1_src_bwd_fits: D up to 128 at four types); without its
+    stream-length and slice-alignment terms (the CUDA kernels keep no
+    table on chip and K12a takes any slice). Wider configs take the
+    default type-major step."""
     return (ENABLE_EMLP1_SRC_PASS and ENABLE_FUSED_SRC_PASS
-            and act in _ACTS and 0 < l_eff <= 4)
+            and act in _ACTS and 0 < l_eff <= 4
+            and emlp1_src_bwd_fits(l_eff, dim))
 
 
 def src_rank_type_columns(src_from_rank, n_pad: int, self_flags):

@@ -1,20 +1,23 @@
 """The earlier designs of K3 (`film_src_bwd`), K4 (`film_bwd`), K12a
-(`act_agg`), K9 (`rgat_src_bwd`), K7a (`wseg_t`), K6a (`segsum_t`), K10a
-(`typed_dense_agg`) and K10b (`typed_dense_agg_bwd`): a thread per column
-walking a 64-edge chunk with 2-byte loads (csrc/film_src_bwd_walk.cu,
-csrc/film_bwd_walk.cu, csrc/act_agg_walk.cu, csrc/rgat_src_bwd_walk.cu,
-csrc/wseg_t_walk.cu), or, for K6a, a thread per run of 8 edges of one head
-(csrc/segsum_t_walk.cu), or, for K10, typed products by scalar f32
-multiply-adds (csrc/typed_dense_agg_scalar.cu,
-csrc/typed_dense_agg_bwd_scalar.cu), unchanged from before their
-redesign; K12a's takes one stream slice a launch. No model path calls
-them: chip_smoke.py and the card tests hold the redesigned kernels to
-them (the same sums in the same order on every row of at most two 64-edge
-chunks; K6a's: of at most two 8-edge runs; K10's sum their products in
-other orders, so each is held to the plain version instead) and time the
-two in turns. Launches count under "film_src_bwd_walk", "film_bwd_walk",
+(`act_agg`), K9 (`rgat_src_bwd`), K7a (`wseg_t`), K6a (`segsum_t`), K15a
+(`film_fwd_mask`), K10a (`typed_dense_agg`), K10b (`typed_dense_agg_bwd`)
+and K14 (`emlp1_src_bwd`): a thread per column walking a 64-edge chunk
+with 2-byte loads (csrc/film_src_bwd_walk.cu, csrc/film_bwd_walk.cu,
+csrc/act_agg_walk.cu, csrc/rgat_src_bwd_walk.cu, csrc/wseg_t_walk.cu,
+csrc/film_fwd_mask_walk.cu), or, for K6a, a thread per run of 8 edges of
+one head (csrc/segsum_t_walk.cu), or, for K10 and K14, typed products by
+scalar f32 multiply-adds (csrc/typed_dense_agg_scalar.cu,
+csrc/typed_dense_agg_bwd_scalar.cu, csrc/emlp1_src_bwd_scalar.cu),
+unchanged from before their redesign; K12a's takes one stream slice a
+launch. No model path calls them: chip_smoke.py and the card tests hold
+the redesigned kernels to them (the same sums in the same order on every
+row of at most two 64-edge chunks, K15a's mask bit for bit; K6a's: of at
+most two 8-edge runs; K10's and K14's sum their products in other orders,
+so each is held to the plain version instead) and time the two in turns.
+Launches count under "film_src_bwd_walk", "film_bwd_walk",
 "act_agg_walk", "rgat_src_bwd_walk", "wseg_t_walk", "segsum_t_walk",
-"typed_dense_agg_scalar" and "typed_dense_agg_bwd_scalar". Tensors on the
+"film_fwd_mask_walk", "typed_dense_agg_scalar",
+"typed_dense_agg_bwd_scalar" and "emlp1_src_bwd_scalar". Tensors on the
 CPU take the kernels' plain versions."""
 
 import torch
@@ -218,3 +221,57 @@ def typed_dense_agg_bwd_scalar(x, w, g16, types, ranks, *, act):
                  (x, w, wt, g16, types, ranks, dx, dw),
                  (e, dh, w.shape[2], w.shape[0], rs.ACT_IDS[act]))
     return dx, dw
+
+
+def emlp1_src_bwd_scalar(gcb_src, t_ranked, type_col, w_stack, e_real, ranks,
+                         *, table_rows, act):
+    """K14's function by its earlier design (scalar f32 products), from the
+    inputs of `_emlp1_src_bwd_impl`; f32 [table_rows, D] out. The body
+    reads W both ways: the wrapper passes W^T too."""
+    e = ranks.shape[0]
+    dim = t_ranked.shape[1]
+    if (gcb_src.shape != (e, 2 * dim) or t_ranked.shape[0] != table_rows
+            or type_col.shape != (table_rows,) or w_stack.dim() != 3
+            or w_stack.shape[1:] != (dim, dim) or e_real.shape != (1,)):
+        raise ValueError("emlp1_src_bwd_scalar: shapes %s, %s, %s, %s, %s" % (
+            tuple(gcb_src.shape), tuple(t_ranked.shape),
+            tuple(type_col.shape), tuple(w_stack.shape), tuple(ranks.shape)))
+    if gcb_src.device.type == "cpu":
+        return rs._emlp1_src_bwd_plain(gcb_src, t_ranked, type_col, w_stack,
+                                       e_real, ranks, table_rows, act)
+    for t in (gcb_src, t_ranked, w_stack):
+        rs._check_dtype("emlp1_src_bwd_scalar", t, torch.bfloat16)
+    for t in (type_col, e_real):
+        rs._check_dtype("emlp1_src_bwd_scalar", t, torch.int32)
+    rs._check_ranks("emlp1_src_bwd_scalar", ranks)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=gcb_src.device)
+    if e:
+        wt = w_stack.transpose(1, 2).contiguous()
+        rs._call("emlp1_src_bwd_scalar",
+                 (gcb_src, t_ranked, type_col, w_stack, wt, e_real, ranks,
+                  out), (e, dim, w_stack.shape[0], rs.ACT_IDS[act]))
+    return out
+
+
+def film_fwd_mask_walk(msgs, gb_table, ranks, *, act):
+    """K15a's function by its earlier design, from the inputs of
+    `_film_fwd_mask_impl`: f32 [RPAD, D] table and f32 [E, lanes] packed
+    mask out."""
+    e, dim = msgs.shape
+    rpad = gb_table.shape[0]
+    if gb_table.shape != (rpad, 2 * dim) or ranks.shape != (e,):
+        raise ValueError("film_fwd_mask_walk: shapes %s, %s, %s" % (
+            tuple(msgs.shape), tuple(gb_table.shape), tuple(ranks.shape)))
+    if msgs.device.type == "cpu":
+        return rs._film_fwd_mask_plain(msgs, gb_table, ranks, act)
+    for t in (msgs, gb_table):
+        rs._check_dtype("film_fwd_mask_walk", t, torch.bfloat16)
+    rs._check_ranks("film_fwd_mask_walk", ranks)
+    lanes = rs._mask_lanes(dim)
+    out = torch.zeros((rpad, dim), dtype=torch.float32, device=msgs.device)
+    mask = torch.empty((e, lanes), dtype=torch.float32, device=msgs.device)
+    if e:
+        rs._call("film_fwd_mask_walk", (msgs, gb_table, ranks, out, mask),
+                 (e, dim, lanes, rs.ACT_IDS[act]))
+    return out, mask
