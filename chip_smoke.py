@@ -38,7 +38,14 @@ Phases, each of which raises on failure (no phase's failure is caught):
     its fine table: equal on every row of at most two 8-edge runs; K15a
     (K1's row walk with a mask epilogue, relu and leaky_relu) against its
     earlier body (K1's earlier walk): the mask bit for bit, the table on
-    every row of at most two chunks; K10a, K10b and K14 (tensor cores,
+    every row of at most two chunks; K15b (every table row written once,
+    no zero fill, no atomics; relu and leaky_relu) against its earlier
+    body (atomics into a zeroed table): equal on every row of at most two
+    chunks, within the order bound on the rest, and through raw launches
+    into NaN-filled tables, on the batch and on the diluted stream: every
+    row written, the rows no edge reaches exactly 0, two launches equal
+    bit for bit (the torch.zeros of its table timed beside it); K10a,
+    K10b and K14 (tensor cores,
     gelu) beside their earlier bodies (scalar f32 products): their sums
     take other orders, so each is held to the plain version instead, the
     redesigns within an order-free bound (typed_dense_agg_tc_check,
@@ -185,9 +192,10 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     "typed_dense_agg_scalar": "tf_gnn_samples_tpu/ops/ranked_segment.py:1084",
     "typed_dense_agg_bwd_scalar":
         "tf_gnn_samples_tpu/ops/ranked_segment.py:1108",
-    # the earlier designs of K14 and K15a, the same
+    # the earlier designs of K14, K15a and K15b, the same
     "emlp1_src_bwd_scalar": "tf_gnn_samples_tpu/ops/ranked_segment.py:2305",
     "film_fwd_mask_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:398",
+    "masked_segsum_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:468",
 }
 # The CUDA source of each K16 kernel body, by its counter's prefix.
 K16_SOURCES = {"film_fwd": "film_fwd_ab", "film_dgb": "film_dgb_ab",
@@ -1603,11 +1611,46 @@ def kernel_phase(torch, rs, dev):
     also["film_fwd_mask"] = lambda: k15a_check("leaky_relu")(
         rs._film_fwd_mask_impl(msgs, gb, fine, act="leaky_relu"),
         rs._film_fwd_mask_plain(msgs, gb, fine, "leaky_relu"))
-    also["masked_segsum"] = lambda: order_check(
-        "masked_segsum (leaky_relu)", rsrc, src, k15_terms[0.2])(
-            rs._masked_segsum_impl(mask15, c15, src, table_rows=rsrc,
-                                   leak=0.2),
-            rs._masked_segsum_plain(mask15, c15, src, rsrc, 0.2))
+    # K15b writes its whole table without a zero fill: for relu and
+    # leaky_relu, raw launches into NaN tables; the torch.zeros of the same
+    # table that its earlier wrapper ran is timed for the row.
+    k15b_fill = {}
+
+    def k15b_also():
+        err = order_check(
+            "masked_segsum (leaky_relu)", rsrc, src, k15_terms[0.2])(
+                rs._masked_segsum_impl(mask15, c15, src, table_rows=rsrc,
+                                       leak=0.2),
+                rs._masked_segsum_plain(mask15, c15, src, rsrc, 0.2))
+        for act_v, leak in rs.MASKABLE_ACTS.items():
+            masked_segsum_table_check(
+                torch, "masked_segsum (%s) into a NaN table" % act_v,
+                masked_segsum_nan_tables(torch, rs, mask15, c15, src, rsrc,
+                                         leak), src)
+        zeros = lambda: torch.zeros((rsrc, d), device=dev)
+        k15b_fill.update(zero_fill_ms=cuda_ms(zeros),
+                         zero_fill_queued_ms=cuda_queued_ms(zeros))
+        print("  torch.zeros of K15b's [%d, %d] f32 table: %.4f ms (%.4f "
+              "queued)" % (rsrc, d, k15b_fill["zero_fill_ms"],
+                           k15b_fill["zero_fill_queued_ms"]))
+        # Its two kernels' device time, on the batch's ranks and with the
+        # padded tail's one long run given a rank an edge (no row then
+        # spans three chunks; timed only).
+        tail = int((src == src[-1]).sum())
+        split = src.clone()
+        split[-tail:] += torch.arange(tail, device=dev, dtype=src.dtype)
+        for label, rk in (("the batch's ranks", src),
+                          ("its %d-edge padded run split" % tail, split)):
+            by_kernel = device_profile(
+                lambda: rs._masked_segsum_impl(mask15, c15, rk,
+                                               table_rows=rsrc, leak=0.0),
+                torch, calls=10)[1]
+            print("  masked_segsum device ms by kernel (torch.profiler), %s: "
+                  "%s" % (label, {k: round(v, 4) for k, v in
+                                  sorted(by_kernel.items())}))
+        return err
+
+    also["masked_segsum"] = k15b_also
     also["act_agg"] = k12_also("act_agg")
     also["act_agg_bwd"] = k12_also("act_agg_bwd")
     # K2 through its gamma|beta|g form too (two views of one table).
@@ -1778,6 +1821,7 @@ def kernel_phase(torch, rs, dev):
 
     k14_bounds = spec_bounds("emlp1_src_bwd", ("gelu",))
     k15a_bounds = spec_bounds("film_fwd_mask", ("relu", "leaky_relu"))
+    k15b_bounds = spec_bounds("masked_segsum", tuple(rs.MASKABLE_ACTS))
 
     designs = {
         "film_fwd": lambda: earlier_design(
@@ -1900,6 +1944,23 @@ def kernel_phase(torch, rs, dev):
                                                          act=a),
             fine, check=film_fwd_mask_design_check,
             variants=("relu", "leaky_relu"), bounds=k15a_bounds),
+        # K15b against its earlier body (atomics into a zeroed table): equal
+        # on every row of at most two chunks, within the order bound on
+        # the rest; timed with relu, leaky_relu too. `ranks` carries each
+        # variant's leak to the check.
+        "masked_segsum": lambda: earlier_design(
+            torch, "masked_segsum",
+            lambda a: rs._masked_segsum_impl(
+                mask15, c15, src, table_rows=rsrc,
+                leak=rs.MASKABLE_ACTS[a]),
+            lambda a: earlier_designs.masked_segsum_walk(
+                mask15, c15, src, table_rows=rsrc,
+                leak=rs.MASKABLE_ACTS[a]),
+            {a: (src, leak) for a, leak in rs.MASKABLE_ACTS.items()},
+            check=lambda torch_, name, got, earlier, rk:
+                masked_segsum_design_check(torch_, rs, name, got, earlier,
+                                           mask15, c15, *rk),
+            variants=tuple(rs.MASKABLE_ACTS), bounds=k15b_bounds),
     }
     results = []
     for spec in specs:
@@ -1926,6 +1987,8 @@ def kernel_phase(torch, rs, dev):
         }
         if name in designs:
             row["earlier_design"] = designs[name]()
+        if name == "masked_segsum":
+            row.update(k15b_fill)
         # The library call and the yardstick are timed both ways too, so
         # that each compares with the kernel's queued time like for like.
         if "library" in spec:
@@ -2031,7 +2094,13 @@ def kernel_phase(torch, rs, dev):
             "film_fwd_mask", "relu", lambda: k15a_check("relu")(
                 earlier_designs.film_fwd_mask_walk(msgs, gb, fine,
                                                    act="relu"),
-                rs._film_fwd_mask_plain(msgs, gb, fine, "relu")))}
+                rs._film_fwd_mask_plain(msgs, gb, fine, "relu"))),
+        "masked_segsum_walk": (
+            "masked_segsum", "relu", lambda: order_check(
+                "masked_segsum_walk", rsrc, src, k15_terms[0.0])(
+                    earlier_designs.masked_segsum_walk(
+                        mask15, c15, src, table_rows=rsrc, leak=0.0),
+                    rs._masked_segsum_plain(mask15, c15, src, rsrc, 0.0)))}
     for name, (new_name, v, err) in walks.items():
         new_row = next(r for r in results if r["name"] == new_name)
         times = new_row["earlier_design"][v]
@@ -2070,6 +2139,59 @@ def film_fwd_mask_design_check(torch, name, got, earlier, ranks):
     (table, mask), (table_e, mask_e) = got, earlier
     check_exact("%s mask" % name, mask, mask_e, torch)
     return film_design_check(torch, "%s table" % name, table, table_e, ranks)
+
+
+def masked_segsum_design_check(torch, rs, name, got, earlier, mask, c_e,
+                               ranks, leak):
+    """K15b (`got`) against its earlier body (`earlier`) on the same inputs.
+    Both sum a row's terms per 64-edge chunk in stream order from 0; the
+    earlier body adds a row's chunk partials by atomicAdd, the redesign in
+    chunk order. So every row of at most two chunks (one or two partials)
+    must be equal bit for bit (film_design_check), and every row of three
+    or more within the order bound of the earlier body's. Returns max
+    |got - earlier|."""
+    rows = got.shape[0]
+    err = film_design_check(torch, name, got, earlier, ranks)
+    seams = seam_rows(torch, ranks, rows)
+    if not bool(seams.any()):
+        return err
+    terms = masked_terms(torch, rs, mask, c_e, leak)
+    return check_kernel(
+        "%s on the %d rows of three or more chunks" % (name, int(seams.sum())),
+        got[seams], earlier[seams],
+        row_abs_sums(torch, rows, ranks, terms)[seams],
+        row_counts(torch, rows, ranks)[seams], torch)
+
+
+def masked_segsum_nan_tables(torch, rs, mask, c_e, ranks, rows, leak):
+    """Two raw launches of K15b (rs._masked_segsum_call, no wrapper), each
+    into a table pre-filled with NaN."""
+    tables = []
+    for _ in range(2):
+        out = torch.full((rows, c_e.shape[1]), float("nan"),
+                         device=c_e.device)
+        rs._masked_segsum_call(mask, c_e, ranks, out, leak)
+        tables.append(out)
+    torch.cuda.synchronize()
+    return tables
+
+
+def masked_segsum_table_check(torch, name, tables, ranks):
+    """K15b's tables of masked_segsum_nan_tables: every row must be written
+    (no NaN left), the rows no edge reaches must be exactly 0, and the two
+    launches must give the same bits (no atomics, one order on every
+    run)."""
+    first, again = tables
+    rows = first.shape[0]
+    unwritten = int(torch.isnan(first).any(1).sum())
+    reached = row_counts(torch, rows, ranks) > 0
+    nonzero = int((first[~reached] != 0).any(1).sum())
+    print("  %s: %d of %d rows unwritten, %d of the %d rows no edge "
+          "reaches not 0" % (name, unwritten, rows, nonzero,
+                             int((~reached).sum())))
+    if unwritten or nonzero:
+        raise AssertionError("%s: the table is not written whole" % name)
+    return check_exact("%s, two launches" % name, again, first, torch)
 
 
 def film_variant_check(torch, rs, name, got, want, args, base_out, act):
@@ -2375,7 +2497,8 @@ def ppi_like_graph(dev, seed=0, num_nodes=8192, degree=14):
 
 
 def diluted_phase(torch, rs, dev, graph, seed=0):
-    """K3, K9, K14 and K15b on a DILUTED src stream. The tuned QM9 batches
+    """K3, K9, K14 and K15b on a DILUTED src stream (K15b also against its
+    earlier body and into NaN tables). The tuned QM9 batches
     have no fine rank window, so their src streams are undiluted; `graph`
     (ppi_like_graph) dilutes. Fill slots carry the SD_FILL key, which the
     passes clamp onto a zero row appended to their side table (K3's and
@@ -2385,6 +2508,7 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
     equal their stream forms on every row that is not a seam row."""
     from tf_gnn_samples_torch.nn.layers import src_stream
     from tf_gnn_samples_torch.ops.graph import SD_FILL
+    from tf_gnn_samples_torch.tools import earlier_designs
 
     flat = graph.flat
     fine, ranks, win = src_stream(flat)
@@ -2493,12 +2617,23 @@ def diluted_phase(torch, rs, dev, graph, seed=0):
                                       generator=gen, device=dev).float()
     c15 = gathered(randn(rpad, d))
     for leak in (0.0, 0.2):
-        check("masked_segsum (leak %g)" % leak,
-              rs._masked_segsum_impl(mask, c15, ranks, table_rows=rsrc,
-                                     leak=leak),
+        got15 = rs._masked_segsum_impl(mask, c15, ranks, table_rows=rsrc,
+                                       leak=leak)
+        check("masked_segsum (leak %g)" % leak, got15,
               rs._masked_segsum_plain(mask, c15, ranks, rsrc, leak),
               torch.zeros((rsrc, d), device=dev).index_add_(
                   0, ranks, masked_terms(torch, rs, mask, c15, leak).abs()))
+        # The diluted stream's runs span up to three chunks, and rows past
+        # its last rank are reached by no edge.
+        masked_segsum_design_check(
+            torch, rs, "masked_segsum (leak %g, diluted) = its earlier "
+            "design's" % leak, got15, earlier_designs.masked_segsum_walk(
+                mask, c15, ranks, table_rows=rsrc, leak=leak),
+            mask, c15, ranks, leak)
+        masked_segsum_table_check(
+            torch, "masked_segsum (leak %g, diluted) into a NaN table" % leak,
+            masked_segsum_nan_tables(torch, rs, mask, c15, ranks, rsrc, leak),
+            ranks)
     torch.cuda.synchronize()
 
 

@@ -21,16 +21,18 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
-                        emlp1_src_bwd_intervals, emlp1_src_bwd_tc_check,
-                        film_bwd_design_check, film_design_check,
-                        film_fwd_mask_check, film_fwd_mask_design_check,
-                        film_terms, film_variant_check, hand_kernel_names,
-                        hand_kernel_of,
-                        head_dw_check, kernel_order_products, masked_terms,
-                        seam_rows, segsum_t_design_check, slices_design_check,
-                        src_gather_check, src_terms, tc_gamma,
-                        typed_dense_agg_bounds, typed_dense_agg_bwd_check,
+from chip_smoke import (check_exact, check_kernel, chunk_span,
+                        emlp1_src_bwd_bounds, emlp1_src_bwd_intervals,
+                        emlp1_src_bwd_tc_check, film_bwd_design_check,
+                        film_design_check, film_fwd_mask_check,
+                        film_fwd_mask_design_check, film_terms,
+                        film_variant_check, hand_kernel_names, hand_kernel_of,
+                        head_dw_check, kernel_order_products,
+                        masked_segsum_design_check, masked_segsum_table_check,
+                        masked_terms, seam_rows, segsum_t_design_check,
+                        slices_design_check, src_gather_check, src_terms,
+                        tc_gamma, typed_dense_agg_bounds,
+                        typed_dense_agg_bwd_check,
                         typed_dense_agg_bwd_tc_check,
                         typed_dense_agg_tc_check)
 from tf_gnn_samples_torch.ops import ranked_segment as rs
@@ -587,6 +589,137 @@ def test_k15a_checks_reject_planted_faults(fault):
                                    (k1, want[1]), ranks)
 
     if fault == "none":
+        checks()
+    else:
+        with pytest.raises(AssertionError):
+            checks()
+
+
+def k15b_emulated(terms, ranks, rows, fault="none"):
+    """K15b's two kernels (csrc/masked_segsum.cu) on its per-edge f32 terms,
+    into a table pre-filled with NaN: each 64-edge chunk's rank runs summed
+    in stream order from 0; a run inside the chunk stored to its row, one
+    that continues from the previous chunk or into the next stored as the
+    chunk's lead or trail partial; the rows between neighbouring ranks,
+    before the first and after the last stored as 0; then each row that
+    crosses a chunk end = the trail partial of the chunk where it starts
+    plus the following chunks' lead partials, in chunk order. Planted
+    faults: "lead_dropped" (the join leaves out a row's last continuation
+    partial), "straight" (a crossing row summed through its chunks as one
+    run), "tail_unwritten" (the rows past the last rank left as they
+    were), "reverse_join" (a row's partials added in reverse chunk
+    order)."""
+    e, d = terms.shape
+    out = torch.full((rows, d), float("nan"))
+    chunks = -(-e // 64)
+    lead = torch.full((chunks, d), float("nan"))
+    trail = torch.full((chunks, d), float("nan"))
+    rk = ranks.tolist()
+    out[:rk[0]] = 0.0
+    if fault != "tail_unwritten":
+        out[rk[-1] + 1:] = 0.0
+    for k in range(chunks):
+        e0, e1 = 64 * k, min(64 * k + 64, e)
+        prev = rk[e0 - 1] if e0 else -1
+        continued = prev == rk[e0]
+        if e0:
+            out[prev + 1:rk[e0]] = 0.0
+        cur, first_run, acc = rk[e0], True, torch.zeros(d)
+        for i in range(e0, e1):
+            if rk[i] != cur:
+                if first_run and continued:
+                    lead[k] = acc
+                else:
+                    out[cur] = acc
+                out[cur + 1:rk[i]] = 0.0
+                cur, first_run, acc = rk[i], False, torch.zeros(d)
+            acc = acc + terms[i]
+        if first_run and continued:
+            lead[k] = acc
+        elif e1 < e and rk[e1] == cur:
+            trail[k] = acc
+        else:
+            out[cur] = acc
+    for a in range(chunks - 1):
+        r = rk[64 * a + 63]
+        if rk[64 * a + 64] != r or (a and rk[64 * a - 1] == r):
+            continue
+        parts, j = [trail[a], lead[a + 1]], a + 1
+        while j + 1 < chunks and rk[64 * (j + 1)] == r:
+            j += 1
+            parts.append(lead[j])
+        if fault == "lead_dropped":
+            parts = parts[:-1]
+        elif fault == "reverse_join":
+            parts = parts[::-1]
+        tot = parts[0]
+        for part in parts[1:]:
+            tot = tot + part
+        if fault == "straight":
+            tot = torch.zeros(d)
+            for i in range(64 * a, 64 * (j + 1)):
+                if i < e and rk[i] == r:
+                    tot = tot + terms[i]
+        out[r] = tot
+    return out
+
+
+def k15b_design_inputs(seed=12):
+    """Runs of 5-30 edges with some of 70-200 (rows of two to four
+    chunks), from rank 2 with a gap after every tenth run, in a table 6
+    rows past the last rank; a random packed mask and a bf16 C stream over
+    2^-12 .. 2^12 (f32 sums of bf16 terms of one magnitude would be exact
+    in any order)."""
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(5, 30, size=150)
+    sizes[::13] = rng.randint(70, 200, size=len(sizes[::13]))
+    steps = np.where(np.arange(150) % 10 == 9, 2, 1)
+    ranks = torch.from_numpy(np.repeat(2 + np.cumsum(steps) - steps,
+                                       sizes).astype(np.int32))
+    rows = int(ranks[-1]) + 7
+    e = len(ranks)
+    mask = torch.zeros((e, rs._mask_lanes(D)))
+    mask[:, :D // 16] = torch.from_numpy(
+        rng.randint(0, 2 ** 16, size=(e, D // 16)).astype(np.float32))
+    c = (bf16(rng, e, D).float() * torch.from_numpy(
+        2.0 ** rng.randint(-12, 13, size=(e, D)))).to(torch.bfloat16)
+    return mask, c, ranks, rows
+
+
+@pytest.mark.parametrize("leak", [0.0, 0.2])
+@pytest.mark.parametrize("fault", ["none", "lead_dropped", "straight",
+                                   "tail_unwritten", "reverse_join",
+                                   "launches_differ"])
+def test_k15b_design_and_table_checks_reject_planted_faults(fault, leak):
+    """K15b's checks against its earlier body (masked_segsum_design_check)
+    and on whole NaN-filled tables (masked_segsum_table_check), with the
+    plain version's order bound, on an emulation of the kernels. Accepted:
+    the kernels' order, and a row of three or more chunks whose partials
+    are added in reverse chunk order (within the bound). Rejected: a
+    continuation partial dropped, a two-chunk row summed straight through
+    (other bits than the earlier body's two partials), a row past the
+    last rank left unwritten, and two launches that differ (the second
+    one's long rows joined in reverse)."""
+    mask, c, ranks, rows = k15b_design_inputs()
+    terms = masked_terms(torch, rs, mask, c, leak)
+    spans = chunk_span(torch, ranks, rows)
+    assert int((spans == 1).sum()) > 20 and int((spans >= 2).sum()) > 3
+    earlier = chunk_order_sums(terms, ranks, rows, reverse=True)
+    first = k15b_emulated(terms, ranks, rows,
+                          "none" if fault == "launches_differ" else fault)
+    again = k15b_emulated(terms, ranks, rows, {
+        "launches_differ": "reverse_join"}.get(fault, fault))
+
+    def checks():
+        masked_segsum_table_check(torch, "masked_segsum", (first, again),
+                                  ranks)
+        masked_segsum_design_check(torch, rs, "masked_segsum", first,
+                                   earlier, mask, c, ranks, leak)
+        check_kernel("masked_segsum", first,
+                     rs._masked_segsum_plain(mask, c, ranks, rows, leak),
+                     *order_bound(terms, ranks, rows), torch)
+
+    if fault in ("none", "reverse_join"):
         checks()
     else:
         with pytest.raises(AssertionError):

@@ -369,7 +369,7 @@ def test_plain_branch_matches_jax_unrolled(loop_graphs, ppi_graphs, hidden,
     for graphs, seed in ((loop_graphs, 3), (ppi_graphs, 4)):
         jg, tg = graphs
         assert t_layers.edge_mlp_branch(
-            tg, **{k: v for k, v in cfg.items()}) == "plain"
+            tg, w1_dims=(D, D), **{k: v for k, v in cfg.items()}) == "plain"
         params, h, w = layer_inputs(tg, hidden, target, seed)
         compare_layers(tg, torch_layer(tg, params, h, w, **cfg),
                        jax_layer(jg, params, h, w, **cfg),
@@ -386,7 +386,7 @@ def test_configurations_without_a_kernel_branch_take_the_plain_one(
                 message_aggregation_function="sum",
                 normalize_by_num_incoming=False,
                 use_target_state_as_input=True, num_edge_hidden_layers=1,
-                typed_edge_scan="auto")
+                typed_edge_scan="auto", w1_dims=(D, D))
     assert t_layers.edge_mlp_branch(tg, **base) == "tmajor1"
     assert t_layers.edge_mlp_branch(
         tg, **dict(base, num_edge_hidden_layers=0)) == "fused0"

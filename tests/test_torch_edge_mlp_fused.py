@@ -277,7 +277,8 @@ def test_ranked_branch_matches_jax_auto(multi, monkeypatch, normalize):
     cfg = dict(activation_function="gelu", use_target_state_as_input=False,
                num_edge_hidden_layers=1, typed_edge_scan="auto",
                normalize_by_num_incoming=normalize)
-    branch_cfg = dict(cfg, message_aggregation_function="sum")
+    branch_cfg = dict(cfg, message_aggregation_function="sum",
+                      w1_dims=(D, D))
     assert t_layers.edge_mlp_branch(tg, **branch_cfg) == "ranked"
     params, h, w = layer_inputs(tg, 1, False, seed=8)
     # The JAX package's gate: a compressive fine window and a ranked stream.
@@ -301,7 +302,7 @@ def test_fused1_branch_matches_jax_auto(multi, monkeypatch):
     assert not t_edge_ops.tm_available(tg) and not j_edge_ops.tm_available(jg)
     assert t_layers.edge_mlp_branch(
         tg, message_aggregation_function="sum",
-        normalize_by_num_incoming=False, **cfg) == "fused1"
+        normalize_by_num_incoming=False, w1_dims=(D, D), **cfg) == "fused1"
     params, h, w = layer_inputs(tg, 1, True, seed=9)
     jcalls = count_calls(monkeypatch, j_rs, "typed_dense_aggregate")
     tcalls = count_calls(monkeypatch, t_rs, "typed_dense_aggregate")
@@ -339,14 +340,14 @@ def test_gates_and_flag_defaults(multi):
     assert t_rs.ENABLE_EMLP1_SRC_PASS is False
     assert j_rs.ENABLE_EMLP1_SRC_PASS is False
     assert not t_rs.emlp1_src_supported("gelu", D, 4)
-    assert t_rs.typed_dense_agg_supported(8, "gelu")
-    assert not t_rs.typed_dense_agg_supported(9, "gelu")
-    assert not t_rs.typed_dense_agg_supported(4, "selu")
+    assert t_rs.typed_dense_agg_supported(8, "gelu", D, D)
+    assert not t_rs.typed_dense_agg_supported(9, "gelu", D, D)
+    assert not t_rs.typed_dense_agg_supported(4, "selu", D, D)
     base = dict(activation_function="gelu",
                 message_aggregation_function="sum",
                 normalize_by_num_incoming=False,
                 use_target_state_as_input=True, num_edge_hidden_layers=1,
-                typed_edge_scan="auto")
+                typed_edge_scan="auto", w1_dims=(D, D))
     assert t_layers.edge_mlp_branch(tg, **base) == "tmajor1"
     assert t_layers.edge_mlp_branch(without_type_major(tg), **base) == "fused1"
     assert t_layers.edge_mlp_branch(
@@ -358,6 +359,48 @@ def test_gates_and_flag_defaults(multi):
     assert t_layers.edge_mlp_branch(
         tg, **dict(base, use_target_state_as_input=False,
                    message_aggregation_function="max")) == "plain"
+
+
+@pytest.mark.parametrize("width", [64, 176])
+def test_fused1_takes_only_widths_the_kernels_hold(multi, monkeypatch,
+                                                   width):
+    """The tuned GNN-Edge-MLP1 configuration on a batch without the
+    type-major view takes fused1 (K10) at D 64 and the plain branch at
+    D 176, past K10b's shared memory (typed_dense_agg_fits), so a wide
+    config trains a step and never reaches the wrapper's refusal on the
+    card."""
+    _, tg = multi
+    tg = without_type_major(tg)
+    calls = count_calls(monkeypatch, t_rs, "typed_dense_aggregate")
+    rng = np.random.RandomState(width)
+    num_types = tg.num_edge_types
+    params = {
+        "edge_mlp": [torch.from_numpy(
+            (rng.randn(num_types, a, width) / np.sqrt(a)).astype(np.float32))
+            for a in (2 * width, width)],
+        "ln": {"scale": torch.ones(width), "bias": torch.zeros(width)}}
+    for p in params["edge_mlp"]:
+        p.requires_grad_(True)
+    h = torch.from_numpy(rng.randn(tg.n_pad, width).astype(np.float32))
+    fits = width <= 160
+    assert t_rs.typed_dense_agg_fits(num_types, width, width, True) == fits
+    assert t_rs.typed_dense_agg_supported(num_types, "gelu", width,
+                                          width) == fits
+    assert t_layers.edge_mlp_branch(
+        tg, activation_function="gelu", message_aggregation_function="sum",
+        normalize_by_num_incoming=False, use_target_state_as_input=True,
+        num_edge_hidden_layers=1, typed_edge_scan="auto",
+        w1_dims=(width, width)) == ("fused1" if fits else "plain")
+    out = t_layers.gnn_edge_mlp_apply(
+        params, tg, h, activation_function="gelu",
+        use_target_state_as_input=True, num_edge_hidden_layers=1,
+        typed_edge_scan="auto")
+    out.square().mean().backward()
+    assert len(calls) == fits
+    with torch.no_grad():
+        for p in params["edge_mlp"]:
+            assert bool(torch.isfinite(p.grad).all()) and p.grad.abs().max() > 0
+            p -= 0.01 * p.grad
 
 
 def test_new_wrappers_check_their_arguments():

@@ -1,10 +1,11 @@
-"""The earlier bodies of K14 (emlp1_src_bwd_scalar) and K15a
-(film_fwd_mask_walk) and the order-free check of the redesigned K14, on
-the CPU. Tensors on the CPU take the kernels' plain versions, so the
-earlier bodies' wrappers must return the plain versions' outputs, which
-tests/test_torch_edge_mlp_fused.py and tests/test_torch_wseg_mask.py hold
-against the JAX package's Pallas kernels in interpret mode (K15a's mask
-here also at D = 24). chip_smoke.py's emlp1_src_bwd_tc_check, which holds
+"""The earlier bodies of K14 (emlp1_src_bwd_scalar), K15a
+(film_fwd_mask_walk) and K15b (masked_segsum_walk) and the order-free
+check of the redesigned K14, on the CPU. Tensors on the CPU take the
+kernels' plain versions, so the earlier bodies' wrappers must return the
+plain versions' outputs, which tests/test_torch_edge_mlp_fused.py and
+tests/test_torch_wseg_mask.py hold against the JAX package's Pallas
+kernels in interpret mode (K15a's mask here also at D = 24; K15b's table
+here too). chip_smoke.py's emlp1_src_bwd_tc_check, which holds
 the tensor-core K14 on the card, accepts the plain version's table on the
 multitype graph's src streams (undiluted and diluted);
 emlp1_src_bwd_fits says which widths the kernel's block holds, and the
@@ -25,7 +26,7 @@ from tf_gnn_samples_torch.tools import earlier_designs
 from test_torch_edge_mlp import bf16_pair, count_calls
 from test_torch_edge_mlp_fused import (interpret, multi,  # noqa: F401
                                        src_pass_inputs)
-from test_torch_rgat import i32
+from test_torch_rgat import assert_order_bound, i32, scatter_abs
 from test_torch_wseg_mask import exact_pow2, mask_inputs  # noqa: F401
 
 
@@ -79,6 +80,37 @@ def test_film_fwd_mask_walk_on_cpu_is_the_plain_version(exact_pow2, act,
         jnp.asarray(gb.float().numpy()).astype(jnp.bfloat16), i32(ranks),
         block_edges=256, act=act)
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jm))
+
+
+@pytest.mark.parametrize("act", ["relu", "leaky_relu"])
+@pytest.mark.parametrize("dim", [128, 40])
+def test_masked_segsum_walk_on_cpu_is_the_plain_version(interpret,
+                                                        exact_pow2, act,
+                                                        dim):
+    """K15b's earlier body on CPU tensors: the plain version's table bit
+    for bit, no launch; within the f32 order bound of the Pallas kernel's
+    (interpret mode) over the mask K15a writes and a random C stream."""
+    msgs, gb, ranks, rows = mask_inputs(dim, 17 + dim)
+    _, mask = t_rs._film_fwd_mask_impl(msgs, gb, ranks, act=act)
+    leak = t_rs.MASKABLE_ACTS[act]
+    c = torch.from_numpy(np.random.RandomState(dim + 1).randn(
+        ranks.shape[0], dim).astype(np.float32)).to(torch.bfloat16)
+    before = dict(t_rs.LAUNCHES)
+    got = earlier_designs.masked_segsum_walk(mask, c, ranks, table_rows=rows,
+                                             leak=leak)
+    assert t_rs.LAUNCHES == before
+    assert got.dtype == torch.float32 and got.shape == (rows, dim)
+    assert torch.equal(got, t_rs._masked_segsum_plain(mask, c, ranks, rows,
+                                                      leak))
+    want = np.asarray(j_rs._masked_segsum_impl(
+        jnp.asarray(mask.numpy()),
+        jnp.asarray(c.float().numpy()).astype(jnp.bfloat16), i32(ranks),
+        table_rows=rows, block_edges=256, leak=leak))
+    bits = t_rs.mask_unpack(mask, dim)
+    factor = bits if leak == 0.0 else leak + (1.0 - leak) * bits
+    terms = t_rs._bf16_terms(c.float() * factor).numpy()
+    assert_order_bound(got.numpy(), want,
+                       *scatter_abs(terms, ranks, rows, axis=0))
 
 
 def test_emlp1_src_bwd_fits_the_gated_widths():

@@ -234,9 +234,9 @@ def test_new_wrappers_check_shapes():
     assert set(t_rs.LAUNCHES) >= {"film_bwd", "wseg_t_dw", "rgat_src_bwd"}
     # the package's 23 kernels, the nine K16 kernel bodies of the
     # harnesses in tf_gnn_samples_torch/tools/ and the earlier designs of
-    # K3, K4, K12a, K9, K7a, K6a, K10a, K10b, K14 and K15a
+    # K3, K4, K12a, K9, K7a, K6a, K10a, K10b, K14, K15a and K15b
     # (tools/earlier_designs.py)
-    assert len(t_rs.LAUNCHES) == 23 + 9 + 10
+    assert len(t_rs.LAUNCHES) == 23 + 9 + 11
 
 
 def test_fused_gate_keeps_the_semantic_terms(qm9, ppi, monkeypatch):

@@ -492,8 +492,9 @@ def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
                     normalize_by_num_incoming: bool,
                     use_target_state_as_input: bool,
                     num_edge_hidden_layers: int,
-                    typed_edge_scan: str) -> str:
-    """Which branch GNN-Edge-MLP takes, for `typed_edge_scan` "auto":
+                    typed_edge_scan: str, w1_dims) -> str:
+    """Which branch GNN-Edge-MLP takes, for `typed_edge_scan` "auto"
+    (`w1_dims`: the (Dh, D) of the MLP's last weight, [L, Dh, D]):
 
     * "tmajor1" (target state, one hidden layer, sum, no normalisation,
       the type-major view present; the tuned GNN-Edge-MLP1): K11a and one
@@ -504,10 +505,11 @@ def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
       forward, and K14 in place of the gather's backward;
     * "fused1" (the same configuration on a batch without the type-major
       view; every batch that pad_graph_batch builds has it, so only a
-      caller that withholds the view reaches it): K5b expands the target
-      halves and the typed dense aggregate K10a runs the W1 products, the
-      activation and the aggregation forward; K10b, and K5a for the
-      expand's and the source gather's backward;
+      caller that withholds the view reaches it) at the widths K10 holds
+      (ops/ranked_segment.py typed_dense_agg_supported; wider: "plain"):
+      K5b expands the target halves and the typed dense aggregate K10a
+      runs the W1 products, the activation and the aggregation forward;
+      K10b, and K5a for the expand's and the source gather's backward;
     * "fused0" (target state, no hidden layer, sum; the tuned
       GNN-Edge-MLP0): the FiLM kernels K1-K3 with gamma = 1 or 1/c;
     * "ranked" (no target state, a sum-family aggregation on a ranked
@@ -540,7 +542,7 @@ def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
         if tm_available(graph):
             return "tmajor1"
         if ranked_aggregation_ok(graph, "sum") and rs.typed_dense_agg_supported(
-                graph.num_edge_types, activation_function):
+                graph.num_edge_types, activation_function, *w1_dims):
             return "fused1"
     if kernels and num_edge_hidden_layers == 0:
         return "fused0"
@@ -623,7 +625,8 @@ def gnn_edge_mlp_apply(
         normalize_by_num_incoming=normalize_by_num_incoming,
         use_target_state_as_input=use_target_state_as_input,
         num_edge_hidden_layers=num_edge_hidden_layers,
-        typed_edge_scan=typed_edge_scan)
+        typed_edge_scan=typed_edge_scan,
+        w1_dims=tuple(params["edge_mlp"][-1].shape[-2:]))
     flat = graph.flat
     d0 = h.shape[-1]
     n_pad, num_types = graph.n_pad, graph.num_edge_types

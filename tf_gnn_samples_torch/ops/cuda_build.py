@@ -31,7 +31,7 @@ _FILM_ARGS = (_P,) * 4 + (_I,) * 3 + (_P,)
 # The per-head weighted segment-sums (K7a, K7b, K13a, K13b) share their
 # device code; the forward walks K1's rows (film_rows.cuh).
 _WSEG_HEADERS = ("wseg_common.cuh", "film_rows.cuh", "film_common.cuh")
-# K1-K4 and K15a share their device code (film_rows.cuh); the K16
+# K1-K4, K15a and K15b share their device code (film_rows.cuh); the K16
 # variants of K1 and K2 share those two's earlier walk (film_walk.cuh).
 _ROWS_HEADERS = ("film_rows.cuh", "film_common.cuh")
 _WALK_HEADERS = ("film_walk.cuh", "film_common.cuh")
@@ -95,9 +95,10 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "wseg_bwd": (_WSEG_HEADERS, (_P,) * 6 + (_I,) * 3 + (_P,)),
     # msgs, gb, ranks, out, mask, num_edges, dim, lanes, act id, stream
     "film_fwd_mask": (_ROWS_HEADERS, (_P,) * 5 + (_I,) * 4 + (_P,)),
-    # mask, c, ranks, out, num_edges, dim, lanes, leak, stream
-    "masked_segsum": (("film_common.cuh",),
-                      (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
+    # mask, c, ranks, side, out, num_edges, dim, lanes, table_rows, leak,
+    # stream
+    "masked_segsum": (_ROWS_HEADERS,
+                      (_P,) * 5 + (_I,) * 4 + (ctypes.c_float, _P)),
     # The earlier designs of K3 and K4 (tools/earlier_designs.py), on no
     # model path: gcb, t, ranks, dt, num_edges, dim, act id, stream; msgs,
     # gbg, ranks, dmsg, dgb, num_edges, dim, act id, stream
@@ -122,14 +123,16 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
                                (_P,) * 5 + (_I,) * 5 + (_P,)),
     "typed_dense_agg_bwd_scalar": (("film_common.cuh",),
                                    (_P,) * 8 + (_I,) * 5 + (_P,)),
-    # The earlier designs of K14 and K15a: gcb, t, type_col, w, wt (w
-    # transposed), e_real, ranks, out, num_edges, dim, l_eff, act id,
+    # The earlier designs of K14, K15a and K15b: gcb, t, type_col, w, wt
+    # (w transposed), e_real, ranks, out, num_edges, dim, l_eff, act id,
     # stream; msgs, gb, ranks, out, mask, num_edges, dim, lanes, act id,
-    # stream
+    # stream; mask, c, ranks, out, num_edges, dim, lanes, leak, stream
     "emlp1_src_bwd_scalar": (("film_common.cuh",),
                              (_P,) * 8 + (_I,) * 4 + (_P,)),
     "film_fwd_mask_walk": (("film_common.cuh",),
                            (_P,) * 5 + (_I,) * 4 + (_P,)),
+    "masked_segsum_walk": (("film_common.cuh",),
+                           (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
     # K16, the A/B variants of tools/ (tf_gnn_samples_torch/tools/):
     # msgs, gb, ranks, out, num_edges, dim, act id, variant, group, stream
     "film_fwd_ab": (_WALK_HEADERS, (_P,) * 4 + (_I,) * 5 + (_P,)),

@@ -220,7 +220,7 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "rowgather_loop8": 0, "rowgather_take": 0,
                             "rowgather_onehot": 0,
                             # the earlier designs of K3, K4, K12a, K9, K7a,
-                            # K6a, K10a, K10b, K14 and K15a
+                            # K6a, K10a, K10b, K14, K15a and K15b
                             # (tools/earlier_designs.py)
                             "film_src_bwd_walk": 0, "film_bwd_walk": 0,
                             "act_agg_walk": 0, "rgat_src_bwd_walk": 0,
@@ -228,7 +228,8 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "typed_dense_agg_scalar": 0,
                             "typed_dense_agg_bwd_scalar": 0,
                             "emlp1_src_bwd_scalar": 0,
-                            "film_fwd_mask_walk": 0}
+                            "film_fwd_mask_walk": 0,
+                            "masked_segsum_walk": 0}
 # K9's launches (counted in LAUNCHES["rgat_src_bwd"]) by the form the
 # wrapper launched.
 FORM_LAUNCHES: Dict[str, int] = {"rgat_src_bwd gather": 0,
@@ -487,6 +488,10 @@ def _run(kernel: str, dev, args, counter: str = None):
         raise RuntimeError("%s: kernel launch failed with CUDA error %d"
                            % (kernel, rc))
     LAUNCHES[counter or kernel] += 1
+
+
+# Edges a chunk of the sorted-rank walks (csrc/film_common.cuh CHUNK).
+_ROW_CHUNK = 64
 
 
 def _check_ranks(kernel: str, ranks):
@@ -836,12 +841,25 @@ def _masked_segsum_impl(mask_packed, c_e, ranks, *, table_rows,
     _check_dtype("masked_segsum", mask_packed, torch.float32)
     _check_dtype("masked_segsum", c_e, torch.bfloat16)
     _check_ranks("masked_segsum", ranks)
-    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+    if not e:
+        return torch.zeros((table_rows, dim), dtype=torch.float32,
+                           device=c_e.device)
+    # The kernel writes every row, those no edge reaches as zeros.
+    out = torch.empty((table_rows, dim), dtype=torch.float32,
                       device=c_e.device)
-    if e:
-        _call("masked_segsum", (mask_packed, c_e, ranks, out),
-              (e, dim, mask_packed.shape[1], float(leak)))
+    _masked_segsum_call(mask_packed, c_e, ranks, out, leak)
     return out
+
+
+def _masked_segsum_call(mask_packed, c_e, ranks, out, leak):
+    """K15b's launch into `out` [table_rows, D] (for E > 0), whatever it
+    holds: every row is written. The side buffer holds each 64-edge
+    chunk's partials of the runs that cross its ends."""
+    e, dim = c_e.shape
+    side = torch.empty((2 * (-(-e // _ROW_CHUNK)), dim), dtype=torch.float32,
+                       device=c_e.device)
+    _call("masked_segsum", (mask_packed, c_e, ranks, side, out),
+          (e, dim, mask_packed.shape[1], out.shape[0], float(leak)))
 
 
 # ---- the GNN-Edge-MLP1 kernels (K11, K12) ---------------------------------
@@ -1833,14 +1851,18 @@ def act_ranked_aggregate(msgs, ranks, table_rows: int, act: str = "relu"):
 
 # ---- the typed dense aggregate (GNN-Edge-MLP1's `fused1` branch) ----------
 
-def typed_dense_agg_supported(n_types: int, act: str) -> bool:
-    """Eligibility of the typed dense aggregate: the JAX package's gate
-    with its semantic terms (a known activation; at most 8 types, so that
-    VarMisuse-scale type counts go where they go there). Its stream-length
-    and width terms are dropped: the CUDA kernels walk any stream, at any
-    width that typed_dense_agg_fits (Dh = D up to about 160; the wrappers
-    raise past it)."""
-    return act in _ACTS and n_types <= 8
+def typed_dense_agg_supported(n_types: int, act: str, dh: int, d: int
+                              ) -> bool:
+    """Eligibility of the typed dense aggregate for stacked weights [n_types,
+    dh, d]: the JAX package's gate with its semantic terms (a known
+    activation; at most 8 types, so that VarMisuse-scale type counts go
+    where they go there) and, in place of its VMEM term, what K10a's and
+    K10b's blocks hold (typed_dense_agg_fits both ways: Dh = D up to 160;
+    the wrappers raise past it). Its stream-length term is dropped: the
+    CUDA kernels walk any stream. Wider configs take the plain branch."""
+    return (act in _ACTS and n_types <= 8
+            and typed_dense_agg_fits(n_types, dh, d, False)
+            and typed_dense_agg_fits(n_types, dh, d, True))
 
 
 class _TypedDenseAggregate(torch.autograd.Function):

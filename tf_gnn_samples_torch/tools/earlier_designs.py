@@ -1,10 +1,11 @@
 """The earlier designs of K3 (`film_src_bwd`), K4 (`film_bwd`), K12a
 (`act_agg`), K9 (`rgat_src_bwd`), K7a (`wseg_t`), K6a (`segsum_t`), K15a
-(`film_fwd_mask`), K10a (`typed_dense_agg`), K10b (`typed_dense_agg_bwd`)
-and K14 (`emlp1_src_bwd`): a thread per column walking a 64-edge chunk
-with 2-byte loads (csrc/film_src_bwd_walk.cu, csrc/film_bwd_walk.cu,
-csrc/act_agg_walk.cu, csrc/rgat_src_bwd_walk.cu, csrc/wseg_t_walk.cu,
-csrc/film_fwd_mask_walk.cu), or, for K6a, a thread per run of 8 edges of
+(`film_fwd_mask`), K15b (`masked_segsum`), K10a (`typed_dense_agg`), K10b
+(`typed_dense_agg_bwd`) and K14 (`emlp1_src_bwd`): a thread per column
+walking a 64-edge chunk with 2-byte loads (csrc/film_src_bwd_walk.cu,
+csrc/film_bwd_walk.cu, csrc/act_agg_walk.cu, csrc/rgat_src_bwd_walk.cu,
+csrc/wseg_t_walk.cu, csrc/film_fwd_mask_walk.cu,
+csrc/masked_segsum_walk.cu), or, for K6a, a thread per run of 8 edges of
 one head (csrc/segsum_t_walk.cu), or, for K10 and K14, typed products by
 scalar f32 multiply-adds (csrc/typed_dense_agg_scalar.cu,
 csrc/typed_dense_agg_bwd_scalar.cu, csrc/emlp1_src_bwd_scalar.cu),
@@ -16,7 +17,7 @@ most two 8-edge runs; K10's and K14's sum their products in other orders,
 so each is held to the plain version instead) and time the two in turns.
 Launches count under "film_src_bwd_walk", "film_bwd_walk",
 "act_agg_walk", "rgat_src_bwd_walk", "wseg_t_walk", "segsum_t_walk",
-"film_fwd_mask_walk", "typed_dense_agg_scalar",
+"film_fwd_mask_walk", "masked_segsum_walk", "typed_dense_agg_scalar",
 "typed_dense_agg_bwd_scalar" and "emlp1_src_bwd_scalar". Tensors on the
 CPU take the kernels' plain versions."""
 
@@ -275,3 +276,27 @@ def film_fwd_mask_walk(msgs, gb_table, ranks, *, act):
         rs._call("film_fwd_mask_walk", (msgs, gb_table, ranks, out, mask),
                  (e, dim, lanes, rs.ACT_IDS[act]))
     return out, mask
+
+
+def masked_segsum_walk(mask_packed, c_e, ranks, *, table_rows, leak):
+    """K15b's function by its earlier design, from the inputs of
+    `_masked_segsum_impl`: f32 [table_rows, D] out, into a zeroed table
+    (its chunk seams are added by atomicAdd)."""
+    e, dim = c_e.shape
+    if (mask_packed.dim() != 2 or mask_packed.shape[0] != e
+            or mask_packed.shape[1] * rs._MASK_GROUP < dim
+            or ranks.shape != (e,)):
+        raise ValueError("masked_segsum_walk: shapes %s, %s, %s" % (
+            tuple(mask_packed.shape), tuple(c_e.shape), tuple(ranks.shape)))
+    if c_e.device.type == "cpu":
+        return rs._masked_segsum_plain(mask_packed, c_e, ranks, table_rows,
+                                       leak)
+    rs._check_dtype("masked_segsum_walk", mask_packed, torch.float32)
+    rs._check_dtype("masked_segsum_walk", c_e, torch.bfloat16)
+    rs._check_ranks("masked_segsum_walk", ranks)
+    out = torch.zeros((table_rows, dim), dtype=torch.float32,
+                      device=c_e.device)
+    if e:
+        rs._call("masked_segsum_walk", (mask_packed, c_e, ranks, out),
+                 (e, dim, mask_packed.shape[1], float(leak)))
+    return out
