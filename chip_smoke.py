@@ -83,7 +83,18 @@ Phases, each of which raises on failure (no phase's failure is caught):
     (`expected_launches`) and through no other, K9 in its gather form
     (`rs.FORM_LAUNCHES`); K13, K15 and K16 run on no path, as in the JAX
     package;
- 6. a reference check per path: loss and gradients of the full-width
+ 6. the cache phase (`cache_phase`): the main path, GNN-FiLM at its tuned
+    config through the train CLI, with its batches kept on the card
+    (cache_batches_on_device, re-packed every 2 epochs) and a full
+    training state written every 2 epochs, for 4 epochs: TRAIN packed at
+    epochs 1 and 3 only, VALIDATION at epoch 1 only, every epoch through
+    each cached batch once and through exactly the kernels
+    `expected_launches` gives for its batches, finite losses; then a
+    fresh model resumed from the epoch-2 state (its weights, optimizer
+    slots and step equal to the file's bit for bit) runs epochs 3-4; and
+    epoch 2's train and valid graphs/s cached, uncached, and uncached
+    with the prefetch thread's packing done inline;
+ 7. a reference check per path: loss and gradients of the full-width
     model on a small QM9 batch on the card (kernels) against the same
     model on the CPU (the kernels' plain versions), with the same gates
     forced.
@@ -2838,6 +2849,220 @@ def main_path_phase(rs, path):
     return launches, step_times(rs, model, path.label)
 
 
+# The cache phase: the main path (GNN-FiLM, tuned QM9 config) with its
+# batches kept on the card, re-packed every 2 epochs, a full training
+# state written every 2 epochs.
+CACHE_OVERRIDES = {"max_epochs": 4, "cache_batches_on_device": True,
+                   "repack_cached_every": 2, "checkpoint_every_n_epochs": 2}
+
+
+def recorded_run(rs, args, state_copy=None):
+    """Run the train CLI on `args` and record each of its epochs: the
+    fold, the TRAIN / VALIDATION packs it started, the batches it ran,
+    the ids of the batches its steps took and of the fold's cached batches
+    after it, its kernel launches, its loss and graphs/s. `state_copy`
+    (path): the training state written at epoch 2 is copied there. A
+    restored training state is held against its file bit for bit
+    (check_restored_state). Returns (model, records)."""
+    import shutil
+
+    from tf_gnn_samples_torch import train as train_cli
+    from tf_gnn_samples_torch.runtime.model import SparseGraphModel as M
+    from tf_gnn_samples_torch.tasks.qm9 import QM9_Task
+
+    records, packs, stepped = [], [], []
+    real_iter, real_epoch = QM9_Task.make_minibatch_iterator, M._run_epoch
+    real_train, real_eval = M._train_step, M._eval_step
+    real_save, real_restore = M.save_training_state, M.restore_training_state
+
+    def counting_iter(self, data, fold, max_nodes):
+        packs.append(fold)
+        return real_iter(self, data, fold, max_nodes)
+
+    def train_step(self, batch):
+        stepped.append(id(batch))
+        return real_train(self, batch)
+
+    def eval_step(self, batch):
+        stepped.append(id(batch))
+        return real_eval(self, batch)
+
+    def run_epoch(self, name, data, fold, quiet=False):
+        del packs[:], stepped[:]
+        before, n0 = dict(rs.LAUNCHES), self.batches_run[fold]
+        result = real_epoch(self, name, data, fold, quiet)
+        records.append({
+            "fold": fold.name, "packed": len(packs),
+            "batches": self.batches_run[fold] - n0, "stepped": list(stepped),
+            "cached": [id(b) for b in self._batch_cache.get(fold, [])],
+            "launches": {k: n - before[k] for k, n in rs.LAUNCHES.items()},
+            "loss": result[0], "graphs_per_s": result[3]})
+        return result
+
+    def save(self, path, epoch, early_stop_state):
+        real_save(self, path, epoch, early_stop_state)
+        if state_copy and epoch == 2:
+            shutil.copyfile(path, state_copy)
+
+    def restore(self, path):
+        resumed = real_restore(self, path)
+        check_restored_state(self, path)
+        return resumed
+
+    with contextlib.ExitStack() as stack:
+        for obj, name, value in (
+                (QM9_Task, "make_minibatch_iterator", counting_iter),
+                (M, "_run_epoch", run_epoch), (M, "_train_step", train_step),
+                (M, "_eval_step", eval_step),
+                (M, "save_training_state", save),
+                (M, "restore_training_state", restore)):
+            stack.enter_context(patched(obj, name, value))
+        (model,) = train_cli.run(args)
+    return model, records
+
+
+def check_restored_state(model, path):
+    """The weights, optimizer slots and step a model holds after
+    restore_training_state(path) are the file's, bit for bit."""
+    import pickle
+
+    import numpy as np
+
+    from tf_gnn_samples_torch.runtime.model import flatten_params
+
+    with open(path, "rb") as f:
+        state = pickle.load(f)
+    names = list(flatten_params(model.model_params_tree))
+    held = {k: v.detach().cpu().numpy() for k, v in zip(names,
+                                                        model._leaves())}
+    held.update({"%s/%s" % (slot, n): t.detach().cpu().numpy()
+                 for slot, ts in model.opt_state.slots.items()
+                 for n, t in zip(names, ts)})
+    saved = dict(state["weights"])
+    saved.update(state["opt_slots"])
+    differ = sorted(k for k in saved if k not in held
+                    or held[k].shape != saved[k].shape
+                    or held[k].tobytes() != np.asarray(saved[k]).tobytes())
+    if (differ or held.keys() != saved.keys()
+            or model.opt_state.step != state["opt_step"]):
+        raise AssertionError(
+            "restored state differs from %s: %s (step %s, saved %s)"
+            % (path, differ[:5] or sorted(held.keys() ^ saved.keys())[:5],
+               model.opt_state.step, state["opt_step"]))
+
+
+def check_cache_epochs(records, label, layers, repack_every):
+    """Raise unless, over a run's epochs (`records`, recorded_run): TRAIN
+    is packed at the run's first epoch and every `repack_every` epochs
+    after it and VALIDATION at its first only; every epoch steps through
+    each of the fold's cached batches once; each epoch launches exactly
+    what `expected_launches` gives for the batches it ran (the cache
+    changes no kernel); every loss is finite. (An epoch that packs steps
+    through the uploaded batches, which are the cached ones unless dense
+    adjacencies were attached to them.)"""
+    for fold in ("TRAIN", "VALIDATION"):
+        got = [r["packed"] for r in records if r["fold"] == fold]
+        want = [int(i % repack_every == 0 if fold == "TRAIN" else i == 0)
+                for i in range(len(got))]
+        if got != want:
+            raise AssertionError("%s packs by epoch %s, expected %s"
+                                 % (fold, got, want))
+    for i, r in enumerate(records):
+        distinct = set(r["stepped"])
+        once = (len(distinct) == len(r["stepped"]) == r["batches"]
+                == len(r["cached"]) > 0)
+        if not once or not (r["packed"] or distinct == set(r["cached"])):
+            raise AssertionError(
+                "epoch record %d (%s): %d batches run, %d steps over %d "
+                "distinct batches, %d cached" % (
+                    i, r["fold"], r["batches"], len(r["stepped"]),
+                    len(set(r["stepped"])), len(r["cached"])))
+        n_bwd = r["batches"] if r["fold"] == "TRAIN" else 0
+        want = expected_launches(label, layers, r["batches"], n_bwd)
+        if r["launches"] != want:
+            raise AssertionError("epoch record %d (%s): launches %s, "
+                                 "expected %s" % (i, r["fold"],
+                                                  r["launches"], want))
+        if not math.isfinite(r["loss"]):
+            raise AssertionError("epoch record %d (%s): loss %s"
+                                 % (i, r["fold"], r["loss"]))
+
+
+class InlineIterator:
+    """The prefetch thread's stand-in (utils/iterators.py
+    ThreadedIterator): the same batches, packed on the calling thread."""
+
+    def __init__(self, inner, max_queue_size=5):
+        self._inner = iter(inner)
+
+    def __enter__(self):
+        return self._inner
+
+    def __exit__(self, *exc):
+        return False
+
+
+def cache_phase(rs, path=PATHS[0], data=DATA, out=OUT, device="cuda",
+                overrides=None, rates=True):
+    """The main path with the device cache (CACHE_OVERRIDES, through the
+    train CLI): 4 epochs whose packs, batches, launches and losses
+    check_cache_epochs holds, then epochs 3-4 again in a fresh model
+    resumed from the state written at epoch 2 (the restored weights and
+    slots held to the file bit for bit, the losses finite). With `rates`,
+    epoch 2's train and valid graphs/s cached, uncached (the prefetch
+    thread packs) and uncached with the packing inline, each from a run
+    of its own. Returns the launches of those runs."""
+    from tf_gnn_samples_torch import train as train_cli
+    from tf_gnn_samples_torch.runtime import model as model_mod
+
+    out = os.path.join(out, path.label + "-cache")
+    os.makedirs(out, exist_ok=True)
+    total = {k: 0 for k in rs.LAUNCHES}
+
+    def run(tag, params, extra=(), state_copy=None):
+        args = train_cli.get_train_args([
+            path.model, "QM9", "--data-path", data, "--result-dir",
+            os.path.join(out, tag), "--quiet", "--device", device,
+            "--model-param-overrides", json.dumps({
+                **TUNED_OVERRIDES, **path.overrides, **params,
+                **(overrides or {})})] + list(extra))
+        rs.reset_launches()
+        t0 = time.time()
+        model, records = recorded_run(rs, args, state_copy)
+        for k, n in rs.LAUNCHES.items():
+            total[k] += n
+        print("%s cache phase, %s run: %.1f s; by epoch and fold: packs %s, "
+              "batches %s, graphs/s %s" % (
+                  path.label, tag, time.time() - t0,
+                  [r["packed"] for r in records],
+                  [r["batches"] for r in records],
+                  [round(r["graphs_per_s"], 2) for r in records]))
+        return model, records
+
+    state = os.path.join(out, "epoch2_training_state.pickle")
+    model, cached = run("cached", CACHE_OVERRIDES, state_copy=state)
+    layers = (model.params["graph_num_layers"]
+              * model.params["graph_num_timesteps_per_layer"])
+    check_cache_epochs(cached, path.label, layers,
+                       CACHE_OVERRIDES["repack_cached_every"])
+    _, resumed = run("resumed", CACHE_OVERRIDES, ["--resume", state])
+    if [r["fold"] for r in resumed] != ["TRAIN", "VALIDATION"] * 2:
+        raise AssertionError("the resumed run ran %s, not epochs 3-4"
+                             % [r["fold"] for r in resumed])
+    check_cache_epochs(resumed, path.label, layers,
+                       CACHE_OVERRIDES["repack_cached_every"])
+    if rates:
+        _, uncached = run("uncached", {})
+        with patched(model_mod, "ThreadedIterator", InlineIterator):
+            _, inline = run("inline", {})
+        print("%s epoch 2 train / valid graphs/s: cached %.2f / %.2f, "
+              "uncached %.2f / %.2f, uncached with the packing inline "
+              "%.2f / %.2f" % ((path.label,) + tuple(
+                  r["graphs_per_s"] for run_ in (cached, uncached, inline)
+                  for r in run_[2:4])))
+    return total
+
+
 def host_enqueue_ms(fn, torch, iters=5) -> float:
     """Median host time until `fn` returns on an idle card, without
     waiting for the card: what the host needs to enqueue the call's work.
@@ -3028,6 +3253,10 @@ def main() -> int:
               % (path.label, {k: round(v, 4) for k, v in sorted(
                   traced.items())}, sum(traced.values()),
                  100 * sum(traced.values()) / times["train_step_busy_ms"]))
+    t0 = time.time()
+    for name, n in cache_phase(rs).items():
+        total[name] += n
+    print("cache phase: %.1f s" % (time.time() - t0))
     for k in kernels:
         # K16 entries keep their harness launches; no model path runs them
         # (expected_launches held their counters at 0 on every path).

@@ -17,13 +17,18 @@ slices chunked from the layer's first edge, K6a's rows summed in 64-edge
 chunks in place of its 8-edge runs. No kernel runs here; the faults are
 planted in the emulation."""
 
+import gzip
+import itertools
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_exact, check_kernel, chunk_span,
+from chip_smoke import (CACHE_OVERRIDES, cache_phase, check_exact, check_kernel, chunk_span,
                         emlp1_src_bwd_bounds, emlp1_src_bwd_intervals,
-                        emlp1_src_bwd_tc_check, film_bwd_design_check,
+                        emlp1_src_bwd_tc_check, expected_launches,
+                        film_bwd_design_check,
                         film_design_check, film_fwd_mask_check,
                         film_fwd_mask_design_check, film_terms,
                         film_variant_check, hand_kernel_names, hand_kernel_of,
@@ -37,6 +42,7 @@ from chip_smoke import (check_exact, check_kernel, chunk_span,
                         typed_dense_agg_tc_check)
 from tf_gnn_samples_torch.ops import ranked_segment as rs
 from tf_gnn_samples_torch.ops.graph import SD_FILL
+from tf_gnn_samples_torch.runtime.model import SparseGraphModel
 
 D = 32
 
@@ -1081,3 +1087,88 @@ def test_k9_gather_check_rejects_planted_faults(fault):
     else:
         with pytest.raises(AssertionError):
             src_gather_check(torch, "rgat_src_bwd", got, stream, ranks, fed)
+
+
+# ---- the cache phase ------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def qm9_dir(tmp_path_factory):
+    """A data directory with the first 120 train and 40 valid graphs."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = tmp_path_factory.mktemp("qm9_cache_phase")
+    for fold, count in (("train", 120), ("valid", 40)):
+        with gzip.open(os.path.join(root, "data", "qm9", fold + ".jsonl.gz"),
+                       "rt") as fin, \
+                gzip.open(str(d / (fold + ".jsonl.gz")), "wt") as fout:
+            fout.writelines(itertools.islice(fin, count))
+    return str(d)
+
+
+def emulate_launches(monkeypatch, extra_on_cached):
+    """Count, for every step, the launches GNN-FiLM's kernels make on the
+    card (`expected_launches` for one batch: the wrappers count nothing on
+    CPU tensors) into a counter table of the test's own, so that no other
+    test sees them; `extra_on_cached`: a step on a cached batch launches
+    one K1 more."""
+    monkeypatch.setattr(rs, "LAUNCHES", dict.fromkeys(rs.LAUNCHES, 0))
+    real_train = SparseGraphModel._train_step
+    real_eval = SparseGraphModel._eval_step
+
+    def count(model, batch, n_bwd):
+        layers = (model.params["graph_num_layers"]
+                  * model.params["graph_num_timesteps_per_layer"])
+        for k, n in expected_launches("GNN-FiLM", layers, 1, n_bwd).items():
+            rs.LAUNCHES[k] += n
+        if extra_on_cached and any(batch is b for fold in
+                                   model._batch_cache.values() for b in fold):
+            rs.LAUNCHES["film_fwd"] += 1
+
+    def train_step(self, batch):
+        count(self, batch, 1)
+        return real_train(self, batch)
+
+    def eval_step(self, batch):
+        count(self, batch, 0)
+        return real_eval(self, batch)
+
+    monkeypatch.setattr(SparseGraphModel, "_train_step", train_step)
+    monkeypatch.setattr(SparseGraphModel, "_eval_step", eval_step)
+
+
+@pytest.mark.parametrize("fault", ["none", "repacks_every_epoch",
+                                   "resume_drops_the_slots",
+                                   "cache_changes_the_launches"])
+def test_cache_phase_checks_reject_planted_faults(qm9_dir, tmp_path,
+                                                  monkeypatch, fault):
+    """cache_phase on the CPU at a tiny width (one layer, 16 columns,
+    600-node batches) with the card's launches emulated: it passes as it
+    is, and fails on a cache that re-packs every epoch, a resume that
+    drops the optimizer's slots and a cache that changes the launches."""
+    emulate_launches(monkeypatch, fault == "cache_changes_the_launches")
+    overrides = {"graph_num_layers": 1, "hidden_size": 16,
+                 "max_nodes_in_batch": 600}
+    if fault == "repacks_every_epoch":
+        overrides["repack_cached_every"] = 1
+    if fault == "resume_drops_the_slots":
+        real = SparseGraphModel.restore_training_state
+
+        def restore(self, path):
+            resumed = real(self, path)
+            self.opt_state = self._optimizer.init(self._leaves())
+            return resumed
+
+        monkeypatch.setattr(SparseGraphModel, "restore_training_state",
+                            restore)
+    kwargs = dict(data=qm9_dir, out=str(tmp_path), device="cpu",
+                  overrides=overrides, rates=False)
+    assert CACHE_OVERRIDES["repack_cached_every"] == 2
+    if fault == "none":
+        launches = cache_phase(rs, **kwargs)
+        # 4 train and 2 valid batches an epoch, 4 + 2 epochs, 1 layer
+        assert launches["film_fwd"] == 6 * 6 and launches["film_bwd_dgb"] == 6 * 4
+        return
+    match = {"repacks_every_epoch": "TRAIN packs by epoch",
+             "resume_drops_the_slots": "restored state differs",
+             "cache_changes_the_launches": "launches"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        cache_phase(rs, **kwargs)

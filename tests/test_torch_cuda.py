@@ -614,6 +614,50 @@ def test_rgat_layer_on_card_matches_cpu(dev, ranked_graph, monkeypatch, d,
         assert rel < 2e-3, rel
 
 
+def test_rgat_past_k9s_head_cap_takes_the_streamed_branch(dev, ranked_graph,
+                                                          monkeypatch):
+    """104 heads (D 104), past K9's 96 and within K7's 128, with the fused
+    gate's shape term forced to hold (src_rows 0): the gate's head term
+    sends the layer down the streamed branch, which trains forward and
+    backward on the card (K9 never launches) and matches the CPU."""
+    real = rs.rgat_fused_supported
+    monkeypatch.setattr(
+        rs, "rgat_fused_supported",
+        lambda num_edges, dim, num_heads, table_rows, src_rows: real(
+            num_edges, dim, num_heads, table_rows, 0))
+    d = heads = 104
+    assert real(10 ** 6, 96, 96, 1, 0) and not real(10 ** 6, d, heads, 1, 0)
+    rng = np.random.default_rng(4)
+    num_types = ranked_graph.num_edge_types
+    params = {"W": (0.1 * rng.standard_normal((num_types, d, d))).astype(
+        np.float32),
+        "att": (0.3 * rng.standard_normal((num_types, 2 * d))).astype(
+            np.float32)}
+    h = rng.standard_normal((ranked_graph.n_pad, d)).astype(np.float32)
+    w = rng.standard_normal((ranked_graph.n_pad, d)).astype(np.float32)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        g = graph_to_device(ranked_graph, device)
+        p = {k: torch.tensor(v, device=device, requires_grad=True)
+             for k, v in params.items()}
+        hh = torch.tensor(h, device=device, requires_grad=True)
+        launches = dict(rs.LAUNCHES)
+        out = layers.rgat_apply(p, g, hh, num_heads=heads,
+                                activation_function="elu")
+        (out * torch.tensor(w, device=device)).sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: rs.LAUNCHES[k] - launches[k] for k in launches} == dict(
+                {k: 0 for k in launches}, expand_t=3, segsum_t=3, wseg_t=1,
+                wseg_t_bwd=1, segsum=1)
+        results.append([x.detach().cpu().numpy()
+                        for x in (out, hh.grad, p["W"].grad, p["att"].grad)])
+    for card, cpu in zip(*results):
+        assert np.isfinite(card).all()
+        rel = np.linalg.norm(card - cpu) / np.linalg.norm(cpu)
+        assert rel < 2e-3, rel
+
+
 @pytest.mark.parametrize("which", ["ranked_graph", "diluted_graph"])
 def test_film_ranked_and_diluted_layers_on_card_match_cpu(dev, request,
                                                           which):

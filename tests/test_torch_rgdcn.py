@@ -285,7 +285,7 @@ def test_sums_form_gate(qm9, multi):
     assert t_layers.rgdcn_sums_form(qg, "segment", "unroll") == "per_type"
     assert t_layers.rgdcn_sums_form(tg, "segment", "auto") == "fine"
     for scan in ("scan", "always"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             t_layers.rgdcn_sums_form(tg, "auto", scan)
     assert t_layers.LAYERS["rgdcn"] == (t_layers.rgdcn_init,
                                         t_layers.rgdcn_apply)

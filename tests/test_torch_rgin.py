@@ -201,7 +201,7 @@ def test_branch_gate(multi):
     assert branch(tg, num_edge_MLP_hidden_layers=None,
                   typed_edge_scan="scan") == "bare"
     for scan in ("scan", "always"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             branch(tg, typed_edge_scan=scan)
     assert t_layers.LAYERS["rgin"] == (t_layers.rgin_init,
                                        t_layers.rgin_apply)

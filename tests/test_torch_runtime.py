@@ -1,8 +1,11 @@
 """The port's runtime around the model: Adam moves its step scalar to the
 parameters' device once per update, the epoch loop prefetches batches
-on a worker thread (utils/iterators.py ThreadedIterator, queue depth 5),
-the unported device cache says so in the log, and SparseGraphModel keeps
-the JAX class's initialize_model() and train() keywords."""
+on a worker thread (utils/iterators.py ThreadedIterator, queue depth 5)
+for the epochs that pack, the device cache keeps a fold's batches once
+they are uploaded, and SparseGraphModel keeps the JAX class's
+initialize_model() and train() keywords (tests/test_torch_epoch_cache.py
+holds the cache, the checkpoints and the writers against the JAX
+package)."""
 
 import threading
 import time
@@ -106,19 +109,37 @@ def test_epochs_prefetch_through_a_threaded_iterator(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("cache", [False, True])
-def test_device_cache_key_is_reported_as_not_ported(tmp_path, cache):
-    model, _ = small_model(tmp_path, cache_batches_on_device=cache)
-    log_file = tmp_path / "t.log"
-    log = log_file.read_text() if log_file.exists() else ""
-    assert ("WARNING: cache_batches_on_device is not yet ported" in log) == cache
+def test_device_cache_key_caches_the_folds(tmp_path, monkeypatch, cache):
+    """The key is a default parameter (off). On, the first epoch of a fold
+    packs on the prefetch thread and keeps the uploaded batches; later
+    epochs run them without a thread. Off, every epoch packs."""
+    assert t_model.GNN_FiLM_Model.default_params()[
+        "cache_batches_on_device"] is False
+    model, data = small_model(tmp_path, cache_batches_on_device=cache)
+    made = []
+    real = t_model.ThreadedIterator
+    monkeypatch.setattr(t_model, "ThreadedIterator",
+                        lambda inner, max_queue_size: made.append(1) or real(
+                            inner, max_queue_size=max_queue_size))
+    for _ in range(3):
+        model._run_epoch("Test", data, t_base.DataFold.VALIDATION, quiet=True)
+    assert len(made) == (1 if cache else 3)
+    assert (t_base.DataFold.VALIDATION in model._batch_cache) == cache
+    assert not (tmp_path / "t.log").exists()  # nothing to warn about
 
 
 def test_initialize_model_and_train_keywords(tmp_path):
-    model, _ = small_model(tmp_path)
+    model, data = small_model(tmp_path, max_epochs=1,
+                              checkpoint_every_n_epochs=1)
     before = t_model.params_to_jax(model.model_params_tree)
     assert model.initialize_model() is None
     after = t_model.params_to_jax(model.model_params_tree)
     assert all(np.array_equal(before[k], after[k]) for k in before)
-    for key in ("tf_summary_path", "resume_from"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            model.train(quiet=True, **{key: str(tmp_path / key)})
+    model.task._loaded_data = {t_base.DataFold.TRAIN: data,
+                               t_base.DataFold.VALIDATION: data}
+    model.train(quiet=True, tf_summary_path=str(tmp_path / "tb"))
+    assert (tmp_path / "tb" / "metrics.jsonl").exists()
+    model.params["max_epochs"] = 2
+    model.train(quiet=True, resume_from=model.training_state_file)
+    assert "Resuming from %s at epoch 2." % model.training_state_file in (
+        tmp_path / "t.log").read_text()

@@ -226,10 +226,14 @@ def rgat_streamed_branch(graph: GraphBatch, state_dim: int, num_heads: int,
                          aggregation_strategy: str) -> bool:
     """Whether RGAT takes the head-major streamed pipeline (K6, K7): the
     JAX package's gate (nn/layers.py rgat_apply) without its device and
-    VMEM terms. 'pallas' is the JAX configs' name for the kernel path;
-    'segment' forces the plain branch."""
+    VMEM terms, with a term for the heads K7a and K7b hold
+    (ops/ranked_segment.py MAX_HEADS; past it the plain branch runs, where
+    the JAX package's gate has no head term and streams). 'pallas' is the
+    JAX configs' name for the kernel path; 'segment' forces the plain
+    branch."""
     return (aggregation_strategy in ("auto", "pallas")
             and state_dim % num_heads == 0
+            and num_heads <= rs.MAX_HEADS
             and ranked_aggregation_ok(graph, "sum"))
 
 
@@ -483,7 +487,7 @@ def _refuse_typed_scan(typed_edge_scan: str) -> None:
     if typed_edge_scan in ("scan", "always"):
         raise NotImplementedError(
             "typed_edge_scan '%s' (the per-type scan of ops/typed_stream.py, "
-            "ROADMAP Queue 1 item 5) is not yet ported to the PyTorch "
+            "ROADMAP Queue 1 item 4) is not yet ported to the PyTorch "
             "package." % typed_edge_scan)
 
 

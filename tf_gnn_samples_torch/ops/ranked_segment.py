@@ -1228,9 +1228,12 @@ MAX_HEADS = 128
 
 
 def _check_heads(kernel: str, dim: int, num_heads: int):
-    if not 0 < num_heads <= MAX_HEADS or dim % num_heads:
-        raise ValueError("%s: %d columns do not split into %d heads (at "
-                         "most %d)" % (kernel, dim, num_heads, MAX_HEADS))
+    if not 0 < num_heads <= MAX_HEADS:
+        raise ValueError("%s: %d heads, the kernels take 1 to %d"
+                         % (kernel, num_heads, MAX_HEADS))
+    if dim % num_heads:
+        raise ValueError("%s: %d columns do not split into %d heads"
+                         % (kernel, dim, num_heads))
 
 
 def _segsum_t_impl(msgs_t, ranks, *, table_rows, block_edges=256, win=0):
@@ -2069,8 +2072,10 @@ def rgat_fused_supported(num_edges: int, dim: int, num_heads: int,
     fused and 1.49 ms streamed, and the timeline told them apart in
     neither direction (4.79 against 4.51 ms). The rule follows the busy
     times and is the same on the CPU, so that a batch takes the same
-    branch on every device."""
-    if not ENABLE_FUSED_SRC_PASS or dim % num_heads:
+    branch on every device. Past K9's head cap (RGAT_SRC_MAX_HEADS) the
+    streamed branch runs; the JAX gate has no head term."""
+    if (not ENABLE_FUSED_SRC_PASS or dim % num_heads
+            or num_heads > RGAT_SRC_MAX_HEADS):
         return False
     return src_rows < src_rank_table_rows(num_edges, num_edges)
 

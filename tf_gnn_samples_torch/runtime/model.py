@@ -2,9 +2,11 @@
 tf_gnn_samples_tpu/runtime/model.py): model assembly (task input model ->
 shared propagation stack -> task output model), per-tensor gradient
 clipping and TF1 optimizers, a per-batch epoch driver with throughput
-telemetry, patience-based early stopping with best-checkpoint pickling,
-and weight save/load with fresh-init of unmatched entries. Log lines are
-the JAX package's, verbatim (run_qm9_benchs.py regexes them).
+telemetry and an optional device-resident batch cache, patience-based
+early stopping with best-checkpoint pickling, full training-state
+checkpoints to resume from, JSONL and TensorBoard metric writers, and
+weight save/load with fresh-init of unmatched entries. Log lines are the
+JAX package's, verbatim (run_qm9_benchs.py regexes them).
 
 Parameters are a nested dict/list tree of tensors shaped as the JAX
 package's pytree, and checkpoints key them by the same `flatten_params`
@@ -15,6 +17,7 @@ Entry points run on CUDA unless the caller asks for the CPU; a missing
 GPU raises instead of falling back.
 """
 
+import contextlib
 import os
 import pickle
 import random
@@ -31,7 +34,9 @@ from ..ops.edge_ops import dense_adjacency
 from ..ops.graph import graph_to_device
 from ..tasks.base import DataFold, SparseGraphTask, TaskBatch
 from ..utils.iterators import ThreadedIterator
-from .optimizers import clip_grads_per_tensor, make_optimizer
+from ..utils.metrics_writer import MetricsWriter
+from ..utils.tb_writer import FoldedTensorBoardWriter
+from .optimizers import OptimizerState, clip_grads_per_tensor, make_optimizer
 
 # Consecutive flagged validation epochs before the degenerate-basin
 # warning fires.
@@ -114,6 +119,19 @@ def batch_to_device(batch: TaskBatch, device) -> TaskBatch:
     )
 
 
+class _Fanout:
+    """JSONL stream plus TensorBoard event files, fed the same (fold, step,
+    scalars) records (the reference's --tensorboard writes event files;
+    the JSONL stream is the always-readable extra)."""
+
+    def __init__(self, sinks):
+        self._sinks = sinks
+
+    def write(self, fold, step, scalars):
+        for sink in self._sinks:
+            sink.write(fold, step, scalars)
+
+
 class SparseGraphModel(ABC):
     """Abstract model: training loop + propagation stack around task heads."""
 
@@ -140,6 +158,14 @@ class SparseGraphModel(ABC):
             "momentum": 0.85,
             "clamp_gradient_norm": 1.0,
             "random_seed": 0,
+            # Keep each fold's padded batches resident on the device across
+            # epochs: no per-epoch packing and host->device uploads. For
+            # TRAIN the batch *order* is reshuffled per epoch but
+            # graph-to-batch packing is frozen after the first epoch (the
+            # reference re-packs after a full data shuffle each epoch,
+            # ppi_task.py:204); `repack_cached_every` (K, read with
+            # params.get, default off) re-packs every K epochs.
+            "cache_batches_on_device": False,
             # Recompute each GNN layer in the backward pass instead of
             # keeping its activations (nn/propagation.py).
             "remat_layers": False,
@@ -164,6 +190,10 @@ class SparseGraphModel(ABC):
             if int(params.get(key) or 1) > 1:
                 raise NotImplementedError(
                     "%s > 1 is not yet ported to the PyTorch package." % key)
+        if params.get("scan_epochs"):
+            raise NotImplementedError(
+                "scan_epochs (stacked one-dispatch epochs, ROADMAP Queue 1 "
+                "item 7) is not yet ported to the PyTorch package.")
         self.params = params
         self.task = task
         self.run_id = run_id
@@ -188,11 +218,14 @@ class SparseGraphModel(ABC):
         # Batches run per fold (host telemetry: lets a caller check that
         # every batch went through the expected kernels).
         self.batches_run = {fold: 0 for fold in DataFold}
-        if params.get("cache_batches_on_device"):
-            self.log_line(
-                "WARNING: cache_batches_on_device is not yet ported to the "
-                "PyTorch package (ROADMAP Queue 1 item 1); batches are packed "
-                "and uploaded every epoch.")
+        # Device-resident batches per fold (cache_batches_on_device), the
+        # dense adjacencies cached with them (GB, per fold and in all) and
+        # the TRAIN epochs run, which set the re-pack cadence.
+        self._batch_cache: Dict[DataFold, List[TaskBatch]] = {}
+        self._dense_adj_cached_gb = 0.0
+        self._fold_adj_gb: Dict[DataFold, float] = {}
+        self._train_epochs_seen = 0
+        self._warned_stream_cache = False
 
     def initialize_model(self) -> None:
         """Kept for API parity with the JAX package (reference
@@ -208,6 +241,11 @@ class SparseGraphModel(ABC):
     @property
     def best_model_file(self):
         return os.path.join(self.result_dir, "%s_best_model.pickle" % self.run_id)
+
+    @property
+    def training_state_file(self):
+        return os.path.join(self.result_dir,
+                            "%s_training_state.pickle" % self.run_id)
 
     # -------------------- parameters --------------------
 
@@ -323,6 +361,72 @@ class SparseGraphModel(ABC):
         self.model_params_tree = self._as_leaves(current)
         self.opt_state = self._optimizer.init(self._leaves())
 
+    # -------------------- full training-state checkpoint ----------------
+    # The reference's best-model pickle carries weights only. These
+    # checkpoints also carry the optimizer's slots and step, the epoch, the
+    # early-stopping state and the host RNGs, so that training continues
+    # exactly where it stopped. Keys and names are the JAX package's.
+
+    def save_training_state(self, path: str, epoch: int,
+                            early_stop_state: Dict[str, Any]) -> None:
+        names = list(flatten_params(self.model_params_tree))
+        state = {
+            "model_class": self.name(self.params),
+            "task_class": self.task.name(),
+            "model_params": self.params,
+            "task_params": self.task.params,
+            "task_metadata": self.task.get_metadata(),
+            "weights": params_to_jax(self.model_params_tree),
+            # {slot}/{parameter name}, as the JAX package flattens its
+            # {slot: parameter tree} dict.
+            "opt_slots": {"%s/%s" % (slot, name): t.detach().cpu().numpy()
+                          for slot, ts in self.opt_state.slots.items()
+                          for name, t in zip(names, ts)},
+            "opt_step": int(self.opt_state.step),
+            "epoch": epoch,
+            "early_stop_state": early_stop_state,
+            # Every generator drawn from between steps: the dropout
+            # generator is reseeded from _step_rng each step, and the global
+            # numpy RNG drives the TRAIN shuffles (tasks/qm9.py
+            # make_minibatch_iterator, the cached batch order). No task
+            # draws from `random`.
+            "step_rng_state": self._step_rng.get_state(),
+            "np_random_state": np.random.get_state(),
+        }
+        with open(path, "wb") as f:
+            pickle.dump(state, f, pickle.HIGHEST_PROTOCOL)
+
+    def restore_training_state(self, path: str) -> Dict[str, Any]:
+        """Load a full-state checkpoint onto the model's device; returns
+        {'epoch', 'early_stop_state'} for the train loop to continue
+        from. Entries missing from it keep their current values."""
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+
+        def restored(saved, key, current):
+            if key not in saved:
+                return current
+            value = torch.tensor(np.asarray(saved[key]),
+                                 dtype=current.dtype, device=self.device)
+            assert value.shape == current.shape, (key, tuple(value.shape),
+                                                  tuple(current.shape))
+            return value
+
+        current = flatten_params(self.model_params_tree)
+        self.model_params_tree = self._as_leaves({
+            k: restored(state["weights"], k, v) for k, v in current.items()})
+        names = list(current)
+        fresh = self._optimizer.init(self._leaves())
+        self.opt_state = OptimizerState(
+            step=int(state["opt_step"]),
+            slots={slot: [restored(state["opt_slots"], "%s/%s" % (slot, n), t)
+                          for n, t in zip(names, ts)]
+                   for slot, ts in fresh.slots.items()})
+        self._step_rng.set_state(state["step_rng_state"])
+        np.random.set_state(state["np_random_state"])
+        return {"epoch": state["epoch"],
+                "early_stop_state": state["early_stop_state"]}
+
     # -------------------- epoch driver --------------------
 
     def log_line(self, msg: str) -> None:
@@ -331,6 +435,39 @@ class SparseGraphModel(ABC):
             f.write(msg + "\n")
         print(msg)
 
+    def _attach_cached_dense_adj_fold(self, batches: List[TaskBatch],
+                                      data_fold: DataFold) -> List[TaskBatch]:
+        """When a fold's batches stay on the device across epochs, also
+        cache the dense adjacency of those that take the dense strategy:
+        built once per cached batch instead of once per step. All or
+        nothing per fold, within `dense_adj_cache_budget_gb` (default 9.0)
+        shared by the folds. Kept in f32, as `_forward` builds it (the
+        JAX package stores bf16 for the MXU; the port's dense products are
+        f32 without TF32, so a bf16 cache would change what a cached step
+        computes), so counted at 4 bytes an entry."""
+        wants = [self._wants_dense_adj(b.graph) for b in batches]
+        # Per batch: a fold may mix n_pad levels.
+        fold_gb = sum(
+            b.graph.num_edge_types * b.graph.n_pad * b.graph.n_pad * 4 / 1e9
+            for b, w in zip(batches, wants) if w)
+        budget = float(self.params.get("dense_adj_cache_budget_gb", 9.0))
+        if not fold_gb or self._dense_adj_cached_gb + fold_gb > budget:
+            return batches
+        self._dense_adj_cached_gb += fold_gb
+        self._fold_adj_gb[data_fold] = fold_gb
+        with torch.no_grad():
+            return [
+                b._replace(graph=b.graph._replace(
+                    dense_adj=dense_adjacency(b.graph))) if w else b
+                for b, w in zip(batches, wants)
+            ]
+
+    def _invalidate_fold_cache(self, data_fold: DataFold) -> None:
+        """Drop a fold's device-resident batches (and their cached dense
+        adjacencies) so that the next epoch re-packs from host data."""
+        self._batch_cache.pop(data_fold, None)
+        self._dense_adj_cached_gb -= self._fold_adj_gb.pop(data_fold, 0.0)
+
     def _run_epoch(
         self,
         epoch_name: str,
@@ -338,22 +475,57 @@ class SparseGraphModel(ABC):
         data_fold: DataFold,
         quiet: bool = False,
     ) -> Tuple[float, List[Dict[str, Any]], int, float, float, float]:
-        # A worker thread packs the next batches (host numpy work) while
-        # the card runs the current step.
-        batch_iterator = ThreadedIterator(
-            self.task.make_minibatch_iterator(
-                data, data_fold, self.params["max_nodes_in_batch"]),
-            max_queue_size=5)
+        cache_on_device = self.params.get("cache_batches_on_device", False)
+        if cache_on_device and getattr(data, "is_streaming", False):
+            # A disk-resident streamed fold exists because the data does
+            # not fit in one memory: never pin it to the device.
+            if not self._warned_stream_cache:
+                self._warned_stream_cache = True
+                self.log_line(
+                    "WARNING: cache_batches_on_device is ignored for a "
+                    "streamed data fold (streaming_train_data).")
+            cache_on_device = False
+        if data_fold == DataFold.TRAIN:
+            # Periodic re-packing of the device-resident TRAIN cache: the
+            # reference re-shuffles graphs into fresh packs every epoch
+            # (ppi_task.py:204); frozen packs only reshuffle batch order.
+            # repack_cached_every=K re-packs (and re-uploads) every K
+            # epochs as a middle ground; 0/None keeps packs frozen.
+            self._train_epochs_seen += 1
+            repack_every = int(self.params.get("repack_cached_every") or 0)
+            if (cache_on_device and repack_every > 0
+                    and self._train_epochs_seen > 1
+                    and (self._train_epochs_seen - 1) % repack_every == 0):
+                self._invalidate_fold_cache(data_fold)
+        cached = self._batch_cache.get(data_fold) if cache_on_device else None
+        if cached is not None:
+            order = np.arange(len(cached))
+            if data_fold == DataFold.TRAIN:
+                np.random.shuffle(order)
+            batches = contextlib.nullcontext(cached[i] for i in order)
+        else:
+            # A worker thread packs the next batches (host numpy work)
+            # while the card runs the current step.
+            batches = ThreadedIterator(
+                self.task.make_minibatch_iterator(
+                    data, data_fold, self.params["max_nodes_in_batch"]),
+                max_queue_size=5)
         start_time = time.time()
         processed_graphs = processed_nodes = processed_edges = 0
         device_metrics: List[Dict[str, Any]] = []
         batch_graph_counts: List[int] = []
-        with batch_iterator:
+        to_cache: List[TaskBatch] = []
+        with batches as batch_iterator:
             for step_i, batch in enumerate(batch_iterator):
                 processed_graphs += int(batch.num_graphs)
                 processed_nodes += int(batch.num_nodes)
                 processed_edges += int(batch.num_edges)
-                dev_batch = batch_to_device(batch, self.device)
+                if cached is not None:
+                    dev_batch = batch
+                else:
+                    dev_batch = batch_to_device(batch, self.device)
+                    if cache_on_device:
+                        to_cache.append(dev_batch)
                 if data_fold == DataFold.TRAIN:
                     metrics = self._train_step(dev_batch)
                 else:
@@ -369,6 +541,14 @@ class SparseGraphModel(ABC):
                     )
 
         assert processed_graphs > 0, "Can't run epoch over empty dataset."
+        if cache_on_device and cached is None:
+            # The JAX package unifies the fold's window tokens first
+            # (unify_win_tokens), only so that its cached batches share one
+            # pytree shape for jit. PyTorch does not recompile per shape,
+            # so each batch keeps its own windows, and a cached step
+            # computes what the uncached step on the same batch does.
+            self._batch_cache[data_fold] = self._attach_cached_dense_adj_fold(
+                to_cache, data_fold)
         # One host sync at epoch end: the device runs ahead of the host
         # until the metrics are fetched.
         task_metric_results = [
@@ -392,21 +572,40 @@ class SparseGraphModel(ABC):
     def train(self, quiet: bool = False, tf_summary_path: Optional[str] = None,
               resume_from: Optional[str] = None):
         """Patience-based early-stopped training; log format kept verbatim
-        (the bench scripts regex these lines). The JAX package's summary
-        writer (`tf_summary_path`) and full-state resume (`resume_from`) are
-        not ported yet and raise when given."""
-        for key, value in (("tf_summary_path", tf_summary_path),
-                           ("resume_from", resume_from)):
-            if value is not None:
-                raise NotImplementedError(
-                    "train(%s=...) is not yet ported to the PyTorch package "
-                    "(ROADMAP Queue 1 item 8)." % key)
+        (the bench scripts regex these lines).
+
+        tf_summary_path: a directory that receives the per-epoch scalars as
+        `metrics.jsonl` and as TensorBoard event files, one directory per
+        fold. resume_from: a full-state checkpoint (save_training_state);
+        training continues from the saved epoch with the optimizer's slots
+        and the early-stopping state intact. `checkpoint_every_n_epochs`
+        (model param, default off) writes such checkpoints to
+        `training_state_file`."""
         total_time_start = time.time()
+        metrics_writer = None
+        if tf_summary_path is not None:
+            metrics_writer = _Fanout([
+                MetricsWriter(tf_summary_path),
+                FoldedTensorBoardWriter(tf_summary_path, self.run_id),
+            ])
+
         best_valid_metric, best_val_metric_epoch, best_val_metric_descr = (
             float("+inf"), 0, "",
         )
         collapse_streak, collapse_warned = 0, False
-        for epoch in range(1, self.params["max_epochs"] + 1):
+        total_num_graphs = 0  # metrics x-axis (reference sparse_graph_model.py:143-151)
+        start_epoch = 1
+        if resume_from is not None:
+            resumed = self.restore_training_state(resume_from)
+            start_epoch = resumed["epoch"] + 1
+            es = resumed["early_stop_state"]
+            best_valid_metric = es["best_valid_metric"]
+            best_val_metric_epoch = es["best_val_metric_epoch"]
+            best_val_metric_descr = es["best_val_metric_descr"]
+            self.log_line("Resuming from %s at epoch %i."
+                          % (resume_from, start_epoch))
+        ckpt_every = self.params.get("checkpoint_every_n_epochs") or 0
+        for epoch in range(start_epoch, self.params["max_epochs"] + 1):
             self.log_line("== Epoch %i" % epoch)
             (train_loss, train_task_metrics, train_num_graphs,
              train_graphs_p_s, train_nodes_p_s, train_edges_p_s) = self._run_epoch(
@@ -427,6 +626,13 @@ class SparseGraphModel(ABC):
                     train_graphs_p_s, train_nodes_p_s, train_edges_p_s,
                 )
             )
+            total_num_graphs += train_num_graphs
+            if metrics_writer is not None:
+                metrics_writer.write(
+                    "train", total_num_graphs,
+                    {"loss": train_loss, "epoch": epoch,
+                     "graphs_per_sec": train_graphs_p_s},
+                )
 
             (valid_loss, valid_task_metrics, valid_num_graphs,
              valid_graphs_p_s, valid_nodes_p_s, valid_edges_p_s) = self._run_epoch(
@@ -448,6 +654,12 @@ class SparseGraphModel(ABC):
                 % (valid_loss, valid_metric_descr,
                    valid_graphs_p_s, valid_nodes_p_s, valid_edges_p_s)
             )
+            if metrics_writer is not None:
+                metrics_writer.write(
+                    "valid", total_num_graphs,
+                    {"loss": valid_loss, "epoch": epoch,
+                     "early_stopping_metric": early_stopping_metric},
+                )
 
             # Degenerate-basin guard: warn loudly when the task reports the
             # validation fold stuck in a known collapsed basin.
@@ -490,6 +702,14 @@ class SparseGraphModel(ABC):
                     % (total_time, best_val_metric_descr)
                 )
                 break
+
+            if ckpt_every and epoch % ckpt_every == 0:
+                self.save_training_state(
+                    self.training_state_file, epoch,
+                    {"best_valid_metric": best_valid_metric,
+                     "best_val_metric_epoch": best_val_metric_epoch,
+                     "best_val_metric_descr": best_val_metric_descr},
+                )
 
     def test(self, path: Optional[str], quiet: bool = False):
         self.log_line("== Running Test on %s ==" % (path,))
