@@ -94,10 +94,34 @@ Phases, each of which raises on failure (no phase's failure is caught):
     slots and step equal to the file's bit for bit) runs epochs 3-4; and
     epoch 2's train and valid graphs/s cached, uncached, and uncached
     with the prefetch thread's packing done inline;
- 7. a reference check per path: loss and gradients of the full-width
-    model on a small QM9 batch on the card (kernels) against the same
-    model on the CPU (the kernels' plain versions), with the same gates
-    forced.
+ 7. the PPI phase (`task_phase`): synthetic PPI data of the published
+    per-graph size (tf_gnn_samples_torch/tools/synthetic_data.py: graphs
+    of 1,700-3,099 nodes, 28 forward edges a node, 50 features, 121
+    labels), the train fold cut to 4 graphs and the valid and test folds
+    to 1 each; `tf_gnn_samples_torch.train` trains GNN-FiLM,
+    GNN-Edge-MLP0, GNN-Edge-MLP1, RGAT, RGCN, GGNN and RGIN at their tuned
+    PPI_<model>.json, unchanged, for 2 epochs each, and
+    `tf_gnn_samples_torch.test` evaluates each checkpoint; every train and
+    eval step launches exactly what `expected_launches` gives for the
+    branch its own batch takes (`batch_branch`: the fold's batches take up
+    to three shapes), the losses are finite and the test's micro-F1 line
+    parses with run_ppi_benchs.py's regex; each path's step times,
+    profiled hand kernels and peak device memory;
+ 8. the headline reading (`ppi_headline`): RGCN at PPI_RGCN.json on the
+    whole synthetic 20 / 2 / 2 fold, batches kept on the card, 3 epochs,
+    once with the gate as it is (dense adjacency matmuls) and once with
+    "aggregation_strategy": "pallas" (K5a, K5b): the train edges/s of
+    epochs 2-3 beside the reference's V100 figure, with the card's name
+    and power limit;
+ 9. the citation phase (`task_phase`): synthetic Planetoid data at
+    Pubmed's size (data_kind pubmed); GNN-FiLM and RGCN at their class
+    defaults for 3 epochs, then the test CLI, checked as the PPI paths;
+10. a reference check per path: loss and gradients of the full-width
+    model on a small batch on the card (kernels) against the same model
+    on the CPU (the kernels' plain versions): QM9 (a 600-node pack, the
+    same gates forced), PPI (one 400-node graph of PPI's degree; RGCN
+    also with "pallas") and Pubmed (the whole graph, 4 of the class
+    defaults' 8 layers).
 Usage: python3 chip_smoke.py
 """
 
@@ -108,6 +132,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -122,6 +147,9 @@ from tf_gnn_samples_torch.tools.timing import (BF16_TENSOR_FLOPS, F32_FLOPS,
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "data", "qm9")
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
+# The synthetic PPI and Planetoid data the PPI and citation phases make
+# (tf_gnn_samples_torch/tools/synthetic_data.py); removed at the end.
+DATA_OUT = os.path.join(OUT, "data")
 TUNED_OVERRIDES = {"max_epochs": 2}  # everything else: QM9_<model>.json
 # A main path: a model at its tuned config, the overrides that select the
 # path, for RGAT the branch it is, and the gate a path forces (`gate`,
@@ -318,13 +346,16 @@ def device_busy_ms(fn, torch, calls=3) -> float:
     return device_profile(fn, torch, calls)[0]
 
 
-def first_batch(max_nodes: int, fold_name: str):
-    """First batch of a QM9 fold (unshuffled) at `max_nodes` per batch."""
+def first_batch(max_nodes: int, fold_name: str, task_name="QM9", data=DATA,
+                **task_params):
+    """(task, first batch of a fold, unshuffled, at `max_nodes` per
+    batch) of `task_name`'s data in `data` (default: the bundled QM9)."""
     from tf_gnn_samples_torch.tasks.base import DataFold
-    from tf_gnn_samples_torch.tasks.qm9 import QM9_Task
+    from tf_gnn_samples_torch.utils.registry import name_to_task_class
 
-    task = QM9_Task(QM9_Task.default_params())
-    task.load_data(DATA)
+    cls, extra = name_to_task_class(task_name)
+    task = cls({**cls.default_params(), **extra, **task_params})
+    task.load_data(data)
     fold = DataFold[fold_name]
     return task, next(task.make_minibatch_iterator(
         task._loaded_data[fold], DataFold.VALIDATION, max_nodes))
@@ -2728,10 +2759,14 @@ def finite_log_values(path, pattern):
     return vals
 
 
-def expected_launches(label, layers, n_fwd, n_bwd):
+def expected_launches(label, layers, n_fwd, n_bwd,
+                      streamed_types=QM9_STREAMED_TYPES):
     """Kernel launches of `n_fwd` forward passes, `n_bwd` of them with a
     backward pass, through `layers` message-passing layers of the path
-    `label`; no other kernel runs. GNN-FiLM runs K1 forward and K2 + K3
+    `label` (`streamed_types`: the edge types of the batch's type-major
+    view that are not self loops, four on QM9, two on PPI); no other
+    kernel runs. "none" is a branch without hand kernels (RGCN's and
+    GGNN's dense adjacency matmuls, a plain branch). GNN-FiLM runs K1 forward and K2 + K3
     backward; with normalised messages K1 forward and, backward, K4 and
     K5a (the message gather's backward). RGCN and GGNN run K5a forward and
     K5b backward. An RGAT layer runs, forward, K6b for the target logits,
@@ -2751,6 +2786,8 @@ def expected_launches(label, layers, n_fwd, n_bwd):
     backward. K13 and K15 run on no path (no model of either package
     calls them)."""
     want = {k: 0 for k in REPLACES}
+    if label == "none":
+        return want
     if label in ("RGIN", "GNN-Edge-MLP-ranked", "RGDCN"):
         want.update(segsum=layers * (n_fwd + n_bwd))
     elif label == "GNN-Edge-MLP1-fused1":
@@ -2760,7 +2797,7 @@ def expected_launches(label, layers, n_fwd, n_bwd):
     elif label == "GNN-Edge-MLP1-src":
         want.update(expand_add_act=layers * n_fwd,
                     act_agg=layers * n_fwd,
-                    act_agg_bwd=layers * n_bwd * QM9_STREAMED_TYPES,
+                    act_agg_bwd=layers * n_bwd * streamed_types,
                     expand_add_act_bwd=layers * n_bwd,
                     emlp1_src_bwd=layers * n_bwd)
     elif label in ("GNN-FiLM", "GNN-Edge-MLP0"):
@@ -2772,7 +2809,7 @@ def expected_launches(label, layers, n_fwd, n_bwd):
     elif label == "GNN-Edge-MLP1":
         want.update(expand_add_act=layers * n_fwd,
                     act_agg=layers * n_fwd,
-                    act_agg_bwd=layers * n_bwd * QM9_STREAMED_TYPES,
+                    act_agg_bwd=layers * n_bwd * streamed_types,
                     expand_add_act_bwd=layers * n_bwd, segsum=layers * n_bwd)
     elif label.startswith("RGAT"):
         want.update(expand_t=layers * (2 * n_fwd + n_bwd),
@@ -2864,8 +2901,6 @@ def recorded_run(rs, args, state_copy=None):
     (path): the training state written at epoch 2 is copied there. A
     restored training state is held against its file bit for bit
     (check_restored_state). Returns (model, records)."""
-    import shutil
-
     from tf_gnn_samples_torch import train as train_cli
     from tf_gnn_samples_torch.runtime.model import SparseGraphModel as M
     from tf_gnn_samples_torch.tasks.qm9 import QM9_Task
@@ -3122,14 +3157,267 @@ def step_times(rs, model, label):
     return times, step_launches
 
 
-def reference_phase(torch, rs, path, card="cuda"):
-    """Full-width model (tuned config, or the class defaults where the
-    repository has no QM9_<model>.json, as for RGDCN) of `path` on a small
-    QM9 batch: the card's kernels against the CPU's plain versions, same
-    weights, no dropout. At 600 nodes RGCN, GGNN and RGDCN would take the
-    dense strategy ("auto"), so they are set to the ranked one ("pallas")
-    and must launch K5 (RGDCN: its fine form); RGAT takes the same branch
-    under either."""
+# ---- the PPI and citation-network phases ---------------------------------
+
+# The test CLI's micro-F1 line as run_ppi_benchs.py:24 reads it (the JAX
+# package's bench script, which this script does not import), and its
+# accuracy line on a citation network.
+MICRO_F1 = re.compile(r"^Metrics: Avg MicroF1: (0.\d+)")
+ACCURACY = re.compile(r"^Metrics: Acc: (\d+\.\d+)%$")
+TRAIN_EDGES_PER_S = re.compile(
+    r"^ Train: loss: \S+ \|\| .* \|\| graphs/sec: \S+ \| nodes/sec: \d+ \| "
+    r"edges/sec: (\d+)$")
+# The reference's RGCN train epoch on PPI, on a V100 (bench.py:56, from the
+# reference's README.md:34).
+V100_EDGES_PER_S = 1952084
+# The PPI phase cuts the train fold to 4 graphs and the valid and test
+# folds to 1 each (a cut of depth: the graphs keep PPI's published size,
+# the models their tuned widths); the headline runs the whole 20 / 2 / 2.
+PPI_FOLDS_CUT = {"train": 4, "valid": 1, "test": 1}
+PPI_EPOCHS = 2
+HEADLINE_EPOCHS = 3
+CITATION_EPOCHS = 3
+PPI_PATHS = tuple(Path("PPI " + m, m, {}) for m in (
+    "GNN-FiLM", "GNN-Edge-MLP0", "GNN-Edge-MLP1", "RGAT", "RGCN", "GGNN",
+    "RGIN"))
+CITATION_PATHS = tuple(Path("Pubmed " + m, m, {}) for m in ("GNN-FiLM",
+                                                            "RGCN"))
+
+
+def streamed_types(graph):
+    """The edge types of a batch's type-major view that are not self
+    loops (the slices K12 runs over)."""
+    return tuple(graph.flat.tm_self).count(False)
+
+
+def batch_branch(rs, model, graph):
+    """The expected_launches label of the branch a batch of `graph`'s shape
+    takes in `model`, from the port's own gates: RGCN and GGNN take the
+    dense adjacency matmuls ("none": no hand kernel) up to
+    use_dense_strategy's limit and K5 past it; RGAT its fused or streamed
+    pass as rgat_fused_supported says at the batch's edges and table rows
+    (or a plain branch); the other families one branch at every shape."""
+    from tf_gnn_samples_torch.nn import layers
+
+    family = model.name(model.params)
+    if family in ("RGCN", "GGNN"):
+        return "none" if model._wants_dense_adj(graph) else family
+    if family == "RGAT":
+        d, heads = model.params["hidden_size"], model.params["num_heads"]
+        if not layers.rgat_streamed_branch(
+                graph, d, heads, model.params.get("aggregation_strategy",
+                                                  "auto")):
+            return "none"
+        fused = rs.rgat_fused_supported(
+            graph.flat.src_flat.shape[0], d, heads,
+            rs.rank_table_rows(graph.n_pad, 256),
+            graph.flat.src_from_rank.shape[0])
+        return "RGAT-fused" if fused else "RGAT-streamed"
+    return family
+
+
+@contextlib.contextmanager
+def launches_per_batch(rs, record):
+    """While the block runs, hold every train and eval step of every model
+    to expected_launches for the branch its own batch takes
+    (batch_branch; the batches of one fold may take up to
+    batch_spec_buckets shapes), K9 to its gather form, and append
+    (step, branch, n_pad) of each step to `record`."""
+    from tf_gnn_samples_torch.runtime.model import SparseGraphModel as M
+
+    real = {"_train_step": M._train_step, "_eval_step": M._eval_step}
+
+    def checked(name):
+        def step(self, batch):
+            before = dict(rs.LAUNCHES)
+            forms = dict(rs.FORM_LAUNCHES)
+            out = real[name](self, batch)
+            got = {k: n - before[k] for k, n in rs.LAUNCHES.items()}
+            got_forms = {k: n - forms[k] for k, n in rs.FORM_LAUNCHES.items()}
+            layers = (self.params["graph_num_layers"]
+                      * self.params["graph_num_timesteps_per_layer"])
+            branch = batch_branch(rs, self, batch.graph)
+            want = expected_launches(branch, layers, 1,
+                                     int(name == "_train_step"),
+                                     streamed_types(batch.graph))
+            want_forms = {"rgat_src_bwd gather": want["rgat_src_bwd"],
+                          "rgat_src_bwd stream": 0}
+            record.append((name, branch, batch.graph.n_pad))
+            if got != want or got_forms != want_forms:
+                raise AssertionError(
+                    "%s on a batch of n_pad %d (%s branch): launches %s, "
+                    "expected %s; K9 forms %s, expected %s" % (
+                        name, batch.graph.n_pad, branch,
+                        {k: n for k, n in got.items() if n},
+                        {k: n for k, n in want.items() if n}, got_forms,
+                        want_forms))
+            return out
+        return step
+
+    with patched(M, "_train_step", checked("_train_step")), \
+            patched(M, "_eval_step", checked("_eval_step")):
+        yield record
+
+
+def task_path_phase(rs, path, task_name, data, out, device="cuda",
+                    overrides=None, task_overrides=None, metric=MICRO_F1,
+                    test=True, profile=True):
+    """Train `path.model` on `task_name` through the train CLI, at its
+    tuned <task>_<model>.json (the class defaults where there is none)
+    with `overrides` and the path's own, then (`test`) evaluate the
+    checkpoint through the test CLI: every step launches what its batch's
+    branch needs (launches_per_batch), every Train, Valid and test loss is
+    finite and the test's metric line parses with `metric`. Returns the
+    model, the launches of both runs, the (step, branch, n_pad) of each
+    step and, with `profile`, the peak device memory of training and
+    step_times' readings."""
+    import torch
+
+    from tf_gnn_samples_torch import test as test_cli
+    from tf_gnn_samples_torch import train as train_cli
+
+    out = os.path.join(out, path.label.replace(" ", "-"))
+    argv = [path.model, task_name, "--data-path", data, "--result-dir", out,
+            "--quiet", "--device", device, "--model-param-overrides",
+            json.dumps({**(overrides or {}), **path.overrides})]
+    if task_overrides:
+        argv += ["--task-param-overrides", json.dumps(task_overrides)]
+    if profile:
+        torch.cuda.reset_peak_memory_stats()
+    rs.reset_launches()
+    record = []
+    t0 = time.time()
+    with launches_per_batch(rs, record):
+        (model,) = train_cli.run(train_cli.get_train_args(argv))
+    result = {"launches": dict(rs.LAUNCHES), "seconds": time.time() - t0}
+    for fold in ("Train", "Valid"):
+        finite_log_values(model.log_file,
+                          re.compile(r"^ %s: loss: (\S+) " % fold))
+    if profile:
+        result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if test:
+        rs.reset_launches()
+        with launches_per_batch(rs, record):
+            tmodel = test_cli.test(model.best_model_file, data, out,
+                                   quiet=True, device=device)
+        for k, n in rs.LAUNCHES.items():
+            result["launches"][k] += n
+        finite_log_values(tmodel.log_file, re.compile(r"^Loss (\S+) on "))
+        result["metric"] = finite_log_values(tmodel.log_file, metric)[-1]
+    result["steps"] = collections.Counter(record)
+    print("%s: %.1f s; steps by (step, branch, n_pad) %s; launches %s; %s"
+          % (path.label, result["seconds"], dict(result["steps"]),
+             {k: n for k, n in result["launches"].items() if n},
+             "test metric %s" % result.get("metric")))
+    if profile:
+        result["times"], result["per_step"] = step_times(rs, model,
+                                                         path.label)
+        print("%s: peak device memory %.2f GB" % (path.label,
+                                                  result["peak_gb"]))
+    return model, result
+
+
+def task_phase(rs, task_name, data, paths, epochs, out=OUT, device="cuda",
+               overrides=None, task_overrides=None, metric=MICRO_F1,
+               profile=True):
+    """Each of `paths` on `task_name` for `epochs` epochs, then its
+    checkpoint through the test CLI (task_path_phase): the PPI phase
+    (PPI_PATHS at their tuned PPI_<model>.json, unchanged, on synthetic
+    PPI cut to PPI_FOLDS_CUT) and the citation phase (CITATION_PATHS at
+    their class defaults, as there is no hypers file for the task, on
+    Pubmed-sized synthetic Planetoid data, data_kind pubmed, metric
+    ACCURACY). Returns the launches of all paths and each path's
+    result."""
+    total = {k: 0 for k in rs.LAUNCHES}
+    results = {}
+    for path in paths:
+        _, res = task_path_phase(
+            rs, path, task_name, data, out, device,
+            {"max_epochs": epochs, **(overrides or {})}, task_overrides,
+            metric, profile=profile)
+        for k, n in res["launches"].items():
+            total[k] += n
+        results[path.label] = res
+    return total, results
+
+
+def ppi_headline(rs, data, out=OUT, device="cuda", overrides=None,
+                 profile=True, card=""):
+    """RGCN at PPI_RGCN.json on the whole synthetic 20 / 2 / 2 fold with
+    its batches kept on the card, for HEADLINE_EPOCHS epochs, twice: with
+    the gate as it is (dense adjacency matmuls at every PPI pack) and
+    with "aggregation_strategy": "pallas" (K5a forward, K5b backward).
+    Prints the train edges/s of epochs 2-3 beside the reference's V100
+    figure; a reading, not a claim. Returns the launches and the edges/s
+    by strategy."""
+    total = {k: 0 for k in rs.LAUNCHES}
+    rates = {}
+    for strategy in ("auto", "pallas"):
+        path = Path("PPI RGCN headline " + strategy, "RGCN",
+                    {"aggregation_strategy": strategy})
+        model, res = task_path_phase(
+            rs, path, "PPI", data, out, device,
+            {"max_epochs": HEADLINE_EPOCHS, "cache_batches_on_device": True,
+             **(overrides or {})}, test=False, profile=profile)
+        for k, n in res["launches"].items():
+            total[k] += n
+        with open(model.log_file) as f:
+            edges = [int(m.group(1)) for m in map(TRAIN_EDGES_PER_S.match, f)
+                     if m]
+        if len(edges) != HEADLINE_EPOCHS or not model._batch_cache:
+            raise AssertionError("%s: train edges/s %s over %d epochs, "
+                                 "cached folds %s" % (
+                                     path.label, edges, HEADLINE_EPOCHS,
+                                     list(model._batch_cache)))
+        rates[strategy] = edges[1:]
+        print("%s: train edges/s by epoch %s; epochs 2-%d mean %.0f, %.2fx "
+              "the reference's V100 figure of %d edges/s; %s%s" % (
+                  path.label, edges, HEADLINE_EPOCHS,
+                  statistics.mean(edges[1:]),
+                  statistics.mean(edges[1:]) / V100_EDGES_PER_S,
+                  V100_EDGES_PER_S, card,
+                  "; peak device memory %.2f GB" % res["peak_gb"]
+                  if profile else ""))
+    return total, rates
+
+
+def reference_agrees(name, lc, gc, lp, gp, sensitivity, launches):
+    """Raise unless the card's loss `lc` and gradients `gc` agree with the
+    CPU's `lp` / `gp`: the loss within 1e-2 and every tensor's gradient
+    within 5e-2 relative, by norm. The bf16 message streams make an
+    untrained deep model sensitive to last-bit differences, and the
+    card's f32 matmuls and sums differ from the CPU's in the last bits:
+    `sensitivity` (how far weights scaled by 1 + 1e-6 noise move the CPU
+    loss) is printed beside the difference. A wrong kernel moves the
+    card-CPU difference by O(1)."""
+    import numpy as np
+
+    rel_loss = abs(lc - lp) / abs(lp)
+    rel_grad = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
+                   for a, b in zip(gc, gp))
+    print("%s reference: loss card %.7f cpu %.7f (rel %.2e); max per-tensor "
+          "relative gradient difference %.2e; CPU loss moved %.2e by a 1e-6 "
+          "relative weight nudge; card launches %s"
+          % (name, lc, lp, rel_loss, rel_grad, sensitivity, launches))
+    if not (np.isfinite(lc) and rel_loss < 1e-2 and rel_grad < 5e-2):
+        raise AssertionError("%s: card and CPU disagree on the small batch"
+                             % name)
+
+
+def reference_phase(torch, rs, path, card="cuda", task_name="QM9",
+                    task=None, batch=None, overrides=None):
+    """Full-width model (tuned <task_name>_<model>.json, or the class
+    defaults where the repository has none, as for RGDCN and the citation
+    networks) of `path` on a small batch (default: the first 600-node QM9
+    pack): the card's kernels against the CPU's plain versions, same
+    weights, no dropout. On QM9, at 600 nodes RGCN, GGNN and RGDCN would
+    take the dense strategy ("auto"), so they are set to the ranked one
+    ("pallas") and must launch K5 (RGDCN: its fine form); RGAT takes the
+    same branch under either. On another task the path keeps its own
+    overrides and must launch the kernels of the branch batch_branch
+    gives the batch. `overrides` cut a reference's depth where its
+    untrained model amplifies last-bit differences past the check's
+    bounds."""
     import numpy as np
 
     from tf_gnn_samples_torch.runtime.model import batch_to_device, params_to_jax
@@ -3137,20 +3425,26 @@ def reference_phase(torch, rs, path, card="cuda"):
     from tf_gnn_samples_torch.utils.registry import name_to_model_class
 
     model_name = path.label
-    cls, _ = name_to_model_class(path.model)
+    cls, extra = name_to_model_class(path.model)
     params = cls.default_params()
-    hypers_file = os.path.join(HYPERS_DIR, "QM9_%s.json" % path.model)
+    params.update(extra)
+    hypers_file = os.path.join(HYPERS_DIR, "%s_%s.json" % (task_name,
+                                                          path.model))
     if os.path.exists(hypers_file):
         with open(hypers_file) as f:
             params.update(json.load(f)["model_params"])
     params.update(path.overrides)
+    params.update(overrides or {})
     params["graph_layer_input_dropout_keep_prob"] = 1.0
-    if path.model != "GNN-FiLM":
-        params["aggregation_strategy"] = "pallas"
-    task, batch = first_batch(600, "VALIDATION")
-    out = os.path.join(OUT, model_name)
-    weights = params_to_jax(cls(dict(params), task, "ref", out,
-                                device="cpu").model_params_tree)
+    if task is None:
+        if path.model != "GNN-FiLM":
+            params["aggregation_strategy"] = "pallas"
+        task, batch = first_batch(600, "VALIDATION")
+    out = os.path.join(OUT, model_name.replace(" ", "-"))
+    cpu_model = cls(dict(params), task, "ref", out, device="cpu")
+    weights = params_to_jax(cpu_model.model_params_tree)
+    branch = (model_name if task_name == "QM9"
+              else batch_branch(rs, cpu_model, batch.graph))
 
     def loss_and_grads(dev, w):
         model = cls(dict(params), task, "ref", out, device=dev)
@@ -3163,30 +3457,30 @@ def reference_phase(torch, rs, path, card="cuda"):
     rs.reset_launches()
     lc, gc = loss_and_grads(card, weights)
     launches = dict(rs.LAUNCHES)
-    used = [k for k, n in expected_launches(model_name, 1, 1, 1).items() if n]
+    used = [k for k, n in expected_launches(
+        branch, 1, 1, 1, streamed_types(batch.graph)).items() if n]
     if not all(launches[k] > 0 for k in used):
-        raise AssertionError("%s reference: launches %s" % (model_name,
-                                                            launches))
+        raise AssertionError("%s reference (%s branch): launches %s"
+                             % (model_name, branch, launches))
     lp, gp = loss_and_grads("cpu", weights)
-    rel_loss = abs(lc - lp) / abs(lp)
-    rel_grad = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
-                   for a, b in zip(gc, gp))
-    # The bf16 message streams make the untrained 8-layer model sensitive
-    # to last-bit differences, and the card's f32 matmuls and sums differ
-    # from the CPU's in the last bits: measure how far weights scaled by
-    # (1 + 1e-6 * noise) move the CPU loss. A wrong kernel moves the
-    # card-CPU difference by O(1).
     rng = np.random.RandomState(1)
     nudged = {k: v * (1 + 1e-6 * rng.standard_normal(v.shape)).astype(
         np.float32) for k, v in weights.items()}
     sensitivity = abs(loss_and_grads("cpu", nudged)[0] - lp) / abs(lp)
-    print("%s reference: loss card %.7f cpu %.7f (rel %.2e); max per-tensor "
-          "relative gradient difference %.2e; CPU loss moved %.2e by a 1e-6 "
-          "relative weight nudge; card launches %s"
-          % (model_name, lc, lp, rel_loss, rel_grad, sensitivity, launches))
-    if not (np.isfinite(lc) and rel_loss < 1e-2 and rel_grad < 5e-2):
-        raise AssertionError("%s: card and CPU disagree on the small batch"
-                             % model_name)
+    reference_agrees("%s (%s branch)" % (model_name, branch), lc, gc, lp, gp,
+                     sensitivity, {k: n for k, n in launches.items() if n})
+
+
+def report_hand_kernels(label, times):
+    """Print the hand kernels' profiled device time in one train step
+    (step_times) beside the card's busy time."""
+    traced = times["train_step_kernel_ms"]
+    print("%s: device time of the hand-written kernels in one train "
+          "step (torch.profiler) %s: %.2f ms, %.1f%% of the card's busy "
+          "time"
+          % (label, {k: round(v, 4) for k, v in sorted(traced.items())},
+             sum(traced.values()),
+             100 * sum(traced.values()) / times["train_step_busy_ms"]))
 
 
 def main() -> int:
@@ -3246,17 +3540,45 @@ def main() -> int:
               "%.1f%% of the train step"
               % (path.label, per_step, share, queued,
                  100 * share / times["train_step_ms"]))
-        traced = times["train_step_kernel_ms"]
-        print("%s: device time of the hand-written kernels in one train "
-              "step (torch.profiler) %s: %.2f ms, %.1f%% of the card's busy "
-              "time"
-              % (path.label, {k: round(v, 4) for k, v in sorted(
-                  traced.items())}, sum(traced.values()),
-                 100 * sum(traced.values()) / times["train_step_busy_ms"]))
+        report_hand_kernels(path.label, times)
     t0 = time.time()
     for name, n in cache_phase(rs).items():
         total[name] += n
     print("cache phase: %.1f s" % (time.time() - t0))
+
+    from tf_gnn_samples_torch.tools.synthetic_data import (
+        make_synthetic_planetoid, make_synthetic_ppi)
+
+    t0 = time.time()
+    ppi_cut = make_synthetic_ppi(os.path.join(DATA_OUT, "ppi_cut"), seed=0,
+                                 folds=PPI_FOLDS_CUT)
+    ppi_full = make_synthetic_ppi(os.path.join(DATA_OUT, "ppi"), seed=0)
+    ppi_small = make_synthetic_ppi(
+        os.path.join(DATA_OUT, "ppi_small"), seed=1,
+        folds={"train": 1, "valid": 1, "test": 1}, min_nodes=400,
+        max_nodes=401)
+    pubmed = make_synthetic_planetoid(os.path.join(DATA_OUT, "pubmed"),
+                                      seed=0)
+    print("synthetic PPI (20 / 2 / 2 graphs and the 4 / 1 / 1 cut) and "
+          "Pubmed-sized Planetoid data: %.1f s" % (time.time() - t0))
+    for phase, run in (
+            ("PPI phase", lambda: task_phase(rs, "PPI", ppi_cut, PPI_PATHS,
+                                             PPI_EPOCHS)),
+            ("PPI headline", lambda: ppi_headline(rs, ppi_full, card=card)),
+            ("citation phase", lambda: task_phase(
+                rs, "CitationNetwork", pubmed, CITATION_PATHS,
+                CITATION_EPOCHS, task_overrides={"data_kind": "pubmed"},
+                metric=ACCURACY))):
+        t0 = time.time()
+        launched, results = run()
+        for name, n in launched.items():
+            total[name] += n
+        for label, res in results.items():
+            if "times" in res:
+                report_hand_kernels(label, res["times"])
+        print("%s: %.1f s; launches %s" % (
+            phase, time.time() - t0,
+            {k: n for k, n in launched.items() if n}))
     for k in kernels:
         # K16 entries keep their harness launches; no model path runs them
         # (expected_launches held their counters at 0 on every path).
@@ -3269,6 +3591,23 @@ def main() -> int:
         with rgat_branch(rs, path.rgat_fused), forced_gate(rs, layers,
                                                             path.gate):
             reference_phase(torch, rs, path)
+    # PPI: one 400-node graph of PPI's degree; RGCN also on its K5 branch,
+    # which the headline's "pallas" run takes. Citation: the Pubmed batch.
+    task, batch = first_batch(12500, "VALIDATION", "PPI", ppi_small)
+    for path in PPI_PATHS + (Path("PPI RGCN pallas", "RGCN", {
+            "aggregation_strategy": "pallas"}),):
+        reference_phase(torch, rs, path, task_name="PPI", task=task,
+                        batch=batch)
+    task, batch = first_batch(1, "VALIDATION", "CitationNetwork", pubmed,
+                              data_kind="pubmed")
+    for path in CITATION_PATHS:
+        # 4 of the class defaults' 8 layers, at their width: at 8, a 1e-6
+        # relative weight nudge moves GNN-FiLM's CPU loss by 2e-4 on this
+        # graph, and the card's last-bit differences grow as far.
+        reference_phase(torch, rs, path, task_name="CitationNetwork",
+                        task=task, batch=batch,
+                        overrides={"graph_num_layers": 4})
+    shutil.rmtree(DATA_OUT)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -14,8 +14,14 @@ term dropped or weighted by the wrong head, a mask one bit off, the wrong
 leak, a row summed through its chunks or pairwise inside one, a fill slot
 that reads a real row, a message cotangent one bf16 step off, K12a's
 slices chunked from the layer's first edge, K6a's rows summed in 64-edge
-chunks in place of its 8-edge runs. No kernel runs here; the faults are
-planted in the emulation."""
+chunks in place of its 8-edge runs. The cache, PPI, headline and
+citation phases run at a tiny width with the card's launches emulated
+per batch, and reject a cache that re-packs every epoch, a resume that
+drops the slots, a step that launches one kernel more or another
+branch's kernels, a metric line the bench regex cannot read, a loss that
+is not finite and a headline run whose batches were not cached; the
+card-against-CPU comparison rejects a loss or a gradient off. No kernel
+runs here; the faults are planted in the emulation."""
 
 import gzip
 import itertools
@@ -25,7 +31,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CACHE_OVERRIDES, cache_phase, check_exact, check_kernel, chunk_span,
+from chip_smoke import (CACHE_OVERRIDES, Path, batch_branch, cache_phase,
+                        check_exact, check_kernel, chunk_span,
+                        ppi_headline, reference_agrees, task_phase,
+                        ACCURACY, MICRO_F1, PPI_PATHS,
                         emlp1_src_bwd_bounds, emlp1_src_bwd_intervals,
                         emlp1_src_bwd_tc_check, expected_launches,
                         film_bwd_design_check,
@@ -1172,3 +1181,203 @@ def test_cache_phase_checks_reject_planted_faults(qm9_dir, tmp_path,
              "cache_changes_the_launches": "launches"}[fault]
     with pytest.raises(AssertionError, match=match):
         cache_phase(rs, **kwargs)
+
+
+def emulate_branch_launches(monkeypatch, fault="none"):
+    """For every step, count the launches the card would make for the
+    branch its batch takes (batch_branch, expected_launches) into a
+    counter table of the test's own; `fault`: "extra_launch" counts one
+    K5a more on each eval step, "other_branch" counts RGAT's streamed
+    launches where its gate says fused."""
+    from chip_smoke import expected_launches, streamed_types
+
+    monkeypatch.setattr(rs, "LAUNCHES", dict.fromkeys(rs.LAUNCHES, 0))
+    monkeypatch.setattr(rs, "FORM_LAUNCHES",
+                        dict.fromkeys(rs.FORM_LAUNCHES, 0))
+    real = {"train": SparseGraphModel._train_step,
+            "eval": SparseGraphModel._eval_step}
+
+    def count(model, batch, n_bwd):
+        layers = (model.params["graph_num_layers"]
+                  * model.params["graph_num_timesteps_per_layer"])
+        branch = batch_branch(rs, model, batch.graph)
+        if fault == "other_branch" and branch == "RGAT-fused":
+            branch = "RGAT-streamed"
+        want = expected_launches(branch, layers, 1, n_bwd,
+                                 streamed_types(batch.graph))
+        for k, n in want.items():
+            rs.LAUNCHES[k] += n
+        rs.FORM_LAUNCHES["rgat_src_bwd gather"] += want["rgat_src_bwd"]
+        if fault == "extra_launch" and not n_bwd:
+            rs.LAUNCHES["segsum"] += 1
+
+    def train_step(self, batch):
+        count(self, batch, 1)
+        return real["train"](self, batch)
+
+    def eval_step(self, batch):
+        count(self, batch, 0)
+        return real["eval"](self, batch)
+
+    monkeypatch.setattr(SparseGraphModel, "_train_step", train_step)
+    monkeypatch.setattr(SparseGraphModel, "_eval_step", eval_step)
+
+
+@pytest.fixture(scope="module")
+def tiny_ppi(tmp_path_factory):
+    """Synthetic PPI folds of 3 / 1 / 1 graphs of 60-119 nodes."""
+    from tf_gnn_samples_torch.tools.synthetic_data import make_synthetic_ppi
+
+    return make_synthetic_ppi(str(tmp_path_factory.mktemp("tiny_ppi")),
+                              seed=0, folds={"train": 3, "valid": 1,
+                                             "test": 1},
+                              min_nodes=60, max_nodes=120,
+                              fwd_edges_per_node=6)
+
+
+TINY = {"graph_num_layers": 1, "hidden_size": 16, "max_nodes_in_batch": 200}
+
+
+@pytest.mark.parametrize("fault", ["none", "extra_launch", "other_branch",
+                                   "metric_line", "loss_not_finite"])
+def test_ppi_phase_checks_reject_planted_faults(tiny_ppi, tmp_path,
+                                                monkeypatch, fault):
+    """The PPI phase (task_phase) on the CPU at a tiny width, launches
+    emulated per batch: all seven families and RGCN forced onto K5 pass
+    through the train and test CLIs (GNN-Edge-MLP1's type-major branch
+    over PPI's two streamed edge types); over three of them (RGAT's fused
+    pass, GNN-Edge-MLP1, RGCN on K5) it fails on an eval step that
+    launches one kernel more, steps that launch another branch's
+    kernels, a micro-F1 line run_ppi_benchs.py's regex cannot read and a
+    loss that is not finite."""
+    import run_ppi_benchs
+    from tf_gnn_samples_torch.tasks.ppi import PPI_Task
+
+    assert MICRO_F1.pattern == run_ppi_benchs.SCRAPE["micro_f1"].pattern
+    emulate_branch_launches(monkeypatch, fault)
+    if fault == "metric_line":
+        monkeypatch.setattr(PPI_Task, "pretty_print_epoch_task_metrics",
+                            lambda self, results, n: "Avg MicroF1: nan")
+    if fault == "loss_not_finite":
+        real = PPI_Task.output_apply
+
+        def output_apply(self, *args, **kwargs):
+            loss, metrics = real(self, *args, **kwargs)
+            return loss * float("nan"), dict(metrics, loss=loss * float(
+                "nan"))
+
+        monkeypatch.setattr(PPI_Task, "output_apply", output_apply)
+    paths = (Path("PPI RGAT", "RGAT", {}), Path("PPI GNN-Edge-MLP1",
+                                                 "GNN-Edge-MLP1", {}),
+             Path("PPI RGCN K5", "RGCN", {"aggregation_strategy": "pallas"}))
+    kwargs = dict(out=str(tmp_path), device="cpu", overrides=TINY,
+                  profile=False)
+    if fault == "none":
+        # All seven families through the train and test CLIs, and RGCN
+        # forced onto K5.
+        total, results = task_phase(rs, "PPI", tiny_ppi,
+                                    PPI_PATHS + paths[2:], 2, **kwargs)
+        steps = {label: {branch for _, branch, _ in r["steps"]}
+                 for label, r in results.items()}
+        assert steps == {"PPI GNN-FiLM": {"GNN-FiLM"},
+                         "PPI GNN-Edge-MLP0": {"GNN-Edge-MLP0"},
+                         "PPI GNN-Edge-MLP1": {"GNN-Edge-MLP1"},
+                         "PPI RGAT": {"RGAT-fused"}, "PPI RGCN": {"none"},
+                         "PPI GGNN": {"none"}, "PPI RGIN": {"RGIN"},
+                         "PPI RGCN K5": {"RGCN"}}
+        # Two streamed edge types (fwd and the untied backward): two K12b
+        # launches a layer on each train step.
+        n_train = sum(n for (step, branch, _), n in
+                      results["PPI GNN-Edge-MLP1"]["steps"].items()
+                      if step == "_train_step")
+        assert results["PPI GNN-Edge-MLP1"]["launches"]["act_agg_bwd"] == (
+            2 * n_train) > 0
+        assert all(0 < r["metric"] < 1 for r in results.values())
+        return
+    match = {"extra_launch": "launches", "other_branch": "launches",
+             "metric_line": "MicroF1", "loss_not_finite": "loss"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        task_phase(rs, "PPI", tiny_ppi, paths, 2, **kwargs)
+
+
+@pytest.mark.parametrize("fault", ["none", "not_cached"])
+def test_ppi_headline_checks_reject_planted_faults(tiny_ppi, tmp_path,
+                                                   monkeypatch, fault):
+    """ppi_headline on the CPU at a tiny width: dense and K5 runs, their
+    launches emulated, three epochs' train edges/s read from the log; it
+    fails where the batches were not kept on the card."""
+    emulate_branch_launches(monkeypatch)
+    overrides = dict(TINY)
+    if fault == "not_cached":
+        overrides["cache_batches_on_device"] = False
+    kwargs = dict(out=str(tmp_path), device="cpu", overrides=overrides,
+                  profile=False)
+    if fault == "none":
+        total, rates = ppi_headline(rs, tiny_ppi, **kwargs)
+        assert set(rates) == {"auto", "pallas"}
+        assert all(len(v) == 2 and min(v) > 0 for v in rates.values())
+        assert total["segsum"] > 0 and total["expand"] > 0
+        return
+    with pytest.raises(AssertionError, match="cached folds"):
+        ppi_headline(rs, tiny_ppi, **kwargs)
+
+
+@pytest.mark.parametrize("fault", ["none", "metric_line", "extra_launch"])
+def test_citation_phase_checks_reject_planted_faults(tmp_path, monkeypatch,
+                                                     fault):
+    """The citation phase (task_phase) on the CPU at a tiny width on a
+    small synthetic
+    Planetoid graph: it passes as it is, and fails on an accuracy line
+    that does not parse and an eval step that launches one kernel more."""
+    from tf_gnn_samples_torch.tasks.citation import Citation_Network_Task
+    from tf_gnn_samples_torch.tools.synthetic_data import (
+        make_synthetic_planetoid)
+
+    data = make_synthetic_planetoid(str(tmp_path / "pubmed"), seed=1,
+                                    num_nodes=900, num_edges=1500,
+                                    num_features=20, num_train=30,
+                                    num_test=100)
+    emulate_branch_launches(monkeypatch, fault)
+    if fault == "metric_line":
+        monkeypatch.setattr(Citation_Network_Task,
+                            "pretty_print_epoch_task_metrics",
+                            lambda self, results, n: "Acc: nan%")
+    kwargs = dict(out=str(tmp_path), device="cpu", overrides=TINY,
+                  task_overrides={"data_kind": "pubmed"}, metric=ACCURACY,
+                  profile=False)
+    paths = (Path("Pubmed GNN-FiLM", "GNN-FiLM", {}),
+             Path("Pubmed RGCN", "RGCN", {}))
+    if fault == "none":
+        total, results = task_phase(rs, "CitationNetwork", data, paths, 3,
+                                    **kwargs)
+        assert total["film_fwd"] > 0
+        assert all(0 <= r["metric"] <= 100 for r in results.values())
+        return
+    match = {"metric_line": "Acc", "extra_launch": "launches"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        task_phase(rs, "CitationNetwork", data, paths, 3, **kwargs)
+
+
+@pytest.mark.parametrize("fault", ["none", "loss_off", "gradient_off",
+                                   "loss_nan"])
+def test_reference_check_rejects_planted_faults(fault):
+    """reference_agrees: last-bit differences pass; a loss 2 % off, one
+    tensor's gradient 10 % off and a NaN loss fail."""
+    gen = torch.Generator().manual_seed(0)
+    grads = [torch.randn(20, 8, generator=gen, dtype=torch.float64)
+             for _ in range(3)]
+    card = [g * (1 + 1e-6) for g in grads]
+    loss = 3.25
+    card_loss = loss * (1 + 1e-6)
+    if fault == "loss_off":
+        card_loss = loss * 1.02
+    if fault == "gradient_off":
+        card[1] = card[1] * 1.1
+    if fault == "loss_nan":
+        card_loss = float("nan")
+    args = ("x", card_loss, card, loss, grads, 1e-6, {})
+    if fault == "none":
+        reference_agrees(*args)
+        return
+    with pytest.raises(AssertionError, match="disagree"):
+        reference_agrees(*args)

@@ -265,10 +265,20 @@ def test_device_defaults_to_cuda():
     assert t_model.resolve_device("cpu") == CPU
 
 
-def test_unported_names_raise():
-    # Every model family is ported; tasks other than QM9 are not.
-    for task in ("PPI", "VarMisuse", "cora"):
+@pytest.mark.parametrize("task, resolves_to", [
+    ("PPI", ("PPI", {})),
+    ("VarMisuse", None),
+    ("cora", ("CitationNetwork", {"data_kind": "cora"})),
+])
+def test_unported_names_raise(task, resolves_to):
+    # Every model family is ported, and every task but VarMisuse: PPI and
+    # the citation networks resolve as in the JAX package's registry.
+    if resolves_to is None:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             t_registry.name_to_task_class(task)
+    else:
+        cls, extra = t_registry.name_to_task_class(task)
+        jcls, jextra = j_registry.name_to_task_class(task)
+        assert (cls.name(), extra) == resolves_to == (jcls.name(), jextra)
     with pytest.raises(ValueError):
         t_registry.name_to_model_class("nope")

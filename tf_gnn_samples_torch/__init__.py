@@ -7,9 +7,11 @@ are CUDA C++ kernels for Hopper (sm_90a) under csrc/, built at first use
 (ops/cuda_build.py). The package imports torch and numpy only, never jax
 and nothing of tf_gnn_samples_tpu.
 
-Ported so far: GGNN, RGCN and GNN-FiLM on QM9 (train and test CLIs:
-`python -m tf_gnn_samples_torch.train {GGNN,RGCN,GNN-FiLM} QM9`,
-`python -m tf_gnn_samples_torch.test CKPT`).
+Ported so far: all seven model families on the QM9, PPI and citation-
+network tasks (train and test CLIs:
+`python -m tf_gnn_samples_torch.train MODEL {QM9,PPI,cora,citeseer,pubmed}`,
+`python -m tf_gnn_samples_torch.test CKPT`); VarMisuse and the parallel
+runtimes are still to port.
 """
 
 __version__ = "0.1.0"

@@ -83,7 +83,10 @@ def use_dense_strategy(graph: GraphBatch, aggregation: str,
     "auto" takes the dense path up to n_pad 16,384 and L dense f32
     matrices of at most 3 * 16,384^2 entries. These thresholds are the
     JAX package's heuristic, kept so both packages pick the same path at
-    the same shape; they are still to be measured on the H100."""
+    the same shape. On the H100 they are read, not yet tuned: chip_smoke.py
+    ppi_headline trains RGCN on PPI's packs (at most 12,800 padded nodes,
+    so dense under "auto") both ways, and PERF.md (Findings) holds the
+    two edges/s."""
     if aggregation not in ("sum", "unsorted_segment_sum"):
         return False
     if strategy == "dense":

@@ -112,6 +112,45 @@ def params_to_jax(tree) -> Dict[str, np.ndarray]:
             for k, v in flatten_params(tree).items()}
 
 
+def opt_state_to_jax(state: OptimizerState, tree) -> Dict[str, Any]:
+    """An optimizer state over the leaves of `tree` -> {"slots":
+    {"{slot}/{flatten_params name}": float32 array}, "step": int}: the
+    JAX package's `flatten_params` of its {slot: parameter tree} dict and
+    its step counter."""
+    names = list(flatten_params(tree))
+    return {"slots": {"%s/%s" % (slot, name): t.detach().cpu().numpy()
+                      for slot, ts in state.slots.items()
+                      for name, t in zip(names, ts)},
+            "step": int(state.step)}
+
+
+def opt_state_from_jax(slots: Dict[str, np.ndarray], step: int, tree,
+                       fresh: OptimizerState) -> OptimizerState:
+    """Inverse of opt_state_to_jax onto the leaves of `tree`: each slot of
+    `fresh` (the optimizer's init over those leaves) takes the saved array
+    of its name, in its dtype and on its device; a name missing from
+    `slots` keeps the fresh value."""
+    names = list(flatten_params(tree))
+    return OptimizerState(
+        step=int(step),
+        slots={slot: [_saved_or(slots, "%s/%s" % (slot, n), t)
+                      for n, t in zip(names, ts)]
+               for slot, ts in fresh.slots.items()})
+
+
+def _saved_or(saved: Dict[str, np.ndarray], key: str,
+              current: torch.Tensor) -> torch.Tensor:
+    """saved[key] in `current`'s dtype and on its device (shapes must
+    agree), or `current` where `saved` has no such entry."""
+    if key not in saved:
+        return current
+    value = torch.tensor(np.asarray(saved[key]), dtype=current.dtype,
+                         device=current.device)
+    assert value.shape == current.shape, (key, tuple(value.shape),
+                                          tuple(current.shape))
+    return value
+
+
 def batch_to_device(batch: TaskBatch, device) -> TaskBatch:
     return batch._replace(
         graph=graph_to_device(batch.graph, device),
@@ -369,7 +408,7 @@ class SparseGraphModel(ABC):
 
     def save_training_state(self, path: str, epoch: int,
                             early_stop_state: Dict[str, Any]) -> None:
-        names = list(flatten_params(self.model_params_tree))
+        opt = opt_state_to_jax(self.opt_state, self.model_params_tree)
         state = {
             "model_class": self.name(self.params),
             "task_class": self.task.name(),
@@ -379,10 +418,8 @@ class SparseGraphModel(ABC):
             "weights": params_to_jax(self.model_params_tree),
             # {slot}/{parameter name}, as the JAX package flattens its
             # {slot: parameter tree} dict.
-            "opt_slots": {"%s/%s" % (slot, name): t.detach().cpu().numpy()
-                          for slot, ts in self.opt_state.slots.items()
-                          for name, t in zip(names, ts)},
-            "opt_step": int(self.opt_state.step),
+            "opt_slots": opt["slots"],
+            "opt_step": opt["step"],
             "epoch": epoch,
             "early_stop_state": early_stop_state,
             # Every generator drawn from between steps: the dropout
@@ -403,25 +440,12 @@ class SparseGraphModel(ABC):
         with open(path, "rb") as f:
             state = pickle.load(f)
 
-        def restored(saved, key, current):
-            if key not in saved:
-                return current
-            value = torch.tensor(np.asarray(saved[key]),
-                                 dtype=current.dtype, device=self.device)
-            assert value.shape == current.shape, (key, tuple(value.shape),
-                                                  tuple(current.shape))
-            return value
-
         current = flatten_params(self.model_params_tree)
         self.model_params_tree = self._as_leaves({
-            k: restored(state["weights"], k, v) for k, v in current.items()})
-        names = list(current)
-        fresh = self._optimizer.init(self._leaves())
-        self.opt_state = OptimizerState(
-            step=int(state["opt_step"]),
-            slots={slot: [restored(state["opt_slots"], "%s/%s" % (slot, n), t)
-                          for n, t in zip(names, ts)]
-                   for slot, ts in fresh.slots.items()})
+            k: _saved_or(state["weights"], k, v) for k, v in current.items()})
+        self.opt_state = opt_state_from_jax(
+            state["opt_slots"], state["opt_step"], self.model_params_tree,
+            self._optimizer.init(self._leaves()))
         self._step_rng.set_state(state["step_rng_state"])
         np.random.set_state(state["np_random_state"])
         return {"epoch": state["epoch"],

@@ -1,23 +1,35 @@
 """Name -> class registries and checkpoint restore (counterpart of
 tf_gnn_samples_tpu/utils/registry.py). Ported so far: all seven model
 families (GGNN, RGCN, RGAT, RGIN, GNN-FiLM, GNN-Edge-MLP, RGDCN) and the
-QM9 task; every other task name the JAX package knows raises "not yet
-ported"."""
+QM9, PPI and citation-network tasks (CitationNetwork, and cora /
+citeseer / pubmed, which pin `data_kind`); VarMisuse, the one task name
+of the JAX package left, raises "not yet ported"."""
 
 import pickle
 from typing import Any, Dict, Tuple, Type
 
-_UNPORTED_TASKS = ("ppi", "varmisuse", "citationnetwork", "citation_network",
-                   "cora", "citeseer", "pubmed")
+_UNPORTED_TASKS = ("varmisuse",)
 
 
 def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
-    """Task name -> (class, additional params)."""
+    """Task name -> (class, additional params). Aliases for the three
+    citation datasets pin `data_kind` (reference model_utils.py:16-21)."""
     name = name.lower()
     if name == "qm9":
         from ..tasks.qm9 import QM9_Task
 
         return QM9_Task, {}
+    if name == "ppi":
+        from ..tasks.ppi import PPI_Task
+
+        return PPI_Task, {}
+    if name in ("citationnetwork", "citation_network", "cora", "citeseer",
+                "pubmed"):
+        from ..tasks.citation import Citation_Network_Task
+
+        if name in ("cora", "citeseer", "pubmed"):
+            return Citation_Network_Task, {"data_kind": name}
+        return Citation_Network_Task, {}
     if name in _UNPORTED_TASKS:
         raise NotImplementedError(
             "Task '%s' is not yet ported to the PyTorch package." % name)
