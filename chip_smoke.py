@@ -74,7 +74,7 @@ Phases, each of which raises on failure (no phase's failure is caught):
     type-major view), GNN-Edge-MLP1 without the target state (ranked
     branch), GNN-Edge-MLP0 (FiLM kernels) and RGDCN (class defaults,
     25,000-node packs; fine-rank neighbour sums, K5a both ways) on the
-    bundled QM9 data at their tuned configs for 2 epochs each, then
+    bundled QM9 data at their tuned configs for 1 epoch each, then
     `tf_gnn_samples_torch.test` evaluates each written checkpoint (each
     path's train step also profiled: the hand kernels' device time and the
     ten other device events with the most); the
@@ -100,7 +100,7 @@ Phases, each of which raises on failure (no phase's failure is caught):
     labels), the train fold cut to 4 graphs and the valid and test folds
     to 1 each; `tf_gnn_samples_torch.train` trains GNN-FiLM,
     GNN-Edge-MLP0, GNN-Edge-MLP1, RGAT, RGCN, GGNN and RGIN at their tuned
-    PPI_<model>.json, unchanged, for 2 epochs each, and
+    PPI_<model>.json, unchanged, for 1 epoch each, and
     `tf_gnn_samples_torch.test` evaluates each checkpoint; every train and
     eval step launches exactly what `expected_launches` gives for the
     branch its own batch takes (`batch_branch`: the fold's batches take up
@@ -116,12 +116,32 @@ Phases, each of which raises on failure (no phase's failure is caught):
  9. the citation phase (`task_phase`): synthetic Planetoid data at
     Pubmed's size (data_kind pubmed); GNN-FiLM and RGCN at their class
     defaults for 3 epochs, then the test CLI, checked as the PPI paths;
-10. a reference check per path: loss and gradients of the full-width
+10. the VarMisuse phase (`varmisuse_phase`): synthetic VarMisuse program
+    graphs of bench.py's size (tools/synthetic_data.py, seed 0: 150 / 20 /
+    20 graphs of 1,600-2,599 nodes, the ten named edge types; 22 edge
+    types, 23 with self loops); the seven VarMisuse_<model>.json at full
+    width and depth for 2 epochs each through the train CLI (GNN-FiLM
+    streaming its train fold through 4 spawned parse workers, the others
+    holding it in memory), then the test CLI on graphs-test: every step
+    held to its own batch's branch as the PPI paths, every batch on a
+    kernel branch, the accuracy line parsed with run_varmisuse_benchs.py's
+    regex; each path's step times, profiled hand kernels, peak memory and
+    epoch-2 graphs/s, and K12b's share of GNN-Edge-MLP1's step;
+11. the streaming loader's parse rate (4 workers against 0); the
+    per-type scan (`scan_phase`): RGIN and GNN-Edge-MLP1 at their tuned
+    configs and RGDCN at its class defaults on a 10,000-node batch, each
+    at typed_edge_scan "scan" against "unroll" on the card (launching no
+    hand kernel), a train step timed at "scan", "unroll" and "auto"; and
+    K12a / K12b (`k12_varmisuse`) on GNN-Edge-MLP1's batch's 22 streamed
+    slices, held to their plain versions and timed beside their bounds;
+12. a reference check per path: loss and gradients of the full-width
     model on a small batch on the card (kernels) against the same model
     on the CPU (the kernels' plain versions): QM9 (a 600-node pack, the
     same gates forced), PPI (one 400-node graph of PPI's degree; RGCN
-    also with "pallas") and Pubmed (the whole graph, 4 of the class
-    defaults' 8 layers).
+    also with "pallas"), Pubmed (the whole graph, 4 of the class
+    defaults' 8 layers) and VarMisuse (4 small graphs, 22 or 23 edge
+    types, 4 layers of each tuned config; RGCN and GGNN also with
+    "pallas"; RGIN, GNN-Edge-MLP1 and RGDCN also at "scan").
 Usage: python3 chip_smoke.py
 """
 
@@ -141,8 +161,8 @@ import time
 # The port's package beside this script (absent there, the import fails
 # and the script prints no result).
 from tf_gnn_samples_torch.tools.timing import (BF16_TENSOR_FLOPS, F32_FLOPS,
-                                               HBM_BYTES_PER_S, cuda_ms,
-                                               cuda_queued_ms)
+                                               HBM_BYTES_PER_S, bound_ms,
+                                               cuda_ms, cuda_queued_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "data", "qm9")
@@ -150,7 +170,9 @@ OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 # The synthetic PPI and Planetoid data the PPI and citation phases make
 # (tf_gnn_samples_torch/tools/synthetic_data.py); removed at the end.
 DATA_OUT = os.path.join(OUT, "data")
-TUNED_OVERRIDES = {"max_epochs": 2}  # everything else: QM9_<model>.json
+# One epoch a QM9 path (the VarMisuse phase took the time of the
+# second); everything else: QM9_<model>.json.
+TUNED_OVERRIDES = {"max_epochs": 1}
 # A main path: a model at its tuned config, the overrides that select the
 # path, for RGAT the branch it is, and the gate a path forces (`gate`,
 # see forced_gate). The branch RGAT's gate picks at the tuned batch trains
@@ -2825,8 +2847,8 @@ def expected_launches(label, layers, n_fwd, n_bwd,
 
 
 def main_path_phase(rs, path):
-    """Train `path.model` at its tuned QM9 config for 2 epochs, test its
-    checkpoint; returns the training run's launches, and the step times
+    """Train `path.model` at its tuned QM9 config for TUNED_OVERRIDES'
+    epoch, test its checkpoint; returns the training run's launches, and the step times
     with the launches counted in one train step."""
     from tf_gnn_samples_torch import train as train_cli
     from tf_gnn_samples_torch import test as test_cli
@@ -3059,7 +3081,7 @@ def cache_phase(rs, path=PATHS[0], data=DATA, out=OUT, device="cuda",
             path.model, "QM9", "--data-path", data, "--result-dir",
             os.path.join(out, tag), "--quiet", "--device", device,
             "--model-param-overrides", json.dumps({
-                **TUNED_OVERRIDES, **path.overrides, **params,
+                "max_epochs": 2, **path.overrides, **params,
                 **(overrides or {})})] + list(extra))
         rs.reset_launches()
         t0 = time.time()
@@ -3174,7 +3196,7 @@ V100_EDGES_PER_S = 1952084
 # folds to 1 each (a cut of depth: the graphs keep PPI's published size,
 # the models their tuned widths); the headline runs the whole 20 / 2 / 2.
 PPI_FOLDS_CUT = {"train": 4, "valid": 1, "test": 1}
-PPI_EPOCHS = 2
+PPI_EPOCHS = 1
 HEADLINE_EPOCHS = 3
 CITATION_EPOCHS = 3
 PPI_PATHS = tuple(Path("PPI " + m, m, {}) for m in (
@@ -3192,16 +3214,57 @@ def streamed_types(graph):
 
 def batch_branch(rs, model, graph):
     """The expected_launches label of the branch a batch of `graph`'s shape
-    takes in `model`, from the port's own gates: RGCN and GGNN take the
-    dense adjacency matmuls ("none": no hand kernel) up to
+    takes in `model`, from the port's own gates ("none": a branch without
+    hand kernels): RGCN and GGNN take the dense adjacency matmuls up to
     use_dense_strategy's limit and K5 past it; RGAT its fused or streamed
     pass as rgat_fused_supported says at the batch's edges and table rows
-    (or a plain branch); the other families one branch at every shape."""
+    (or a plain branch); GNN-FiLM, GNN-Edge-MLP, RGIN and RGDCN what
+    film_fused_branch, edge_mlp_branch, rgin_branch and rgdcn_sums_form
+    answer (their scanned, unrolled, plain, dense and per-type forms run
+    no hand kernel)."""
     from tf_gnn_samples_torch.nn import layers
 
     family = model.name(model.params)
+    kw = model.layer_kwargs()
     if family in ("RGCN", "GGNN"):
         return "none" if model._wants_dense_adj(graph) else family
+    if family == "GNN-FiLM":
+        if not layers.film_fused_branch(kw["aggregation_strategy"],
+                                        kw["message_aggregation_function"],
+                                        kw["activation_function"]):
+            return "none"
+        return ("GNN-FiLM-normalised" if kw["normalize_by_num_incoming"]
+                else "GNN-FiLM")
+    if family.startswith("GNN-Edge-MLP"):
+        d = model.params["hidden_size"]
+        act = kw["activation_function"].lower()
+        branch = layers.edge_mlp_branch(
+            graph, activation_function=act,
+            message_aggregation_function=kw["message_aggregation_function"],
+            normalize_by_num_incoming=kw.get("normalize_by_num_incoming",
+                                             False),
+            use_target_state_as_input=kw["use_target_state_as_input"],
+            num_edge_hidden_layers=kw["num_edge_hidden_layers"],
+            typed_edge_scan=kw["typed_edge_scan"], w1_dims=(d, d))
+        if branch == "tmajor1":
+            return ("GNN-Edge-MLP1-src" if rs.emlp1_src_supported(
+                act, d, streamed_types(graph)) else "GNN-Edge-MLP1")
+        return {"fused0": "GNN-Edge-MLP0", "fused1": "GNN-Edge-MLP1-fused1",
+                "ranked": "GNN-Edge-MLP-ranked"}.get(branch, "none")
+    if family == "RGIN":
+        return "RGIN" if layers.rgin_branch(
+            graph,
+            message_aggregation_function=kw["message_aggregation_function"],
+            use_target_state_as_input=kw["use_target_state_as_input"],
+            num_edge_MLP_hidden_layers=kw["num_edge_MLP_hidden_layers"],
+            typed_edge_scan=kw["typed_edge_scan"]) == "ranked" else "none"
+    if family == "RGDCN":
+        if kw["message_aggregation_function"] not in (
+                "sum", "unsorted_segment_sum"):
+            return "none"
+        return "RGDCN" if layers.rgdcn_sums_form(
+            graph, kw["aggregation_strategy"],
+            kw["typed_edge_scan"]) == "fine" else "none"
     if family == "RGAT":
         d, heads = model.params["hidden_size"], model.params["num_heads"]
         if not layers.rgat_streamed_branch(
@@ -3261,11 +3324,12 @@ def launches_per_batch(rs, record):
 
 def task_path_phase(rs, path, task_name, data, out, device="cuda",
                     overrides=None, task_overrides=None, metric=MICRO_F1,
-                    test=True, profile=True):
+                    test=True, profile=True, test_data=None):
     """Train `path.model` on `task_name` through the train CLI, at its
     tuned <task>_<model>.json (the class defaults where there is none)
     with `overrides` and the path's own, then (`test`) evaluate the
-    checkpoint through the test CLI: every step launches what its batch's
+    checkpoint through the test CLI on `test_data` (default `data`):
+    every step launches what its batch's
     branch needs (launches_per_batch), every Train, Valid and test loss is
     finite and the test's metric line parses with `metric`. Returns the
     model, the launches of both runs, the (step, branch, n_pad) of each
@@ -3298,8 +3362,8 @@ def task_path_phase(rs, path, task_name, data, out, device="cuda",
     if test:
         rs.reset_launches()
         with launches_per_batch(rs, record):
-            tmodel = test_cli.test(model.best_model_file, data, out,
-                                   quiet=True, device=device)
+            tmodel = test_cli.test(model.best_model_file, test_data or data,
+                                   out, quiet=True, device=device)
         for k, n in rs.LAUNCHES.items():
             result["launches"][k] += n
         finite_log_values(tmodel.log_file, re.compile(r"^Loss (\S+) on "))
@@ -3381,6 +3445,312 @@ def ppi_headline(rs, data, out=OUT, device="cuda", overrides=None,
     return total, rates
 
 
+# ---- the VarMisuse phase ------------------------------------------------
+
+# The test CLI's accuracy line as run_varmisuse_benchs.py:27 reads it.
+VARMISUSE_ACCURACY = re.compile(r"^Metrics: Accuracy: (0.\d+)")
+GRAPHS_PER_S = re.compile(
+    r"^ (Train|Valid): loss: \S+ \|\| .* \|\| graphs/sec: (\S+) \|")
+VARMISUSE_EPOCHS = 2
+VARMISUSE_PATHS = tuple(Path("VarMisuse " + m, m, {}) for m in (
+    "GNN-FiLM", "GNN-Edge-MLP0", "GNN-Edge-MLP1", "RGAT", "RGCN", "GGNN",
+    "RGIN"))
+# GNN-FiLM streams its train fold from disk through 4 spawned parse
+# workers (ShardedSampleStream); the others hold it in memory.
+VARMISUSE_STREAMED = {"GNN-FiLM": {"streaming_train_data": True,
+                                   "streaming_parse_workers": 4}}
+# The scan on the card: RGIN and GNN-Edge-MLP1 at their tuned configs on
+# one batch of theirs, RGDCN (no VarMisuse_RGDCN.json: class defaults)
+# on a batch cut to 10,000 nodes.
+SCAN_MODELS = (("RGIN", None), ("GNN-Edge-MLP1", None), ("RGDCN", 10000))
+
+
+def varmisuse_params(model, overrides=None):
+    """(model class, model params, task params) of `model` at its tuned
+    VarMisuse_<model>.json (class defaults where there is none) with
+    `overrides`, dropout off."""
+    from tf_gnn_samples_torch.train import HYPERS_DIR
+    from tf_gnn_samples_torch.utils.registry import name_to_model_class
+
+    cls, extra = name_to_model_class(model)
+    params, task_params = cls.default_params(), {}
+    params.update(extra)
+    hypers = os.path.join(HYPERS_DIR, "VarMisuse_%s.json" % model)
+    if os.path.exists(hypers):
+        with open(hypers) as f:
+            tuned = json.load(f)
+        params.update(tuned["model_params"])
+        task_params = tuned["task_params"]
+    params.update(overrides or {})
+    params["graph_layer_input_dropout_keep_prob"] = 1.0
+    return cls, params, task_params
+
+
+def varmisuse_batch(fold_dir, max_nodes, **task_params):
+    """(task, the first batch, unshuffled, of the VarMisuse fold directory
+    `fold_dir` at `max_nodes` a batch)."""
+    from tf_gnn_samples_torch.tasks.base import DataFold
+    from tf_gnn_samples_torch.tasks.varmisuse import VarMisuse_Task
+
+    task = VarMisuse_Task({**VarMisuse_Task.default_params(), **task_params})
+    data = task.load_eval_data_from_path(fold_dir)
+    return task, next(task.make_minibatch_iterator(
+        data, DataFold.VALIDATION, max_nodes))
+
+
+def varmisuse_phase(rs, data, out=OUT, device="cuda", overrides=None,
+                    profile=True, paths=VARMISUSE_PATHS):
+    """The seven families on synthetic VarMisuse data through the train
+    CLI at their tuned VarMisuse_<model>.json, for VARMISUSE_EPOCHS epochs,
+    then the test CLI on graphs-test (task_path_phase: every step held to
+    its own batch's branch, finite losses, the accuracy line parsed with
+    run_varmisuse_benchs.py's regex). Every batch must take a kernel
+    branch (the tuned configs' gates: none answers "none"); GNN-FiLM's
+    train fold must have streamed through its parse pool, which is closed
+    after. Prints each path's epoch-2 train and valid graphs/s. Returns
+    the launches of all paths and each path's result."""
+    from tf_gnn_samples_torch.tasks.base import DataFold
+
+    total = {k: 0 for k in rs.LAUNCHES}
+    results = {}
+    for path in paths:
+        streamed = VARMISUSE_STREAMED.get(path.model, {})
+        model, res = task_path_phase(
+            rs, path, "VarMisuse", data, out, device,
+            {"max_epochs": VARMISUSE_EPOCHS, **(overrides or {})}, streamed,
+            VARMISUSE_ACCURACY, profile=profile,
+            test_data=os.path.join(data, "graphs-test"))
+        fold = model.task._loaded_data[DataFold.TRAIN]
+        pool = getattr(fold, "_pool", None)
+        if getattr(fold, "is_streaming", False):
+            fold.close()
+        if bool(streamed) != getattr(fold, "is_streaming", False) or (
+                streamed and pool is None):
+            raise AssertionError("%s: train fold streamed %s, parse pool %s, "
+                                 "asked %s" % (path.label, getattr(
+                                     fold, "is_streaming", False), pool,
+                                               streamed))
+        branches = {branch for _, branch, _ in res["steps"]}
+        if "none" in branches:
+            raise AssertionError("%s: batches without a kernel branch: %s"
+                                 % (path.label, dict(res["steps"])))
+        with open(model.log_file) as f:
+            rates = [(m.group(1), float(m.group(2)))
+                     for m in map(GRAPHS_PER_S.match, f) if m]
+        if len(rates) != 2 * VARMISUSE_EPOCHS:
+            raise AssertionError("%s: graphs/s lines %s" % (path.label,
+                                                            rates))
+        res["graphs_per_s"] = dict(rates[-2:])
+        print("%s: epoch %d graphs/s train %.2f, valid %.2f; branches %s"
+              % (path.label, VARMISUSE_EPOCHS, res["graphs_per_s"]["Train"],
+                 res["graphs_per_s"]["Valid"], sorted(branches)))
+        for k, n in res["launches"].items():
+            total[k] += n
+        results[path.label] = res
+    return total, results
+
+
+def parse_rates(data, workers=4):
+    """The streaming loader's parse rate over the train fold's shards
+    (graphs/s of an epoch of ShardedSampleStream.iter_samples, 23 edge
+    types), inline over one epoch and with `workers` spawned parse workers
+    over two epochs on one stream (the pool is made in the first), the
+    pool closed after."""
+    from tf_gnn_samples_torch.tasks.varmisuse import ShardedSampleStream
+
+    fold = os.path.join(data, "graphs-train")
+    paths = sorted(os.path.join(fold, f) for f in os.listdir(fold)
+                   if f.endswith(".gz"))
+    rates = {}
+    for n in (0, workers):
+        stream = ShardedSampleStream(paths, 19, 5, True, parse_workers=n)
+        try:
+            for epoch in ((1, 2) if n else (1,)):
+                t0 = time.perf_counter()
+                count = sum(1 for _ in stream.iter_samples(shuffle=True))
+                rates[(n, epoch)] = count / (time.perf_counter() - t0)
+        finally:
+            stream.close()
+        if count != len(stream):
+            raise AssertionError("stream of %d graphs gave %d" % (
+                len(stream), count))
+    print("VarMisuse streaming parse (%d shards, %d graphs): graphs/s by "
+          "(workers, epoch) %s" % (len(paths), count, {
+              "%d workers, epoch %d" % k: round(v, 1)
+              for k, v in rates.items()}))
+    return rates
+
+
+def loss_and_grads_of(torch, model, dev_batch):
+    """The model's loss on a device batch, without dropout, and its
+    gradients as f64 CPU tensors."""
+    loss, _ = model._forward(model.model_params_tree, dev_batch, None)
+    grads = torch.autograd.grad(loss, model._leaves())
+    return float(loss.detach()), [g.cpu().double() for g in grads]
+
+
+def scan_phase(torch, rs, data, out=OUT, device="cuda", overrides=None,
+               profile=True):
+    """The per-type scan on the card (SCAN_MODELS): each model's loss and
+    gradients with typed_edge_scan "scan" against the same weights at
+    "unroll" on one VarMisuse batch (its tuned config's batch size, or
+    the cut), both f32 branches in other sum orders, held with
+    reference_agrees' bounds; "scan" must launch no hand kernel. Times
+    one train step at "scan", "unroll" and "auto" (the kernel branch where
+    the gate takes one) on the batch, with `profile`. Returns the times
+    and branches by model."""
+    from tf_gnn_samples_torch.runtime.model import (batch_to_device,
+                                                    params_to_jax)
+
+    results = {}
+    for model_name, cut in SCAN_MODELS:
+        cls, params, task_params = varmisuse_params(model_name, overrides)
+        task, batch = varmisuse_batch(
+            os.path.join(data, "graphs-valid"),
+            cut or params["max_nodes_in_batch"], **task_params)
+        dev_batch = batch_to_device(batch, torch.device(device))
+        weights = None
+        runs = {}
+        for scan in ("scan", "unroll", "auto"):
+            model = cls(dict(params, typed_edge_scan=scan), task, "scan",
+                        out, device=device)
+            if weights is None:
+                weights = params_to_jax(model.model_params_tree)
+            model.load_weights(weights)
+            rs.reset_launches()
+            loss, grads = loss_and_grads_of(torch, model, dev_batch)
+            launches = {k: n for k, n in rs.LAUNCHES.items() if n}
+            branch = batch_branch(rs, model, batch.graph)
+            runs[scan] = {"loss": loss, "grads": grads, "launches": launches,
+                          "branch": branch}
+            if profile:
+                runs[scan]["train_step_ms"] = cuda_ms(
+                    lambda: model._train_step(dev_batch), warmup=1, iters=3)
+            del model
+        if runs["scan"]["launches"] or runs["scan"]["branch"] != "none":
+            raise AssertionError("%s scan: branch %s, launches %s" % (
+                model_name, runs["scan"]["branch"], runs["scan"]["launches"]))
+        reference_agrees("%s scan against unroll (n_pad %d, %d edge types)"
+                         % (model_name, batch.graph.n_pad,
+                            batch.graph.num_edge_types),
+                         runs["scan"]["loss"], runs["scan"]["grads"],
+                         runs["unroll"]["loss"], runs["unroll"]["grads"],
+                         float("nan"), {})
+        results[model_name] = {
+            k: {f: v[f] for f in ("train_step_ms", "branch", "launches")
+                if f in v} for k, v in runs.items()}
+        print("%s on a VarMisuse batch (n_pad %d, %d edges, %d types): %s"
+              % (model_name, batch.graph.n_pad,
+                              batch.graph.flat.src_flat.shape[0],
+                              batch.graph.num_edge_types, json.dumps(
+                                  results[model_name])))
+    return results
+
+
+def k12_varmisuse(torch, rs, graph, d=128):
+    """K12a (one launch over every streamed type's slice, as a layer calls
+    it) and K12b (a launch a streamed type) on the type-major stream of a
+    VarMisuse batch (GNN-Edge-MLP1's): each held against its plain version
+    (K12a within the order bound, K12b bit for bit) and timed single and
+    queued beside its bound (K12b: all of a layer's launches together)."""
+    gen = torch.Generator(device=graph.flat.tm_rank.device).manual_seed(12)
+    dev = graph.flat.tm_rank.device
+    flat = graph.flat
+    tm, offs = flat.tm_rank, flat.tm_offs
+    rpad = rs.fine_rank_table_rows(graph.n_pad, graph.num_edge_types,
+                                   tm.shape[0], 256)
+    slices = [(offs[l], offs[l + 1]) for l in range(len(offs) - 1)
+              if not flat.tm_self[l] and offs[l + 1] > offs[l]]
+    e = offs[-1]
+    y = torch.randn((e, d), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((rpad, d), generator=gen, device=dev).to(torch.bfloat16)
+    pieces = [(y[lo:hi], tm[lo:hi]) for lo, hi in slices]
+    idx = torch.cat([torch.arange(lo, hi, device=dev) for lo, hi in slices])
+    ranks = tm.index_select(0, idx)
+    terms = rs._bf16_terms(rs._ACTS["gelu"][0](y.index_select(0, idx).float()))
+    el = int(idx.numel())
+    n_l = sum(int(tm[hi - 1]) - int(tm[lo]) + 1 for lo, hi in slices)
+    check_kernel("act_agg (VarMisuse, %d slices)" % len(slices),
+                 rs._act_agg_slices_impl(pieces, table_rows=rpad, act="gelu"),
+                 rs._act_agg_slices_plain(pieces, rpad, "gelu"),
+                 row_abs_sums(torch, rpad, ranks, terms),
+                 row_counts(torch, rpad, ranks), torch)
+    table = torch.zeros((rpad, d), device=dev)
+    k12a = lambda: rs._act_agg_slices_impl(pieces, table_rows=rpad,
+                                           act="gelu", out=table)
+    bwd = lambda: [rs._act_agg_bwd_impl(m, g, r, act="gelu")
+                   for m, r in pieces]
+    for (m, r), got in zip(pieces, bwd()):
+        if not torch.equal(got, rs._act_agg_bwd_plain(m, g, r, "gelu")):
+            raise AssertionError("act_agg_bwd (VarMisuse) disagrees with its "
+                                 "plain version")
+    row = {
+        "slices": len(slices), "edges": el,
+        "act_agg": {"launches": 1, "ms": cuda_ms(k12a),
+                    "queued_ms": cuda_queued_ms(k12a),
+                    "plain_ms": cuda_ms(lambda: rs._act_agg_slices_plain(
+                        pieces, rpad, "gelu")),
+                    "bound_ms": bound_ms(el * d * 2 + el * 4 + n_l * d * 4,
+                                         30 * el * d)},
+        "act_agg_bwd": {"launches": len(slices), "ms": cuda_ms(bwd),
+                        "queued_ms": cuda_queued_ms(bwd),
+                        "plain_ms": cuda_ms(lambda: [
+                            rs._act_agg_bwd_plain(m, g, r, "gelu")
+                            for m, r in pieces]),
+                        "bound_ms": bound_ms(2 * el * d * 2 + el * 4
+                                             + n_l * d * 2, 45 * el * d)},
+    }
+    print("K12 at a VarMisuse batch (n_pad %d, %d streamed slices, %d "
+          "edges, D %d): %s" % (graph.n_pad, len(slices), el, d,
+                                json.dumps(row)))
+    return row
+
+
+def varmisuse_data():
+    """(the synthetic VarMisuse data of bench.py:59's size, seed 0: 150 /
+    20 / 20 graphs of 1,600-2,599 nodes; a small fold, seed 1: 4 valid
+    graphs of 150-249 nodes for the references), under DATA_OUT."""
+    from tf_gnn_samples_torch.tools.synthetic_data import (
+        make_synthetic_varmisuse)
+
+    return (make_synthetic_varmisuse(os.path.join(DATA_OUT, "varmisuse"),
+                                     seed=0),
+            make_synthetic_varmisuse(
+                os.path.join(DATA_OUT, "varmisuse_small"), seed=1,
+                folds={"valid": 4}, min_nodes=150, max_nodes=250))
+
+
+# The card-against-CPU references on the small VarMisuse batch: the seven
+# families (RGCN and GGNN also on K5, which their tuned batches take; at
+# this size their gate takes the dense matmuls), and the scan.
+VARMISUSE_REFERENCES = VARMISUSE_PATHS + tuple(
+    Path("VarMisuse %s pallas" % m, m, {"aggregation_strategy": "pallas"})
+    for m in ("RGCN", "GGNN")) + tuple(
+    Path("VarMisuse %s scan" % m, m, {"typed_edge_scan": "scan"})
+    for m, _ in SCAN_MODELS)
+
+
+def vm_reference_phase(torch, rs, small, paths=VARMISUSE_REFERENCES,
+                       card="cuda"):
+    """reference_phase on the small VarMisuse batch (4 graphs) of 22 edge
+    types, or 23 where the path's config adds self loops, at 4 of the
+    tuned configs' 6-10 layers (their widths): at 10 layers a 1e-6
+    relative weight nudge moves GNN-FiLM's CPU loss by 2.0e-3 on this
+    batch, and the card's last-bit differences grow as far."""
+    batches = {}
+    for path in paths:
+        _, _, task_params = varmisuse_params(path.model)
+        loops = bool(task_params.get("add_self_loop_edges"))
+        if loops not in batches:
+            batches[loops] = varmisuse_batch(
+                os.path.join(small, "graphs-valid"), 5000,
+                add_self_loop_edges=loops)
+        task, batch = batches[loops]
+        reference_phase(torch, rs, path, card=card, task_name="VarMisuse",
+                        task=task, batch=batch,
+                        overrides={"graph_num_layers": 4})
+
+
 def reference_agrees(name, lc, gc, lp, gp, sensitivity, launches):
     """Raise unless the card's loss `lc` and gradients `gc` agree with the
     CPU's `lp` / `gp`: the loss within 1e-2 and every tensor's gradient
@@ -3449,10 +3819,8 @@ def reference_phase(torch, rs, path, card="cuda", task_name="QM9",
     def loss_and_grads(dev, w):
         model = cls(dict(params), task, "ref", out, device=dev)
         model.load_weights(w)
-        loss, _ = model._forward(model.model_params_tree,
-                                 batch_to_device(batch, model.device), None)
-        grads = torch.autograd.grad(loss, model._leaves())
-        return float(loss.detach()), [g.cpu().double() for g in grads]
+        return loss_and_grads_of(torch, model,
+                                 batch_to_device(batch, model.device))
 
     rs.reset_launches()
     lc, gc = loss_and_grads(card, weights)
@@ -3579,6 +3947,39 @@ def main() -> int:
         print("%s: %.1f s; launches %s" % (
             phase, time.time() - t0,
             {k: n for k, n in launched.items() if n}))
+    t0 = time.time()
+    vm, vm_small = varmisuse_data()
+    print("synthetic VarMisuse data (150 / 20 / 20 graphs, and a small "
+          "fold): %.1f s" % (time.time() - t0))
+    t0 = time.time()
+    launched, results = varmisuse_phase(rs, vm)
+    for name, n in launched.items():
+        total[name] += n
+    for label, res in results.items():
+        report_hand_kernels(label, res["times"])
+    emlp1 = results["VarMisuse GNN-Edge-MLP1"]["times"]
+    k12b_ms = sum(ms for k, ms in emlp1["train_step_kernel_ms"].items()
+                  if k.startswith("act_agg_bwd"))
+    print("VarMisuse GNN-Edge-MLP1: K12b takes %.4f ms of the train step's "
+          "%.2f busy ms (%.1f%%) in %d launches a step" % (
+              k12b_ms, emlp1["train_step_busy_ms"],
+              100 * k12b_ms / emlp1["train_step_busy_ms"],
+              results["VarMisuse GNN-Edge-MLP1"]["per_step"].get(
+                  "act_agg_bwd", 0)))
+    print("VarMisuse phase: %.1f s; launches %s" % (
+        time.time() - t0, {k: n for k, n in launched.items() if n}))
+    t0 = time.time()
+    parse_rates(vm)
+    scan_phase(torch, rs, vm)
+    _, params, task_params = varmisuse_params("GNN-Edge-MLP1")
+    _, batch = varmisuse_batch(os.path.join(vm, "graphs-valid"),
+                               params["max_nodes_in_batch"], **task_params)
+    from tf_gnn_samples_torch.ops.graph import graph_to_device
+    k12_varmisuse(torch, rs, graph_to_device(batch.graph, "cuda"),
+                  params["hidden_size"])
+    del batch
+    print("VarMisuse parse rates, scan and K12 rows: %.1f s"
+          % (time.time() - t0))
     for k in kernels:
         # K16 entries keep their harness launches; no model path runs them
         # (expected_launches held their counters at 0 on every path).
@@ -3607,6 +4008,7 @@ def main() -> int:
         reference_phase(torch, rs, path, task_name="CitationNetwork",
                         task=task, batch=batch,
                         overrides={"graph_num_layers": 4})
+    vm_reference_phase(torch, rs, vm_small)
     shutil.rmtree(DATA_OUT)
 
     print(card)

@@ -20,11 +20,15 @@ per batch, and reject a cache that re-packs every epoch, a resume that
 drops the slots, a step that launches one kernel more or another
 branch's kernels, a metric line the bench regex cannot read, a loss that
 is not finite and a headline run whose batches were not cached; the
-card-against-CPU comparison rejects a loss or a gradient off. No kernel
+VarMisuse phase also a streamed fold loaded in memory and a batch on a
+branch without hand kernels, and its scan phase a scan that drops an
+edge type and a "scan" that takes a kernel branch; the card-against-CPU comparison
+rejects a loss or a gradient off. No kernel
 runs here; the faults are planted in the emulation."""
 
 import gzip
 import itertools
+import multiprocessing
 import os
 
 import numpy as np
@@ -1381,3 +1385,180 @@ def test_reference_check_rejects_planted_faults(fault):
         return
     with pytest.raises(AssertionError, match="disagree"):
         reference_agrees(*args)
+
+
+# ---- the VarMisuse phase ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_vm(tmp_path_factory):
+    """Synthetic VarMisuse folds of 6 / 2 / 2 graphs of 30-59 nodes, the
+    train fold in two shards (so that the streamed fold has a parse
+    pool)."""
+    from tf_gnn_samples_torch.tools.synthetic_data import (
+        make_synthetic_varmisuse)
+
+    return make_synthetic_varmisuse(
+        str(tmp_path_factory.mktemp("tiny_vm")), seed=0,
+        folds={"train": 6, "valid": 2, "test": 2}, min_nodes=30,
+        max_nodes=60, per_chunk=3)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The VarMisuse and scan phases at a tiny width run small tensors: with
+    one intra-op thread a worker of the parallel test run does not
+    oversubscribe the CPU's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# At the tiny batches RGCN's and GGNN's gate takes the dense matmuls;
+# "pallas" keeps every family on its kernel branch, as at the tuned sizes.
+VM_TINY = dict(TINY, aggregation_strategy="pallas", max_nodes_in_batch=150)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_varmisuse_branches_of_the_seven_tuned_configs(tiny_vm, tmp_path):
+    """batch_branch on a 22 / 23-type VarMisuse batch for the seven tuned
+    configs (at the tiny width, "pallas" for RGCN's and GGNN's small
+    batches): each answers its kernel branch, and the scan where asked."""
+    from chip_smoke import VARMISUSE_PATHS, varmisuse_batch, varmisuse_params
+
+    got = {}
+    for path in VARMISUSE_PATHS:
+        for scan in ("auto", "scan"):
+            cls, params, task_params = varmisuse_params(
+                path.model, dict(VM_TINY, typed_edge_scan=scan))
+            task, batch = varmisuse_batch(
+                os.path.join(tiny_vm, "graphs-valid"), 150, **task_params)
+            assert batch.graph.num_edge_types == 22 + bool(
+                task_params["add_self_loop_edges"])
+            model = cls(params, task, "b", str(tmp_path), device="cpu")
+            got[path.model, scan] = batch_branch(rs, model, batch.graph)
+    rgat = got["RGAT", "auto"]
+    assert rgat in ("RGAT-fused", "RGAT-streamed")
+    assert got == {
+        ("GNN-FiLM", "auto"): "GNN-FiLM", ("GNN-FiLM", "scan"): "GNN-FiLM",
+        ("GNN-Edge-MLP0", "auto"): "GNN-Edge-MLP0",
+        ("GNN-Edge-MLP0", "scan"): "none",
+        ("GNN-Edge-MLP1", "auto"): "GNN-Edge-MLP1",
+        ("GNN-Edge-MLP1", "scan"): "none",
+        ("RGAT", "auto"): rgat, ("RGAT", "scan"): rgat,
+        ("RGCN", "auto"): "RGCN", ("RGCN", "scan"): "RGCN",
+        ("GGNN", "auto"): "GGNN", ("GGNN", "scan"): "GGNN",
+        ("RGIN", "auto"): "RGIN", ("RGIN", "scan"): "none"}
+
+
+@pytest.mark.parametrize("fault", ["none", "extra_launch", "not_streamed",
+                                   "no_kernel_branch", "metric_line"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_varmisuse_phase_checks_reject_planted_faults(tiny_vm, tmp_path,
+                                                      monkeypatch, fault):
+    """The VarMisuse phase on the CPU at a tiny width, launches emulated
+    per batch, over GNN-FiLM (its train fold streamed through its parse
+    pool, which is closed after), GNN-Edge-MLP1 (its type-major branch:
+    22 K12b launches a layer on each train step) and RGCN (K5) through
+    the train and test CLIs, over 22 / 23 edge types, and the parse rates
+    read (the seven families' branches: the test above). Over GNN-FiLM it
+    fails on an eval step that launches one kernel more, a streamed fold
+    that was loaded in memory, a batch on a branch without hand kernels
+    and an accuracy line that run_varmisuse_benchs.py's regex cannot
+    read."""
+    import run_varmisuse_benchs
+    from chip_smoke import (VARMISUSE_ACCURACY, VARMISUSE_PATHS, parse_rates,
+                            varmisuse_phase)
+    from tf_gnn_samples_torch.tasks.varmisuse import VarMisuse_Task
+
+    assert VARMISUSE_ACCURACY.pattern == (
+        run_varmisuse_benchs.SCRAPE_EVAL["testonly_acc"].pattern)
+    emulate_branch_launches(monkeypatch, fault)
+    overrides = dict(VM_TINY)
+    if fault == "not_streamed":
+        real = VarMisuse_Task.load_data
+
+        def load_data(self, path):
+            self.params["streaming_train_data"] = False
+            return real(self, path)
+
+        monkeypatch.setattr(VarMisuse_Task, "load_data", load_data)
+    if fault == "no_kernel_branch":
+        overrides["aggregation_strategy"] = "segment"
+    if fault == "metric_line":
+        monkeypatch.setattr(VarMisuse_Task, "pretty_print_epoch_task_metrics",
+                            lambda self, results, n: "Accuracy: nan")
+    kwargs = dict(out=str(tmp_path), device="cpu", overrides=overrides,
+                  profile=False)
+    if fault == "none":
+        paths = tuple(p for p in VARMISUSE_PATHS if p.model in (
+            "GNN-FiLM", "GNN-Edge-MLP1", "RGCN"))
+        total, results = varmisuse_phase(rs, tiny_vm, paths=paths, **kwargs)
+        steps = {label: {branch for _, branch, _ in r["steps"]}
+                 for label, r in results.items()}
+        assert steps == {"VarMisuse GNN-FiLM": {"GNN-FiLM"},
+                         "VarMisuse GNN-Edge-MLP1": {"GNN-Edge-MLP1"},
+                         "VarMisuse RGCN": {"RGCN"}}
+        res = results["VarMisuse GNN-Edge-MLP1"]
+        n_train = sum(n for (step, _, _), n in res["steps"].items()
+                      if step == "_train_step")
+        assert res["launches"]["act_agg_bwd"] == 22 * n_train > 0
+        assert all(0 <= r["metric"] <= 1 for r in results.values())
+        assert not multiprocessing.active_children()
+        rates = parse_rates(tiny_vm, workers=2)
+        assert set(rates) == {(0, 1), (2, 1), (2, 2)}
+        assert not multiprocessing.active_children()
+        return
+    paths = tuple(p for p in VARMISUSE_PATHS if p.model == "GNN-FiLM")
+    match = {"extra_launch": "launches", "not_streamed": "streamed",
+             "no_kernel_branch": "kernel branch",
+             "metric_line": "Accuracy"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        varmisuse_phase(rs, tiny_vm, paths=paths, **kwargs)
+    assert not multiprocessing.active_children()
+
+
+@pytest.mark.parametrize("fault", ["none", "scan_drops_a_type",
+                                   "scan_takes_kernels"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_scan_phase_checks_reject_planted_faults(tiny_vm, tmp_path,
+                                                 monkeypatch, fault):
+    """The scan phase on the CPU at a tiny width (RGIN, GNN-Edge-MLP1 and
+    RGDCN at "scan" against "unroll"): it passes as it is, and fails on a
+    scan that drops one edge type's messages and on a "scan" that takes
+    RGIN's kernel branch."""
+    from chip_smoke import scan_phase
+    from tf_gnn_samples_torch.nn import layers
+
+    if fault == "scan_drops_a_type":
+        real = layers.scan_types_aggregate
+
+        def scan(graph, te, msgs_fn, out_dim, aggregation):
+            return real(graph, te, lambda l, te_l: msgs_fn(l, te_l) * (l > 0),
+                        out_dim, aggregation)
+
+        monkeypatch.setattr(layers, "scan_types_aggregate", scan)
+    if fault == "scan_takes_kernels":
+        real_branch = layers.rgin_branch
+
+        def rgin_branch(graph, **kw):
+            b = real_branch(graph, **kw)
+            return "ranked" if b == "scanned" else b
+
+        monkeypatch.setattr(layers, "rgin_branch", rgin_branch)
+    kwargs = dict(out=str(tmp_path), device="cpu", profile=False,
+                  overrides={"graph_num_layers": 1, "hidden_size": 16,
+                             "max_nodes_in_batch": 150})
+    if fault == "none":
+        results = scan_phase(torch, rs, tiny_vm, **kwargs)
+        assert {m: {k: v["branch"] for k, v in r.items()}
+                for m, r in results.items()} == {
+            "RGIN": {"scan": "none", "unroll": "none", "auto": "RGIN"},
+            "GNN-Edge-MLP1": {"scan": "none", "unroll": "none",
+                              "auto": "GNN-Edge-MLP1"},
+            "RGDCN": {"scan": "none", "unroll": "none", "auto": "none"}}
+        return
+    match = {"scan_drops_a_type": "disagree",
+             "scan_takes_kernels": "scan"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        scan_phase(torch, rs, tiny_vm, **kwargs)

@@ -402,8 +402,9 @@ def test_configurations_without_a_kernel_branch_take_the_plain_one(
                    dict(typed_edge_scan="unroll")):
         assert t_layers.edge_mlp_branch(tg, **dict(base, **change)) == "plain"
     for scan in ("scan", "always"):
-        with pytest.raises(NotImplementedError, match="typed_stream"):
-            t_layers.edge_mlp_branch(tg, **dict(base, typed_edge_scan=scan))
+        # The per-type scan (ops/typed_stream.py), as the JAX gate takes it.
+        assert t_layers.edge_mlp_branch(
+            tg, **dict(base, typed_edge_scan=scan)) == "scanned"
     assert t_edge_ops.tm_available(tg)
     assert t_edge_ops.tm_self_types(tg) == (False, True)
 

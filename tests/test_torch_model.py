@@ -235,8 +235,9 @@ def test_train_and_test_clis(small_data, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports without
-    pulling in jax or anything of tf_gnn_samples_tpu."""
+    """Every module of the port (the typed scan, the VarMisuse task and
+    its splitter among them), and chip_smoke.py, imports without pulling
+    in jax or anything of tf_gnn_samples_tpu."""
     script = (
         "import importlib, pkgutil, sys\n"
         "import tf_gnn_samples_torch as p\n"
@@ -248,6 +249,9 @@ def test_port_imports_no_jax():
         " or m.startswith('jaxlib') or m.startswith('tf_gnn_samples_tpu')]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
+        "assert {'tf_gnn_samples_torch.ops.typed_stream', "
+        "'tf_gnn_samples_torch.tasks.varmisuse', "
+        "'tf_gnn_samples_torch.utils.varmisuse_data_splitter'} <= set(names)\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -267,18 +271,16 @@ def test_device_defaults_to_cuda():
 
 @pytest.mark.parametrize("task, resolves_to", [
     ("PPI", ("PPI", {})),
-    ("VarMisuse", None),
+    ("VarMisuse", ("VarMisuse", {})),
     ("cora", ("CitationNetwork", {"data_kind": "cora"})),
 ])
 def test_unported_names_raise(task, resolves_to):
-    # Every model family is ported, and every task but VarMisuse: PPI and
-    # the citation networks resolve as in the JAX package's registry.
-    if resolves_to is None:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t_registry.name_to_task_class(task)
-    else:
-        cls, extra = t_registry.name_to_task_class(task)
-        jcls, jextra = j_registry.name_to_task_class(task)
-        assert (cls.name(), extra) == resolves_to == (jcls.name(), jextra)
+    # Every model family and every task is ported: each task name resolves
+    # as in the JAX package's registry; an unknown name raises.
+    cls, extra = t_registry.name_to_task_class(task)
+    jcls, jextra = j_registry.name_to_task_class(task)
+    assert (cls.name(), extra) == resolves_to == (jcls.name(), jextra)
+    with pytest.raises(ValueError):
+        t_registry.name_to_task_class("nope")
     with pytest.raises(ValueError):
         t_registry.name_to_model_class("nope")

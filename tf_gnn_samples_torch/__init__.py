@@ -7,11 +7,12 @@ are CUDA C++ kernels for Hopper (sm_90a) under csrc/, built at first use
 (ops/cuda_build.py). The package imports torch and numpy only, never jax
 and nothing of tf_gnn_samples_tpu.
 
-Ported so far: all seven model families on the QM9, PPI and citation-
-network tasks (train and test CLIs:
-`python -m tf_gnn_samples_torch.train MODEL {QM9,PPI,cora,citeseer,pubmed}`,
-`python -m tf_gnn_samples_torch.test CKPT`); VarMisuse and the parallel
-runtimes are still to port.
+Ported so far: all seven model families on all four tasks, QM9, PPI,
+VarMisuse and the citation networks (train and test CLIs:
+`python -m tf_gnn_samples_torch.train MODEL
+{QM9,PPI,VarMisuse,cora,citeseer,pubmed}`,
+`python -m tf_gnn_samples_torch.test CKPT [DATA]`); the parallel runtimes
+are still to port.
 """
 
 __version__ = "0.1.0"

@@ -2,10 +2,12 @@
 tf_gnn_samples_tpu/nn/layers.py). Ported so far: GGNN, RGCN, RGAT (its
 fused, streamed and plain branches), GNN-FiLM (its gather-fused, ranked
 and plain branches), GNN-Edge-MLP (its type-major branch with and without
-the source-order recompute, its typed-dense, FiLM-kernel, ranked and plain
-branches), RGIN (its ranked, unrolled and bare branches) and RGDCN (its
-aggregate-first sum branch, with the fine-rank, dense and per-type forms
-of its neighbour sums, and its per-channel branch for max and mean).
+the source-order recompute, its typed-dense, FiLM-kernel, ranked, scanned
+and plain branches), RGIN (its ranked, scanned, unrolled and bare
+branches) and RGDCN (its aggregate-first sum branch, with the fine-rank,
+dense, scanned and per-type forms of its neighbour sums, and its
+per-channel branch for max and mean, unrolled or scanned); the scanned
+branches run ops/typed_stream.py's per-type scan.
 
 Each layer is a pair of functions over plain dicts of tensors:
     <name>_init(gen, num_edge_types, state_dim, **cfg) -> params
@@ -20,6 +22,7 @@ from ..ops import ranked_segment as rs
 from ..ops.edge_ops import (
     aggregate_flat,
     aggregate_flat_ranked,
+    aggregate_sum_block,
     dense_aggregate_linear,
     dense_adjacency,
     fine_table_to_flat,
@@ -31,6 +34,8 @@ from ..ops.edge_ops import (
     gather_flat_src,
     gather_flat_src_ranked,
     gather_flat_tgt,
+    gather_src_stacked,
+    gather_tgt_stacked,
     gather_tm_src,
     ranked_aggregation_ok,
     ranked_table_to_nodes,
@@ -45,6 +50,8 @@ from ..ops.edge_ops import (
 from .. import SMALL_NUMBER
 from ..ops.graph import GraphBatch
 from ..ops.segment import segment_sum
+from ..ops.typed_stream import (scan_types_aggregate, scan_types_wanted,
+                                stack_edges, type_block)
 from .activations import _leaky_relu_02, get_activation
 from .cells import cell_apply, cell_init
 from .initializers import stacked_glorot_uniform, truncated_normal
@@ -484,16 +491,6 @@ def gnn_edge_mlp_init(gen, num_edge_types, state_dim,
 _inner_elu = get_activation("elu")
 
 
-def _refuse_typed_scan(typed_edge_scan: str) -> None:
-    """"scan" / "always" select the per-type scan of ops/typed_stream.py,
-    which is not ported: raise."""
-    if typed_edge_scan in ("scan", "always"):
-        raise NotImplementedError(
-            "typed_edge_scan '%s' (the per-type scan of ops/typed_stream.py, "
-            "ROADMAP Queue 1 item 4) is not yet ported to the PyTorch "
-            "package." % typed_edge_scan)
-
-
 def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
                     message_aggregation_function: str,
                     normalize_by_num_incoming: bool,
@@ -525,6 +522,9 @@ def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
       source-order backward (K5a both ways; RGIN's branch too), or with
       normalised messages the ranked gather and aggregation (K5a forward;
       K5b and K5a backward);
+    * "scanned" (none of the above, and ops/typed_stream.py
+      scan_types_wanted: "scan" / "always", or "auto" at eight or more
+      edge types): the per-type scan, in f32 (_scanned_mlp_aggregate);
     * "plain" (everything else, and "unroll"): f32 PyTorch.
 
     These are the JAX package's gates (nn/layers.py gnn_edge_mlp_apply)
@@ -533,19 +533,29 @@ def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
     need no window and keep no table on chip, so no shape rules them out
     (on the TPU the tuned QM9 batch, whose rank windows are 0, runs the
     unrolled XLA branch). The rule is the same on the CPU, so that a batch
-    takes the same branch on every device. "scan" / "always"
-    (ops/typed_stream.py, the per-type scan for many edge types) raise
-    NotImplementedError."""
-    _refuse_typed_scan(typed_edge_scan)
-    if typed_edge_scan != "auto":
-        return "plain"
-    if not use_target_state_as_input:
-        if ranked_aggregation_ok(graph, message_aggregation_function):
-            return "ranked"
-        return "plain"
-    kernels = (message_aggregation_function in ("sum", "unsorted_segment_sum")
+    takes the same branch on every device. The kernel branches are taken
+    only under "auto", ahead of the scan, as in the JAX package."""
+    if typed_edge_scan == "auto":
+        branch = _edge_mlp_kernel_branch(
+            graph, activation_function, message_aggregation_function,
+            normalize_by_num_incoming, use_target_state_as_input,
+            num_edge_hidden_layers, w1_dims)
+        if branch is not None:
+            return branch
+    if scan_types_wanted(graph, typed_edge_scan):
+        return "scanned"
+    return "plain"
+
+
+def _edge_mlp_kernel_branch(graph, activation_function, aggregation,
+                            normalize, target, num_edge_hidden_layers,
+                            w1_dims):
+    """edge_mlp_branch's kernel branches under "auto", or None."""
+    if not target:
+        return "ranked" if ranked_aggregation_ok(graph, aggregation) else None
+    kernels = (aggregation in ("sum", "unsorted_segment_sum")
                and rs.film_act_supported(activation_function))
-    if kernels and num_edge_hidden_layers == 1 and not normalize_by_num_incoming:
+    if kernels and num_edge_hidden_layers == 1 and not normalize:
         if tm_available(graph):
             return "tmajor1"
         if ranked_aggregation_ok(graph, "sum") and rs.typed_dense_agg_supported(
@@ -553,7 +563,7 @@ def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
             return "fused1"
     if kernels and num_edge_hidden_layers == 0:
         return "fused0"
-    return "plain"
+    return None
 
 
 def _typed_mlp_messages_flat(h, weights, graph, concat_target,
@@ -593,6 +603,37 @@ def _node_table_mlp(h, weights, inner_act):
     for W in weights[1:]:
         t = torch.matmul(inner_act(t), W)
     return t
+
+
+def _scanned_mlp_aggregate(h, weights, graph, concat_target, inner_act,
+                           msg_post, aggregation):
+    """The per-type edge MLP and its aggregation as the per-type scan
+    (ops/typed_stream.py; the JAX package's _scanned_mlp_aggregate): the
+    first linear layer node-sided, then per type its block's gathers, the
+    later layers with `inner_act` in front, and msg_post(m, te_l) (the
+    layer's activation, and 1/c), aggregated into the carry. f32 PyTorch,
+    outside any kernel, as the JAX package's scan runs outside Pallas.
+    The stacked transforms are unbound once: a select per type would give
+    each type's backward a zeroed [L, N, D] tensor of its own."""
+    te = stack_edges(graph)
+    d0 = h.shape[-1]
+    w0, rest = weights[0], weights[1:]
+    out_dim = (rest[-1] if rest else w0).shape[-1]
+    if concat_target:
+        ts = typed_transform(h, w0[:, :d0, :]).unbind(0)
+        tt = typed_transform(h, w0[:, d0:, :]).unbind(0)
+    else:
+        ts = typed_transform(h, w0).unbind(0)
+
+    def msgs_fn(l, te_l):
+        m = gather_src_stacked(ts[l], te_l)
+        if concat_target:
+            m = m + gather_tgt_stacked(tt[l], te_l)
+        for w in rest:
+            m = torch.matmul(inner_act(m), w[l])
+        return msg_post(m, te_l)
+
+    return scan_types_aggregate(graph, te, msgs_fn, out_dim, aggregation)
 
 
 def _ranked_source_aggregate(t16, graph, aggregation):
@@ -754,6 +795,15 @@ def gnn_edge_mlp_apply(
                 table = _film_aggregate_splits(m, gb_ranked, graph,
                                                act_name, splits)
             agg = fine_table_to_nodes(table, graph)
+        elif branch == "scanned":
+            def finalize(m, te_l):
+                if normalize_by_num_incoming:
+                    m = m * te_l.norm_scale[:, None]
+                return act(m)
+
+            agg = _scanned_mlp_aggregate(
+                h, params["edge_mlp"], graph, use_target_state_as_input,
+                _inner_elu, finalize, message_aggregation_function)
         else:
             msgs = _typed_mlp_messages_flat(h, params["edge_mlp"], graph,
                                             use_target_state_as_input)
@@ -795,21 +845,23 @@ def rgin_branch(graph: GraphBatch, *, message_aggregation_function: str,
       sum-family aggregation on a ranked stream; the tuned QM9 RGIN): the
       whole MLP on the node tables, then the fused gather + segment-sum
       with its source-order backward (K5a forward and backward);
+    * "scanned" (an edge MLP otherwise, where ops/typed_stream.py
+      scan_types_wanted says so: "scan" / "always", or "auto" at eight or
+      more edge types): the per-type scan, in f32;
     * "unrolled" (an edge MLP otherwise, and "unroll"): the per-type MLP
       over the flat stream in f32;
     * "bare" (`num_edge_MLP_hidden_layers` None): the source states
       themselves are the messages.
 
     This is the JAX package's gate (nn/layers.py rgin_apply) without its
-    window and VMEM terms, as edge_mlp_branch has it. "scan" / "always"
-    (the per-type scan of ops/typed_stream.py) raise
-    NotImplementedError."""
+    window and VMEM terms, as edge_mlp_branch has it."""
     if num_edge_MLP_hidden_layers is None:
         return "bare"
-    _refuse_typed_scan(typed_edge_scan)
     if (not use_target_state_as_input and typed_edge_scan == "auto"
             and ranked_aggregation_ok(graph, message_aggregation_function)):
         return "ranked"
+    if scan_types_wanted(graph, typed_edge_scan):
+        return "scanned"
     return "unrolled"
 
 
@@ -841,6 +893,10 @@ def rgin_apply(
             t = act(_node_table_mlp(h, params["edge_mlp"], act))
             agg = _ranked_source_aggregate(_flat(t).to(torch.bfloat16), graph,
                                            message_aggregation_function)
+        elif branch == "scanned":
+            agg = _scanned_mlp_aggregate(
+                h, params["edge_mlp"], graph, use_target_state_as_input, act,
+                lambda m, te_l: act(m), message_aggregation_function)
         else:
             if branch == "unrolled":
                 msgs = act(_typed_mlp_messages_flat(
@@ -887,6 +943,9 @@ def rgdcn_sums_form(graph: GraphBatch, aggregation_strategy: str,
       segment-sum over the FINE (receiver, type) ranks, read back per type
       (K5a forward; K5a over the src-sorted stream backward, through
       ops/edge_ops.py gather_aggregate_fine);
+    * "scanned" (ops/typed_stream.py scan_types_wanted: "scan" /
+      "always", ahead of the dense form too, or "auto" at eight or more
+      edge types): f32 per-type segment sums, one type's block at a time;
     * "per_type" (everything else, and "unroll"): f32 segment sums per
       (type, receiver).
 
@@ -895,13 +954,15 @@ def rgdcn_sums_form(graph: GraphBatch, aggregation_strategy: str,
     as the other port gates drop theirs (the CUDA kernels walk sorted ranks
     and need no window). So at the tuned QM9 batch, whose fine window is 0,
     the port takes the fine form where the JAX package's gate takes the
-    per-type one. "scan" / "always" (the per-type scan of
-    ops/typed_stream.py) raise NotImplementedError."""
-    _refuse_typed_scan(typed_edge_scan)
-    if use_dense_strategy(graph, "sum", aggregation_strategy):
+    per-type one."""
+    force_scan = typed_edge_scan in ("scan", "always")
+    if not force_scan and use_dense_strategy(graph, "sum",
+                                             aggregation_strategy):
         return "dense"
     if typed_edge_scan == "auto" and gather_aggregate_fine_ok(graph):
         return "fine"
+    if scan_types_wanted(graph, typed_edge_scan):
+        return "scanned"
     return "per_type"
 
 
@@ -932,6 +993,16 @@ def _typed_neighbor_sums(h, graph: GraphBatch, normalize: bool,
             num_types * n_pad, d)
         table = gather_aggregate_fine(table16, graph, normalize)
         return fine_table_to_flat(table, graph).reshape(num_types, n_pad, d)
+    if form == "scanned":
+        te = stack_edges(graph)
+        parts = []
+        for l in range(num_types):
+            te_l = type_block(te, l)
+            src = gather_src_stacked(h, te_l)
+            if normalize:
+                src = src * te_l.norm_scale[:, None]
+            parts.append(aggregate_sum_block(src, te_l, n_pad))
+        return torch.stack(parts)
     src = gather_flat_src(h.repeat(num_types, 1), flat)
     if normalize:
         src = src * flat.norm_scale[:, None]
@@ -992,11 +1063,11 @@ def rgdcn_apply(
     rgdcn.py:143-160): the per-type neighbour sums (_typed_neighbor_sums),
     then node-level kernel contractions per type. Max and mean aggregation
     take the per-channel form over the flat stream, in f32 (the JAX
-    package's unrolled branch). "scan" / "always" raise
-    NotImplementedError (rgdcn_sums_form); with "auto" at eight or more
-    edge types, where the JAX package scans over the types, the port runs
-    the same per-type math in a loop."""
-    _refuse_typed_scan(typed_edge_scan)
+    package's unrolled branch), or, where ops/typed_stream.py
+    scan_types_wanted says so, over each type's block in turn (its scanned
+    branch). The scanned sum form starts its sum over the types from
+    zeros, as the JAX package's scan carry does."""
+    scanned = scan_types_wanted(graph, typed_edge_scan)
     n_pad = graph.n_pad
     if channel_dim is None:
         channel_dim = h.shape[-1] // num_channels
@@ -1008,13 +1079,43 @@ def rgdcn_apply(
             sums = _typed_neighbor_sums(h, graph, normalize_by_num_incoming,
                                         aggregation_strategy, typed_edge_scan)
             sums = sums.reshape(-1, n_pad, num_channels, channel_dim)
-            out = None
-            for l in range(sums.shape[0]):
+            out = (torch.zeros((n_pad, num_channels, channel_dim),
+                               device=h.device) if scanned else None)
+            # Unbound once: a select per type would give each type's
+            # backward a zeroed [L, N, D] tensor of its own.
+            for l, sums_l in enumerate(sums.unbind(0)):
                 part = _rgdcn_type_contraction(
-                    h, h_chunked, sums[l], w_wc[l], act, channel_dim,
+                    h, h_chunked, sums_l, w_wc[l], act, channel_dim,
                     use_full_state_for_channel_weights, tie_channel_weights)
                 out = part if out is None else out + part
             h = act(out).reshape(n_pad, num_channels * channel_dim)
+        return h
+
+    if scanned:
+        te = stack_edges(graph)
+        for _step in range(num_timesteps):
+            channels = h.reshape(n_pad, num_channels, channel_dim).unbind(1)
+
+            def msgs_fn(l, te_l):
+                parts = []
+                for c in range(num_channels):
+                    c_eff = 0 if tie_channel_weights else c
+                    wc_in = (h if use_full_state_for_channel_weights
+                             else channels[c])
+                    kernels = act(torch.matmul(wc_in, w_wc[l, c_eff])).reshape(
+                        n_pad, channel_dim, channel_dim)
+                    kern_e = gather_tgt_stacked(kernels, te_l)
+                    src = gather_src_stacked(channels[c], te_l)
+                    m = torch.einsum("ek,ekj->ej", src, kern_e)
+                    if normalize_by_num_incoming:
+                        m = m * te_l.norm_scale[:, None]
+                    parts.append(m)
+                return torch.cat(parts, dim=1)
+
+            # act per aggregated channel == act on the channels' concat.
+            h = act(scan_types_aggregate(
+                graph, te, msgs_fn, num_channels * channel_dim,
+                message_aggregation_function))
         return h
 
     flat = graph.flat

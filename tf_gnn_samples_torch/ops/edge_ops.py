@@ -110,6 +110,25 @@ def gather_node_tgt(table, flat):
     return _take_clip(table, flat.receivers)
 
 
+# ---- per-type block ops (ops/typed_stream.py TypedEdges blocks) ----------
+
+def gather_src_stacked(table, te_l):
+    """table[[N, ...]][senders] for one type's block (typed_stream
+    type_block); padded senders (n_pad) read the last row."""
+    return _take_clip(table, te_l.senders)
+
+
+def gather_tgt_stacked(table, te_l):
+    """table[[N, ...]][receivers] for one type's block; receivers sorted."""
+    return _take_clip(table, te_l.receivers)
+
+
+def aggregate_sum_block(messages, block, n_pad: int):
+    """Sum one block's per-edge messages into receiver rows: [E, ...] ->
+    [n_pad, ...] (padded edges go to the dump row n_pad, sliced off)."""
+    return segment_sum(messages, block.receivers, n_pad + 1)[:n_pad]
+
+
 def _per_node(count, like):
     """[n] -> [n, 1, ...] broadcastable against `like` [n, ...]."""
     return count.reshape(count.shape + (1,) * (like.dim() - 1))

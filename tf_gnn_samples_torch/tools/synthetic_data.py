@@ -1,5 +1,6 @@
-"""Synthetic PPI and Planetoid data in the on-disk formats the task
-loaders read (tasks/ppi.py, tasks/citation.py), made from a seed.
+"""Synthetic PPI, Planetoid and VarMisuse data in the on-disk formats the
+task loaders read (tasks/ppi.py, tasks/citation.py, tasks/varmisuse.py),
+made from a seed.
 
 The real datasets are not in the repository. These files have the
 published sizes and random content, so they exercise the loaders, the
@@ -18,6 +19,16 @@ are smoke values only (the labels are random).
   first 60 nodes the train fold, the next 500 the valid fold and the last
   1,000 the test fold (their index file in a random order); written as
   ind.{name}.{x,y,tx,ty,allx,ally,graph,test.index}.
+* VarMisuse (Allamanis et al. 2018, ICLR; the raw program-graph schema
+  the loader parses): graphs of 1,600-2,599 nodes, 45 % of them camelCase
+  identifiers (two words and a digit), 25 % single words, the rest syntax
+  tokens; the ten named edge types at the densities below a node (Child a
+  tree over the nodes; the loader adds the backward types, UsesSubtoken
+  and the self loops); a slot and five candidates, the first one correct,
+  all drawn at random (so the accuracy is a smoke value); folds of 150 /
+  20 / 20 graphs in graphs-{train,valid,test}/, chunks of 50 samples as
+  .jsonl.gz, so that the streaming loader runs. The same seed writes the
+  samples bench.py's make_synthetic_varmisuse writes.
 
 Usage:
     python -m tf_gnn_samples_torch.tools.synthetic_data ppi DIR [--seed S]
@@ -25,9 +36,14 @@ Usage:
     python -m tf_gnn_samples_torch.tools.synthetic_data planetoid DIR
         [--seed S] [--dataset pubmed] [--nodes N] [--edges E]
         [--features F] [--classes C] [--train N] [--test N]
+    python -m tf_gnn_samples_torch.tools.synthetic_data varmisuse DIR
+        [--seed S] [--graphs TRAIN VALID TEST] [--min-nodes N]
+        [--max-nodes N]
 """
 
 import argparse
+import gzip
+import json
 import os
 import pickle
 from typing import Dict, Optional
@@ -129,19 +145,85 @@ def make_synthetic_planetoid(data_dir: str, seed: int = 0,
     return data_dir
 
 
+VARMISUSE_FOLDS = {"train": 150, "valid": 20, "test": 20}
+VARMISUSE_WORDS = ["foo", "bar", "count", "index", "value", "item", "node",
+                   "temp", "result", "buffer", "state", "data", "ptr", "size"]
+# Edges a node of each named type (Child: one a node, a tree).
+VARMISUSE_DENSITIES = {
+    "Child": 1.0, "NextToken": 0.6, "LastUse": 0.25, "LastWrite": 0.2,
+    "LastLexicalUse": 0.15, "ComputedFrom": 0.1, "GuardedByNegation": 0.05,
+    "GuardedBy": 0.05, "FormalArgName": 0.05, "ReturnsTo": 0.03,
+}
+
+
+def _varmisuse_sample(rng, min_nodes: int, max_nodes: int):
+    n = int(rng.randint(min_nodes, max_nodes))
+    labels = {}
+    for i in range(n):
+        r = rng.rand()
+        if r < 0.45:  # an identifier: two camelCase words and a digit
+            a, b = rng.choice(VARMISUSE_WORDS, 2)
+            labels[str(i)] = a + b.capitalize() + str(rng.randint(10))
+        elif r < 0.7:
+            labels[str(i)] = rng.choice(VARMISUSE_WORDS)
+        else:  # a syntax token
+            labels[str(i)] = rng.choice(["(", ")", "{", "}", "=", ";"])
+    edges = {}
+    for name, dens in VARMISUSE_DENSITIES.items():
+        e = max(int(n * dens), 1)
+        if name == "Child":  # a tree: each node's parent precedes it
+            dst = np.arange(1, n)
+            src = (rng.rand(n - 1) * np.arange(1, n)).astype(np.int64)
+            pairs = np.stack([src, dst], axis=1)
+        else:
+            pairs = rng.randint(0, n, size=(e, 2))
+        edges[name] = [[int(a), int(b)] for a, b in pairs]
+    slot = int(rng.randint(0, n))
+    cand_ids = rng.choice(n, size=5, replace=False)
+    cands = [{"SymbolDummyNode": int(c), "IsCorrect": i == 0}
+             for i, c in enumerate(cand_ids)]
+    return {
+        "ContextGraph": {"NodeLabels": labels, "Edges": edges},
+        "SlotDummyNode": slot,
+        "SymbolCandidates": cands,
+    }
+
+
+def make_synthetic_varmisuse(data_dir: str, seed: int = 0,
+                             folds: Optional[Dict[str, int]] = None,
+                             min_nodes: int = 1600, max_nodes: int = 2600,
+                             per_chunk: int = 50) -> str:
+    """Write VarMisuse raw shards (default 150 / 20 / 20 graphs of
+    1,600-2,599 nodes) as graphs-{fold}/chunk_NNNN.jsonl.gz into
+    `data_dir`; returns it."""
+    rng = np.random.RandomState(seed)
+    for fold, count in (folds or VARMISUSE_FOLDS).items():
+        fold_dir = os.path.join(data_dir, "graphs-%s" % fold)
+        os.makedirs(fold_dir, exist_ok=True)
+        for c in range(0, count, per_chunk):
+            path = os.path.join(fold_dir, "chunk_%04d.jsonl.gz" % c)
+            with gzip.open(path, "wt", encoding="utf-8") as f:
+                for _ in range(min(per_chunk, count - c)):
+                    f.write(json.dumps(_varmisuse_sample(
+                        rng, min_nodes, max_nodes)) + "\n")
+    return data_dir
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("KIND", choices=("ppi", "planetoid"))
+    parser.add_argument("KIND", choices=("ppi", "planetoid", "varmisuse"))
     parser.add_argument("DIR")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--graphs", type=int, nargs=3,
-                        metavar=("TRAIN", "VALID", "TEST"),
-                        default=[PPI_FOLDS[k] for k in ("train", "valid",
-                                                        "test")])
-    parser.add_argument("--min-nodes", type=int, default=1700)
-    parser.add_argument("--max-nodes", type=int, default=3100,
-                        help="exclusive bound of a PPI graph's node count")
+                        metavar=("TRAIN", "VALID", "TEST"), default=None,
+                        help="graphs a fold (PPI 20 2 2, VarMisuse 150 20 "
+                             "20)")
+    parser.add_argument("--min-nodes", type=int, default=None,
+                        help="PPI 1700, VarMisuse 1600")
+    parser.add_argument("--max-nodes", type=int, default=None,
+                        help="exclusive bound of a graph's node count (PPI "
+                             "3100, VarMisuse 2600)")
     parser.add_argument("--dataset", default="pubmed")
     parser.add_argument("--nodes", type=int, default=19717)
     parser.add_argument("--edges", type=int, default=44338)
@@ -150,10 +232,15 @@ def main(argv=None):
     parser.add_argument("--train", type=int, default=60)
     parser.add_argument("--test", type=int, default=1000)
     args = parser.parse_args(argv)
+    folds = (dict(zip(("train", "valid", "test"), args.graphs))
+             if args.graphs else None)
     if args.KIND == "ppi":
-        make_synthetic_ppi(args.DIR, args.seed,
-                           dict(zip(("train", "valid", "test"), args.graphs)),
-                           args.min_nodes, args.max_nodes)
+        make_synthetic_ppi(args.DIR, args.seed, folds,
+                           args.min_nodes or 1700, args.max_nodes or 3100)
+    elif args.KIND == "varmisuse":
+        make_synthetic_varmisuse(args.DIR, args.seed, folds,
+                                 args.min_nodes or 1600,
+                                 args.max_nodes or 2600)
     else:
         make_synthetic_planetoid(args.DIR, args.seed, args.dataset,
                                  args.nodes, args.edges, args.features,

@@ -37,9 +37,9 @@ def get_train_args(argv=None):
                              "(GNN-Edge-MLP0 or GNN-Edge-MLP1), RGDCN or "
                              "GNN-FiLM: the seven ported model families")
     parser.add_argument("TASK_NAME",
-                        help="QM9, PPI, or a citation network (CitationNetwork "
-                             "with a data_kind task param, or cora, citeseer "
-                             "or pubmed): the ported tasks")
+                        help="QM9, PPI, VarMisuse, or a citation network "
+                             "(CitationNetwork with a data_kind task param, "
+                             "or cora, citeseer or pubmed): the four tasks")
     parser.add_argument("--data-path", default=None)
     parser.add_argument("--result-dir", default="trained_models")
     parser.add_argument("--run-test", action="store_true")

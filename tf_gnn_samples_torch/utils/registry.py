@@ -1,14 +1,11 @@
 """Name -> class registries and checkpoint restore (counterpart of
 tf_gnn_samples_tpu/utils/registry.py). Ported so far: all seven model
-families (GGNN, RGCN, RGAT, RGIN, GNN-FiLM, GNN-Edge-MLP, RGDCN) and the
-QM9, PPI and citation-network tasks (CitationNetwork, and cora /
-citeseer / pubmed, which pin `data_kind`); VarMisuse, the one task name
-of the JAX package left, raises "not yet ported"."""
+families (GGNN, RGCN, RGAT, RGIN, GNN-FiLM, GNN-Edge-MLP, RGDCN) and all
+four tasks: QM9, PPI, VarMisuse and the citation networks (CitationNetwork,
+and cora / citeseer / pubmed, which pin `data_kind`)."""
 
 import pickle
 from typing import Any, Dict, Tuple, Type
-
-_UNPORTED_TASKS = ("varmisuse",)
 
 
 def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
@@ -23,6 +20,10 @@ def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
         from ..tasks.ppi import PPI_Task
 
         return PPI_Task, {}
+    if name == "varmisuse":
+        from ..tasks.varmisuse import VarMisuse_Task
+
+        return VarMisuse_Task, {}
     if name in ("citationnetwork", "citation_network", "cora", "citeseer",
                 "pubmed"):
         from ..tasks.citation import Citation_Network_Task
@@ -30,9 +31,6 @@ def name_to_task_class(name: str) -> Tuple[Type, Dict[str, Any]]:
         if name in ("cora", "citeseer", "pubmed"):
             return Citation_Network_Task, {"data_kind": name}
         return Citation_Network_Task, {}
-    if name in _UNPORTED_TASKS:
-        raise NotImplementedError(
-            "Task '%s' is not yet ported to the PyTorch package." % name)
     raise ValueError("Unknown task type '%s'" % name)
 
 
