@@ -17,18 +17,21 @@ Phases, each of which raises on failure (no phase's failure is caught):
     one PyTorch call computes the same function, that call; K6a and K6b
     are also held against their plain versions on the second table each
     meets on the RGAT path, K12a and K12b on every edge type's slice of
-    the type-major stream (the shapes GNN-Edge-MLP1 gives them; K12a is
+    the type-major stream (the shapes GNN-Edge-MLP1 gives them; each is
     timed on one launch over the four streamed slices, as a layer calls
-    it, and on each slice; K12b on the largest) and over the whole
-    stream, K15a and K15b for
+    it, and on each slice) and over the whole stream, K6b's single call
+    also split into the host's share and the card's along its launch
+    path and the earlier one, beside index_select(1, ...)'s
+    (tools/launch_path.py), K15a and K15b for
     relu and leaky_relu (timed with relu; K15a's table also against K1's
     on the same inputs), and K3 (both forms), K9, K14 and K15b on the
     DILUTED src stream of a numpy-made graph of PPI-like degree (QM9's
     streams are undiluted); K1-K4 also against their earlier designs (K1
     / K2: the K16 v3 variants at group 1; K3 / K4: the bodies of
     tools/earlier_designs.py) for elu, as the main path runs them, and
-    relu, as the harness times them, K12a against its earlier body (one
-    launch a slice) on the layer's four slices and on each, K9 against
+    relu, as the harness times them, K12a and K12b against their earlier
+    bodies (one launch a slice) on the layer's four slices and on each
+    (K12b's outputs bit for bit), K9 against
     its earlier body at the batch's D 128 with 8 heads and at D 320 with
     4 heads (PPI's width, rows not 16-byte aligned), and K7a against its
     earlier body on the streamed branch's [E, D] stream, on the fused
@@ -132,8 +135,12 @@ Phases, each of which raises on failure (no phase's failure is caught):
     configs and RGDCN at its class defaults on a 10,000-node batch, each
     at typed_edge_scan "scan" against "unroll" on the card (launching no
     hand kernel), a train step timed at "scan", "unroll" and "auto"; and
-    K12a / K12b (`k12_varmisuse`) on GNN-Edge-MLP1's batch's 22 streamed
-    slices, held to their plain versions and timed beside their bounds;
+    K12a / K12b (`k12_varmisuse`), one launch each over GNN-Edge-MLP1's
+    batch's 22 streamed slices, held to their plain versions (K12b bit for
+    bit, and to its earlier body, a launch a slice) and timed beside their
+    bounds, K12b in turns with that body; the host's enqueue ms and the
+    card's busy ms of the GNN-Edge-MLP1 (QM9, VarMisuse) and streamed RGAT
+    (QM9) train steps, for information;
 12. a reference check per path: loss and gradients of the full-width
     model on a small batch on the card (kernels) against the same model
     on the CPU (the kernels' plain versions): QM9 (a 600-node pack, the
@@ -245,6 +252,8 @@ REPLACES = {  # TPU kernel each CUDA kernel replaces
     # the earlier designs of K12a and K9, the same; kernels-line rows of
     # their own
     "act_agg_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:855",
+    # the earlier design of K12b (one launch a slice), the same
+    "act_agg_bwd_per_slice": "tf_gnn_samples_tpu/ops/ranked_segment.py:875",
     "rgat_src_bwd_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:1985",
     # the earlier designs of K7a and K6a, the same
     "wseg_t_walk": "tf_gnn_samples_tpu/ops/ranked_segment.py:1314",
@@ -456,6 +465,49 @@ def check_exact(name, got, want, torch):
             or not torch.equal(got, want)):
         raise AssertionError("%s disagrees with its plain version" % name)
     return max_err
+
+
+def slices_exact_check(torch, name, got, want):
+    """K12b's d_msg of every slice (a list) against another kernel's or the
+    plain version's on the same slices, bit for bit: one rounded product
+    an element, in any design."""
+    if len(got) != len(want):
+        raise AssertionError("%s: %d slices, expected %d"
+                             % (name, len(got), len(want)))
+    for i, (a, b) in enumerate(zip(got, want)):
+        if (a.shape != b.shape or a.dtype != b.dtype
+                or not torch.equal(a, b)):
+            raise AssertionError("%s disagrees with its plain version in "
+                                 "slice %d" % (name, i))
+    print("  %s: %d slices, %d edges, equal bit for bit"
+          % (name, len(got), sum(a.shape[0] for a in got)))
+    return 0.0
+
+
+def launch_count_check(name, before, after, want):
+    """The launches counted between two reads of rs.LAUNCHES (`before`,
+    `after`) are `want` ({kernel: n}) and no other."""
+    got = {k: n - before.get(k, 0) for k, n in after.items()
+           if n != before.get(k, 0)}
+    if got != want:
+        raise AssertionError("%s: launches %s, expected %s"
+                             % (name, got, want))
+
+
+# What earlier_design returns for a variant: a redesign's times beside
+# its earlier body's.
+DESIGN_TIMES = ("new_ms", "new_queued_ms", "earlier_ms", "earlier_queued_ms")
+
+
+def design_times_check(name, times):
+    """Every time of DESIGN_TIMES in `times` (earlier_design's row of one
+    variant) is there, finite and positive."""
+    bad = [k for k in DESIGN_TIMES if not (
+        isinstance(times.get(k), float) and math.isfinite(times[k])
+        and times[k] > 0)]
+    if bad:
+        raise AssertionError("%s: earlier-design times missing or not "
+                             "positive: %s" % (name, bad))
 
 
 def head_dw_check(name, dw, dw_want, msgs, g_e, torch):
@@ -1004,7 +1056,8 @@ def emlp1_src_bwd_bounds(torch, rs, gcb, t, cols, w, e_real, ranks, rows,
 
 def kernel_phase(torch, rs, dev):
     from tf_gnn_samples_torch.runtime.model import batch_to_device
-    from tf_gnn_samples_torch.tools import earlier_designs, film_fwd_ab
+    from tf_gnn_samples_torch.tools import (earlier_designs, film_fwd_ab,
+                                            launch_path)
 
     _, batch = first_batch(50000, "TRAIN")
     graph = batch_to_device(batch, dev).graph
@@ -1155,23 +1208,20 @@ def kernel_phase(torch, rs, dev):
                       "activation)")
     # K11 / K12 inputs, as GNN-Edge-MLP1 builds them over the type-major
     # stream: bf16 streams, the f32 beta table and the bf16 table cotangent
-    # over the (type, receiver) ranks; K11 runs elu, K12 gelu. K12a runs
-    # once a layer over the four streamed types' slices: its spec times
-    # that launch, `also` checks it on each slice alone and on the whole
-    # stream and `extra` times those. K12b runs once per streamed type's
-    # slice: its spec times the largest, `also` and `extra` the others and
-    # the whole stream.
+    # over the (type, receiver) ranks; K11 runs elu, K12 gelu. K12a and
+    # K12b each run once a layer over the four streamed types' slices:
+    # their specs time that launch, `also` checks them on each slice alone
+    # and on the whole stream and `extra` times those.
     tm, offs = flat.tm_rank, flat.tm_offs
     if flat.tm_self != QM9_TM_SELF:
         raise AssertionError("QM9 self-loop types %s" % (flat.tm_self,))
     n_tm = int(tm[-1]) + 1
     slices = {l: (offs[l], offs[l + 1]) for l in range(len(offs) - 1)
               if not flat.tm_self[l]}
-    big = max(slices, key=lambda l: slices[l][1] - slices[l][0])
     print("type-major stream: %d (type, receiver) groups; slices %s, self-"
-          "loop types %s; K12 timed on type %d" % (
+          "loop types %s" % (
               n_tm, [b - a for a, b in zip(offs[:-1], offs[1:])],
-              [l for l, s_ in enumerate(flat.tm_self) if s_], big))
+              [l for l, s_ in enumerate(flat.tm_self) if s_]))
     m11, x11, dx11, y12 = randn(e, d), randn(e, d), randn(e, d), randn(e, d)
     beta11 = torch.randn((rpad, d), generator=gen, device=dev)
     g12 = randn(rpad, d)
@@ -1180,8 +1230,9 @@ def kernel_phase(torch, rs, dev):
     table12 = torch.zeros((rpad, d), device=dev)  # K12a's timed table
     k12_terms = rs._bf16_terms(gelu(y12.float()))
     dgelu12 = dgelu(y12.float())
-    # The K12a launches held against the earlier body and timed: one over
-    # the layer's four streamed slices, one over each of them alone.
+    # The K12a and K12b launches held against their earlier bodies and
+    # timed: one over the layer's four streamed slices, one over each of
+    # them alone.
     k12a_parts = {"layer": [slices[l] for l in sorted(slices)]}
     k12a_parts.update({"type %d" % l: [slices[l]] for l in sorted(slices)})
 
@@ -1223,26 +1274,36 @@ def kernel_phase(torch, rs, dev):
                                          table_rows=rpad, act="gelu", out=out)
         return out
 
-    def k12(lo, hi):
-        """K12b's spec on the stream slice [lo, hi)."""
-        el = hi - lo
-        msg, ranks = y12[lo:hi], tm[lo:hi]
-        n_l = int(ranks[-1]) - int(ranks[0]) + 1
-        dact_l = dgelu12[lo:hi]
-        # K12b reads the messages, the ranks and the used rows of the bf16
-        # cotangent table and writes [E_l, D] bf16; gelu' is about 45
-        # operations an element.
+    def k12b(label, parts):
+        """The K12b spec of one launch over the stream slices `parts`
+        ([(lo, hi)]): it reads the slices' messages and ranks and the used
+        rows of the bf16 cotangent table and writes each slice's [E_l, D]
+        bf16; gelu' is about 45 operations an element. Each slice's output
+        must equal the plain version's bit for bit."""
+        pieces = [(y12[lo:hi], tm[lo:hi]) for lo, hi in parts]
+        idx = torch.cat([torch.arange(lo, hi, device=dev) for lo, hi in parts])
+        ranks = tm.index_select(0, idx)
+        dact_l = dgelu12.index_select(0, idx)
+        el = int(idx.numel())
+        n_l = sum(int(tm[hi - 1]) - int(tm[lo]) + 1 for lo, hi in parts)
         return dict(
             name="act_agg_bwd",
-            kern=lambda: rs._act_agg_bwd_impl(msg, g12, ranks, act="gelu"),
-            plain=lambda: rs._act_agg_bwd_plain(msg, g12, ranks, "gelu"),
-            check=exact_check("act_agg_bwd [%d:%d]" % (lo, hi)),
+            kern=lambda: rs._act_agg_bwd_slices_impl(pieces, g12, "gelu"),
+            plain=lambda: rs._act_agg_bwd_slices_plain(pieces, g12, "gelu"),
+            check=lambda got, want: slices_exact_check(
+                torch, "act_agg_bwd (%s)" % label, got, want),
             nbytes=2 * el * d * 2 + el * 4 + n_l * d * 2, nops=45 * el * d,
             yardstick=("index_select of the cotangent rows times the "
                        "precomputed derivative, rounded (three PyTorch "
                        "calls; leaves out gelu')",
                        lambda: (dact_l * g12.index_select(0, ranks).float()
                                 ).to(torch.bfloat16)))
+
+    def k12b_per_slice(v):
+        """K12b's earlier body on the slices of `v`, a launch a slice."""
+        return earlier_designs.act_agg_bwd_per_slice(
+            [(y12[lo:hi], tm[lo:hi]) for lo, hi in k12a_parts[v]], g12,
+            act="gelu")
 
     def eaa_bwd_check(got, want):
         """K11b: d_m must equal the plain version's; d_beta sums it."""
@@ -1487,7 +1548,7 @@ def kernel_phase(torch, rs, dev):
                         "(leaves out the derivative and the d_m store)",
                         index_add(rpad, tm, dz11))),
         k12a("layer", k12a_parts["layer"]),
-        k12(*slices[big]),
+        k12b("layer", k12a_parts["layer"]),
         # K10a reads the bf16 stream, the types, the ranks and the weights
         # and writes the used table rows; per element of the output a
         # D-long product (on the tensor cores: 2 E D^2 bf16 operations)
@@ -1641,23 +1702,18 @@ def kernel_phase(torch, rs, dev):
                 rs._expand_t_impl(table_rcv, rcv),
                 rs._expand_t_plain(table_rcv, rcv)),
     }
-    # K12a on each streamed type's slice alone and K12b on the other
-    # streamed types' slices, both over the whole stream (self-loop slice
-    # included): checked, then timed into `extra`.
+    # K12a and K12b on each streamed type's slice alone and over the whole
+    # stream (self-loop slice included): checked, then timed into `extra`.
     extra = {"act_agg": {}, "act_agg_bwd": {}}
-    whole = ("whole stream", [(0, e)])
-    others = {"act_agg": [(v, p) for v, p in k12a_parts.items()
-                          if v != "layer"] + [whole],
-              "act_agg_bwd": [("type %d" % l, [rng_])
-                              for l, rng_ in slices.items() if l != big]
-              + [whole]}
+    others = [(v, p) for v, p in k12a_parts.items() if v != "layer"] + [
+        ("whole stream", [(0, e)])]
 
     def k12_also(name):
         def run():
             worst = 0.0
-            for label, parts in others[name]:
+            for label, parts in others:
                 spec = (k12a(label, parts) if name == "act_agg"
-                        else k12(*parts[0]))
+                        else k12b(label, parts))
                 got = spec["kern"]()
                 torch.cuda.synchronize()
                 worst = max(worst, spec["check"](got, spec["plain"]()))
@@ -1818,12 +1874,12 @@ def kernel_phase(torch, rs, dev):
         g_ms, s_ms = (max(b / HBM_BYTES_PER_S, ops) * 1e3
                       for b in (g_bytes, s_bytes))
         k9_bounds[v] = {"new": g_ms, "other": s_ms, "earlier": s_ms}
-    k12a_bounds = {}
+    k12a_bounds, k12b_bounds = {}, {}
     for v, parts in k12a_parts.items():
-        spec = k12a(v, parts)
-        b = max(spec["nbytes"] / HBM_BYTES_PER_S,
-                spec["nops"] / F32_FLOPS) * 1e3
-        k12a_bounds[v] = {"new": b, "earlier": b}
+        for bounds, spec in ((k12a_bounds, k12a(v, parts)),
+                             (k12b_bounds, k12b(v, parts))):
+            b = max(spec_bound_ms(spec))
+            bounds[v] = {"new": b, "earlier": b}
     k7a_bounds, k6a_bounds = {}, {}
     for v, (_, _, k_v, d_v) in k7_forms.items():
         b = max((e * d_v * 2 + k_v * e * 4 + e * 4 + rows * d_v * 4)
@@ -1930,6 +1986,18 @@ def kernel_phase(torch, rs, dev):
                 (lambda: k12a_walk(v, table12)) if which == "earlier"
                 else k12a(v, k12a_parts[v])["timed"]),
             bounds=k12a_bounds),
+        # K12b (gelu): one launch over the layer's four slices against four
+        # launches of the earlier body, and one launch over each slice
+        # against one: every slice's output bit for bit.
+        "act_agg_bwd": lambda: earlier_design(
+            torch, "act_agg_bwd",
+            lambda v: rs._act_agg_bwd_slices_impl(
+                [(y12[lo:hi], tm[lo:hi]) for lo, hi in k12a_parts[v]], g12,
+                "gelu"),
+            k12b_per_slice, None,
+            check=lambda torch_, name, got, earlier, _: slices_exact_check(
+                torch_, name, got, earlier),
+            variants=tuple(k12a_parts), bounds=k12b_bounds),
         # K9: the gather form and the stream form against the earlier body
         # on the stream, at D 128 with 8 heads and at D 320 with 4.
         "rgat_src_bwd": lambda: earlier_design(
@@ -2085,41 +2153,54 @@ def kernel_phase(torch, rs, dev):
               % (name, ms, row["queued_ms"], plain_ms, bound_ms,
                  bound_bytes_ms, bound_ops_ms, spec["nbytes"], spec["nops"],
                  spec.get("tensor_ops", 0), products, other))
-        if name == "act_agg":
+        if name in extra:
             # The row is one launch over the layer's four streamed slices,
             # as the main path launches it.
             row["edges"] = sum(hi - lo for lo, hi in k12a_parts["layer"])
             row["other_shapes"] = extra[name]
-            print("  act_agg on its other shapes: %s" % json.dumps(extra[name]))
-        elif name in extra:
-            # The row is the largest slice; the main path launches the
-            # kernel once per streamed type, so a launch's mean time over
-            # those slices is what a step's kernel share is counted with.
-            row["edges"] = slices[big][1] - slices[big][0]
-            row["other_shapes"] = extra[name]
-            per_type = [v for k, v in extra[name].items()
-                        if k != "whole stream"]
-            row["mean_slice_ms"] = statistics.mean(
-                [ms] + [v["ms"] for v in per_type])
-            row["mean_slice_queued_ms"] = statistics.mean(
-                [row["queued_ms"]] + [v["queued_ms"] for v in per_type])
-            print("  %s on its other shapes: %s; mean over the streamed "
-                  "types' slices %.4f ms (%.4f queued)"
-                  % (name, json.dumps(extra[name]), row["mean_slice_ms"],
-                     row["mean_slice_queued_ms"]))
+            print("  %s on its other shapes: %s" % (name,
+                                                    json.dumps(extra[name])))
+        if name == "expand_t":
+            # K6b's single call split into the host's share and the card's,
+            # through the launch path and the earlier one, beside
+            # index_select(1, ...) (tools/launch_path.py).
+            path = launch_path.measure(table_t, fine)
+            row.update(host_ms=path["new_host_ms"],
+                       library_host_ms=path["index_select_host_ms"],
+                       earlier_path_ms=path["earlier_ms"],
+                       earlier_path_queued_ms=path["earlier_queued_ms"],
+                       earlier_path_host_ms=path["earlier_host_ms"],
+                       launch_path=path)
+            print("  expand_t launch path (single, queued, host ms; in turns,"
+                  " earlier, new, new, earlier): new %.4f / %.4f / %.4f, "
+                  "earlier %.4f / %.4f / %.4f, index_select(1, ...) %.4f / "
+                  "%.4f / %.4f; host ms by step: %s" % (
+                      path["new_ms"], path["new_queued_ms"],
+                      path["new_host_ms"], path["earlier_ms"],
+                      path["earlier_queued_ms"], path["earlier_host_ms"],
+                      path["index_select_ms"],
+                      path["index_select_queued_ms"],
+                      path["index_select_host_ms"],
+                      json.dumps(path["host_parts_ms"])))
         results.append(row)
-    # The earlier bodies of K12a, K9, K7a, K6a, K10a, K10b, K14 and K15a,
-    # rows of their own (no model path launches them): within the order
-    # bound of the plain version, timed in turns with the redesign above
-    # at the main path's shapes (K12a: the layer's four slices, a launch
-    # each; K9: D 128, 8 heads, on the stream; K7a: the streamed branch's
+    # The earlier bodies of K12a, K12b, K9, K7a, K6a, K10a, K10b, K14 and
+    # K15a, rows of their own (no model path launches them): within the
+    # order bound of the plain version (K12b's: equal to it bit for bit),
+    # timed in turns with the redesign above at the main path's shapes
+    # (K12a and K12b: the layer's four slices, a launch each; K9: D 128, 8
+    # heads, on the stream; K7a: the streamed branch's
     # stream; K6a: the receiver table; K10: the fused1 branch's inputs,
     # gelu; K14: the fused_src1 branch's, gelu; K15a: relu). The plain
     # version and the bound are their function's.
     layer = k12a("layer", k12a_parts["layer"])
+    layer_bwd = k12b("layer", k12a_parts["layer"])
     walks = {
         "act_agg_walk": ("act_agg", "layer", lambda: layer["check"](
             k12a_walk("layer"), layer["plain"]())),
+        "act_agg_bwd_per_slice": ("act_agg_bwd", "layer", lambda: (
+            slices_exact_check(torch, "act_agg_bwd_per_slice",
+                               k12b_per_slice("layer"),
+                               layer_bwd["plain"]()))),
         "rgat_src_bwd_walk": ("rgat_src_bwd", "D 128, 8 heads",
                               lambda: check_kernel(
                                   "rgat_src_bwd_walk",
@@ -2799,17 +2880,22 @@ def expected_launches(label, layers, n_fwd, n_bwd,
     K6a for the target logits' cotangent and K9. GNN-Edge-MLP0 is the
     fused FiLM pass (K1; K2 and K3). A GNN-Edge-MLP1 layer runs K11a and
     one K12a launch over every streamed edge type's slice forward;
-    backward K12b per streamed type, K11b and K5a (the type-major gather's
-    backward), or in its fused_src1 form K14 in place of that K5a. Its fused1 branch runs
+    backward one K12b launch over those slices, K11b and K5a (the
+    type-major gather's backward), or in its fused_src1 form K14 in place
+    of that K5a; K12a and K12b take one launch for each group of up to
+    ACT_AGG_MAX_SLICES (32) streamed types. Its fused1 branch runs
     K5b (the target halves' expand) and K10a forward; K10b and two K5a
     (the backwards of the expand and of the source gather) backward. RGIN
     and GNN-Edge-MLP without the target state run the fused gather +
     segment-sum, RGDCN its fine-rank sibling: K5a forward and K5a
     backward. K13 and K15 run on no path (no model of either package
     calls them)."""
+    from tf_gnn_samples_torch.ops.ranked_segment import ACT_AGG_MAX_SLICES
+
     want = {k: 0 for k in REPLACES}
     if label == "none":
         return want
+    groups = -(-streamed_types // ACT_AGG_MAX_SLICES)
     if label in ("RGIN", "GNN-Edge-MLP-ranked", "RGDCN"):
         want.update(segsum=layers * (n_fwd + n_bwd))
     elif label == "GNN-Edge-MLP1-fused1":
@@ -2818,8 +2904,8 @@ def expected_launches(label, layers, n_fwd, n_bwd,
                     segsum=2 * layers * n_bwd)
     elif label == "GNN-Edge-MLP1-src":
         want.update(expand_add_act=layers * n_fwd,
-                    act_agg=layers * n_fwd,
-                    act_agg_bwd=layers * n_bwd * streamed_types,
+                    act_agg=layers * n_fwd * groups,
+                    act_agg_bwd=layers * n_bwd * groups,
                     expand_add_act_bwd=layers * n_bwd,
                     emlp1_src_bwd=layers * n_bwd)
     elif label in ("GNN-FiLM", "GNN-Edge-MLP0"):
@@ -2830,8 +2916,8 @@ def expected_launches(label, layers, n_fwd, n_bwd,
                     segsum=layers * n_bwd)
     elif label == "GNN-Edge-MLP1":
         want.update(expand_add_act=layers * n_fwd,
-                    act_agg=layers * n_fwd,
-                    act_agg_bwd=layers * n_bwd * streamed_types,
+                    act_agg=layers * n_fwd * groups,
+                    act_agg_bwd=layers * n_bwd * groups,
                     expand_add_act_bwd=layers * n_bwd, segsum=layers * n_bwd)
     elif label.startswith("RGAT"):
         want.update(expand_t=layers * (2 * n_fwd + n_bwd),
@@ -3648,11 +3734,15 @@ def scan_phase(torch, rs, data, out=OUT, device="cuda", overrides=None,
 
 
 def k12_varmisuse(torch, rs, graph, d=128):
-    """K12a (one launch over every streamed type's slice, as a layer calls
-    it) and K12b (a launch a streamed type) on the type-major stream of a
-    VarMisuse batch (GNN-Edge-MLP1's): each held against its plain version
-    (K12a within the order bound, K12b bit for bit) and timed single and
-    queued beside its bound (K12b: all of a layer's launches together)."""
+    """K12a and K12b, each one launch over every streamed type's slice (as
+    a layer calls them), on the type-major stream of a VarMisuse batch
+    (GNN-Edge-MLP1's): K12a held against its plain version within the
+    order bound, K12b bit for bit against its plain version and its
+    earlier body (one launch a slice), its launches counted; each timed
+    single and queued beside its bound, K12b in turns with its earlier
+    body."""
+    from tf_gnn_samples_torch.tools import earlier_designs
+
     gen = torch.Generator(device=graph.flat.tm_rank.device).manual_seed(12)
     dev = graph.flat.tm_rank.device
     flat = graph.flat
@@ -3678,12 +3768,27 @@ def k12_varmisuse(torch, rs, graph, d=128):
     table = torch.zeros((rpad, d), device=dev)
     k12a = lambda: rs._act_agg_slices_impl(pieces, table_rows=rpad,
                                            act="gelu", out=table)
-    bwd = lambda: [rs._act_agg_bwd_impl(m, g, r, act="gelu")
-                   for m, r in pieces]
-    for (m, r), got in zip(pieces, bwd()):
-        if not torch.equal(got, rs._act_agg_bwd_plain(m, g, r, "gelu")):
-            raise AssertionError("act_agg_bwd (VarMisuse) disagrees with its "
-                                 "plain version")
+    bwd = lambda: rs._act_agg_bwd_slices_impl(pieces, g, "gelu")
+    per_slice = lambda: earlier_designs.act_agg_bwd_per_slice(pieces, g,
+                                                              act="gelu")
+    name = "act_agg_bwd (VarMisuse, %d slices)" % len(slices)
+    before = dict(rs.LAUNCHES)
+    got = bwd()
+    torch.cuda.synchronize()
+    launches = rs.LAUNCHES["act_agg_bwd"] - before["act_agg_bwd"]
+    launch_count_check(name, before, rs.LAUNCHES, {
+        "act_agg_bwd": -(-len(slices) // rs.ACT_AGG_MAX_SLICES)})
+    slices_exact_check(torch, name, got,
+                       rs._act_agg_bwd_slices_plain(pieces, g, "gelu"))
+    k12b_bound = bound_ms(2 * el * d * 2 + el * 4 + n_l * d * 2, 45 * el * d)
+    times = earlier_design(
+        torch, "act_agg_bwd", lambda v: bwd(), lambda v: per_slice(), None,
+        check=lambda torch_, name_, got_, earlier, _: slices_exact_check(
+            torch_, name_, got_, earlier),
+        variants=("VarMisuse",),
+        bounds={"VarMisuse": {"new": k12b_bound, "earlier": k12b_bound}}
+    )["VarMisuse"]
+    design_times_check(name, times)
     row = {
         "slices": len(slices), "edges": el,
         "act_agg": {"launches": 1, "ms": cuda_ms(k12a),
@@ -3692,13 +3797,15 @@ def k12_varmisuse(torch, rs, graph, d=128):
                         pieces, rpad, "gelu")),
                     "bound_ms": bound_ms(el * d * 2 + el * 4 + n_l * d * 4,
                                          30 * el * d)},
-        "act_agg_bwd": {"launches": len(slices), "ms": cuda_ms(bwd),
-                        "queued_ms": cuda_queued_ms(bwd),
-                        "plain_ms": cuda_ms(lambda: [
-                            rs._act_agg_bwd_plain(m, g, r, "gelu")
-                            for m, r in pieces]),
-                        "bound_ms": bound_ms(2 * el * d * 2 + el * 4
-                                             + n_l * d * 2, 45 * el * d)},
+        "act_agg_bwd": {"launches": launches, "ms": times["new_ms"],
+                        "queued_ms": times["new_queued_ms"],
+                        "earlier_launches": len(slices),
+                        "earlier_ms": times["earlier_ms"],
+                        "earlier_queued_ms": times["earlier_queued_ms"],
+                        "plain_ms": cuda_ms(
+                            lambda: rs._act_agg_bwd_slices_plain(
+                                pieces, g, "gelu")),
+                        "bound_ms": k12b_bound},
     }
     print("K12 at a VarMisuse batch (n_pad %d, %d streamed slices, %d "
           "edges, D %d): %s" % (graph.n_pad, len(slices), el, d,
@@ -3880,9 +3987,12 @@ def main() -> int:
                 print("  %s: %s" % (name, line.strip()))
 
     kernels, graph = kernel_phase(torch, rs, torch.device("cuda"))
-    kernel_ms = {k["name"]: k.get("mean_slice_ms", k["ms"]) for k in kernels}
-    queued_ms = {k["name"]: k.get("mean_slice_queued_ms", k["queued_ms"])
-                 for k in kernels}
+    kernel_ms = {k["name"]: k["ms"] for k in kernels}
+    queued_ms = {k["name"]: k["queued_ms"] for k in kernels}
+    # The host's ms to enqueue a train step and the card's busy ms in it,
+    # printed together at the end for information (K12b's and K6b's
+    # paths).
+    enqueue = {}
     kernels += k16_phase(torch, rs, torch.device("cuda"), graph)
     del graph
     total = {k: 0 for k in rs.LAUNCHES}
@@ -3901,6 +4011,8 @@ def main() -> int:
             launches, (times, per_step) = main_path_phase(rs, path)
         for name, n in launches.items():
             total[name] += n
+        if path.label in ("GNN-Edge-MLP1", "RGAT-streamed"):
+            enqueue["QM9 " + path.label] = times
         share = sum(n * kernel_ms[k] for k, n in per_step.items())
         queued = sum(n * queued_ms[k] for k, n in per_step.items())
         print("%s: kernel launches counted in one train step %s: %.2f ms at "
@@ -3958,6 +4070,7 @@ def main() -> int:
     for label, res in results.items():
         report_hand_kernels(label, res["times"])
     emlp1 = results["VarMisuse GNN-Edge-MLP1"]["times"]
+    enqueue["VarMisuse GNN-Edge-MLP1"] = emlp1
     k12b_ms = sum(ms for k, ms in emlp1["train_step_kernel_ms"].items()
                   if k.startswith("act_agg_bwd"))
     print("VarMisuse GNN-Edge-MLP1: K12b takes %.4f ms of the train step's "
@@ -3980,6 +4093,11 @@ def main() -> int:
     del batch
     print("VarMisuse parse rates, scan and K12 rows: %.1f s"
           % (time.time() - t0))
+    print("train step, the host's ms to enqueue it / the card's busy ms in "
+          "it (for information): %s" % ", ".join(
+              "%s %.2f / %.2f" % (label, t["train_step_host_ms"],
+                                  t["train_step_busy_ms"])
+              for label, t in enqueue.items()))
     for k in kernels:
         # K16 entries keep their harness launches; no model path runs them
         # (expected_launches held their counters at 0 on every path).

@@ -14,7 +14,9 @@ term dropped or weighted by the wrong head, a mask one bit off, the wrong
 leak, a row summed through its chunks or pairwise inside one, a fill slot
 that reads a real row, a message cotangent one bf16 step off, K12a's
 slices chunked from the layer's first edge, K6a's rows summed in 64-edge
-chunks in place of its 8-edge runs. The cache, PPI, headline and
+chunks in place of its 8-edge runs, a K12b output one bf16 ulp off in
+one slice, 22 K12b launches where one is expected, an earlier-design
+time left out. The cache, PPI, headline and
 citation phases run at a tiny width with the card's launches emulated
 per batch, and reject a cache that re-packs every epoch, a resume that
 drops the slots, a step that launches one kernel more or another
@@ -1053,6 +1055,53 @@ def test_k12a_slices_design_check_takes_each_slices_chunks(fault):
         slices_design_check(torch, "act_agg", got, earlier, parts)
 
 
+@pytest.mark.parametrize("fault", ["none", "one_ulp_off", "per_slice_launches",
+                                   "time_left_out"])
+def test_k12b_checks_reject_planted_faults(fault):
+    """The checks of K12b's one launch over a layer's slices (chip_smoke.py
+    k12_varmisuse and the kernel phase): every slice's d_msg bit for bit
+    against the plain version (slices_exact_check), one launch counted
+    (launch_count_check), and every time beside its earlier body's
+    (design_times_check) accept the kernel's output (here its plain
+    version, as on the CPU) over 22 slices, and reject an output one bf16
+    ulp off in one slice, 22 launches where 1 is expected, and an earlier-
+    design time left out."""
+    from chip_smoke import (design_times_check, launch_count_check,
+                            slices_exact_check)
+    rng = np.random.RandomState(19)
+    bounds, ranks, rows = slices_of(rng, count=22)
+    msgs = bf16(rng, len(ranks), D, scale=1.5)
+    g16 = bf16(rng, rows, D)
+    pieces = [(msgs[lo:hi], ranks[lo:hi]) for lo, hi in bounds]
+    got = rs._act_agg_bwd_slices_impl(pieces, g16, "gelu")
+    want = rs._act_agg_bwd_slices_plain(pieces, g16, "gelu")
+    before = dict.fromkeys(rs.LAUNCHES, 0)
+    after = dict(before, act_agg_bwd=22 if fault == "per_slice_launches"
+                 else 1)
+    times = {"new_ms": 0.16, "new_queued_ms": 0.09, "earlier_ms": 0.64,
+             "earlier_queued_ms": 0.19}
+    if fault == "one_ulp_off":
+        bits = got[7].view(torch.int16)
+        bits[3, 5] += 1
+    elif fault == "time_left_out":
+        del times["earlier_queued_ms"]
+    checks = (
+        lambda: slices_exact_check(torch, "act_agg_bwd", got, want),
+        lambda: launch_count_check("act_agg_bwd", before, after,
+                                   {"act_agg_bwd": 1}),
+        lambda: design_times_check("act_agg_bwd", times))
+    if fault == "none":
+        for check in checks:
+            check()
+        return
+    which = {"one_ulp_off": 0, "per_slice_launches": 1, "time_left_out": 2}
+    with pytest.raises(AssertionError, match="act_agg_bwd"):
+        checks[which[fault]]()
+    for i, check in enumerate(checks):
+        if i != which[fault]:
+            check()
+
+
 def k9_diluted_inputs(seed=13, rpad=300, k=4):
     """A src stream with fill slots (run_ranks; about one key in eight
     SD_FILL, every key of one run), K9's side table with a positive
@@ -1289,13 +1338,13 @@ def test_ppi_phase_checks_reject_planted_faults(tiny_ppi, tmp_path,
                          "PPI RGAT": {"RGAT-fused"}, "PPI RGCN": {"none"},
                          "PPI GGNN": {"none"}, "PPI RGIN": {"RGIN"},
                          "PPI RGCN K5": {"RGCN"}}
-        # Two streamed edge types (fwd and the untied backward): two K12b
-        # launches a layer on each train step.
+        # Two streamed edge types (fwd and the untied backward), one K12b
+        # launch over both a layer on each train step.
         n_train = sum(n for (step, branch, _), n in
                       results["PPI GNN-Edge-MLP1"]["steps"].items()
                       if step == "_train_step")
         assert results["PPI GNN-Edge-MLP1"]["launches"]["act_agg_bwd"] == (
-            2 * n_train) > 0
+            n_train) > 0
         assert all(0 < r["metric"] < 1 for r in results.values())
         return
     match = {"extra_launch": "launches", "other_branch": "launches",
@@ -1502,7 +1551,9 @@ def test_varmisuse_phase_checks_reject_planted_faults(tiny_vm, tmp_path,
         res = results["VarMisuse GNN-Edge-MLP1"]
         n_train = sum(n for (step, _, _), n in res["steps"].items()
                       if step == "_train_step")
-        assert res["launches"]["act_agg_bwd"] == 22 * n_train > 0
+        # 22 streamed types, one K12b launch over them a layer (the tiny
+        # config's one layer) on each train step.
+        assert res["launches"]["act_agg_bwd"] == n_train > 0
         assert all(0 <= r["metric"] <= 1 for r in results.values())
         assert not multiprocessing.active_children()
         rates = parse_rates(tiny_vm, workers=2)

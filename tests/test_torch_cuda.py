@@ -827,13 +827,14 @@ def test_edge_mlp_layer_on_card_matches_cpu(dev, ranked_graph, kind):
     """One GNN-Edge-MLP layer step, forward and gradients, on the card
     against the plain versions on the CPU. With one hidden layer the
     type-major branch: K11a and one K12a launch over every streamed type's
-    slice forward; K12b per streamed type, K11b and (in the gather's
-    backward) K5a backward.
+    slice forward; one K12b launch over those slices, K11b and (in the
+    gather's backward) K5a backward.
     Without, the FiLM kernels K1-K3 with gamma = 1."""
     streamed = sum(not s for s in ranked_graph.flat.tm_self)
     assert streamed == 4 and ranked_graph.flat.tm_self[0]
     own = (dict(expand_add_act=1, expand_add_act_bwd=1, segsum=1,
-                act_agg=1, act_agg_bwd=streamed) if kind
+                act_agg=1, act_agg_bwd=-(-streamed // rs.ACT_AGG_MAX_SLICES))
+           if kind
            else dict(film_fwd=1, film_bwd_dgb=1, film_src_bwd=1))
     rng = np.random.default_rng(6)
     num_types, d = ranked_graph.num_edge_types, 64
@@ -1141,7 +1142,8 @@ def test_new_branches_on_card_match_cpu(dev, ranked_graph, monkeypatch,
                    segsum=2)
     elif branch == "fused_src1":
         monkeypatch.setattr(rs, "ENABLE_EMLP1_SRC_PASS", True)
-        own = dict(expand_add_act=1, act_agg=1, act_agg_bwd=streamed,
+        own = dict(expand_add_act=1, act_agg=1,
+                   act_agg_bwd=-(-streamed // rs.ACT_AGG_MAX_SLICES),
                    expand_add_act_bwd=1, emlp1_src_bwd=1)
     else:
         own = dict(segsum=2)

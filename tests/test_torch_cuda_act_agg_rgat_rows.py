@@ -1,5 +1,5 @@
-"""K12a act_agg (one launch over several stream slices, csrc/act_agg.cu)
-and K9 rgat_src_bwd (each chunk's rows staged in shared memory, and its
+"""K12a act_agg and K12b act_agg_bwd (each one launch over several
+stream slices, csrc/act_agg.cu, csrc/act_agg_bwd.cu) and K9 rgat_src_bwd (each chunk's rows staged in shared memory, and its
 gather form that reads the side table through fine keys,
 csrc/rgat_src_bwd.cu) on the card: each
 against its plain version within the order bound (chip_smoke.check_kernel;
@@ -10,7 +10,11 @@ csrc/rgat_src_bwd_walk.cu) bit for bit on every row of at most two
 64-edge chunks of its slice (chip_smoke.slices_design_check,
 film_design_check). K12a on the type-major slices of a QM9 pack (every
 activation; D 16, 100, 128 and 320; a stream whose rows are not 4-byte
-aligned), with empty slices and with 40 slices (two launches); K9's two
+aligned), with empty slices and with 40 slices (two launches); K12b
+bit for bit against its plain version and its earlier body (one launch
+a slice, csrc/act_agg_bwd_per_slice.cu) on the same slices, at 4 and 22
+slices, with a slice or a table not 16-byte aligned (the launch's
+single-column form), empty slices and 40 slices; K9's two
 forms on a QM9 batch's src stream and on a diluted one, for D and heads
 that take 16-, 4- and 2-byte accesses (D 320 with 4 heads: PPI's rows)
 and 96 heads (opted-in shared memory; more than the earlier body takes),
@@ -27,8 +31,9 @@ import pytest
 import torch
 
 import test_torch_cuda_film_bwd_rows as film_bwd_rows
-from chip_smoke import (check_kernel, film_design_check, rgat_src_bwd_bounds,
-                        row_abs_sums, row_counts, slices_design_check,
+from chip_smoke import (check_kernel, film_design_check, launch_count_check,
+                        rgat_src_bwd_bounds, row_abs_sums, row_counts,
+                        slices_design_check, slices_exact_check,
                         src_gather_check)
 from tf_gnn_samples_torch.ops import ranked_segment as rs
 from tf_gnn_samples_torch.tools import earlier_designs as ed
@@ -139,6 +144,93 @@ def test_act_agg_unaligned_empty_and_many_slices(dev):
     k12a_check(dev, tm_msgs(dev, 64, 6), many, rows, "elu",
                "act_agg %d slices" % len(many),
                launches=-(-len(many) // rs.ACT_AGG_MAX_SLICES))
+
+
+def k12b_check(dev, msgs, slices, g16, act, name, launches=1):
+    """One _act_agg_bwd_slices_impl call over `slices` ([(lo, hi)] of msgs
+    and the type-major ranks, or (msgs, ranks) pairs) against its plain
+    version and its earlier body, one launch a slice, every slice bit for
+    bit; `launches` of K12b counted and no other kernel's."""
+    ranks = torch.as_tensor(type_major()[0], device=dev)
+    pieces = [(msgs[p[0]:p[1]], ranks[p[0]:p[1]]) if isinstance(p[0], int)
+              else p for p in slices]
+    before = dict(rs.LAUNCHES)
+    got = rs._act_agg_bwd_slices_impl(pieces, g16, act)
+    torch.cuda.synchronize()
+    launch_count_check(name, before, rs.LAUNCHES,
+                       {"act_agg_bwd": launches} if launches else {})
+    slices_exact_check(torch, name, got,
+                       rs._act_agg_bwd_slices_plain(pieces, g16, act))
+    slices_exact_check(torch, name + " = its earlier design's", got,
+                       ed.act_agg_bwd_per_slice(pieces, g16, act=act))
+    return got
+
+
+def cotangent(dev, rows, d, seed=0, misaligned=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows * d + 1, generator=gen, device=dev).to(
+        torch.bfloat16)
+    return (x[1:] if misaligned else x[:-1]).view(rows, d)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("act", sorted(rs.ACT_IDS))
+def test_act_agg_bwd_layer_on_qm9_slices(dev, act, d):
+    """One launch over the four streamed types' slices, as a GNN-Edge-MLP1
+    layer's backward calls it, and one over each slice alone."""
+    _, offs, tm_self, rows = type_major()
+    parts = [(offs[l], offs[l + 1]) for l in range(len(tm_self))
+             if not tm_self[l]]
+    assert len(parts) == 4
+    msgs, g16 = tm_msgs(dev, d, d), cotangent(dev, rows, d, seed=d)
+    layer = k12b_check(dev, msgs, parts, g16, act,
+                       "act_agg_bwd layer D=%d %s" % (d, act))
+    for p, got in zip(parts, layer):
+        assert torch.equal(got, k12b_check(
+            dev, msgs, [p], g16, act,
+            "act_agg_bwd [%d:%d] D=%d %s" % (p + (d, act)))[0])
+
+
+def test_act_agg_bwd_unaligned_empty_and_many_slices(dev):
+    """22 slices cut from the stream (a VarMisuse layer's count) in one
+    launch; one slice whose messages are not 16-byte aligned among them,
+    and a table that is not, each taking the single-column form for the
+    launch; empty slices among live ones, and only empty ones (no
+    launch); 40 slices in two launches."""
+    ranks, offs, _, rows = type_major()
+    change = np.flatnonzero(np.diff(ranks)) + 1
+
+    def cut(n):
+        """n slices (or fewer, where two cut points meet) whose rank rows
+        are disjoint: cut where the rank changes."""
+        cuts = [0] + [int(change[i]) for i in np.linspace(
+            0, len(change) - 1, n - 1).astype(int)] + [len(ranks)]
+        return [(a, b) for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
+
+    msgs, g16 = tm_msgs(dev, 128, 7), cotangent(dev, rows, 128, seed=7)
+    many = cut(22)
+    assert len(many) == 22
+    k12b_check(dev, msgs, many, g16, "gelu", "act_agg_bwd 22 slices")
+    t = torch.as_tensor(ranks, device=dev)
+    odd = tm_msgs(dev, 128, 8, misaligned=True)
+    assert odd.data_ptr() % 16
+    lo, hi = many[5]
+    mixed = [(msgs[a:b], t[a:b]) for a, b in many]
+    mixed[5] = (odd[lo:hi], t[lo:hi])
+    k12b_check(dev, msgs, mixed, g16, "elu",
+               "act_agg_bwd 22 slices, one not 16-byte aligned")
+    k12b_check(dev, msgs, many, cotangent(dev, rows, 128, 9, misaligned=True),
+               "gelu", "act_agg_bwd 22 slices, table not 16-byte aligned")
+    parts = [(offs[1], offs[2]), (offs[2], offs[2]), (offs[3], offs[5])]
+    k12b_check(dev, msgs, parts, g16, "relu", "act_agg_bwd empty slice")
+    k12b_check(dev, msgs, [(offs[2], offs[2])] * 3, g16, "relu",
+               "act_agg_bwd only empty slices", launches=0)
+    forty = cut(41)
+    assert len(forty) > rs.ACT_AGG_MAX_SLICES
+    k12b_check(dev, tm_msgs(dev, 64, 6), forty,
+               cotangent(dev, rows, 64, seed=6), "elu",
+               "act_agg_bwd %d slices" % len(forty),
+               launches=-(-len(forty) // rs.ACT_AGG_MAX_SLICES))
 
 
 def k9_inputs(dev, kind, k, d):

@@ -502,8 +502,9 @@ def edge_mlp_branch(graph: GraphBatch, *, activation_function: str,
 
     * "tmajor1" (target state, one hidden layer, sum, no normalisation,
       the type-major view present; the tuned GNN-Edge-MLP1): K11a and one
-      K12a per non-self edge type forward; K12b per non-self type, K11b
-      and K5a (the type-major gather's backward) backward. With
+      K12a launch over the non-self edge types' slices forward; one K12b
+      launch over them, K11b and K5a (the type-major gather's backward)
+      backward. With
       ops/ranked_segment.py ENABLE_EMLP1_SRC_PASS on (off by default, as
       in the JAX package) it takes its `fused_src1` form: the same
       forward, and K14 in place of the gather's backward;
@@ -689,8 +690,9 @@ def gnn_edge_mlp_apply(
             # rounded to bf16: plain matmuls outside any kernel); the
             # outer activation and the aggregation run per type through
             # K12a. The types' rank rows are disjoint, so every type's
-            # call writes into the one table. Backward: K12b per type, the
-            # matmuls' own, K11b, and K5a in the gather's.
+            # call writes into the one table. Backward: one K12b launch
+            # over the types' slices, the matmuls' own, K11b, and K5a in
+            # the gather's.
             W0, W1 = params["edge_mlp"]
             ts = typed_transform(h, W0[:, :d0, :])
             tt = typed_transform(h, W0[:, d0:, :])

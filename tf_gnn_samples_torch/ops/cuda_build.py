@@ -79,8 +79,10 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # rank pointers and edge counts, the slice count, out, dim, act id,
     # stream
     "act_agg": (_ROWS_HEADERS, (_P,) * 3 + (_I, _P, _I, _I, _P)),
-    # msgs, g16, ranks, dmsg, num_edges, dim, act id, stream
-    "act_agg_bwd": (("film_common.cuh",), _FILM_ARGS),
+    # act_agg_bwd_slices_launch: host arrays of the slices' message, rank
+    # and output pointers and edge counts, the slice count, g16, dim, act
+    # id, stream
+    "act_agg_bwd": (("film_common.cuh",), (_P,) * 4 + (_I, _P, _I, _I, _P)),
     # x, w, types, ranks, out, num_edges, dh, dim, num_types, act id, stream
     "typed_dense_agg": (_MMA_HEADERS, (_P,) * 5 + (_I,) * 5 + (_P,)),
     # x, w, g16, types, ranks, dx, dw, num_edges, dh, dim, num_types, act
@@ -108,6 +110,9 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     # act id, stream; gcb, t_ext, ranks, out, num_edges, dim, num_heads,
     # clamp, stream
     "act_agg_walk": (("film_common.cuh",), (_P,) * 3 + (_I,) * 3 + (_P,)),
+    # The earlier design of K12b, one launch a slice: msgs, g16, ranks,
+    # dmsg, num_edges, dim, act id, stream
+    "act_agg_bwd_per_slice": (("film_common.cuh",), _FILM_ARGS),
     "rgat_src_bwd_walk": (("film_common.cuh",),
                           (_P,) * 4 + (_I,) * 3 + (ctypes.c_float, _P)),
     # The earlier designs of K7a and K6a: msgs, w_t, ranks, out, num_edges,
@@ -143,7 +148,8 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[type, ...]]] = {
     "rowgather": ((), (_P,) * 4 + (_I,) * 6 + (_P,)),
 }
 # Entry points not named <name>_launch.
-ENTRY = {"act_agg": "act_agg_slices_launch"}
+ENTRY = {"act_agg": "act_agg_slices_launch",
+         "act_agg_bwd": "act_agg_bwd_slices_launch"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -44,7 +44,9 @@ those sorted ranks:
   several stream slices with disjoint rank rows (K1 without the
   modulation tables; one launch for all of a layer's edge type slices;
   `_act_agg_impl`: one slice);
-* K12b `_act_agg_bwd_impl`: d_msg[e] = bf16(act'(msg_e) * g[rank_e]);
+* K12b `_act_agg_bwd_slices_impl`: d_msg[e] = bf16(act'(msg_e) *
+  g[rank_e]) over the same slices, one launch for all of them
+  (`_act_agg_bwd_impl`: one slice);
 * K10a `_typed_dense_agg_impl`: table[r] = sum bf16(act(x_e @ W[type_e]))
   (GNN-Edge-MLP1's `fused1` branch);
 * K10b `_typed_dense_agg_bwd_impl`: its dx (bf16) and dW (f32);
@@ -219,11 +221,12 @@ LAUNCHES: Dict[str, int] = {"segsum": 0, "expand": 0, "film_fwd": 0,
                             "film_dgb_v4": 0, "rowgather_loop": 0,
                             "rowgather_loop8": 0, "rowgather_take": 0,
                             "rowgather_onehot": 0,
-                            # the earlier designs of K3, K4, K12a, K9, K7a,
-                            # K6a, K10a, K10b, K14, K15a and K15b
+                            # the earlier designs of K3, K4, K12a, K12b, K9,
+                            # K7a, K6a, K10a, K10b, K14, K15a and K15b
                             # (tools/earlier_designs.py)
                             "film_src_bwd_walk": 0, "film_bwd_walk": 0,
-                            "act_agg_walk": 0, "rgat_src_bwd_walk": 0,
+                            "act_agg_walk": 0, "act_agg_bwd_per_slice": 0,
+                            "rgat_src_bwd_walk": 0,
                             "wseg_t_walk": 0, "segsum_t_walk": 0,
                             "typed_dense_agg_scalar": 0,
                             "typed_dense_agg_bwd_scalar": 0,
@@ -354,6 +357,11 @@ def _act_agg_bwd_plain(msgs, g16, ranks, act):
     return (_ACTS[act][1](msgs.to(torch.float32)) * g_e).to(torch.bfloat16)
 
 
+def _act_agg_bwd_slices_plain(slices, g16, act):
+    return [_act_agg_bwd_plain(msgs, g16, ranks, act)
+            for msgs, ranks in slices]
+
+
 def _segsum_t_plain(msgs_t, ranks, table_rows):
     out = torch.zeros((msgs_t.shape[0], table_rows), dtype=torch.float32,
                       device=msgs_t.device)
@@ -459,31 +467,68 @@ def _call(kernel: str, tensors, ints, counter: str = None, row_views=()):
     wrapper passes in `ints`. The types and shapes are the wrapper's to
     check. The launch counts under `counter` (default: the kernel's name)
     where one source holds several kernel bodies."""
-    dev = tensors[-1].device
-    _check_laid_out(kernel, tensors, dev, row_views)
-    _run(kernel, dev, (*(None if x is None else x.data_ptr()
-                         for x in tensors), *ints), counter)
+    index = tensors[-1].get_device()
+    _run(kernel, index, (*_laid_out_ptrs(kernel, tensors, index, row_views),
+                         *ints), counter)
 
 
-def _check_laid_out(kernel: str, tensors, dev, row_views=()):
+def _laid_out_ptrs(kernel: str, tensors, index: int, row_views=()):
+    """The tensors' data pointers (None for None), once each is found on
+    CUDA device `index` (Tensor.get_device's number: -1 is the CPU) and
+    laid out as _call says."""
+    ptrs = []
     for i, x in enumerate(tensors):
         if x is None:
+            ptrs.append(None)
             continue
-        laid_out = (x.dim() == 2 and x.stride(1) == 1 if i in row_views
-                    else x.is_contiguous())
-        if x.device != dev or not laid_out:
+        if x.get_device() != index or not (
+                x.dim() == 2 and x.stride(1) == 1 if i in row_views
+                else x.is_contiguous()):
             raise ValueError("%s: inputs must be contiguous tensors (row "
-                             "views: unit column stride) on %s"
-                             % (kernel, dev))
+                             "views: unit column stride) on cuda:%s"
+                             % (kernel, index))
+        ptrs.append(x.data_ptr())
+    return ptrs
 
 
-def _run(kernel: str, dev, args, counter: str = None):
-    """Call csrc/<kernel>.cu's entry point with `args` and the stream, and
-    count the launch."""
-    fn = getattr(cuda_build.load(kernel), cuda_build.entry(kernel))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, stream)
+# Each kernel's C entry point (ctypes), resolved at its first launch, and
+# whether the process sees one CUDA device (then it is always the current
+# one), read at the first.
+_ENTRIES: Dict[str, object] = {}
+_ONE_DEVICE = False
+
+
+def _entry(kernel: str):
+    global _ONE_DEVICE
+    fn = _ENTRIES.get(kernel)
+    if fn is None:
+        fn = _ENTRIES[kernel] = getattr(cuda_build.load(kernel),
+                                        cuda_build.entry(kernel))
+        _ONE_DEVICE = torch.cuda.device_count() == 1
+    return fn
+
+
+# PyTorch's current CUDA device, and the cudaStream_t of its current
+# stream on a device, as the C functions themselves (no Python frame, no
+# torch.cuda.Stream built); a CPU build of PyTorch has neither, and
+# launches nothing.
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _run(kernel: str, index: int, args, counter: str = None):
+    """Call csrc/<kernel>.cu's entry point with `args` and the current
+    stream of CUDA device `index`, and count the launch. The entry point is
+    resolved once; the current device is switched only when it is not
+    `index`. A nonzero return (the launch's CUDA error) raises and counts
+    nothing. The earlier path, which resolved, switched and built a Stream
+    on every call: tools/earlier_designs.py run_with_device_context."""
+    fn = _ENTRIES.get(kernel) or _entry(kernel)
+    if _ONE_DEVICE or index == _current_device():
+        rc = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index))
     if rc != 0:
         raise RuntimeError("%s: kernel launch failed with CUDA error %d"
                            % (kernel, rc))
@@ -947,16 +992,16 @@ def _act_agg_slices_impl(slices, *, table_rows, act, out=None):
     for msgs, ranks in slices:
         _check_dtype("act_agg", msgs, torch.bfloat16)
         _check_ranks("act_agg", ranks)
-        _check_laid_out("act_agg", (msgs, ranks), dev)
+        _laid_out_ptrs("act_agg", (msgs, ranks), dev.index)
     if out is None:
         out = torch.zeros((table_rows, dim), dtype=torch.float32, device=dev)
     _check_dtype("act_agg", out, torch.float32)
-    _check_laid_out("act_agg", (out,), dev)
+    _laid_out_ptrs("act_agg", (out,), dev.index)
     live = [(m, r) for m, r in slices if r.shape[0]]
     for g in range(0, len(live), ACT_AGG_MAX_SLICES):
         group = live[g:g + ACT_AGG_MAX_SLICES]
         n = len(group)
-        _run("act_agg", dev, (
+        _run("act_agg", dev.index, (
             (ctypes.c_void_p * n)(*(m.data_ptr() for m, _ in group)),
             (ctypes.c_void_p * n)(*(r.data_ptr() for _, r in group)),
             (ctypes.c_int * n)(*(r.shape[0] for _, r in group)), n,
@@ -974,24 +1019,76 @@ def _act_agg_impl(msgs, ranks, *, table_rows, block_edges=256, act, win=0,
                                 act=act, out=out)
 
 
-def _act_agg_bwd_impl(msgs, g16, ranks, *, block_edges=256, act, win=0):
-    """K12b: d_msg[e] = bf16(act'(msg_e) * g16[rank_e]), bf16 [E, D], from
-    the bf16 stream [E, D], the bf16 table cotangent g16 [rows, D] and
-    int32 ranks below `rows`; act' is recomputed in f32 from the message."""
-    e, dim = msgs.shape
-    if ranks.shape != (e,) or g16.dim() != 2 or g16.shape[1] != dim:
-        raise ValueError("act_agg_bwd: shapes %s, %s, %s" % (
-            tuple(msgs.shape), tuple(g16.shape), tuple(ranks.shape)))
-    if msgs.device.type == "cpu":
-        return _act_agg_bwd_plain(msgs, g16, ranks, act)
-    _check_dtype("act_agg_bwd", msgs, torch.bfloat16)
+def _act_agg_bwd_slices_impl(slices, g16, act):
+    """K12b over several stream slices, all against one table cotangent:
+    for each (bf16 msgs [E_l, D], int32 ranks [E_l] below `rows`) of the
+    non-empty sequence `slices`, d_msg[e] = bf16(act'(msg_e) *
+    g16[rank_e]), bf16 [E_l, D], from the bf16 g16 [rows, D]; act' is
+    recomputed in f32 from the message. Returns the slices' d_msg, views
+    of one bf16 [sum E_l, D] buffer in the slices' order. One launch takes
+    every non-empty slice, up to ACT_AGG_MAX_SLICES of them. A slice's
+    checks run as one test (the detailed ones only to name a refusal): on
+    VarMisuse's 22 slices the host's share is most of a call."""
+    if not slices:
+        raise ValueError("act_agg_bwd: no slices")
+    dim = slices[0][0].shape[-1]
+    if g16.dim() != 2 or g16.shape[1] != dim:
+        raise ValueError("act_agg_bwd: table %s for width %d"
+                         % (tuple(g16.shape), dim))
+    dev = slices[0][0].device
+    if dev.type == "cpu":
+        for msgs, ranks in slices:
+            _check_slice_shapes(msgs, ranks, dim)
+        return _act_agg_bwd_slices_plain(slices, g16, act)
+    index = dev.index
     _check_dtype("act_agg_bwd", g16, torch.bfloat16)
-    _check_ranks("act_agg_bwd", ranks)
-    dmsg = torch.empty((e, dim), dtype=torch.bfloat16, device=msgs.device)
-    if e:
-        _call("act_agg_bwd", (msgs, g16, ranks, dmsg),
-              (e, dim, ACT_IDS[act]))
-    return dmsg
+    _laid_out_ptrs("act_agg_bwd", (g16,), index)
+    bf16, i32 = torch.bfloat16, torch.int32
+    sizes, live, row0 = [], [], 0
+    for msgs, ranks in slices:
+        if (msgs.dim() != 2 or ranks.dim() != 1
+                or msgs.shape[0] != ranks.shape[0]
+                or msgs.shape[1] != dim or msgs.dtype is not bf16
+                or ranks.dtype is not i32 or msgs.get_device() != index
+                or ranks.get_device() != index or not msgs.is_contiguous()
+                or not ranks.is_contiguous()):
+            _check_slice_shapes(msgs, ranks, dim)
+            _check_dtype("act_agg_bwd", msgs, bf16)
+            _check_ranks("act_agg_bwd", ranks)
+            _laid_out_ptrs("act_agg_bwd", (msgs, ranks), index)
+        n = ranks.shape[0]
+        if n:
+            live.append((msgs.data_ptr(), ranks.data_ptr(), row0, n))
+        sizes.append(n)
+        row0 += n
+    out = g16.new_empty((row0, dim))
+    base, row_bytes = out.data_ptr(), dim * out.element_size()
+    for g in range(0, len(live), ACT_AGG_MAX_SLICES):
+        group = live[g:g + ACT_AGG_MAX_SLICES]
+        n = len(group)
+        _run("act_agg_bwd", index, (
+            (ctypes.c_void_p * n)(*(m for m, _, _, _ in group)),
+            (ctypes.c_void_p * n)(*(r for _, r, _, _ in group)),
+            (ctypes.c_void_p * n)(*(base + r0 * row_bytes
+                                    for _, _, r0, _ in group)),
+            (ctypes.c_int * n)(*(e for _, _, _, e in group)), n,
+            g16.data_ptr(), dim, ACT_IDS[act]))
+    return list(out.split(sizes))
+
+
+def _check_slice_shapes(msgs, ranks, dim):
+    if (msgs.dim() != 2 or msgs.shape[1] != dim
+            or ranks.shape != (msgs.shape[0],)):
+        raise ValueError("act_agg_bwd: shapes %s, %s for width %d" % (
+            tuple(msgs.shape), tuple(ranks.shape), dim))
+
+
+def _act_agg_bwd_impl(msgs, g16, ranks, *, block_edges=256, act, win=0):
+    """K12b on one stream: d_msg[e] = bf16(act'(msg_e) * g16[rank_e]), bf16
+    [E, D], from the bf16 stream [E, D], the bf16 table cotangent g16
+    [rows, D] and int32 ranks below `rows` (_act_agg_bwd_slices_impl of one
+    slice)."""
+    return _act_agg_bwd_slices_impl([(msgs, ranks)], g16, act)[0]
 
 
 # ---- the typed dense aggregate (K10) and Edge-MLP1's source pass (K14) ----
@@ -1257,19 +1354,31 @@ def _segsum_t_impl(msgs_t, ranks, *, table_rows, block_edges=256, win=0):
 
 def _expand_t_impl(table_t, ranks, *, block_edges=256, win=0):
     """K6b: out[k, e] = bf16(table_t[k, rank_e]) widened to f32, [K, E],
-    from an f32 table [K, rows] and int32 ranks below `rows`."""
+    from an f32 table [K, rows] and int32 ranks below `rows`.
+
+    Its kernel takes some 0.004 ms of the card, so the host's share is
+    most of a call (tools/launch_path.py; PERF.md): the checks run as one
+    test (the detailed ones only to name a refusal), Tensor.new_empty and
+    is_cpu are the cheapest forms of the allocation and the device test,
+    and the output, made here, needs no check."""
     if ranks.dim() != 1 or table_t.dim() != 2:
         raise ValueError("expand_t: shapes %s, %s" % (tuple(table_t.shape),
                                                       tuple(ranks.shape)))
+    if table_t.is_cpu:
+        return _expand_t_plain(table_t, ranks)
+    index = table_t.get_device()
+    if (table_t.dtype is not torch.float32 or ranks.dtype is not torch.int32
+            or ranks.get_device() != index or not table_t.is_contiguous()
+            or not ranks.is_contiguous()):
+        _check_dtype("expand_t", table_t, torch.float32)
+        _check_ranks("expand_t", ranks)
+        _laid_out_ptrs("expand_t", (table_t, ranks), index)
     k, rows = table_t.shape
     e = ranks.shape[0]
-    if table_t.device.type == "cpu":
-        return _expand_t_plain(table_t, ranks)
-    _check_dtype("expand_t", table_t, torch.float32)
-    _check_ranks("expand_t", ranks)
-    out = torch.empty((k, e), dtype=torch.float32, device=table_t.device)
+    out = table_t.new_empty((k, e))
     if e and k:
-        _call("expand_t", (table_t, ranks, out), (e, rows, k))
+        _run("expand_t", index, (table_t.data_ptr(), ranks.data_ptr(),
+                                 out.data_ptr(), e, rows, k))
     return out
 
 
@@ -1806,8 +1915,8 @@ def expand_add_act(m, beta_table, ranks, act: str):
 
 
 class _ActRankedAggregate(torch.autograd.Function):
-    """K12a forward, one launch over all the stream slices, and K12b
-    backward, once per slice, on the table cotangent cast to bf16 (the JAX
+    """K12a forward and K12b backward, each one launch over all the stream
+    slices, the backward on the table cotangent cast to bf16 (the JAX
     package's act_ranked_aggregate, _aagg_fwd / _aagg_bwd, summed over the
     slices)."""
 
@@ -1825,9 +1934,9 @@ class _ActRankedAggregate(torch.autograd.Function):
         streams = ctx.saved_tensors[:ctx.num_slices]
         ranks = ctx.saved_tensors[ctx.num_slices:]
         g16 = g.to(torch.bfloat16).contiguous()
-        d_streams = [
-            _act_agg_bwd_impl(msgs, g16, rk, act=ctx.act).to(msgs.dtype)
-            for msgs, rk in zip(streams, ranks)]
+        d_streams = [d if d.dtype == msgs.dtype else d.to(msgs.dtype)
+                     for msgs, d in zip(streams, _act_agg_bwd_slices_impl(
+                         list(zip(streams, ranks)), g16, ctx.act))]
         return (None, None, None, *d_streams, *([None] * ctx.num_slices))
 
 
@@ -1988,14 +2097,17 @@ class _Emlp1TmPass(torch.autograd.Function):
         nonself = [l for l, s in enumerate(self_flags) if not s]
         g16 = g.to(torch.bfloat16).contiguous()
 
-        # Receiver-order half: per non-self type the activation cotangent
-        # (K12b), dW1 and dx as plain products (outside any kernel, as the
-        # JAX package leaves them to XLA), then dbeta through K11b.
+        # Receiver-order half: the activation cotangents of every non-self
+        # type's slice (one K12b launch), then per such type dW1 and dx as
+        # plain products (outside any kernel, as the JAX package leaves
+        # them to XLA), then dbeta through K11b.
         dx = torch.zeros_like(x)
         dw1 = torch.zeros(w1.shape, dtype=torch.float32, device=w1.device)
-        for l, y_l in zip(nonself, ys):
+        dys = _act_agg_bwd_slices_impl(
+            [(y_l, tm_rank[offs[l]:offs[l + 1]])
+             for l, y_l in zip(nonself, ys)], g16, act) if nonself else []
+        for l, dy_l in zip(nonself, dys):
             a, b = offs[l], offs[l + 1]
-            dy_l = _act_agg_bwd_impl(y_l, g16, tm_rank[a:b], act=act)
             dw1[l] = torch.matmul(x[a:b].t().to(torch.float32),
                                   dy_l.to(torch.float32))
             dx[a:b] = torch.matmul(dy_l, w1[l].to(torch.bfloat16).t())
@@ -2035,8 +2147,9 @@ def emlp1_tm_pass(ts_flat, beta_table, w1, src_idx, tm_rank, tm_rank_by_src,
     Forward: the tmajor1 pipeline (K11a, a bf16 product per non-self
     type's slice, K12a into one table), from the type-stacked source
     halves `ts_flat` [L * n_pad, D] and the rank table of the target
-    halves `beta_table`. Backward: the receiver-order half (K12b per
-    non-self type, the dW1 and dx products, K11b) and, in place of the
+    halves `beta_table`. Backward: the receiver-order half (one K12b
+    launch over the non-self types' slices, the dW1 and dx products,
+    K11b) and, in place of the
     [E, D] cotangent permute of the type-major gather, the source-order
     recompute K14."""
     return _Emlp1TmPass.apply(

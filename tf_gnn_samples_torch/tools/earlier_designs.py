@@ -1,7 +1,8 @@
 """The earlier designs of K3 (`film_src_bwd`), K4 (`film_bwd`), K12a
-(`act_agg`), K9 (`rgat_src_bwd`), K7a (`wseg_t`), K6a (`segsum_t`), K15a
-(`film_fwd_mask`), K15b (`masked_segsum`), K10a (`typed_dense_agg`), K10b
-(`typed_dense_agg_bwd`) and K14 (`emlp1_src_bwd`): a thread per column
+(`act_agg`), K12b (`act_agg_bwd`), K9 (`rgat_src_bwd`), K7a (`wseg_t`),
+K6a (`segsum_t`), K15a (`film_fwd_mask`), K15b (`masked_segsum`), K10a
+(`typed_dense_agg`), K10b (`typed_dense_agg_bwd`) and K14
+(`emlp1_src_bwd`): a thread per column
 walking a 64-edge chunk with 2-byte loads (csrc/film_src_bwd_walk.cu,
 csrc/film_bwd_walk.cu, csrc/act_agg_walk.cu, csrc/rgat_src_bwd_walk.cu,
 csrc/wseg_t_walk.cu, csrc/film_fwd_mask_walk.cu,
@@ -9,21 +10,79 @@ csrc/masked_segsum_walk.cu), or, for K6a, a thread per run of 8 edges of
 one head (csrc/segsum_t_walk.cu), or, for K10 and K14, typed products by
 scalar f32 multiply-adds (csrc/typed_dense_agg_scalar.cu,
 csrc/typed_dense_agg_bwd_scalar.cu, csrc/emlp1_src_bwd_scalar.cu),
-unchanged from before their redesign; K12a's takes one stream slice a
-launch. No model path calls them: chip_smoke.py and the card tests hold
-the redesigned kernels to them (the same sums in the same order on every
-row of at most two 64-edge chunks, K15a's mask bit for bit; K6a's: of at
-most two 8-edge runs; K10's and K14's sum their products in other orders,
-so each is held to the plain version instead) and time the two in turns.
+unchanged from before their redesign; K12a's and K12b's take one stream
+slice a launch (K12b's: csrc/act_agg_bwd_per_slice.cu, the redesign's
+arithmetic). No model path calls them: chip_smoke.py and the card tests
+hold the redesigned kernels to them (the same sums in the same order on
+every row of at most two 64-edge chunks, K15a's mask and K12b's output
+bit for bit; K6a's: of at most two 8-edge runs; K10's and K14's sum
+their products in other orders, so each is held to the plain version
+instead) and time the two in turns.
 Launches count under "film_src_bwd_walk", "film_bwd_walk",
-"act_agg_walk", "rgat_src_bwd_walk", "wseg_t_walk", "segsum_t_walk",
-"film_fwd_mask_walk", "masked_segsum_walk", "typed_dense_agg_scalar",
+"act_agg_walk", "act_agg_bwd_per_slice", "rgat_src_bwd_walk",
+"wseg_t_walk", "segsum_t_walk", "film_fwd_mask_walk",
+"masked_segsum_walk", "typed_dense_agg_scalar",
 "typed_dense_agg_bwd_scalar" and "emlp1_src_bwd_scalar". Tensors on the
-CPU take the kernels' plain versions."""
+CPU take the kernels' plain versions.
+
+Also the earlier launch path that every wrapper shared
+(`run_with_device_context`: the entry point looked up, the device
+switched and a torch.cuda.Stream built on every call), and K6b's wrapper
+through it (`expand_t_earlier_path`, counted under "expand_t"), which
+chip_smoke.py times beside ops/ranked_segment.py's `_run`.
+"""
 
 import torch
 
+from ..ops import cuda_build
 from ..ops import ranked_segment as rs
+
+
+def run_with_device_context(kernel: str, dev, args, counter: str = None):
+    """rs._run by the earlier launch path: csrc/<kernel>.cu's entry point
+    looked up, the device switched and PyTorch's current stream built as a
+    torch.cuda.Stream on every call; the launch counted as rs._run counts
+    it."""
+    fn = getattr(cuda_build.load(kernel), cuda_build.entry(kernel))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError("%s: kernel launch failed with CUDA error %d"
+                           % (kernel, rc))
+    rs.LAUNCHES[counter or kernel] += 1
+
+
+def call_with_device_context(kernel: str, tensors, ints):
+    """rs._call by the earlier launch path: every tensor's device compared
+    as a torch.device and its layout checked, then its pointer taken, then
+    run_with_device_context."""
+    dev = tensors[-1].device
+    for x in tensors:
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError("%s: inputs must be contiguous tensors on %s"
+                             % (kernel, dev))
+    run_with_device_context(kernel, dev, (*(x.data_ptr() for x in tensors),
+                                           *ints))
+
+
+def expand_t_earlier_path(table_t, ranks):
+    """K6b (`rs._expand_t_impl`) through the earlier launch path: the same
+    checks, output and kernel."""
+    if ranks.dim() != 1 or table_t.dim() != 2:
+        raise ValueError("expand_t: shapes %s, %s" % (tuple(table_t.shape),
+                                                      tuple(ranks.shape)))
+    k, rows = table_t.shape
+    e = ranks.shape[0]
+    if table_t.device.type == "cpu":
+        return rs._expand_t_plain(table_t, ranks)
+    rs._check_dtype("expand_t", table_t, torch.float32)
+    rs._check_ranks("expand_t", ranks)
+    out = torch.empty((k, e), dtype=torch.float32, device=table_t.device)
+    if e and k:
+        call_with_device_context("expand_t", (table_t, ranks, out),
+                                 (e, rows, k))
+    return out
 
 
 def film_src_bwd_walk(gcb_src, t_ranked, ranks, *, table_rows, act):
@@ -98,6 +157,30 @@ def act_agg_walk(msgs, ranks, *, table_rows, act, out=None):
     rs._check_dtype("act_agg_walk", out, torch.float32)
     if e:
         rs._call("act_agg_walk", (msgs, ranks, out), (e, dim, rs.ACT_IDS[act]))
+    return out
+
+
+def act_agg_bwd_per_slice(slices, g16, *, act):
+    """K12b's function by its earlier design, one launch a slice: the
+    inputs of `_act_agg_bwd_slices_impl`; a bf16 [E_l, D] d_msg a slice."""
+    if not slices:
+        raise ValueError("act_agg_bwd_per_slice: no slices")
+    if slices[0][0].device.type == "cpu":
+        return rs._act_agg_bwd_slices_plain(slices, g16, act)
+    rs._check_dtype("act_agg_bwd_per_slice", g16, torch.bfloat16)
+    out = []
+    for msgs, ranks in slices:
+        e, dim = msgs.shape
+        if ranks.shape != (e,) or g16.dim() != 2 or g16.shape[1] != dim:
+            raise ValueError("act_agg_bwd_per_slice: shapes %s, %s, %s" % (
+                tuple(msgs.shape), tuple(g16.shape), tuple(ranks.shape)))
+        rs._check_dtype("act_agg_bwd_per_slice", msgs, torch.bfloat16)
+        rs._check_ranks("act_agg_bwd_per_slice", ranks)
+        dmsg = torch.empty((e, dim), dtype=torch.bfloat16, device=msgs.device)
+        if e:
+            rs._call("act_agg_bwd_per_slice", (msgs, g16, ranks, dmsg),
+                     (e, dim, rs.ACT_IDS[act]))
+        out.append(dmsg)
     return out
 
 

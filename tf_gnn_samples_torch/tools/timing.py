@@ -3,6 +3,7 @@ harnesses of this package time with these), and the card's peak rates
 that bounds are counted with."""
 
 import statistics
+import time
 
 import torch
 
@@ -61,3 +62,29 @@ def cuda_queued_ms(fn, iters=20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_host_ms(fn, iters=400) -> float:
+    """Host time of one call when no call waits for the card: the wall time
+    (time.perf_counter) over `iters` calls enqueued behind a spin kernel,
+    divided by `iters`; `fn`'s launches only queue, so this is the host's
+    share of a single call (`cuda_ms`), and `cuda_queued_ms` the card's.
+    Raises where the spin ended before the calls did (their host time
+    would then hold waits for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    # About 100 ms at a clock near 2 GHz: above 400 calls of some 50 us.
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    behind = torch.cuda.Event()
+    behind.record()
+    spinning = not behind.query()
+    torch.cuda.synchronize()
+    if not spinning:
+        raise RuntimeError("cuda_host_ms: the card went idle before the %d "
+                           "calls were enqueued (%.1f ms)"
+                           % (iters, (t1 - t0) * 1e3))
+    return (t1 - t0) * 1e3 / iters
