@@ -141,7 +141,31 @@ Phases, each of which raises on failure (no phase's failure is caught):
     bounds, K12b in turns with that body; the host's enqueue ms and the
     card's busy ms of the GNN-Edge-MLP1 (QM9, VarMisuse) and streamed RGAT
     (QM9) train steps, for information;
-12. a reference check per path: loss and gradients of the full-width
+12. the scanned-epochs phase (`scanned_epochs_phase`): scan_epochs
+    through the train CLI, with the cache, for one build epoch and three
+    scanned ones, every scanned step a replayed CUDA graph of its cached
+    batch, on QM9's seven families at their tuned configs (both
+    GNN-Edge-MLPs; GNN-FiLM at full width), RGCN with messages from
+    source and target states (the ranked target gather), the PPI
+    headline's RGCN (dense and K5) and VarMisuse's GNN-Edge-MLP1: each
+    scanned epoch runs the build epoch's batches with its launches
+    (check_scanned_epochs); a replayed step counts an eager step's
+    launches (replay_launch_check); on QM9's GNN-FiLM, RGAT and
+    GNN-Edge-MLP1, from one state, a replayed train and eval step, and a
+    whole scanned train epoch in an order unlike the capture order, each
+    tensor within twice the spread of four eager runs in norm
+    (replay_eager_check, replay_epoch_check), and two replays with
+    dropout on differing, with it off not (fresh_masks_check); the
+    scanned against the eager-cached graphs/s (PPI: edges/s), the
+    replayed step's timeline, host and busy ms beside the eager step's,
+    each run's peak device memory allocated and reserved, the scanned
+    run's with its graphs captured, the eager-cached run's alone;
+    before it, _clamped_exp's derivative at the clamp inside a captured
+    graph (clamped_exp_check), gather_flat_tgt's ranked backward on
+    the card against its plain version at width 128, one K5a launch
+    (target_gather_check), and K3 over 48 KB of shared memory replayed
+    from a CUDA graph against its plain version (captured_smem_check);
+13. a reference check per path: loss and gradients of the full-width
     model on a small batch on the card (kernels) against the same model
     on the CPU (the kernels' plain versions): QM9 (a 600-node pack, the
     same gates forced), PPI (one 400-node graph of PPI's degree; RGCN
@@ -155,6 +179,7 @@ Usage: python3 chip_smoke.py
 import collections
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -3946,6 +3971,550 @@ def reference_phase(torch, rs, path, card="cuda", task_name="QM9",
                      sensitivity, {k: n for k, n in launches.items() if n})
 
 
+# ---- the scanned-epochs phase (scan_epochs: a CUDA graph a cached step) --
+
+# A build epoch, then three scanned ones; the eager-cached run that the
+# rates are read beside takes two epochs, the second from the cache.
+SCANNED_EPOCHS = 4
+EAGER_CACHED_EPOCHS = 2
+# (path, task, data key): QM9's seven families at their tuned configs
+# (both GNN-Edge-MLPs; RGDCN at its class defaults), RGCN with messages
+# from source and target states (the ranked target gather: K5a in its
+# backward), the PPI headline's RGCN on the whole fold (dense, and "pallas":
+# K5) and VarMisuse's GNN-Edge-MLP1 (its train fold held in memory, so it
+# can be cached).
+SCANNED_PATHS = tuple((Path("QM9 " + m, m, {}), "QM9", "qm9") for m in (
+    "GNN-FiLM", "RGCN", "GGNN", "RGAT", "RGIN", "GNN-Edge-MLP0",
+    "GNN-Edge-MLP1", "RGDCN")) + (
+    (Path("QM9 RGCN source and target", "RGCN",
+          {"use_both_source_and_target": True}), "QM9", "qm9"),
+    (Path("PPI RGCN headline dense", "RGCN", {}), "PPI", "ppi"),
+    (Path("PPI RGCN headline K5", "RGCN", {"aggregation_strategy": "pallas"}),
+     "PPI", "ppi"),
+    (Path("VarMisuse GNN-Edge-MLP1", "GNN-Edge-MLP1", {}), "VarMisuse",
+     "varmisuse"))
+# The paths whose replayed steps are held to eager steps from one state
+# (replay_eager_check) and whose replays draw fresh masks
+# (fresh_masks_check).
+REPLAY_CHECKED = ("QM9 GNN-FiLM", "QM9 RGAT", "QM9 GNN-Edge-MLP1")
+# The eager steps whose spread sets replay_eager_check's limit.
+EAGER_STEPS = 4
+EPOCH_RATES = re.compile(
+    r"^ (Train|Valid): loss: \S+ \|\| .* \|\| graphs/sec: (\S+) \| "
+    r"nodes/sec: \d+ \| edges/sec: (\d+)$")
+
+
+def epoch_rates(log_file, per="graphs"):
+    """{"Train": [...], "Valid": [...]}: the graphs/s (or edges/s) of each
+    epoch's log line."""
+    rates = {"Train": [], "Valid": []}
+    with open(log_file) as f:
+        for m in map(EPOCH_RATES.match, f):
+            if m:
+                rates[m.group(1)].append(float(
+                    m.group(2) if per == "graphs" else m.group(3)))
+    return rates
+
+
+def check_scanned_epochs(records, label):
+    """Raise unless, in each fold, every scanned epoch (all but the first)
+    ran the build epoch's batches, each once, with the build epoch's
+    launches (a replay adds what its capture counted), and every loss is
+    finite."""
+    for fold in ("TRAIN", "VALIDATION"):
+        runs = [r for r in records if r["fold"] == fold]
+        if len(runs) < 2:
+            raise AssertionError("%s: %d %s epochs" % (label, len(runs),
+                                                        fold))
+        first = runs[0]
+        for i, r in enumerate(runs[1:], 2):
+            if (r["batches"] != first["batches"]
+                    or r["launches"] != first["launches"]):
+                raise AssertionError(
+                    "%s %s epoch %d: %d batches, launches %s; the eager "
+                    "epoch ran %d, launches %s" % (
+                        label, fold, i, r["batches"], r["launches"],
+                        first["batches"], first["launches"]))
+        for r in runs:
+            if not math.isfinite(r["loss"]):
+                raise AssertionError("%s %s: loss %s" % (label, fold,
+                                                         r["loss"]))
+
+
+def replay_launch_check(label, eager, replayed):
+    """A replayed step counts the hand-kernel launches of an eager step on
+    the same batch ({kernel: n}, zeros left out)."""
+    if replayed != eager:
+        raise AssertionError("%s: a replayed step counts launches %s, an "
+                             "eager one %s" % (label, replayed, eager))
+
+
+# replay_eager_check's allowance beside twice the eager spread: four f32
+# ulps at the largest magnitude of a class (2^-23 of it each), so that
+# last-bit flips of a few of its largest entries pass.
+SLACK_ULPS = 4
+
+
+def class_distance(a, b) -> float:
+    """The L2 norm, in f64, of the difference of two lists of tensors
+    taken as one vector."""
+    return math.sqrt(sum(float((x.double() - y.double()).square().sum())
+                         for x, y in zip(a, b)))
+
+
+def replay_eager_check(label, eager, replayed):
+    """eager: {class: [tensors]} of each of several (at least two) eager
+    runs, replayed: one replayed run's, all from one state (a train step's
+    loss, parameters and optimizer slots, an eval step's metrics, or a
+    scanned epoch's per-batch losses and final state). Class by class, all
+    its tensors taken as one vector, the replay may differ from the first
+    eager run by at most twice the spread of the eager runs (the largest
+    norm of the difference of two of them: the seam atomics order sums
+    differently run to run) plus SLACK_ULPS ulps at the class's largest
+    magnitude. Norms, not the largest entry-wise difference: the atomics
+    reach other entries in every run, so one run's largest difference says
+    little of another's, and measured in ulps at each entry's own
+    magnitude, an entry near zero would set a limit that lets large
+    entries move by percents; a whole class, not each tensor: a rounding
+    difference moves many tensors together, and one limit a tensor would
+    fail one of dozens at random. An error of 1% in an entry whose
+    magnitude is not negligible against the class's noise moves the norm
+    past the limit. Returns, by class, twice the spread (the noise alone,
+    without the slack)."""
+    spreads = {}
+    for cls in eager[0]:
+        base = eager[0][cls]
+        spread = max(class_distance(a[cls], b[cls])
+                     for i, a in enumerate(eager) for b in eager[i + 1:])
+        top = max((float(x.double().abs().max()) for x in base if x.numel()),
+                  default=0.0)
+        slack = SLACK_ULPS * 2.0 ** -23 * top
+        limit = 2 * spread + slack
+        off = class_distance(replayed[cls], base)
+        spreads[cls] = 2 * spread
+        print("  %s: %s: |replay - eager| %.3e, limit %.3e (%.3f of it): "
+              "twice the spread of %d eager runs %.3e plus %d ulps at %.3e"
+              % (label, cls, off, limit, off / limit if limit else 0.0,
+                 len(eager), 2 * spread, SLACK_ULPS, top))
+        if off > limit:
+            raise AssertionError(
+                "%s: the replayed run's %s differ from the eager run's: "
+                "|replay - eager| %.3e, over twice the spread of %d eager "
+                "runs (%.3e) plus %d ulps at %.3e" % (
+                    label, cls, off, len(eager), spread, SLACK_ULPS, top))
+    return spreads
+
+
+def fresh_masks_check(label, on, off, limit):
+    """Two replays of one batch's train graph from one state: with dropout
+    on (`on`, their losses) they must differ by more than `limit` (the
+    eager steps' loss noise, from replay_eager_check), as masks drawn
+    fresh at each replay make them; with dropout off (`off`) by at most
+    `limit`."""
+    print("  %s: losses of two replays from one state: dropout on %r, off "
+          "%r (limit %.3e)" % (label, on, off, limit))
+    if abs(on[0] - on[1]) <= limit:
+        raise AssertionError("%s: two replays drew the same dropout masks "
+                             "(losses %r)" % (label, on))
+    if abs(off[0] - off[1]) > limit:
+        raise AssertionError("%s: two replays without dropout differ "
+                             "(losses %r)" % (label, off))
+
+
+def clamped_exp_check(torch, edge_ops, device):
+    """exp(clip(x, -50, 50))'s derivative is jnp.clip's: 1/2 at exactly
+    +-50 and 0 outside. On the card it is captured in a CUDA graph (the
+    bounds are filled on the device) and replayed."""
+    x = torch.tensor([-60.0, -50.0, 0.0, 50.0, 60.0], device=device,
+                     requires_grad=True)
+
+    def grad():
+        y = edge_ops._clamped_exp(x, 50.0)
+        return torch.autograd.grad(y.sum(), x)[0]
+
+    if device.type == "cuda":
+        graph = torch.cuda.CUDAGraph()
+        grad()  # warm up off the graph
+        with torch.cuda.graph(graph):
+            got = grad()
+        graph.replay()
+        torch.cuda.synchronize()
+    else:
+        got = grad()
+    want = torch.tensor([0.0, 0.5 * math.exp(-50.0), 1.0,
+                         0.5 * math.exp(50.0), 0.0], dtype=torch.float64)
+    err = float(((got.double().cpu() - want).abs()
+                 / want.abs().clamp(min=1e-300)).max())
+    print("  _clamped_exp: d/dx at -60, -50, 0, 50, 60 within %.1e of jnp."
+          "clip's" % err)
+    if not err <= 1e-6:
+        raise AssertionError("_clamped_exp's derivative %s, jnp.clip's %s"
+                             % (got.tolist(), want.tolist()))
+
+
+def target_gather_check(torch, rs, graph, width=128, seed=0):
+    """gather_flat_tgt (ranked) of a [L * n_pad, width] table on `graph` (on
+    the card): the forward equal to the plain version's, the ranked backward
+    within K5a's order bound of it, one K5a launch and no other. Returns
+    the largest difference."""
+    from tf_gnn_samples_torch.ops.edge_ops import gather_flat_tgt
+    from tf_gnn_samples_torch.ops.graph import graph_to_device
+
+    gen = torch.Generator().manual_seed(seed)
+    flat, cpu_flat = graph.flat, graph_to_device(graph, "cpu").flat
+    rows = graph.num_edge_types * graph.n_pad
+    table = torch.randn(rows, width, generator=gen)
+    g = torch.randn(flat.tgt_flat.shape[0], width, generator=gen)
+    outs = []
+    for fl, dev in ((cpu_flat, "cpu"), (flat, flat.tgt_flat.device)):
+        t = table.to(dev, copy=True).requires_grad_(True)
+        before = dict(rs.LAUNCHES)
+        out = gather_flat_tgt(t, fl, ranked=True)
+        out.backward(g.to(dev))
+        outs.append((out.detach(), t.grad, before, dict(rs.LAUNCHES)))
+    (want_out, want, _, _), (got_out, got, before, after) = outs
+    launch_count_check("gather_flat_tgt (ranked) on the card", before, after,
+                       {"segsum": 1})
+    check_exact("gather_flat_tgt (ranked) forward", got_out.cpu(), want_out,
+                torch)
+    real = cpu_flat.mask > 0
+    idx = cpu_flat.tgt_flat[real].long()
+    terms = g.to(torch.bfloat16).float()[real].abs()
+    counts = torch.zeros(rows).index_add_(0, idx, torch.ones(idx.shape[0]))
+    terms_abs = torch.zeros(rows, width).index_add_(0, idx, terms)
+    return check_kernel("gather_flat_tgt (ranked) backward (K5a, width %d)"
+                        % width,
+                        got.cpu(), want, terms_abs, counts, torch)
+
+
+def captured_smem_check(torch, rs, graph, dim=8, act="elu", seed=0):
+    """K3's gather form on `graph` (on the card) at `dim` columns, where
+    its shared memory (three staged int arrays of rows_cap<8>(dim) = 4,160
+    entries, 49,920 bytes) is over the 48 KB default, so that each launch
+    first raises the kernel's limit (cudaFuncSetAttribute in
+    csrc/film_common.cuh launch_smem, the call K9, K10 and K14 make too):
+    launched once eagerly, then captured in a CUDA graph on a side stream
+    and replayed, the replay's output held to the plain version's as the
+    kernel phase holds K3, the capture counting one launch. Returns the
+    largest difference."""
+    flat = graph.flat
+    dev = flat.tgt_flat.device
+    rpad = int(flat.fine_to_flat.numel())
+    rsrc = int(flat.src_from_rank.numel())
+    fine_src, t_index, src = (flat.fine_rank_by_src, flat.src_from_rank,
+                              flat.src_sorted_rank)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    gb, g = randn(rpad, 2 * dim), randn(rpad, dim)
+    t16 = randn(graph.num_edge_types * graph.n_pad, dim)
+
+    def k3():
+        return rs._film_src_bwd_gather_impl(gb, g, fine_src, t16, t_index,
+                                            src, table_rows=rsrc, act=act)
+
+    k3()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream())
+    before = dict(rs.LAUNCHES)
+    captured = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(captured, stream=stream):
+        got = k3()
+    launch_count_check("film_src_bwd captured at %d columns" % dim, before,
+                       dict(rs.LAUNCHES), {"film_src_bwd": 1})
+    rs.LAUNCHES.update(before)
+    got.fill_(float("nan"))
+    captured.replay()
+    torch.cuda.synchronize()
+    want = rs._film_src_bwd_gather_plain(gb, g, fine_src, t16, t_index, src,
+                                         rsrc, act)
+    gcb, t = rs._src_stream_inputs(gb, g, fine_src, t16, t_index)
+    terms = src_terms(torch, rs, gcb, t, src, act)
+    return check_kernel("film_src_bwd (gather form, %d columns, over 48 KB "
+                        "of shared memory) replayed from a CUDA graph" % dim,
+                        got, want, row_abs_sums(torch, rsrc, src, terms),
+                        row_counts(torch, rsrc, src), torch)
+
+
+def model_state(model):
+    """Copies of a model's parameters, optimizer slots and step counts."""
+    return ([p.detach().clone() for p in model._leaves()],
+            [t.clone() for ts in model.opt_state.slots.values() for t in ts],
+            model.opt_state.step_t.clone(), model.opt_state.step)
+
+
+def load_model_state(torch, model, state):
+    """Copy `state` (model_state) into the model's own tensors in place,
+    so that its captured graphs stay bound to them."""
+    params, slots, step_t, step = state
+    with torch.no_grad():
+        for p, s in zip(model._leaves(), params):
+            p.copy_(s)
+        for t, s in zip((t for ts in model.opt_state.slots.values()
+                         for t in ts), slots):
+            t.copy_(s)
+        model.opt_state.step_t.copy_(step_t)
+    model.opt_state = model.opt_state._replace(step=step)
+
+
+def train_step_result(model, metrics):
+    params, slots, _, _ = model_state(model)
+    return {"loss": [metrics["loss"].detach().clone()], "parameters": params,
+            "slots": slots}
+
+
+def scanned_epoch_order(groups):
+    """The order in which _run_epoch_scanned runs a TRAIN fold's cached
+    batches, drawn from np.random as it draws it (which this advances):
+    the groups in a permuted order, each group's batches permuted."""
+    import numpy as np
+
+    return [groups[gi][j] for gi in np.random.permutation(len(groups))
+            for j in np.random.permutation(len(groups[gi]))]
+
+
+def replay_epoch_check(torch, model, label, state):
+    """With dropout off, on a model whose graphs were dropped: every cached
+    TRAIN batch's graph captured in the fold's order, then from `state`
+    (model_state) one scanned TRAIN epoch (_run_epoch_scanned: every step
+    a replay, the graphs sharing one pool, in a drawn order that is not
+    the capture order) against EAGER_STEPS runs of eager train steps in
+    that order: the per-batch losses and the final parameters and slots by
+    replay_eager_check."""
+    import numpy as np
+
+    from tf_gnn_samples_torch.tasks.base import DataFold
+
+    train = DataFold.TRAIN
+    cached = model._batch_cache[train]
+    saved = np.random.get_state()
+    for seed in range(100):
+        np.random.seed(seed)
+        order = scanned_epoch_order(model._scan_groups[train])
+        if order != sorted(order):
+            break
+    else:
+        raise AssertionError("%s: %d cached TRAIN batches, no replay order "
+                             "other than the capture order" % (label,
+                                                               len(cached)))
+    load_model_state(torch, model, state)
+    for i in range(len(cached)):
+        model._scanned_step(train, i, cached[i])
+
+    def replayed():
+        load_model_state(torch, model, state)
+        np.random.seed(seed)
+        metrics = model._run_epoch_scanned(cached, train)[1]
+        return train_step_result(model, {"loss": torch.tensor(
+            [float(m["loss"]) for m in metrics])})
+
+    def eager():
+        load_model_state(torch, model, state)
+        losses = [model._train_step_body(cached[i])["loss"].detach()
+                  for i in order]
+        return train_step_result(model, {"loss": torch.stack(
+            losses).reshape(-1).float().cpu()})
+
+    eager_runs = [eager() for _ in range(EAGER_STEPS)]
+    got = replayed()
+    np.random.set_state(saved)
+    replay_eager_check("%s scanned epoch (%d batches in the order %s)" % (
+        label, len(cached), order), eager_runs, got)
+
+
+def replay_checks(torch, model, label):
+    """On a model whose scanned epochs ran: from one state (its weights,
+    slots and step counts, restored in place before each step), with
+    dropout off, one replayed train step against EAGER_STEPS eager ones on the
+    fold's first cached TRAIN batch (replay_eager_check), the same for an
+    eval step on the first VALIDATION batch, a whole scanned TRAIN epoch
+    against eager ones (replay_epoch_check), then two replays with dropout
+    on and two with it off (fresh_masks_check). The captured graphs are
+    dropped for each dropout setting (a graph keeps the one it was
+    captured with)."""
+    from tf_gnn_samples_torch.tasks.base import DataFold
+
+    train, valid = DataFold.TRAIN, DataFold.VALIDATION
+    tb, vb = model._batch_cache[train][0], model._batch_cache[valid][0]
+    key = "graph_layer_input_dropout_keep_prob"
+    keep = model.params[key]
+    if keep >= 1.0:
+        raise AssertionError("%s: no dropout to draw (%s %s)" % (label, key,
+                                                                keep))
+    state = model_state(model)
+
+    def run(fn):
+        load_model_state(torch, model, state)
+        return train_step_result(model, fn())
+
+    def evaluate(fn):
+        return {k: [v.clone()] for k, v in fn().items()}
+
+    model.params[key] = 1.0
+    model._drop_graphs()
+    eager = [run(lambda: model._train_step_body(tb))
+             for _ in range(EAGER_STEPS)]
+    replayed = run(lambda: model._scanned_step(train, 0, tb))
+    noise = replay_eager_check(label + " train step", eager, replayed)
+    eager = [evaluate(lambda: model._eval_step(vb))
+             for _ in range(EAGER_STEPS)]
+    replay_eager_check(label + " eval step", eager,
+                       evaluate(lambda: model._scanned_step(valid, 0, vb)))
+    off = [float(run(lambda: model._scanned_step(train, 0, tb))["loss"][0])
+           for _ in range(2)]
+    replay_epoch_check(torch, model, label, state)
+    model.params[key] = keep
+    model._drop_graphs()
+    model._dropout_gen.manual_seed(1)
+    on = [float(run(lambda: model._scanned_step(train, 0, tb))["loss"][0])
+          for _ in range(2)]
+    fresh_masks_check(label, on, off, noise["loss"])
+    load_model_state(torch, model, state)
+
+
+def replay_busy_ms(fn, torch):
+    """device_profile's busy ms of `fn`, or None where the profiler sees
+    no device event (kernels inside a replayed graph)."""
+    try:
+        return device_profile(fn, torch)[0]
+    except AssertionError:
+        return None
+
+
+def scanned_step_times(rs, model, label):
+    """On the first cached TRAIN batch of a scanned model: the replayed
+    train step's device timeline (median of 5 CUDA-event timings), the
+    host's ms to enqueue it and the card's busy ms in it, beside the eager
+    step's timeline and host ms on the same batch; the launches a replay
+    counts held to an eager step's (replay_launch_check)."""
+    import torch
+
+    from tf_gnn_samples_torch.tasks.base import DataFold
+
+    train = DataFold.TRAIN
+    batch = model._batch_cache[train][0]
+
+    def replay():
+        return model._scanned_step(train, 0, batch)
+
+    def eager():
+        return model._train_step(batch)
+
+    counts = []
+    for fn in (replay, eager):
+        rs.reset_launches()
+        fn()
+        counts.append({k: n for k, n in rs.LAUNCHES.items() if n})
+    replay_launch_check(label, counts[1], counts[0])
+    times = {"replay_ms": cuda_ms(replay, warmup=1, iters=5),
+             "replay_host_ms": host_enqueue_ms(replay, torch),
+             "replay_busy_ms": replay_busy_ms(replay, torch),
+             "eager_ms": cuda_ms(eager, warmup=1, iters=5),
+             "eager_host_ms": host_enqueue_ms(eager, torch),
+             "launches": counts[0]}
+    return times
+
+
+def device_memory_gb(torch, device):
+    """The peak device memory allocated and reserved (GB) since the last
+    reset_peak_memory_stats, None off the card. Reserved counts the
+    captured graphs' pool, whose blocks a replay reuses without allocating
+    them."""
+    if device != "cuda":
+        return None
+    return (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+
+
+def release_device_memory(torch, device):
+    """Collect what was dropped (a model, its cache and its graphs) and
+    hand the cached blocks back, then restart the peak counts."""
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def scanned_epochs_phase(rs, data, out=OUT, device="cuda", overrides=None,
+                         paths=SCANNED_PATHS, card="", timed=True):
+    """scan_epochs through the train CLI (the cache on, SCANNED_EPOCHS:
+    one build epoch, then scanned ones, every step of which replays its
+    batch's CUDA graph on the card) on each of `paths` at its tuned
+    config, held by check_scanned_epochs, then, with that model and its
+    graphs freed, the same path cached without scan_epochs for
+    EAGER_CACHED_EPOCHS. Prints the scanned against the eager-cached train
+    and valid graphs/s (PPI: edges/s), each from its run, the peak device
+    memory of each run (allocated and reserved; the scanned run's with its
+    graphs captured) and (`timed`) the replayed step's timeline, host and
+    busy ms beside the eager step's and the launches a step (held equal,
+    scanned_step_times). REPLAY_CHECKED paths also run replay_checks.
+    `data`: {"qm9": dir, "ppi": dir, "varmisuse": dir}. Returns the
+    launches of the runs."""
+    import torch
+
+    from tf_gnn_samples_torch import train as train_cli
+
+    total = {k: 0 for k in rs.LAUNCHES}
+
+    def train_run(path, task_name, key, scan, epochs):
+        tag = "scanned" if scan else "eager-cached"
+        argv = [path.model, task_name, "--data-path", data[key],
+                "--result-dir", os.path.join(
+                    out, (path.label + " " + tag).replace(" ", "-")),
+                "--quiet", "--device", device, "--model-param-overrides",
+                json.dumps({"max_epochs": epochs,
+                            "cache_batches_on_device": True,
+                            "scan_epochs": scan, **(overrides or {}),
+                            **path.overrides})]
+        release_device_memory(torch, device)
+        rs.reset_launches()
+        model, records = recorded_run(rs, train_cli.get_train_args(argv))
+        for k, n in rs.LAUNCHES.items():
+            total[k] += n
+        return model, records, device_memory_gb(torch, device)
+
+    def gb(peak):
+        return "%.2f / %.2f" % peak if peak else "not measured"
+
+    for path, task_name, key in paths:
+        per = "edges" if task_name == "PPI" else "graphs"
+        t0 = time.time()
+        model, records, peak = train_run(path, task_name, key, True,
+                                         SCANNED_EPOCHS)
+        check_scanned_epochs(records, path.label)
+        scanned = epoch_rates(model.log_file, per)
+        if path.label in REPLAY_CHECKED:
+            replay_checks(torch, model, path.label)
+        if timed:
+            t = scanned_step_times(rs, model, path.label)
+            print("%s: replayed train step %.2f ms (device timeline), host "
+                  "%.3f ms, card busy %s ms; eager step %.2f ms, host %.2f "
+                  "ms; hand-kernel launches a step %s, replayed and eager" % (
+                      path.label, t["replay_ms"], t["replay_host_ms"],
+                      "not measured (no device event in the profile)"
+                      if t["replay_busy_ms"] is None
+                      else "%.2f" % t["replay_busy_ms"], t["eager_ms"],
+                      t["eager_host_ms"], t["launches"]))
+        del model, records
+        model, _, eager_peak = train_run(path, task_name, key, False,
+                                         EAGER_CACHED_EPOCHS)
+        eager = epoch_rates(model.log_file, per)
+        del model
+        print("%s: %s/s, train / valid, scanned epochs 2-%d (the first pays "
+              "its captures) %s / %s; eager-cached epoch 2 %.2f / %.2f; "
+              "peak device memory allocated / reserved, GB: scanned, graphs "
+              "captured, %s; eager-cached, run alone, %s; %s" % (
+                  path.label, per, SCANNED_EPOCHS, scanned["Train"][1:],
+                  scanned["Valid"][1:], eager["Train"][-1],
+                  eager["Valid"][-1], gb(peak), gb(eager_peak), card))
+        print("%s: %.1f s" % (path.label, time.time() - t0))
+    release_device_memory(torch, device)
+    return total
+
+
 def report_hand_kernels(label, times):
     """Print the hand kernels' profiled device time in one train step
     (step_times) beside the card's busy time."""
@@ -4093,6 +4662,20 @@ def main() -> int:
     del batch
     print("VarMisuse parse rates, scan and K12 rows: %.1f s"
           % (time.time() - t0))
+    t0 = time.time()
+    from tf_gnn_samples_torch.ops import edge_ops
+    from tf_gnn_samples_torch.ops.graph import graph_to_device
+
+    clamped_exp_check(torch, edge_ops, torch.device("cuda"))
+    _, batch = first_batch(50000, "VALIDATION")
+    target_gather_check(torch, rs, graph_to_device(batch.graph, "cuda"))
+    captured_smem_check(torch, rs, graph_to_device(batch.graph, "cuda"))
+    del batch
+    for name, n in scanned_epochs_phase(
+            rs, {"qm9": DATA, "ppi": ppi_full, "varmisuse": vm},
+            card=card).items():
+        total[name] += n
+    print("scanned-epochs phase: %.1f s" % (time.time() - t0))
     print("train step, the host's ms to enqueue it / the card's busy ms in "
           "it (for information): %s" % ", ".join(
               "%s %.2f / %.2f" % (label, t["train_step_host_ms"],

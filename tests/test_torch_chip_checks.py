@@ -38,6 +38,9 @@ import pytest
 import torch
 
 from chip_smoke import (CACHE_OVERRIDES, Path, batch_branch, cache_phase,
+                        clamped_exp_check, fresh_masks_check,
+                        replay_eager_check, replay_launch_check,
+                        scanned_epochs_phase, REPLAY_CHECKED,
                         check_exact, check_kernel, chunk_span,
                         ppi_headline, reference_agrees, task_phase,
                         ACCURACY, MICRO_F1, PPI_PATHS,
@@ -1613,3 +1616,136 @@ def test_scan_phase_checks_reject_planted_faults(tiny_vm, tmp_path,
              "scan_takes_kernels": "scan"}[fault]
     with pytest.raises(AssertionError, match=match):
         scan_phase(torch, rs, tiny_vm, **kwargs)
+
+
+# ---- the scanned-epochs phase -------------------------------------------
+
+def test_replay_checks_reject_planted_faults():
+    """replay_eager_check, class by class in norms: a replay within twice
+    the spread of the eager runs (plus SLACK_ULPS ulps at the class's
+    largest magnitude) passes, one past it fails, where the eager runs
+    agree bit for bit the replay may move only last bits of its largest
+    entries, and an entry near zero
+    that the atomics reach in every run does not let a 1% error in a large
+    entry pass; fresh_masks_check: equal losses with dropout on fail,
+    unequal ones with it off fail; replay_launch_check: a replay that
+    counts fewer launches fails."""
+    ulp = 2.0 ** -23  # at 1.0
+    one = torch.ones(3)
+    eager = [{"loss": [torch.tensor(1.0 + k * ulp)], "parameters": [one]}
+             for k in (0, 3, 1)]
+    near = {"loss": [torch.tensor(1.0 + 6 * ulp)], "parameters": [one]}
+    noise = replay_eager_check("t", eager, near)
+    assert noise == {"loss": 6 * ulp, "parameters": 0.0}
+    for cls in ("loss", "parameters"):
+        bad = {k: [v[0].clone()] for k, v in near.items()}
+        bad[cls][0] += 6 * ulp
+        with pytest.raises(AssertionError, match="over twice the spread"):
+            replay_eager_check("t", eager, bad)
+    flip = {"loss": near["loss"], "parameters": [one + torch.tensor(
+        [ulp, 0.0, 0.0])]}
+    replay_eager_check("t", eager, flip)
+    # A slot near zero that the atomics move in every run by many of its
+    # own ulps, beside O(0.1) entries; a 1% error in one of those fails.
+    rng = np.random.RandomState(0)
+    base = torch.from_numpy(rng.uniform(0.05, 0.2, 4096).astype(np.float32))
+    base[0] = 1e-20
+
+    def noisy(k):
+        x = base.clone()
+        x[0] = 1e-20 * (1 + k)
+        return {"slots": [x]}
+
+    runs = [noisy(k) for k in range(4)]
+    replay_eager_check("t", runs, noisy(5))
+    wrong = noisy(2)
+    wrong["slots"][0][7] *= 1.01
+    with pytest.raises(AssertionError, match="slots differ"):
+        replay_eager_check("t", runs, wrong)
+    fresh_masks_check("t", [1.0, 1.1], [1.0, 1.0], 0.0)
+    with pytest.raises(AssertionError, match="same dropout masks"):
+        fresh_masks_check("t", [1.0, 1.0 + 2 * ulp], [1.0, 1.0], 2 * ulp)
+    with pytest.raises(AssertionError, match="without dropout differ"):
+        fresh_masks_check("t", [1.0, 1.1], [1.0, 1.0 + 3 * ulp], 2 * ulp)
+    replay_launch_check("t", {"segsum": 8}, {"segsum": 8})
+    with pytest.raises(AssertionError, match="replayed step counts"):
+        replay_launch_check("t", {"segsum": 8}, {})
+
+
+@pytest.mark.parametrize("fault", ["none", "derivative_one_at_clamp"])
+def test_clamped_exp_check_rejects_a_derivative_of_one(monkeypatch, fault):
+    from tf_gnn_samples_torch.ops import edge_ops
+
+    if fault != "none":
+        monkeypatch.setattr(edge_ops, "_clamped_exp", lambda x, c: torch.exp(
+            torch.clamp(x, -c, c)))
+        with pytest.raises(AssertionError, match="derivative"):
+            clamped_exp_check(torch, edge_ops, torch.device("cpu"))
+        return
+    clamped_exp_check(torch, edge_ops, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("fault", [
+    "none", "replay_differs", "identical_masks", "replay_adds_no_launches",
+    "stale_batch"])
+def test_scanned_epochs_phase_checks_reject_planted_faults(qm9_dir, tmp_path,
+                                                           monkeypatch, fault):
+    """scanned_epochs_phase on the CPU for GNN-FiLM at a tiny width (one
+    layer, 16 columns, 600-node batches), where a scanned step runs
+    eagerly and every step's launches are emulated (expected_launches for
+    its batch): it passes as it is, and fails on a scanned train step
+    whose parameters move off the eager step's, on replays that reseed the
+    dropout generator alike, on scanned steps that count no launches and
+    on scanned train steps past the first that read the batch before
+    theirs (a stale pointer in a later capture, which one replayed step
+    of batch 0 does not show and a whole scanned epoch does)."""
+    assert "QM9 GNN-FiLM" in REPLAY_CHECKED
+    monkeypatch.setattr(rs, "LAUNCHES", dict.fromkeys(rs.LAUNCHES, 0))
+
+    def emulated(real, n_bwd):
+        def step(self, batch):
+            layers = (self.params["graph_num_layers"]
+                      * self.params["graph_num_timesteps_per_layer"])
+            for k, n in expected_launches("GNN-FiLM", layers, 1,
+                                          n_bwd).items():
+                rs.LAUNCHES[k] += n
+            return real(self, batch)
+        return step
+
+    monkeypatch.setattr(SparseGraphModel, "_train_step_body", emulated(
+        SparseGraphModel._train_step_body, 1))
+    monkeypatch.setattr(SparseGraphModel, "_eval_step", emulated(
+        SparseGraphModel._eval_step, 0))
+    real_scanned = SparseGraphModel._scanned_step
+
+    def scanned(self, fold, i, batch):
+        if fault == "identical_masks":
+            self._dropout_gen.manual_seed(5)
+        if fault == "stale_batch" and fold.name == "TRAIN" and i:
+            batch = self._batch_cache[fold][i - 1]
+        saved = dict(rs.LAUNCHES)
+        metrics = real_scanned(self, fold, i, batch)
+        if fault == "replay_adds_no_launches":
+            rs.LAUNCHES.update(saved)
+        if fault == "replay_differs" and fold.name == "TRAIN":
+            with torch.no_grad():
+                self._leaves()[0].add_(1e-3)
+        return metrics
+
+    monkeypatch.setattr(SparseGraphModel, "_scanned_step", scanned)
+    kwargs = dict(data={"qm9": qm9_dir}, out=str(tmp_path), device="cpu",
+                  overrides={"graph_num_layers": 1, "hidden_size": 16,
+                             "max_nodes_in_batch": 600},
+                  paths=((Path("QM9 GNN-FiLM", "GNN-FiLM", {}), "QM9",
+                          "qm9"),), timed=False)
+    if fault == "none":
+        launches = scanned_epochs_phase(rs, **kwargs)
+        # 4 train and 2 valid batches an epoch: 4 + 2 epochs, 1 layer
+        assert launches["film_fwd"] == 6 * 6
+        return
+    match = {"replay_differs": "replayed run's parameters differ",
+             "identical_masks": "same dropout masks",
+             "replay_adds_no_launches": "launches",
+             "stale_batch": "scanned epoch .* differ"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        scanned_epochs_phase(rs, **kwargs)

@@ -1393,3 +1393,53 @@ def test_k13_k15_wrappers_refuse_what_the_kernels_do_not_take(dev, graph):
         rs._masked_segsum_impl(mask[:, :2], torch.zeros((e, 48), **bf), ranks,
                                table_rows=rows, leak=0.0)
     assert rs.LAUNCHES == before  # nothing refused was launched
+
+
+def test_captured_train_step_replays_the_eager_step(dev, tmp_path):
+    """scan_epochs on the card at a tiny size (GNN-FiLM, 2 layers, 32 wide,
+    Adam, dropout off, 60 QM9 graphs in 300-node batches): a build epoch,
+    then a scanned one, whose every step replays its batch's captured
+    graph; from one state, a replayed train step counts an eager step's
+    launches and agrees with it within twice the spread of three eager
+    steps (chip_smoke.py replay_eager_check), and advances both step
+    counts."""
+    import os
+
+    from chip_smoke import (load_model_state, model_state,
+                            replay_eager_check, replay_launch_check,
+                            train_step_result)
+    from tf_gnn_samples_torch.runtime.model import GNN_FiLM_Model
+    from tf_gnn_samples_torch.tasks.base import DataFold
+    from tf_gnn_samples_torch.tasks.qm9 import QM9_Task
+
+    train = DataFold.TRAIN
+    task = QM9_Task(QM9_Task.default_params())
+    data = task._QM9_Task__load_data(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+        "qm9", "valid.jsonl.gz"))[:60]
+    task._loaded_data = {train: data, DataFold.VALIDATION: data[:20]}
+    params = GNN_FiLM_Model.default_params()
+    params.update({"hidden_size": 32, "graph_num_layers": 2,
+                   "max_nodes_in_batch": 300, "optimizer": "Adam",
+                   "graph_layer_input_dropout_keep_prob": 1.0,
+                   "cache_batches_on_device": True, "scan_epochs": True})
+    model = GNN_FiLM_Model(params, task, "t", str(tmp_path), device=dev)
+    for _ in range(2):
+        model._run_epoch("e", data, train, quiet=True)
+    cached = model._batch_cache[train]
+    assert len(cached) > 1 and sorted(model._graphs[train]) == list(
+        range(len(cached)))
+    batch = cached[0]
+    state = model_state(model)
+    results, launches = [], []
+    for fn in [lambda: model._train_step_body(batch)] * 3 + [
+            lambda: model._scanned_step(train, 0, batch)]:
+        load_model_state(torch, model, state)
+        rs.reset_launches()
+        results.append(train_step_result(model, fn()))
+        launches.append({k: n for k, n in rs.LAUNCHES.items() if n})
+    assert launches[0]
+    replay_launch_check("tiny GNN-FiLM", launches[0], launches[-1])
+    replay_eager_check("tiny GNN-FiLM", results[:-1], results[-1])
+    assert model.opt_state.step == state[3] + 1
+    assert float(model.opt_state.step_t) == state[3] + 1

@@ -267,11 +267,6 @@ def test_checkpoint_carries_the_jax_keys_and_names(tmp_path):
                                   model._step_rng.get_state()[1])
 
 
-def test_scan_epochs_raises_naming_its_queue_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tiny_model(tmp_path, scan_epochs=True)
-
-
 def write_subset(src, dst, count):
     with gzip.open(src, "rt") as fin, gzip.open(dst, "wt") as fout:
         fout.writelines(itertools.islice(fin, count))

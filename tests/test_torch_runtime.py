@@ -22,6 +22,8 @@ from tf_gnn_samples_torch.utils.iterators import ThreadedIterator
 
 
 def test_adam_copies_its_step_scalar_once_per_update(monkeypatch):
+    """At most once: Adam's bias correction reads the device step counter
+    (OptimizerState.step_t), so an update copies nothing to the device."""
     rng = np.random.RandomState(0)
     params = [torch.from_numpy(rng.randn(4, 3).astype(np.float32))
               for _ in range(7)]
@@ -39,7 +41,8 @@ def test_adam_copies_its_step_scalar_once_per_update(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "to", counted)
     state = opt.update(grads, state, params, 1e-3)
     state = opt.update(grads, state, params, 1e-3)
-    assert state.step == 2 and len(calls) == 2
+    assert state.step == 2 and len(calls) == 0
+    assert float(state.step_t) == 2.0
 
 
 def test_threaded_iterator_keeps_the_order():

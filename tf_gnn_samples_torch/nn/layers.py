@@ -115,17 +115,21 @@ def aggregate_flat_auto(messages, graph: GraphBatch, aggregation: str,
     return aggregate_flat(messages, graph.flat, graph.n_pad, aggregation)
 
 
-def _flat_linear_messages(h, W, graph, concat_target=False):
+def _flat_linear_messages(h, W, graph, concat_target=False,
+                          ranked_target=False):
     """Per-edge linear messages of the whole flat stream: the type-l
     message along u -> v is (h @ W_l)[u], or with concat_target
     Dense(concat(h_u, h_v)), split into source and target halves of W so
-    both products stay node-sided."""
+    both products stay node-sided. ranked_target: the target half's
+    gather takes the ranked backward where its gate allows
+    (gather_flat_tgt's `ranked`; RGCN's edge-stream branch, which the JAX
+    package runs through its gated gather_flat_tgt)."""
     if concat_target:
         d = h.shape[-1]
         t_src = _flat(typed_transform(h, W[:, :d, :]))
         t_tgt = _flat(typed_transform(h, W[:, d:, :]))
         return (gather_flat_src(t_src, graph.flat)
-                + gather_flat_tgt(t_tgt, graph.flat))
+                + gather_flat_tgt(t_tgt, graph.flat, ranked=ranked_target))
     return gather_flat_src(_flat(typed_transform(h, W)), graph.flat)
 
 
@@ -209,7 +213,8 @@ def rgcn_apply(
                                            normalize_by_num_incoming))
             continue
         msgs = _flat_linear_messages(
-            h, params["W"], graph, concat_target=use_both_source_and_target)
+            h, params["W"], graph, concat_target=use_both_source_and_target,
+            ranked_target=True)
         if normalize_by_num_incoming:
             msgs = msgs * graph.flat.norm_scale[:, None]
         h = act(aggregate_flat_auto(msgs, graph, message_aggregation_function,

@@ -9,6 +9,7 @@ rows reach only the dump receiver or the dump rank, so their cotangents
 are zero.
 """
 
+import numpy as np
 import torch
 
 from .. import SMALL_NUMBER
@@ -25,9 +26,34 @@ def gather_flat_src(table_flat, flat):
     return _take_clip(table_flat, flat.src_flat)
 
 
-def gather_flat_tgt(table_flat, flat):
-    """table_flat[[L*N, ...]][tgt_flat]: per-edge target-side rows."""
-    return _take_clip(table_flat, flat.tgt_flat)
+def ranked_gather_ok(table_flat, flat, rank_field: str) -> bool:
+    """The JAX package's _ranked_gather_ok without its TPU, interpret-mode
+    and VMEM terms (the CUDA kernel keeps no table on chip): the stream's
+    sorted ranks `rank_field` are present, the rows have at least 64
+    columns and the stream is whole STEP-edge rows."""
+    if getattr(flat, rank_field, None) is None:
+        return False
+    if int(np.prod(table_flat.shape[1:], dtype=np.int64)) < 64:
+        return False
+    return rs.ranked_supported(flat.src_flat.shape[0])
+
+
+def gather_flat_tgt(table_flat, flat, ranked=False):
+    """table_flat[[L*N, ...]][tgt_flat]: per-edge target-side rows. With
+    `ranked`, the backward sums over the tgt-sorted ranks (K5a,
+    _GatherRanked) where ranked_gather_ok holds, as the JAX package's
+    gather_flat_tgt does on the TPU. Only RGCN's edge-stream branch with
+    use_both_source_and_target asks for it: the port's f32 branches keep
+    the plain backward (as its source-side f32 branches keep
+    gather_flat_src), because off the TPU the JAX package's gathers are
+    f32 and its tests hold those branches to it at f32 tolerances."""
+    if not (ranked and ranked_gather_ok(table_flat, flat, "tgt_sorted_rank")):
+        return _take_clip(table_flat, flat.tgt_flat)
+    tail = tuple(table_flat.shape[1:])
+    out = _GatherRanked.apply(
+        table_flat.reshape(table_flat.shape[0], -1), flat.tgt_flat,
+        flat.perm_by_tgt, flat.tgt_sorted_rank, flat.tgt_to_rank)
+    return out.reshape((flat.tgt_flat.shape[0],) + tail)
 
 
 def _rank_rows_to_table(rank_table, to_rank, table_rows: int, dtype):
@@ -372,9 +398,12 @@ def segment_softmax_flat(logits, flat, n_pad: int):
 def _clamped_exp(logits, clamp: float):
     """exp(clip(logits, -clamp, clamp)). The clip is a minimum of a maximum
     so that its derivative is jnp.clip's: 1 inside, 0 outside and 1/2 at
-    exactly +-clamp (torch.clamp's is 1 there)."""
-    lo = torch.tensor(-clamp, dtype=logits.dtype, device=logits.device)
-    return torch.exp(torch.minimum(torch.maximum(logits, lo), -lo))
+    exactly +-clamp (torch.clamp's is 1 there). The bounds are filled on
+    the logits' device (no host-to-device copy, so a CUDA graph can
+    capture it)."""
+    lo = logits.new_full((), -clamp)
+    hi = logits.new_full((), clamp)
+    return torch.exp(torch.minimum(torch.maximum(logits, lo), hi))
 
 
 def segment_softmax_flat_ranked(logits, graph, clamp: float = 50.0):

@@ -3,14 +3,17 @@ tf_gnn_samples_tpu/ops/graph.py).
 
 The host-side construction is numpy, as in the JAX package, and every
 emitted field equals the JAX package's array for the same input. The
-batch carries only the fields the ported layers read: the target-sorted
-view (`perm_by_tgt`, `win_tgt`) and `unify_flat_windows` wait for the
-slices whose consumers need them. The
+batch carries the fields the ported layers read, the target-sorted view
+(`perm_by_tgt`, `tgt_sorted_rank`, `tgt_to_rank`, `win_tgt`: the ranked
+backward of gather_flat_tgt with `ranked`) among them. The
 rank windows are plain ints here (the JAX package encodes them in array
 shapes to keep them static under jit); the CUDA kernels reduce over
 sorted ranks and ignore them, but `win_fine` gates the diluted src stream
 and `win_sd` decides which src stream the layers feed, so both packages
-walk the same edges.
+walk the same edges. The port has no `unify_flat_windows`: the JAX
+package makes a cached fold's windows and diluted-stream lengths common
+only so that its batches stack into one jit shape, and the port runs, and
+captures, each batch at its own (runtime/model.py batch_shape_key).
 
 Padding contract: nodes are padded to `n_pad` and edges of each type to
 `e_pads[l]`. Padded edges point their receiver at the dump row `n_pad`,
@@ -53,6 +56,7 @@ class FlatEdges(NamedTuple):
     mask: torch.Tensor  # [E_tot] float32
     norm_scale: torch.Tensor  # [E_tot] float32
     perm_by_src: torch.Tensor  # [E_tot] int32; src_flat[perm] is sorted
+    perm_by_tgt: torch.Tensor  # [E_tot] int32; tgt_flat[perm] is sorted
     # Gap-free nondecreasing group ranks of the stream: coarse (receiver)
     # and fine (receiver, type); padded edges share the final dump rank.
     rcv_rank: torch.Tensor  # [E_tot] int32
@@ -62,6 +66,9 @@ class FlatEdges(NamedTuple):
     src_sorted_rank: torch.Tensor  # [E_tot] int32 (by perm_by_src)
     src_to_rank: torch.Tensor  # [L * n_pad] int32
     src_from_rank: torch.Tensor  # [R_src] int32
+    # The same for the tgt-sorted stream (gather_flat_tgt, ranked).
+    tgt_sorted_rank: torch.Tensor  # [E_tot] int32 (by perm_by_tgt)
+    tgt_to_rank: torch.Tensor  # [L * n_pad] int32
     # Fine rank of each edge of the src-sorted stream (tgt_rank[perm]).
     fine_rank_by_src: torch.Tensor  # [E_tot] int32
     # Fine-rank maps: flat node-table row / receiver of each fine rank
@@ -71,9 +78,11 @@ class FlatEdges(NamedTuple):
     fine_from_flat: torch.Tensor  # [L * n_pad] int32
     # Max aligned rank span of any 256-edge sub-block (rank_window; 0 = no
     # useful window): win_fine covers tgt_rank and rcv_rank, win_src the
-    # src-sorted ranks, win_sd the diluted stream below (0 = not engaged).
+    # src-sorted ranks, win_tgt the tgt-sorted ones, win_sd the diluted
+    # stream below (0 = not engaged).
     win_fine: int
     win_src: int
+    win_tgt: int
     win_sd: int
     # DILUTED src-sorted stream: the real edges of the src stream re-blocked
     # with inert fill slots so that every 256-edge sub-block's aligned rank
@@ -344,6 +353,12 @@ def pad_graph_batch(
     src_to_rank = np.full((L * n_pad,), -1, dtype=np.int32)
     keep = svals[snew] < L * n_pad
     src_to_rank[svals[snew][keep]] = src_sorted_rank[snew][keep]
+    perm_by_tgt = np.argsort(tgt_sorted, kind="stable").astype(np.int32)
+    tvals = tgt_sorted[perm_by_tgt]
+    tnew, tgt_sorted_rank = _group_ranks(tvals)
+    tgt_to_rank = np.full((L * n_pad,), -1, dtype=np.int32)
+    keep = tvals[tnew] < L * n_pad
+    tgt_to_rank[tvals[tnew][keep]] = tgt_sorted_rank[tnew][keep]
 
     e_tot = int(src_sorted_rank.shape[0])
     src_from_rank = np.zeros(
@@ -419,17 +434,21 @@ def pad_graph_batch(
         mask=t(all_msk[order]),
         norm_scale=t(all_norm[order]),
         perm_by_src=t(perm_by_src),
+        perm_by_tgt=t(perm_by_tgt),
         rcv_rank=t(rcv_rank),
         tgt_rank=t(tgt_rank),
         src_sorted_rank=t(src_sorted_rank),
         src_to_rank=t(src_to_rank),
         src_from_rank=t(src_from_rank),
+        tgt_sorted_rank=t(tgt_sorted_rank),
+        tgt_to_rank=t(tgt_to_rank),
         fine_rank_by_src=t(fine_by_src),
         fine_to_flat=t(fine_to_flat),
         fine_to_rcv=t(fine_to_rcv),
         fine_from_flat=t(fine_from_flat),
         win_fine=win_fine,
         win_src=rank_window(src_sorted_rank),
+        win_tgt=rank_window(tgt_sorted_rank),
         win_sd=win_sd,
         sd_rank=t(sd_rank),
         sd_fine=t(sd_fine),

@@ -502,6 +502,11 @@ def _entry(kernel: str):
     global _ONE_DEVICE
     fn = _ENTRIES.get(kernel)
     if fn is None:
+        if torch.cuda.is_current_stream_capturing():
+            # A build, a library load or a device query cannot be captured:
+            # an eager step resolves every kernel of a step first.
+            raise RuntimeError("%s: first launched under CUDA graph capture; "
+                               "run the step eagerly once first" % kernel)
         fn = _ENTRIES[kernel] = getattr(cuda_build.load(kernel),
                                         cuda_build.entry(kernel))
         _ONE_DEVICE = torch.cuda.device_count() == 1

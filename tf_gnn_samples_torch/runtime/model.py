@@ -2,7 +2,8 @@
 tf_gnn_samples_tpu/runtime/model.py): model assembly (task input model ->
 shared propagation stack -> task output model), per-tensor gradient
 clipping and TF1 optimizers, a per-batch epoch driver with throughput
-telemetry and an optional device-resident batch cache, patience-based
+telemetry and an optional device-resident batch cache (with scanned
+epochs over it: a CUDA graph a cached batch on the card), patience-based
 early stopping with best-checkpoint pickling, full training-state
 checkpoints to resume from, JSONL and TensorBoard metric writers, and
 weight save/load with fresh-init of unmatched entries. Log lines are the
@@ -23,20 +24,22 @@ import pickle
 import random
 import time
 from abc import ABC
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..nn.layers import use_dense_strategy
 from ..nn.propagation import propagation_apply, propagation_init
+from ..ops import ranked_segment as rs
 from ..ops.edge_ops import dense_adjacency
 from ..ops.graph import graph_to_device
 from ..tasks.base import DataFold, SparseGraphTask, TaskBatch
 from ..utils.iterators import ThreadedIterator
 from ..utils.metrics_writer import MetricsWriter
 from ..utils.tb_writer import FoldedTensorBoardWriter
-from .optimizers import OptimizerState, clip_grads_per_tensor, make_optimizer
+from .optimizers import (OptimizerState, clip_grads_per_tensor,
+                         make_optimizer, step_tensor)
 
 # Consecutive flagged validation epochs before the degenerate-basin
 # warning fires.
@@ -51,6 +54,57 @@ def resolve_device(name: Optional[str] = None) -> torch.device:
         raise RuntimeError("No CUDA device is available; pass device 'cpu' "
                            "(--device cpu) to run on the CPU.")
     return device
+
+
+# FlatEdges' diluted src stream, whose length the JAX package's
+# unify_flat_windows makes common across a cached fold before it keys the
+# fold's batches: batch_shape_key leaves it out.
+_UNIFIED_FIELDS = ("sd_rank", "sd_fine", "sd_coarse")
+
+
+def batch_shape_key(batch: TaskBatch):
+    """The shape signature that groups a cached fold's batches as the JAX
+    package's batch_shape_key groups the same fold: every tensor's shape
+    and dtype (the graph's, its edge stream's and the task's aux tensors),
+    the per-type edge slices (`tm_offs`, where the JAX batch carries a
+    padded block a type) and the self-loop flags (`tm_self`, shape-encoded
+    there). Left out is what the JAX package makes common across the fold
+    before keying it (unify_flat_windows): the windows, which are ints
+    here, and the diluted stream's length. Host counts (num_graphs, ...)
+    are left out as there; so is a cached dense adjacency, which the JAX
+    package does not stack."""
+    g = batch.graph
+    flat = g.flat
+    key = []
+    for name, x in list(zip(g._fields, g)) + list(zip(flat._fields, flat)):
+        if torch.is_tensor(x) and name not in _UNIFIED_FIELDS + ("dense_adj",):
+            key.append((name, tuple(x.shape), str(x.dtype)))
+    key.append(("tm_offs", flat.tm_offs))
+    key.append(("tm_self", flat.tm_self))
+    for name in sorted(batch.aux):
+        x = batch.aux[name]
+        key.append((name, tuple(x.shape), str(x.dtype)))
+    return tuple(key)
+
+
+def shape_groups(batches: List[TaskBatch]) -> List[List[int]]:
+    """The indices of `batches` grouped by batch_shape_key, groups in the
+    order of their first batch (the JAX package's dict order)."""
+    by_key: Dict[Any, List[int]] = {}
+    for i, b in enumerate(batches):
+        by_key.setdefault(batch_shape_key(b), []).append(i)
+    return list(by_key.values())
+
+
+class _Replay(NamedTuple):
+    """One cached batch's captured step: the graph, the static tensors it
+    writes the step's metrics into, and the kernel launches its capture
+    counted (added to ops/ranked_segment.py's counters at every replay)."""
+
+    graph: Any  # torch.cuda.CUDAGraph
+    outs: Dict[str, torch.Tensor]
+    launches: Dict[str, int]
+    form_launches: Dict[str, int]
 
 
 def flatten_params(tree, prefix: str = "") -> Dict[str, Any]:
@@ -135,7 +189,8 @@ def opt_state_from_jax(slots: Dict[str, np.ndarray], step: int, tree,
         step=int(step),
         slots={slot: [_saved_or(slots, "%s/%s" % (slot, n), t)
                       for n, t in zip(names, ts)]
-               for slot, ts in fresh.slots.items()})
+               for slot, ts in fresh.slots.items()},
+        step_t=step_tensor(int(step), list(flatten_params(tree).values())))
 
 
 def _saved_or(saved: Dict[str, np.ndarray], key: str,
@@ -205,6 +260,13 @@ class SparseGraphModel(ABC):
             # ppi_task.py:204); `repack_cached_every` (K, read with
             # params.get, default off) re-packs every K epochs.
             "cache_batches_on_device": False,
+            # `scan_epochs` (read with params.get, default off, as in the
+            # JAX package): with the cache, every epoch of a fold after its
+            # first runs the cached batches grouped by shape
+            # (batch_shape_key), groups and batches in a drawn order, one
+            # dropout seed a group; on the card each cached batch's train
+            # and eval steps are CUDA graphs, captured at their first such
+            # epoch and replayed.
             # Recompute each GNN layer in the backward pass instead of
             # keeping its activations (nn/propagation.py).
             "remat_layers": False,
@@ -228,11 +290,8 @@ class SparseGraphModel(ABC):
         for key in ("num_model_replicas", "graph_parallel"):
             if int(params.get(key) or 1) > 1:
                 raise NotImplementedError(
-                    "%s > 1 is not yet ported to the PyTorch package." % key)
-        if params.get("scan_epochs"):
-            raise NotImplementedError(
-                "scan_epochs (stacked one-dispatch epochs, ROADMAP Queue 1 "
-                "item 7) is not yet ported to the PyTorch package.")
+                    "%s > 1 (ROADMAP Queue 1 item 8) is not yet ported to "
+                    "the PyTorch package." % key)
         self.params = params
         self.task = task
         self.run_id = run_id
@@ -265,6 +324,16 @@ class SparseGraphModel(ABC):
         self._fold_adj_gb: Dict[DataFold, float] = {}
         self._train_epochs_seen = 0
         self._warned_stream_cache = False
+        # scan_epochs: per fold, the cached batches' shape groups and the
+        # static tensors each cached batch's graph writes its metrics into
+        # (the metrics of the fold's eager epoch, kept); per fold and
+        # cached batch, its captured step (on the card). The graphs share
+        # one memory pool and are captured and replayed on one side stream.
+        self._scan_groups: Dict[DataFold, List[List[int]]] = {}
+        self._scan_outs: Dict[DataFold, List[Dict[str, torch.Tensor]]] = {}
+        self._graphs: Dict[DataFold, Dict[int, _Replay]] = {}
+        self._graph_pool = None
+        self._scan_stream = None
 
     def initialize_model(self) -> None:
         """Kept for API parity with the JAX package (reference
@@ -351,6 +420,13 @@ class SparseGraphModel(ABC):
     def _train_step(self, batch: TaskBatch):
         self._dropout_gen.manual_seed(
             int(self._step_rng.randint(0, 2**31 - 1)))
+        return self._train_step_body(batch)
+
+    def _train_step_body(self, batch: TaskBatch):
+        """One train step drawing its dropout masks from _dropout_gen as it
+        stands. Capturable: the learning rate is constant for a batch, the
+        optimizer reads no host value that changes between steps, and the
+        metrics stay on the device."""
         leaves = self._leaves()
         loss, metrics = self._forward(self.model_params_tree, batch,
                                       self._dropout_gen)
@@ -399,6 +475,8 @@ class SparseGraphModel(ABC):
                 print("Saved weights for %s not used by model." % key)
         self.model_params_tree = self._as_leaves(current)
         self.opt_state = self._optimizer.init(self._leaves())
+        # Captured steps update the tensors they were captured with.
+        self._drop_graphs()
 
     # -------------------- full training-state checkpoint ----------------
     # The reference's best-model pickle carries weights only. These
@@ -448,6 +526,7 @@ class SparseGraphModel(ABC):
             self._optimizer.init(self._leaves()))
         self._step_rng.set_state(state["step_rng_state"])
         np.random.set_state(state["np_random_state"])
+        self._drop_graphs()
         return {"epoch": state["epoch"],
                 "early_stop_state": state["early_stop_state"]}
 
@@ -491,6 +570,17 @@ class SparseGraphModel(ABC):
         adjacencies) so that the next epoch re-packs from host data."""
         self._batch_cache.pop(data_fold, None)
         self._dense_adj_cached_gb -= self._fold_adj_gb.pop(data_fold, 0.0)
+        # The fold's captured steps read the batches dropped here.
+        self._scan_groups.pop(data_fold, None)
+        self._scan_outs.pop(data_fold, None)
+        self._graphs.pop(data_fold, None)
+
+    def _drop_graphs(self) -> None:
+        """Drop every captured step (they update the tensors they were
+        captured with; after a rebinding those are no longer the model's).
+        The next scanned epoch captures anew."""
+        self._graphs.clear()
+        self._graph_pool = None
 
     def _run_epoch(
         self,
@@ -499,6 +589,21 @@ class SparseGraphModel(ABC):
         data_fold: DataFold,
         quiet: bool = False,
     ) -> Tuple[float, List[Dict[str, Any]], int, float, float, float]:
+        if self.params.get("scan_epochs") and self.device.type == "cuda":
+            # Every step of a scanning model runs on the side stream its
+            # graphs are captured on: the eager epochs warm it up (cuBLAS
+            # workspaces, the kernels' entry points) for the captures.
+            if self._scan_stream is None:
+                self._scan_stream = torch.cuda.Stream(self.device)
+            self._scan_stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._scan_stream):
+                result = self._run_epoch_on_stream(epoch_name, data,
+                                                   data_fold, quiet)
+            torch.cuda.current_stream().wait_stream(self._scan_stream)
+            return result
+        return self._run_epoch_on_stream(epoch_name, data, data_fold, quiet)
+
+    def _run_epoch_on_stream(self, epoch_name, data, data_fold, quiet):
         cache_on_device = self.params.get("cache_batches_on_device", False)
         if cache_on_device and getattr(data, "is_streaming", False):
             # A disk-resident streamed fold exists because the data does
@@ -522,6 +627,8 @@ class SparseGraphModel(ABC):
                     and (self._train_epochs_seen - 1) % repack_every == 0):
                 self._invalidate_fold_cache(data_fold)
         cached = self._batch_cache.get(data_fold) if cache_on_device else None
+        if cached is not None and self.params.get("scan_epochs"):
+            return self._run_epoch_scanned(cached, data_fold)
         if cached is not None:
             order = np.arange(len(cached))
             if data_fold == DataFold.TRAIN:
@@ -573,6 +680,12 @@ class SparseGraphModel(ABC):
             # computes what the uncached step on the same batch does.
             self._batch_cache[data_fold] = self._attach_cached_dense_adj_fold(
                 to_cache, data_fold)
+            if self.params.get("scan_epochs"):
+                # Allocated outside every graph's pool, so no graph's
+                # metrics live in memory another graph reuses.
+                self._scan_outs[data_fold] = [
+                    {k: v.detach().clone(memory_format=torch.contiguous_format)
+                     for k, v in m.items()} for m in device_metrics]
         # One host sync at epoch end: the device runs ahead of the host
         # until the metrics are fetched.
         task_metric_results = [
@@ -592,6 +705,129 @@ class SparseGraphModel(ABC):
             processed_nodes / epoch_time,
             processed_edges / epoch_time,
         )
+
+    def _run_epoch_scanned(
+        self, cached: List[TaskBatch], data_fold: DataFold
+    ) -> Tuple[float, List[Dict[str, Any]], int, float, float, float]:
+        """An epoch over a fold's cached batches grouped by shape (the JAX
+        package's _run_epoch_scanned, which scans each group in one
+        dispatch): TRAIN draws the group order, then for each group the
+        order of its batches and ONE dropout seed from _step_rng (the JAX
+        package's per-group key), from which the group's steps draw their
+        masks in turn; VALIDATION runs the groups and batches in order.
+        On the card every step is a replayed CUDA graph (_scanned_step);
+        the epoch syncs once, at its end. Returns what _run_epoch
+        returns, the metrics in the order the steps ran."""
+        start_time = time.time()
+        groups = self._scan_groups.get(data_fold)
+        if groups is None:
+            groups = self._scan_groups[data_fold] = shape_groups(cached)
+        run: List[int] = []
+        device_metrics: List[Dict[str, Any]] = []
+        if data_fold == DataFold.TRAIN:
+            for gi in np.random.permutation(len(groups)):
+                idxs = groups[gi]
+                within = np.random.permutation(len(idxs))
+                self._dropout_gen.manual_seed(
+                    int(self._step_rng.randint(0, 2**31 - 1)))
+                for j in within:
+                    run.append(idxs[j])
+                    device_metrics.append(self._scanned_step(
+                        data_fold, idxs[j], cached[idxs[j]]))
+        else:
+            for idxs in groups:
+                for i in idxs:
+                    run.append(i)
+                    device_metrics.append(
+                        self._scanned_step(data_fold, i, cached[i]))
+        task_metric_results = [
+            {k: np.asarray(v.cpu()) for k, v in m.items()}
+            for m in device_metrics
+        ]
+        processed_graphs = sum(int(b.num_graphs) for b in cached)
+        processed_nodes = sum(int(b.num_nodes) for b in cached)
+        processed_edges = sum(int(b.num_edges) for b in cached)
+        epoch_loss = float(sum(
+            float(m["loss"]) * int(cached[i].num_graphs)
+            for m, i in zip(task_metric_results, run)
+        ))
+        epoch_time = time.time() - start_time
+        return (
+            epoch_loss / processed_graphs,
+            task_metric_results,
+            processed_graphs,
+            processed_graphs / epoch_time,
+            processed_nodes / epoch_time,
+            processed_edges / epoch_time,
+        )
+
+    def _scanned_step(self, data_fold: DataFold, i: int, batch: TaskBatch):
+        """Cached batch `i` of `data_fold`'s step in a scanned epoch: a
+        train step for TRAIN (its masks drawn from _dropout_gen as it
+        stands), else an eval step. On the CPU it runs eagerly. On the card
+        it replays the batch's CUDA graph, captured at its first use; a
+        capture or replay error raises. Returns the step's metrics (on the
+        card, the graph's static tensors, which its next replay
+        overwrites)."""
+        train = data_fold == DataFold.TRAIN
+        self.batches_run[data_fold] += 1
+        if self.device.type != "cuda":
+            return (self._train_step_body(batch) if train
+                    else self._eval_step(batch))
+        graphs = self._graphs.setdefault(data_fold, {})
+        replay = graphs.get(i)
+        if replay is None:
+            replay = graphs[i] = self._capture(
+                train, batch, self._scan_outs[data_fold][i])
+        replay.graph.replay()
+        for counts, delta in ((rs.LAUNCHES, replay.launches),
+                              (rs.FORM_LAUNCHES, replay.form_launches)):
+            for k, n in delta.items():
+                counts[k] += n
+        if train:
+            # The graph advanced the optimizer's step_t; the host count
+            # follows.
+            self.opt_state = self.opt_state._replace(
+                step=self.opt_state.step + 1)
+        return replay.outs
+
+    def _capture(self, train: bool, batch: TaskBatch,
+                 outs: Dict[str, torch.Tensor]) -> _Replay:
+        """Capture one train step (train) or eval step on `batch` into a
+        CUDA graph that writes its metrics into `outs`, on the scan stream
+        and into the pool every captured step shares. Capturing runs
+        nothing: the parameters, the slots, the step counts and the launch
+        counters are left as they were, and the launches the capture
+        counted are returned for its replays to add. A train step's graph
+        registers _dropout_gen, so that each replay draws fresh masks from
+        the generator's state at that replay."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        if self._scan_stream is None:
+            self._scan_stream = torch.cuda.Stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        if train:
+            graph.register_generator_state(self._dropout_gen)
+        counts = (dict(rs.LAUNCHES), dict(rs.FORM_LAUNCHES))
+        step = self.opt_state.step
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  stream=self._scan_stream):
+                metrics = (self._train_step_body(batch) if train
+                           else self._eval_step(batch))
+                for k, v in metrics.items():
+                    outs[k].copy_(v)
+                del metrics
+        finally:
+            self.opt_state = self.opt_state._replace(step=step)
+            deltas = []
+            for live, before in zip((rs.LAUNCHES, rs.FORM_LAUNCHES), counts):
+                deltas.append({k: n - before.get(k, 0)
+                               for k, n in live.items()
+                               if n != before.get(k, 0)})
+                live.clear()
+                live.update(before)
+        return _Replay(graph, outs, *deltas)
 
     def train(self, quiet: bool = False, tf_summary_path: Optional[str] = None,
               resume_from: Optional[str] = None):
@@ -870,6 +1106,11 @@ class RGCN_Model(SparseGraphModel):
             "activation_function": self.params["graph_activation_function"],
             "message_aggregation_function": self.params["message_aggregation_function"],
             "aggregation_strategy": self.params.get("aggregation_strategy", "auto"),
+            # The layer's option of messages from [source; target] states
+            # (both packages' rgcn_apply), read with params.get, default
+            # off; the JAX package's model does not pass it.
+            "use_both_source_and_target": bool(
+                self.params.get("use_both_source_and_target", False)),
         }
 
 
