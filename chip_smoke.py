@@ -145,8 +145,7 @@ Phases, each of which raises on failure (no phase's failure is caught):
     through the train CLI, with the cache, for one build epoch and three
     scanned ones, every scanned step a replayed CUDA graph of its cached
     batch, on QM9's seven families at their tuned configs (both
-    GNN-Edge-MLPs; GNN-FiLM at full width), RGCN with messages from
-    source and target states (the ranked target gather), the PPI
+    GNN-Edge-MLPs; GNN-FiLM at full width), the PPI
     headline's RGCN (dense and K5) and VarMisuse's GNN-Edge-MLP1: each
     scanned epoch runs the build epoch's batches with its launches
     (check_scanned_epochs); a replayed step counts an eager step's
@@ -163,9 +162,26 @@ Phases, each of which raises on failure (no phase's failure is caught):
     before it, _clamped_exp's derivative at the clamp inside a captured
     graph (clamped_exp_check), gather_flat_tgt's ranked backward on
     the card against its plain version at width 128, one K5a launch
-    (target_gather_check), and K3 over 48 KB of shared memory replayed
-    from a CUDA graph against its plain version (captured_smem_check);
-13. a reference check per path: loss and gradients of the full-width
+    (target_gather_check), RGCN's layer with messages from source and
+    target states (which no model passes: the ranked target gather) at
+    width 128 against the same layer on the CPU, its K5a and K5b
+    launches counted (rgcn_src_and_tgt_check), and K3 over 48 KB of
+    shared memory replayed from a CUDA graph against its plain version
+    (captured_smem_check);
+13. the dp phase (`dp_phase`): num_model_replicas 2 as two spawned ranks
+    over gloo sharing the card (NCCL refuses two ranks on one device),
+    GNN-FiLM at its tuned QM9 config, dropout off: a dp step on the first
+    two 50,000-node TRAIN batches (rank r steps batch r) held per class
+    of tensors in norm against four runs of one process stepping their
+    graph-weighted union from the same state, its K1-K3 launches equal to
+    a single-process step's and expected_launches'; a packing epoch, an
+    eager cached one and two scanned ones over the whole TRAIN fold, each
+    step through its batch's kernels, each scanned step two replayed
+    graphs around the eager all_reduce; from one state, an eager cached
+    and a scanned dp epoch each held against eager dp steps in its
+    order; the dp step's and a single-process step's ms, the all_reduce's
+    ms and bytes, the epochs' train graphs/s;
+14. a reference check per path: loss and gradients of the full-width
     model on a small batch on the card (kernels) against the same model
     on the CPU (the kernels' plain versions): QM9 (a 600-node pack, the
     same gates forced), PPI (one 400-node graph of PPI's degree; RGCN
@@ -180,6 +196,7 @@ import collections
 import contextlib
 import ctypes
 import gc
+import itertools
 import json
 import math
 import os
@@ -3978,16 +3995,14 @@ def reference_phase(torch, rs, path, card="cuda", task_name="QM9",
 SCANNED_EPOCHS = 4
 EAGER_CACHED_EPOCHS = 2
 # (path, task, data key): QM9's seven families at their tuned configs
-# (both GNN-Edge-MLPs; RGDCN at its class defaults), RGCN with messages
-# from source and target states (the ranked target gather: K5a in its
-# backward), the PPI headline's RGCN on the whole fold (dense, and "pallas":
-# K5) and VarMisuse's GNN-Edge-MLP1 (its train fold held in memory, so it
-# can be cached).
+# (both GNN-Edge-MLPs; RGDCN at its class defaults), the PPI headline's
+# RGCN on the whole fold (dense, and "pallas": K5) and VarMisuse's
+# GNN-Edge-MLP1 (its train fold held in memory, so it can be cached).
+# RGCN with messages from source and target states is held at its layer
+# (rgcn_src_and_tgt_check): no model passes that option.
 SCANNED_PATHS = tuple((Path("QM9 " + m, m, {}), "QM9", "qm9") for m in (
     "GNN-FiLM", "RGCN", "GGNN", "RGAT", "RGIN", "GNN-Edge-MLP0",
     "GNN-Edge-MLP1", "RGDCN")) + (
-    (Path("QM9 RGCN source and target", "RGCN",
-          {"use_both_source_and_target": True}), "QM9", "qm9"),
     (Path("PPI RGCN headline dense", "RGCN", {}), "PPI", "ppi"),
     (Path("PPI RGCN headline K5", "RGCN", {"aggregation_strategy": "pallas"}),
      "PPI", "ppi"),
@@ -4185,6 +4200,59 @@ def target_gather_check(torch, rs, graph, width=128, seed=0):
     return check_kernel("gather_flat_tgt (ranked) backward (K5a, width %d)"
                         % width,
                         got.cpu(), want, terms_abs, counts, torch)
+
+
+# rgcn_src_and_tgt_check's limit, relative by norm.
+RGCN_SRC_TGT_REL = 1e-5
+
+
+def rgcn_src_and_tgt_check(torch, rs, graph, width=128, seed=0):
+    """RGCN's layer with messages from [source; target] states (rgcn_apply's
+    use_both_source_and_target, which neither package's model passes) on
+    `graph` (on the card) at the tuned width: its target half gathers
+    through gather_flat_tgt's ranked form, whose backward is one K5a
+    launch, beside the aggregation's K5a forward and K5b backward, so one
+    train pass counts {"segsum": 2, "expand": 1} and no other. The output
+    and the gradients of h and W against the same layer on the CPU (the
+    plain versions) by norm, within RGCN_SRC_TGT_REL (the card read 0,
+    8.3e-8 and 1.4e-7 at the tuned width on the 50,000-node batch: f32
+    sums in other orders. One row of d_h 1% off on that batch is
+    4.5e-5 by norm, d_h rounded to bf16 about 1e-3). Returns the largest
+    relative difference."""
+    from tf_gnn_samples_torch.nn.layers import rgcn_apply
+    from tf_gnn_samples_torch.ops.graph import graph_to_device
+
+    gen = torch.Generator().manual_seed(seed)
+    types = graph.num_edge_types
+    h = torch.randn(graph.n_pad, width, generator=gen)
+    w = torch.randn(types, 2 * width, width, generator=gen) * (
+        2 * width) ** -0.5
+    g = torch.randn(graph.n_pad, width, generator=gen)
+    runs = []
+    for gr in (graph, graph_to_device(graph, "cpu")):
+        dev = gr.node_features.device
+        hh = h.to(dev).requires_grad_(True)
+        ww = w.to(dev).requires_grad_(True)
+        before = dict(rs.LAUNCHES)
+        out = rgcn_apply({"W": ww}, gr, hh, activation_function="relu",
+                         use_both_source_and_target=True)
+        dh, dw = torch.autograd.grad(out, (hh, ww), g.to(dev))
+        runs.append(([out.detach().cpu(), dh.cpu(), dw.cpu()], before,
+                     dict(rs.LAUNCHES)))
+    (card, before, after), (cpu, _, _) = runs
+    launch_count_check("RGCN layer with source and target states on the "
+                       "card", before, after, {"segsum": 2, "expand": 1})
+    worst = 0.0
+    for name, a, b in zip(("output", "d_h", "d_W"), card, cpu):
+        rel = float((a.double() - b.double()).norm()
+                    / b.double().norm().clamp(min=1e-30))
+        print("  RGCN layer with source and target states: %s card against "
+              "CPU %.3e relative, by norm" % (name, rel))
+        if not rel < RGCN_SRC_TGT_REL:
+            raise AssertionError("RGCN layer with source and target states: "
+                                 "%s off the CPU's by %.3e" % (name, rel))
+        worst = max(worst, rel)
+    return worst
 
 
 def captured_smem_check(torch, rs, graph, dim=8, act="elu", seed=0):
@@ -4515,6 +4583,309 @@ def scanned_epochs_phase(rs, data, out=OUT, device="cuda", overrides=None,
     return total
 
 
+# ---- the dp phase: num_model_replicas 2, one rank a replica -------------
+
+# GNN-FiLM at its tuned QM9 config, two ranks over gloo on the one card
+# (NCCL refuses two ranks on one device), dropout off, so that a step is
+# held to a reference step and an epoch to eager steps; every cached TRAIN
+# batch steps as the entry of one rank in a replica group.
+DP_RANKS = 2
+DP_OVERRIDES = {"num_model_replicas": DP_RANKS, "cache_batches_on_device": True,
+                "scan_epochs": True, "graph_layer_input_dropout_keep_prob": 1.0}
+# Host-clock repetitions of a timed step or all_reduce (median).
+DP_TIMED = 5
+
+
+def dp_epoch_order(np, cached, scan):
+    """A seed of np.random under which a TRAIN epoch over `cached` (this
+    rank's entries) does not run them in the cache's order, and that
+    order: the scanned epoch's (scanned_epoch_order over the shape groups)
+    or the eager cached epoch's (one shuffle)."""
+    from tf_gnn_samples_torch.runtime.model import shape_groups
+
+    saved = np.random.get_state()
+    try:
+        for seed in range(100):
+            np.random.seed(seed)
+            if scan:
+                order = scanned_epoch_order(shape_groups(cached))
+            else:
+                order = np.arange(len(cached))
+                np.random.shuffle(order)
+                order = [int(i) for i in order]
+            if order != sorted(order):
+                return seed, order
+    finally:
+        np.random.set_state(saved)
+    raise AssertionError("%d cached batches: no order other than the "
+                         "cache's" % len(cached))
+
+
+def dp_epoch_check(torch, model, data, label, scan, state):
+    """From `state` (model_state, on every rank), one cached TRAIN dp epoch
+    through _run_epoch (scan: scan_epochs on, every step through
+    _scanned_step; else the eager cached epoch) against EAGER_STEPS runs
+    of eager dp steps over the same entries in the same order: every
+    rank's per-batch losses (gathered) and this rank's parameters and
+    slots by replay_eager_check. Returns the epoch's train graphs/s."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tf_gnn_samples_torch.parallel import data_parallel as dp
+    from tf_gnn_samples_torch.tasks.base import DataFold
+
+    train = DataFold.TRAIN
+    cached = model._batch_cache[train]
+    seed, order = dp_epoch_order(np, cached, scan)
+
+    def gathered(losses):
+        every = [None] * dp.world()[1]
+        dist.all_gather_object(every, [float(x) for x in losses])
+        return torch.tensor([every[r][i] for i in range(len(losses))
+                             for r in range(len(every))])
+
+    def eager():
+        load_model_state(torch, model, state)
+        losses = [dp.dp_train_step(model, cached[i])["loss"] for i in order]
+        return train_step_result(model, {"loss": gathered(losses)})
+
+    eager_runs = [eager() for _ in range(EAGER_STEPS)]
+    load_model_state(torch, model, state)
+    model.params["scan_epochs"] = scan
+    np.random.seed(seed)
+    result = model._run_epoch("dp check", data, train, quiet=True)
+    got = train_step_result(model, {"loss": torch.tensor(
+        [float(m["loss"]) for m in result[1]])})
+    replay_eager_check("%s %s dp epoch (%d entries a rank in the order %s)"
+                       % (label, "scanned" if scan else "eager cached",
+                          len(cached), order), eager_runs, got)
+    return result[3]
+
+
+def scanned_steps_check(label, device, calls, graphs, entries):
+    """A scanned dp epoch took every one of this rank's `entries` cached
+    batches through _scanned_step (`calls`, the batch indices it was
+    called with) and, on the card, each as a replay of the batch's two
+    captured graphs (`graphs`: the fold's _Replay by batch index): a
+    scanned epoch that runs eager steps fails here."""
+    if sorted(calls) != list(range(entries)):
+        raise AssertionError("%s: the scanned dp epoch took cached batches "
+                             "%s through _scanned_step, of %d: it ran eager "
+                             "steps" % (label, calls, entries))
+    if device == "cuda" and (sorted(graphs) != list(range(entries)) or any(
+            r.update is None for r in graphs.values())):
+        raise AssertionError("%s: the scanned dp epoch replayed no split dp "
+                             "step for batches %s" % (
+                                 label, [i for i in range(entries)
+                                         if getattr(graphs.get(i), "update",
+                                                    None) is None]))
+
+
+def wall_ms(torch, fn, device, iters=DP_TIMED):
+    """Median host-clock ms of `fn` ending in a synchronize (a dp step's
+    all_reduce blocks the host until the other rank's step is in)."""
+    times = []
+    for _ in range(iters + 1):
+        t0 = time.perf_counter()
+        fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def dp_rank(rank, cfg):
+    """One rank of the dp phase (see dp_phase); raises on a failed check.
+    Writes its counts and times to cfg["result"] % rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tf_gnn_samples_torch.ops import ranked_segment as rs
+    from tf_gnn_samples_torch.parallel import data_parallel as dp
+    from tf_gnn_samples_torch.parallel import multihost
+    from tf_gnn_samples_torch.parallel._multihost_check import union_step
+    from tf_gnn_samples_torch.runtime.model import batch_to_device
+    from tf_gnn_samples_torch.tasks.base import DataFold
+    from tf_gnn_samples_torch.train import HYPERS_DIR
+    from tf_gnn_samples_torch.utils.registry import (name_to_model_class,
+                                                     name_to_task_class)
+
+    if cfg["device"] == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    device = multihost.initialize("file://" + cfg["store"], DP_RANKS, rank,
+                                  device=cfg["device"], backend="gloo")
+    device_type = device.type
+    task_cls, extra = name_to_task_class("QM9")
+    task = task_cls({**task_cls.default_params(), **extra})
+    task.load_data(cfg["data"])
+    cls, extra = name_to_model_class("GNN-FiLM")
+    params = {**cls.default_params(), **extra}
+    with open(os.path.join(HYPERS_DIR, "QM9_GNN-FiLM.json")) as f:
+        params.update(json.load(f)["model_params"])
+    params.update(DP_OVERRIDES)
+    params.update(cfg["overrides"])
+    model = cls(params, task, "dp%d" % rank, cfg["out"], device=device)
+    label = "dp rank %d" % rank
+    layers = params["graph_num_layers"] * params["graph_num_timesteps_per_layer"]
+    train = DataFold.TRAIN
+    data = task._loaded_data[train]
+    res = {"rank": rank, "launches": {}}
+
+    # 1. One dp step on the first two TRAIN batches (packed in order), rank
+    # r stepping batch r, against one process stepping both.
+    two = list(itertools.islice(task.make_minibatch_iterator(
+        data, DataFold.VALIDATION, params["max_nodes_in_batch"]), DP_RANKS))
+    batches = [batch_to_device(b, device) for b in two]
+    res["nodes"] = [int(b.num_nodes) for b in two]
+    res["graphs"] = [int(b.num_graphs) for b in two]
+    state = model_state(model)
+    rs.reset_launches()
+    model._train_step_body(batches[rank])
+    single = {k: n for k, n in rs.LAUNCHES.items() if n}
+    load_model_state(torch, model, state)
+    rs.reset_launches()
+    loss = dp.dp_train_step(model, batches[rank])["loss"]
+    stepped = {k: n for k, n in rs.LAUNCHES.items() if n}
+    want = {k: n for k, n in expected_launches("GNN-FiLM", layers, 1,
+                                               1).items() if n}
+    print("%s: kernel launches in a dp step %s, in a single-process step on "
+          "the same batch %s, expected %s" % (label, stepped, single, want))
+    if not stepped == single == want:
+        raise AssertionError("%s: dp step launches %s, single step %s, "
+                             "expected %s" % (label, stepped, single, want))
+    got = train_step_result(model, {"loss": loss})
+    union = []
+    for _ in range(EAGER_STEPS):
+        load_model_state(torch, model, state)
+        losses = union_step(model, batches)
+        union.append(train_step_result(model, {"loss": losses[rank]}))
+    replay_eager_check("%s dp step against the union step" % label, union,
+                       got)
+
+    # 2. The epochs: one to pack and cache (eager, uncached), one eager
+    # cached, two scanned (the first captures); then each kind held
+    # against eager steps from one state.
+    calls = []
+    real_scanned = model._scanned_step
+
+    def scanned(fold, i, batch):
+        calls.append(i)
+        return real_scanned(fold, i, batch)
+
+    model._scanned_step = scanned
+    load_model_state(torch, model, state)
+    rates = {}
+    for name, scan in (("build", True), ("eager cached", False),
+                       ("scanned 1", True), ("scanned 2", True)):
+        model.params["scan_epochs"] = scan
+        del calls[:]
+        rs.reset_launches()
+        out = model._run_epoch("dp " + name, data, train, quiet=True)
+        rates[name] = out[3]
+        n_entries = len(model._batch_cache[train])
+        res["launches"][name] = dict(rs.LAUNCHES)
+        want = expected_launches("GNN-FiLM", layers, n_entries, n_entries)
+        if dict(rs.LAUNCHES) != want:
+            raise AssertionError("%s %s epoch: launches %s, expected %s" % (
+                label, name, dict(rs.LAUNCHES), want))
+        if not math.isfinite(out[0]) or out[2] != len(data):
+            raise AssertionError("%s %s epoch: loss %s over %d graphs of %d"
+                                 % (label, name, out[0], out[2], len(data)))
+        if name.startswith("scanned"):
+            scanned_steps_check("%s %s epoch" % (label, name), device_type,
+                                calls, model._graphs.get(train, {}),
+                                n_entries)
+    res["entries"] = n_entries
+    res["groups"] = len(model._fold_counts[train][0])
+    state = model_state(model)
+    res["check_rates"] = {
+        "eager cached": dp_epoch_check(torch, model, data, label, False,
+                                       state),
+        "scanned": dp_epoch_check(torch, model, data, label, True, state)}
+    res["rates"] = rates
+
+    # 3. Times (the card only): a dp step against a single-process step on
+    # the same batch (rank 1 waits meanwhile), the all_reduce alone.
+    buf = torch.zeros(sum(p.numel() for p in model._leaves()) + 1,
+                      device=device)
+    res["reduced_bytes"] = buf.numel() * buf.element_size()
+    if cfg["timed"]:
+        res["dp_step_ms"] = wall_ms(torch, lambda: dp.dp_train_step(
+            model, batches[rank]), device_type)
+        res["all_reduce_ms"] = wall_ms(torch, lambda: dist.all_reduce(buf),
+                                       device_type)
+        dist.barrier()
+        if rank == 0:
+            res["single_step_ms"] = wall_ms(torch, lambda: (
+                model._train_step_body(batches[0])), device_type)
+        dist.barrier()
+    with open(cfg["result"] % rank, "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+
+
+def dp_phase(data=DATA, out=OUT, device="cuda", overrides=None, card="",
+             worker=dp_rank, timed=True):
+    """num_model_replicas 2: two ranks (torch.multiprocessing, spawned)
+    over gloo on the one card, joined at a file:// rendezvous under `out`,
+    each running `worker` (dp_rank): GNN-FiLM at its tuned QM9 config
+    (`overrides` on top), dropout off. Each rank holds one dp step on the
+    first two TRAIN batches (rank r steps batch r) against EAGER_STEPS
+    runs of one process stepping their graph-weighted union from the same
+    state (per class of tensors in norm, replay_eager_check), its K1-K3
+    launches to a single-process step's and expected_launches'; trains a
+    packing epoch, an eager cached one and two scanned ones over the whole
+    TRAIN fold (every step through its batch's kernels, every scanned step
+    a replay of two captured graphs around the eager all_reduce,
+    scanned_steps_check), then from one state holds an eager cached and a
+    scanned epoch each against eager dp steps in its order
+    (dp_epoch_check). A rank's failure fails the phase (spawn raises, the
+    other rank is stopped). Prints the times beside `card`; returns the
+    launches of both ranks' epochs."""
+    import torch
+    import torch.multiprocessing as mp
+
+    root = os.path.join(out, "dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = {"data": data, "out": root, "device": device,
+           "overrides": dict(overrides or {}), "timed": timed,
+           "store": os.path.join(root, "store"),
+           "result": os.path.join(root, "rank%d.json")}
+    if device == "cuda":
+        release_device_memory(torch, device)
+    mp.spawn(worker, args=(cfg,), nprocs=DP_RANKS, join=True)
+    res = []
+    for r in range(DP_RANKS):
+        with open(cfg["result"] % r) as f:
+            res.append(json.load(f))
+    total = collections.Counter()
+    for r in res:
+        for counts in r["launches"].values():
+            total.update(counts)
+    r0 = res[0]
+    print("dp phase: %d ranks over gloo on one card (they share it, so these "
+          "numbers are of correctness and the reduction's cost, not of "
+          "scaling); %d TRAIN batches in %d replica groups; %d bytes "
+          "all_reduced a step; %s" % (DP_RANKS, DP_RANKS * r0["entries"],
+                                      r0["groups"], r0["reduced_bytes"],
+                                      card))
+    if timed:
+        print("dp phase: a dp step %.2f ms (rank 0's host clock, both ranks "
+              "stepping %s-node batches), a single-process step %.2f ms on "
+              "rank 0's batch, the all_reduce alone %.2f ms (ranks' medians "
+              "%s); %s" % (r0["dp_step_ms"], r0["nodes"], r0["single_step_ms"],
+                           r0["all_reduce_ms"],
+                           [round(r["all_reduce_ms"], 3) for r in res], card))
+    print("dp phase: train graphs/s, epoch by epoch: %s; in the checks, from "
+          "one state: eager cached %.2f, scanned %.2f; %s" % (
+              {k: round(v, 2) for k, v in r0["rates"].items()},
+              r0["check_rates"]["eager cached"], r0["check_rates"]["scanned"],
+              card))
+    return dict(total)
+
+
 def report_hand_kernels(label, times):
     """Print the hand kernels' profiled device time in one train step
     (step_times) beside the card's busy time."""
@@ -4669,6 +5040,7 @@ def main() -> int:
     clamped_exp_check(torch, edge_ops, torch.device("cuda"))
     _, batch = first_batch(50000, "VALIDATION")
     target_gather_check(torch, rs, graph_to_device(batch.graph, "cuda"))
+    rgcn_src_and_tgt_check(torch, rs, graph_to_device(batch.graph, "cuda"))
     captured_smem_check(torch, rs, graph_to_device(batch.graph, "cuda"))
     del batch
     for name, n in scanned_epochs_phase(
@@ -4676,6 +5048,10 @@ def main() -> int:
             card=card).items():
         total[name] += n
     print("scanned-epochs phase: %.1f s" % (time.time() - t0))
+    t0 = time.time()
+    for name, n in dp_phase(card=card).items():
+        total[name] += n
+    print("dp phase: %.1f s" % (time.time() - t0))
     print("train step, the host's ms to enqueue it / the card's busy ms in "
           "it (for information): %s" % ", ".join(
               "%s %.2f / %.2f" % (label, t["train_step_host_ms"],

@@ -28,6 +28,7 @@ edge type and a "scan" that takes a kernel branch; the card-against-CPU comparis
 rejects a loss or a gradient off. No kernel
 runs here; the faults are planted in the emulation."""
 
+import functools
 import gzip
 import itertools
 import multiprocessing
@@ -1749,3 +1750,147 @@ def test_scanned_epochs_phase_checks_reject_planted_faults(qm9_dir, tmp_path,
              "stale_batch": "scanned epoch .* differ"}[fault]
     with pytest.raises(AssertionError, match=match):
         scanned_epochs_phase(rs, **kwargs)
+
+
+# ---- RGCN's layer with source and target states ---------------------------
+
+class _DhFault(torch.autograd.Function):
+    """The identity forward; the backward plants `fault` in d_h: one row
+    (the largest) 1% off, or every entry rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, h, fault):
+        ctx.fault = fault
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        if ctx.fault == "one_row":
+            g[int(g.norm(dim=1).argmax())] *= 1.01
+        elif ctx.fault == "bf16_d_h":
+            g = g.to(torch.bfloat16).float()
+        return g, None
+
+
+@pytest.mark.parametrize("fault", ["none", "one_row", "bf16_d_h"])
+def test_rgcn_src_and_tgt_check_rejects_planted_faults(monkeypatch, fault):
+    """rgcn_src_and_tgt_check on the CPU on the first 600-node pack of 200
+    QM9 valid graphs (10,240 edges, whole 2,048-edge rows, so the target
+    half takes the ranked gather), the card's run emulated (its launches
+    counted, the plain versions in place of the kernels): it passes as it
+    is, and fails on one row of d_h 1% off and on d_h rounded to bf16."""
+    from chip_smoke import rgcn_src_and_tgt_check
+    from tf_gnn_samples_torch.nn import layers
+    from tf_gnn_samples_torch.tasks import base as t_base
+    from tf_gnn_samples_torch.tasks import qm9 as t_qm9
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    task = t_qm9.QM9_Task(t_qm9.QM9_Task.default_params())
+    data = task._QM9_Task__load_data(
+        os.path.join(root, "data", "qm9", "valid.jsonl.gz"))[:200]
+    graph = next(task.make_minibatch_iterator(
+        data, t_base.DataFold.VALIDATION, 600)).graph
+    assert graph.flat.tgt_flat.shape[0] == 10240
+    monkeypatch.setattr(rs, "LAUNCHES", dict.fromkeys(rs.LAUNCHES, 0))
+    real, calls = layers.rgcn_apply, []
+
+    def planted(params, g, h, **kwargs):
+        calls.append(kwargs)
+        if len(calls) == 1:  # the card's run comes first
+            rs.LAUNCHES["segsum"] += 2
+            rs.LAUNCHES["expand"] += 1
+            h = _DhFault.apply(h, fault)
+        return real(params, g, h, **kwargs)
+
+    monkeypatch.setattr(layers, "rgcn_apply", planted)
+    if fault == "none":
+        assert rgcn_src_and_tgt_check(torch, rs, graph, width=32) == 0.0
+    else:
+        with pytest.raises(AssertionError, match="d_h off the CPU's"):
+            rgcn_src_and_tgt_check(torch, rs, graph, width=32)
+    assert all(k["use_both_source_and_target"] for k in calls)
+
+
+# ---- the dp phase ---------------------------------------------------------
+
+def planted_dp_rank(rank, cfg, fault):
+    """chip_smoke.dp_rank on the CPU with every step's launches emulated
+    (expected_launches for one GNN-FiLM batch) and `fault` planted: a
+    rank's gradient left unweighted by its graph count, rank 1 stepping
+    rank 0's batch in the dp step, or a scanned epoch that runs eager
+    steps."""
+    import chip_smoke
+    from tf_gnn_samples_torch.parallel import data_parallel as dp
+    from tf_gnn_samples_torch.runtime import model as t_model
+
+    torch.set_num_threads(1)  # two ranks share the test's cores
+
+    def emulated(real):
+        def step(self, batch, *args, **kwargs):
+            layers = (self.params["graph_num_layers"]
+                      * self.params["graph_num_timesteps_per_layer"])
+            for k, n in expected_launches("GNN-FiLM", layers, 1, 1).items():
+                rs.LAUNCHES[k] += n
+            return real(self, batch, *args, **kwargs)
+        return step
+
+    SparseGraphModel._train_step_body = emulated(
+        SparseGraphModel._train_step_body)
+    real_local = dp.local_grads
+    local = emulated(real_local)
+
+    def local_grads(model, batch, gen, reduce_metrics=False, out=None):
+        buf, metrics = local(model, batch, gen, reduce_metrics, out)
+        if fault == "unweighted" and batch.num_graphs:
+            buf[:-1] /= float(batch.num_graphs)
+        return buf, metrics
+
+    dp.local_grads = local_grads
+    if fault == "other_rank_batch" and rank == 1:
+        real_upload, seen = t_model.batch_to_device, []
+
+        def upload(batch, device):
+            seen.append(real_upload(batch, device))
+            return seen[0] if len(seen) == 2 else seen[-1]
+
+        t_model.batch_to_device = upload
+    if fault == "eager_scanned":
+        def eager(self, cached, data_fold):
+            self.params["scan_epochs"] = False
+            try:
+                return self._run_epoch_on_stream(
+                    "eager", self.task._loaded_data[data_fold], data_fold,
+                    True)
+            finally:
+                self.params["scan_epochs"] = True
+
+        SparseGraphModel._run_epoch_scanned = eager
+    chip_smoke.dp_rank(rank, cfg)
+
+
+@pytest.mark.parametrize("fault", ["none", "unweighted", "other_rank_batch",
+                                   "eager_scanned"])
+def test_dp_phase_checks_reject_planted_faults(qm9_dir, tmp_path, fault):
+    """dp_phase on the CPU (two spawned ranks over gloo) at a tiny width
+    (one layer, 16 columns, 600-node batches: 4 TRAIN batches in 2 replica
+    groups), launches emulated: it passes as it is, and fails on a
+    gradient left unweighted (the dp step off the union step), on rank 1
+    stepping rank 0's batch (rank 0's union step off) and on a scanned
+    epoch that runs eager steps."""
+    from chip_smoke import dp_phase
+
+    kwargs = dict(data=qm9_dir, out=str(tmp_path), device="cpu",
+                  overrides={"graph_num_layers": 1, "hidden_size": 16,
+                             "max_nodes_in_batch": 600}, timed=False,
+                  worker=functools.partial(planted_dp_rank, fault=fault))
+    if fault == "none":
+        launches = dp_phase(**kwargs)
+        # 4 epochs of 2 entries a rank, 2 ranks, 1 layer: K1 forward.
+        assert launches["film_fwd"] == 4 * 2 * 2
+        return
+    match = {"unweighted": "dp step against the union step",
+             "other_rank_batch": "rank 0 dp step against the union step",
+             "eager_scanned": "ran eager steps"}[fault]
+    with pytest.raises(Exception, match=match):
+        dp_phase(**kwargs)

@@ -232,3 +232,32 @@ def test_film_layer_segment_branch_matches_jax(batches, monkeypatch):
              dict(rtol=1e-4, atol=1e-4))
     _compare(_torch_layer(tg, params, h, w, "auto"), want,
              dict(rtol=3e-2, atol=2e-1))
+
+
+def test_plain_exp_and_tanh_are_the_correctly_rounded_values():
+    """The plain versions' exp and tanh of CPU tensors (ops/ranked_segment.py
+    _exp, _tanh: torch.exp2 in f64, not MKL's vector math, whose first
+    call in a process once came back 1,770 ulps off on one thread's chunk)
+    equal numpy's f64 values rounded once to f32, on a million values and
+    the edges, call after call, for any number of intra-op threads."""
+    rng = np.random.RandomState(0)
+    z = torch.from_numpy((rng.randn(1 << 20) * 6).astype(np.float32))
+    edges = torch.tensor([0.0, -0.0, 1e-30, -1e-30, 1e-8, -1e-8, 0.25, -0.5,
+                          -87.0, -103.5, -104.5, -200.0, 20.0, -20.0, 1e30,
+                          float("inf"), float("-inf")])
+    z = torch.cat([z, edges])
+    neg = z.clamp(max=0.0)
+    # numpy's f64 functions, not PyTorch's (which reach the same library).
+    want_exp = torch.from_numpy(np.exp(neg.double().numpy()).astype(
+        np.float32))
+    want_tanh = torch.from_numpy(np.tanh(z.double().numpy()).astype(
+        np.float32))
+    threads = torch.get_num_threads()
+    try:
+        for n in (1, 3, threads):
+            torch.set_num_threads(n)
+            assert torch.equal(t_rs._exp(neg), want_exp)
+            assert torch.equal(t_rs._tanh(z), want_tanh)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.isnan(t_rs._exp(torch.tensor([float("nan")]))).all()

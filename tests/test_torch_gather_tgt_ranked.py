@@ -120,8 +120,8 @@ def test_gate_takes_the_jax_semantic_terms(qm9):
 
 def test_rgcn_source_and_target_model_matches_jax(qm9, tmp_path,
                                                   monkeypatch):
-    """RGCN at hidden 64 with use_both_source_and_target (the JAX model
-    passes the option to its layer here, as the port's model does): the
+    """RGCN at hidden 64 with use_both_source_and_target (neither model
+    passes the option to its layer; both are patched to pass it here): the
     loss and every parameter gradient of the 2-layer model. The target
     half's 64-wide gather takes the ranked backward in the port; the JAX
     package takes the same (its gate patched to the port's, the Pallas
@@ -137,10 +137,11 @@ def test_rgcn_source_and_target_model_matches_jax(qm9, tmp_path,
         j_edge_ops, "_ranked_gather_ok",
         lambda table, flat, field: (field == "tgt_sorted_rank"
                                     and gate(table, flat, field)))
-    real = j_model.RGCN_Model.layer_kwargs
-    monkeypatch.setattr(
-        j_model.RGCN_Model, "layer_kwargs",
-        lambda self: dict(real(self), use_both_source_and_target=True))
+    for cls in (j_model.RGCN_Model, t_model.RGCN_Model):
+        monkeypatch.setattr(
+            cls, "layer_kwargs",
+            lambda self, real=cls.layer_kwargs: dict(
+                real(self), use_both_source_and_target=True))
     jt, tt, jb, tb = qm9
     params = j_model.RGCN_Model.default_params()
     params.update({"hidden_size": 64, "graph_num_layers": 2,

@@ -139,6 +139,34 @@ def src_rank_table_rows(t_rows: int, num_edges: int,
 
 # ---- activations: (act, act') pairs, as the JAX package's _ACTS ----------
 
+# torch.exp and torch.tanh of f32 CPU tensors go through MKL's vector math
+# library: in the first call of a process, one worker thread's chunk has
+# come back up to 1,770 ulps (1e-4 relative) off, and the bf16 rounding of
+# a kernel's terms turns that into whole bf16 steps of a few terms. So the
+# plain versions take exp and tanh of CPU tensors from torch.exp2 in f64
+# (SLEEF's, not MKL's), rounded once to f32: the correctly rounded value
+# but where an f64 ulp decides it. On the card, CUDA's expf and tanhf are
+# deterministic and stay.
+_LOG2E = 1.0 / math.log(2.0)
+
+
+def _exp(z):
+    if z.device.type != "cpu":
+        return torch.exp(z)
+    return torch.exp2(z.to(torch.float64) * _LOG2E).to(z.dtype)
+
+
+def _tanh(z):
+    if z.device.type != "cpu":
+        return torch.tanh(z)
+    x = z.to(torch.float64)
+    t = torch.exp2(x.abs() * (-2.0 * _LOG2E))  # exp(-2|x|)
+    # Below 1e-6, 1 - t would keep too few of the f64 bits: x - x^3 / 3.
+    y = torch.where(x.abs() < 1e-6, x - x * x * x / 3.0,
+                    torch.sign(x) * (1.0 - t) / (1.0 + t))
+    return y.to(z.dtype)
+
+
 def _erf_approx(x):
     """Abramowitz-Stegun 7.1.26 (max abs err 1.5e-7), the JAX package's
     erf for the FiLM kernels; the CUDA kernels use the same polynomial."""
@@ -147,16 +175,16 @@ def _erf_approx(x):
     ax = torch.abs(x)
     t = 1.0 / (1.0 + 0.3275911 * ax)
     poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
-    y = 1.0 - poly * torch.exp(-ax * ax)
+    y = 1.0 - poly * _exp(-ax * ax)
     return torch.sign(x) * y
 
 
 def _elu(z):
-    return torch.where(z > 0, z, torch.exp(torch.clamp(z, max=0.0)) - 1.0)
+    return torch.where(z > 0, z, _exp(torch.clamp(z, max=0.0)) - 1.0)
 
 
 def _delu(z):
-    return torch.where(z > 0, 1.0, torch.exp(torch.clamp(z, max=0.0)))
+    return torch.where(z > 0, 1.0, _exp(torch.clamp(z, max=0.0)))
 
 
 _ACTS = {
@@ -167,12 +195,12 @@ _ACTS = {
     "leaky_relu": (lambda z: torch.where(z > 0, z, 0.2 * z),
                    lambda z: torch.where(z > 0, 1.0, 0.2)),
     "elu": (_elu, _delu),
-    "tanh": (torch.tanh, lambda z: 1.0 - torch.tanh(z) ** 2),
+    "tanh": (_tanh, lambda z: 1.0 - _tanh(z) ** 2),
     # erf formulation through _erf_approx, not the tanh approximation.
     "gelu": (
         lambda z: 0.5 * z * (1.0 + _erf_approx(z * (2.0 ** -0.5))),
         lambda z: (0.5 * (1.0 + _erf_approx(z * (2.0 ** -0.5)))
-                   + z * torch.exp(-0.5 * z * z)
+                   + z * _exp(-0.5 * z * z)
                    * (1.0 / math.sqrt(2.0 * math.pi))),
     ),
 }

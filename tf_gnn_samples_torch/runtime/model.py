@@ -18,7 +18,6 @@ Entry points run on CUDA unless the caller asks for the CPU; a missing
 GPU raises instead of falling back.
 """
 
-import contextlib
 import os
 import pickle
 import random
@@ -34,6 +33,8 @@ from ..nn.propagation import propagation_apply, propagation_init
 from ..ops import ranked_segment as rs
 from ..ops.edge_ops import dense_adjacency
 from ..ops.graph import graph_to_device
+from ..parallel import data_parallel as dp
+from ..parallel.multihost import LAUNCH_FLAGS
 from ..tasks.base import DataFold, SparseGraphTask, TaskBatch
 from ..utils.iterators import ThreadedIterator
 from ..utils.metrics_writer import MetricsWriter
@@ -99,12 +100,39 @@ def shape_groups(batches: List[TaskBatch]) -> List[List[int]]:
 class _Replay(NamedTuple):
     """One cached batch's captured step: the graph, the static tensors it
     writes the step's metrics into, and the kernel launches its capture
-    counted (added to ops/ranked_segment.py's counters at every replay)."""
+    counted (added to ops/ranked_segment.py's counters at every replay).
+    A data-parallel train step is two graphs: `graph` writes the rank's
+    weighted gradients into the model's reduction buffer, `update` reads
+    the buffer after the eager all_reduce and updates the parameters."""
 
     graph: Any  # torch.cuda.CUDAGraph
     outs: Dict[str, torch.Tensor]
     launches: Dict[str, int]
     form_launches: Dict[str, int]
+    update: Any = None
+
+
+def _check_parallel_options(params: Dict[str, Any]) -> None:
+    """num_model_replicas, held to the JAX package's checks (its
+    runtime/model.py _run_epoch) with ranks in place of devices: the two
+    parallel options exclude each other, and N replicas are the N ranks of
+    a torch.distributed process group, one a replica (never one process
+    standing in for several)."""
+    replicas = int(params.get("num_model_replicas") or 1)
+    gp = int(params.get("graph_parallel") or 1)
+    if gp > 1 and replicas > 1:
+        raise ValueError("graph_parallel and num_model_replicas are mutually "
+                         "exclusive (got %d and %d)" % (gp, replicas))
+    ranks = dp.world()[1]
+    if replicas > 1 and not torch.distributed.is_initialized():
+        raise ValueError(
+            "num_model_replicas=%d runs one process a replica in a "
+            "torch.distributed process group, and none was initialized: "
+            "launch %d processes with %s (parallel/multihost.py "
+            "initialize)" % (replicas, replicas, LAUNCH_FLAGS))
+    if ranks != replicas:
+        raise ValueError("num_model_replicas=%d but the process group has %d "
+                         "ranks (one rank a replica)" % (replicas, ranks))
 
 
 def flatten_params(tree, prefix: str = "") -> Dict[str, Any]:
@@ -287,11 +315,11 @@ class SparseGraphModel(ABC):
         result_dir: str,
         device=None,
     ) -> None:
-        for key in ("num_model_replicas", "graph_parallel"):
-            if int(params.get(key) or 1) > 1:
-                raise NotImplementedError(
-                    "%s > 1 (ROADMAP Queue 1 item 8) is not yet ported to "
-                    "the PyTorch package." % key)
+        if int(params.get("graph_parallel") or 1) > 1:
+            _check_parallel_options(params)
+            raise NotImplementedError(
+                "graph_parallel > 1 (ROADMAP Queue 1 item 8) is not yet "
+                "ported to the PyTorch package.")
         self.params = params
         self.task = task
         self.run_id = run_id
@@ -334,6 +362,17 @@ class SparseGraphModel(ABC):
         self._graphs: Dict[DataFold, Dict[int, _Replay]] = {}
         self._graph_pool = None
         self._scan_stream = None
+        # Per fold, as last packed: the graph counts of each replica
+        # group's batches (one batch a group for a single process; a rank
+        # caches only its own entry of each group) and the fold's graph,
+        # node and edge totals. Data parallelism (num_model_replicas > 1,
+        # one rank a replica): whether the ranks' parameters were made
+        # rank 0's since they were last set; the reduction buffer of the
+        # captured steps.
+        self._fold_counts: Dict[DataFold, Tuple[List[List[int]],
+                                              Tuple[int, int, int]]] = {}
+        self._dp_synced = False
+        self._dp_buffer = None
 
     def initialize_model(self) -> None:
         """Kept for API parity with the JAX package (reference
@@ -410,16 +449,29 @@ class SparseGraphModel(ABC):
         return self.task.output_apply(params["output"], batch, final_h,
                                       feats, gen)
 
-    def _effective_lr(self, num_graphs: int) -> float:
+    def _effective_lr(self, num_graphs):
+        """The learning rate for a step over `num_graphs` graphs (an int, or
+        the data-parallel step's reduced count, a 0-d device tensor)."""
         lr = self.params["learning_rate"]
         per_batch = self.params.get("lr_for_num_graphs_per_batch")
         if per_batch is not None:
-            lr = lr * float(num_graphs) / float(per_batch)
+            lr = lr * num_graphs / float(per_batch)
         return lr
 
+    @property
+    def _replicas(self) -> int:
+        return int(self.params.get("num_model_replicas") or 1)
+
+    def _seed_dropout(self, seed: int) -> None:
+        """Seed the dropout generator from a step seed drawn from _step_rng,
+        with this process's rank folded in (0 without a process group), as
+        the JAX package's dp step folds in its axis index."""
+        self._dropout_gen.manual_seed(seed + dp.world()[0] * 2**31)
+
     def _train_step(self, batch: TaskBatch):
-        self._dropout_gen.manual_seed(
-            int(self._step_rng.randint(0, 2**31 - 1)))
+        self._seed_dropout(int(self._step_rng.randint(0, 2**31 - 1)))
+        if self._replicas > 1:
+            return dp.dp_train_step(self, batch)
         return self._train_step_body(batch)
 
     def _train_step_body(self, batch: TaskBatch):
@@ -445,6 +497,9 @@ class SparseGraphModel(ABC):
     # -------------------- save / load --------------------
 
     def save_model(self, path: str) -> None:
+        """Pickle the weights (rank 0 alone in a data-parallel run)."""
+        if dp.world()[0]:
+            return
         data_to_save = {
             "model_class": self.name(self.params),
             "task_class": self.task.name(),
@@ -477,6 +532,7 @@ class SparseGraphModel(ABC):
         self.opt_state = self._optimizer.init(self._leaves())
         # Captured steps update the tensors they were captured with.
         self._drop_graphs()
+        self._dp_synced = False
 
     # -------------------- full training-state checkpoint ----------------
     # The reference's best-model pickle carries weights only. These
@@ -486,6 +542,8 @@ class SparseGraphModel(ABC):
 
     def save_training_state(self, path: str, epoch: int,
                             early_stop_state: Dict[str, Any]) -> None:
+        if dp.world()[0]:
+            return  # rank 0 alone writes the run's files
         opt = opt_state_to_jax(self.opt_state, self.model_params_tree)
         state = {
             "model_class": self.name(self.params),
@@ -527,15 +585,19 @@ class SparseGraphModel(ABC):
         self._step_rng.set_state(state["step_rng_state"])
         np.random.set_state(state["np_random_state"])
         self._drop_graphs()
+        self._dp_synced = False
         return {"epoch": state["epoch"],
                 "early_stop_state": state["early_stop_state"]}
 
     # -------------------- epoch driver --------------------
 
     def log_line(self, msg: str) -> None:
-        os.makedirs(self.result_dir, exist_ok=True)
-        with open(self.log_file, "a") as f:
-            f.write(msg + "\n")
+        """Print `msg`; append it to the log (rank 0 alone in a
+        data-parallel run: every rank prints the same lines)."""
+        if not dp.world()[0]:
+            os.makedirs(self.result_dir, exist_ok=True)
+            with open(self.log_file, "a") as f:
+                f.write(msg + "\n")
         print(msg)
 
     def _attach_cached_dense_adj_fold(self, batches: List[TaskBatch],
@@ -574,6 +636,7 @@ class SparseGraphModel(ABC):
         self._scan_groups.pop(data_fold, None)
         self._scan_outs.pop(data_fold, None)
         self._graphs.pop(data_fold, None)
+        self._fold_counts.pop(data_fold, None)
 
     def _drop_graphs(self) -> None:
         """Drop every captured step (they update the tensors they were
@@ -589,6 +652,7 @@ class SparseGraphModel(ABC):
         data_fold: DataFold,
         quiet: bool = False,
     ) -> Tuple[float, List[Dict[str, Any]], int, float, float, float]:
+        _check_parallel_options(self.params)
         if self.params.get("scan_epochs") and self.device.type == "cuda":
             # Every step of a scanning model runs on the side stream its
             # graphs are captured on: the eager epochs warm it up (cuBLAS
@@ -604,6 +668,23 @@ class SparseGraphModel(ABC):
         return self._run_epoch_on_stream(epoch_name, data, data_fold, quiet)
 
     def _run_epoch_on_stream(self, epoch_name, data, data_fold, quiet):
+        """One epoch over `data_fold`, one rank a replica (the JAX
+        package's _run_epoch and _run_epoch_dp): the batches gather into
+        replica groups of the world size by batch_shape_key (a short final
+        group padded with zero-weight clones of its last batch), and this
+        process steps entry `rank` of each group, uploading only that one;
+        a single process is the world of one, each batch a group as it
+        arrives. A data-parallel train step makes one all_reduce
+        (parallel/data_parallel.py). Every rank draws the same host random
+        numbers (the fold's shuffle, the cached order, one _step_rng seed
+        a step, with the rank folded into its dropout generator's seed).
+        With the cache, this process's entries stay on the device, the
+        group membership frozen and TRAIN reshuffling the order
+        (repack_cached_every re-packs); with scan_epochs too, the epochs
+        after a fold's first run _run_epoch_scanned over them. The ranks'
+        parameters are made rank 0's before the first data-parallel epoch
+        and after every load. Returns what _run_epoch returns, every
+        rank's per-batch metrics in fold order, padding dropped."""
         cache_on_device = self.params.get("cache_batches_on_device", False)
         if cache_on_device and getattr(data, "is_streaming", False):
             # A disk-resident streamed fold exists because the data does
@@ -626,85 +707,111 @@ class SparseGraphModel(ABC):
                     and self._train_epochs_seen > 1
                     and (self._train_epochs_seen - 1) % repack_every == 0):
                 self._invalidate_fold_cache(data_fold)
+        rank, replicas = dp.world()
+        if replicas > 1 and not self._dp_synced:
+            dp.broadcast_state(self)
+            self._dp_synced = True
         cached = self._batch_cache.get(data_fold) if cache_on_device else None
         if cached is not None and self.params.get("scan_epochs"):
             return self._run_epoch_scanned(cached, data_fold)
+        start_time = time.time()
+        run: List[int] = []  # the replica group of each step, in step order
+        device_metrics: List[Dict[str, Any]] = []
+
+        def step(i, batch):
+            run.append(i)
+            self.batches_run[data_fold] += 1
+            device_metrics.append(self._train_step(batch)
+                                  if data_fold == DataFold.TRAIN
+                                  else self._eval_step(batch))
+
         if cached is not None:
             order = np.arange(len(cached))
             if data_fold == DataFold.TRAIN:
                 np.random.shuffle(order)
-            batches = contextlib.nullcontext(cached[i] for i in order)
+            for i in order:
+                step(i, cached[i])
         else:
-            # A worker thread packs the next batches (host numpy work)
-            # while the card runs the current step.
-            batches = ThreadedIterator(
-                self.task.make_minibatch_iterator(
-                    data, data_fold, self.params["max_nodes_in_batch"]),
-                max_queue_size=5)
-        start_time = time.time()
-        processed_graphs = processed_nodes = processed_edges = 0
-        device_metrics: List[Dict[str, Any]] = []
-        batch_graph_counts: List[int] = []
-        to_cache: List[TaskBatch] = []
-        with batches as batch_iterator:
-            for step_i, batch in enumerate(batch_iterator):
-                processed_graphs += int(batch.num_graphs)
-                processed_nodes += int(batch.num_nodes)
-                processed_edges += int(batch.num_edges)
-                if cached is not None:
-                    dev_batch = batch
-                else:
-                    dev_batch = batch_to_device(batch, self.device)
-                    if cache_on_device:
-                        to_cache.append(dev_batch)
-                if data_fold == DataFold.TRAIN:
-                    metrics = self._train_step(dev_batch)
-                else:
-                    metrics = self._eval_step(dev_batch)
-                self.batches_run[data_fold] += 1
-                device_metrics.append(metrics)
-                batch_graph_counts.append(batch.num_graphs)
-                if not quiet and step_i % 16 == 0:
-                    print(
-                        "Running %s, batch %i (has %i graphs)."
-                        % (epoch_name, step_i, batch.num_graphs),
-                        end="\r",
-                    )
+            counts: List[List[int]] = []
+            totals = [0, 0, 0]
+            to_cache: List[TaskBatch] = []
 
-        assert processed_graphs > 0, "Can't run epoch over empty dataset."
-        if cache_on_device and cached is None:
-            # The JAX package unifies the fold's window tokens first
-            # (unify_win_tokens), only so that its cached batches share one
-            # pytree shape for jit. PyTorch does not recompile per shape,
-            # so each batch keeps its own windows, and a cached step
-            # computes what the uncached step on the same batch does.
-            self._batch_cache[data_fold] = self._attach_cached_dense_adj_fold(
-                to_cache, data_fold)
-            if self.params.get("scan_epochs"):
-                # Allocated outside every graph's pool, so no graph's
-                # metrics live in memory another graph reuses.
-                self._scan_outs[data_fold] = [
-                    {k: v.detach().clone(memory_format=torch.contiguous_format)
-                     for k, v in m.items()} for m in device_metrics]
-        # One host sync at epoch end: the device runs ahead of the host
-        # until the metrics are fetched.
-        task_metric_results = [
-            {k: np.asarray(v.cpu()) for k, v in m.items()}
-            for m in device_metrics
-        ]
+            def run_group(group):
+                counts.append([int(b.num_graphs) for b in group])
+                while len(group) < replicas:
+                    group.append(dp.empty_like_batch(group[-1]))
+                mine = batch_to_device(group[rank], self.device)
+                if cache_on_device:
+                    to_cache.append(mine)
+                step(len(counts) - 1, mine)
+
+            # A worker thread packs the next batches (host numpy work)
+            # while the card runs the current step. Batches gather into
+            # replica groups of the world size by batch_shape_key; a
+            # single process runs each batch as it arrives.
+            pending: Dict[Any, List[TaskBatch]] = {}
+            with ThreadedIterator(self.task.make_minibatch_iterator(
+                    data, data_fold, self.params["max_nodes_in_batch"]),
+                    max_queue_size=5) as batch_iterator:
+                for batch_i, batch in enumerate(batch_iterator):
+                    for j, n in enumerate((batch.num_graphs, batch.num_nodes,
+                                           batch.num_edges)):
+                        totals[j] += int(n)
+                    key = batch_shape_key(batch) if replicas > 1 else None
+                    group = pending.setdefault(key, [])
+                    group.append(batch)
+                    if len(group) == replicas:
+                        run_group(group)
+                        pending[key] = []
+                    if not quiet and batch_i % 16 == 0:
+                        print("Running %s, batch %i (has %i graphs)."
+                              % (epoch_name, batch_i, batch.num_graphs),
+                              end="\r")
+                for group in pending.values():
+                    if group:
+                        run_group(group)
+            self._fold_counts[data_fold] = (counts, tuple(totals))
+            if cache_on_device:
+                # The JAX package unifies the fold's window tokens first
+                # (unify_win_tokens), only so that its cached batches
+                # share one pytree shape for jit. PyTorch does not
+                # recompile per shape, so each batch keeps its own
+                # windows, and a cached step computes what the uncached
+                # step on the same batch does.
+                self._batch_cache[data_fold] = (
+                    self._attach_cached_dense_adj_fold(to_cache, data_fold))
+                if self.params.get("scan_epochs"):
+                    # Allocated outside every graph's pool, so no graph's
+                    # metrics live in memory another graph reuses.
+                    self._scan_outs[data_fold] = [
+                        {k: v.detach().clone(
+                            memory_format=torch.contiguous_format)
+                         for k, v in m.items()} for m in device_metrics]
+        return self._epoch_result(data_fold, run, device_metrics, start_time)
+
+    def _epoch_result(self, data_fold, run, device_metrics, start_time):
+        """_run_epoch's result of an epoch whose steps took the replica
+        groups `run` (batch indices, for a single process) and gave this
+        process `device_metrics`. The fold's counts are those of its last
+        packing. Data-parallel: every rank's metrics gathered in one
+        collective (parallel/data_parallel.py gather_epoch), in step order
+        and rank order within a step, the padding replicas dropped; the
+        rates over the slowest rank's seconds, so that every rank logs
+        the same line. One host sync, at the epoch's end: the device runs
+        ahead of the host until the metrics are fetched."""
+        counts, (graphs, nodes, edges) = self._fold_counts[data_fold]
+        assert graphs > 0, "Can't run epoch over empty dataset."
+        per_rank, seconds = dp.gather_epoch(device_metrics, start_time)
+        task_metric_results, batch_graph_counts = [], []
+        for s, i in enumerate(run):
+            for r, n in enumerate(counts[i]):
+                task_metric_results.append(per_rank[r][s])
+                batch_graph_counts.append(n)
         epoch_loss = float(sum(
             float(m["loss"]) * n
-            for m, n in zip(task_metric_results, batch_graph_counts)
-        ))
-        epoch_time = time.time() - start_time
-        return (
-            epoch_loss / processed_graphs,
-            task_metric_results,
-            processed_graphs,
-            processed_graphs / epoch_time,
-            processed_nodes / epoch_time,
-            processed_edges / epoch_time,
-        )
+            for m, n in zip(task_metric_results, batch_graph_counts)))
+        return (epoch_loss / graphs, task_metric_results, graphs,
+                graphs / seconds, nodes / seconds, edges / seconds)
 
     def _run_epoch_scanned(
         self, cached: List[TaskBatch], data_fold: DataFold
@@ -717,7 +824,11 @@ class SparseGraphModel(ABC):
         masks in turn; VALIDATION runs the groups and batches in order.
         On the card every step is a replayed CUDA graph (_scanned_step);
         the epoch syncs once, at its end. Returns what _run_epoch
-        returns, the metrics in the order the steps ran."""
+        returns, the metrics in the order the steps ran. Data-parallel:
+        `cached` holds this rank's entry of each replica group, every rank
+        runs them in the same drawn order (the JAX package's
+        _run_epoch_dp_scanned). The epoch ends as an eager one does
+        (_epoch_result)."""
         start_time = time.time()
         groups = self._scan_groups.get(data_fold)
         if groups is None:
@@ -728,8 +839,7 @@ class SparseGraphModel(ABC):
             for gi in np.random.permutation(len(groups)):
                 idxs = groups[gi]
                 within = np.random.permutation(len(idxs))
-                self._dropout_gen.manual_seed(
-                    int(self._step_rng.randint(0, 2**31 - 1)))
+                self._seed_dropout(int(self._step_rng.randint(0, 2**31 - 1)))
                 for j in within:
                     run.append(idxs[j])
                     device_metrics.append(self._scanned_step(
@@ -740,26 +850,7 @@ class SparseGraphModel(ABC):
                     run.append(i)
                     device_metrics.append(
                         self._scanned_step(data_fold, i, cached[i]))
-        task_metric_results = [
-            {k: np.asarray(v.cpu()) for k, v in m.items()}
-            for m in device_metrics
-        ]
-        processed_graphs = sum(int(b.num_graphs) for b in cached)
-        processed_nodes = sum(int(b.num_nodes) for b in cached)
-        processed_edges = sum(int(b.num_edges) for b in cached)
-        epoch_loss = float(sum(
-            float(m["loss"]) * int(cached[i].num_graphs)
-            for m, i in zip(task_metric_results, run)
-        ))
-        epoch_time = time.time() - start_time
-        return (
-            epoch_loss / processed_graphs,
-            task_metric_results,
-            processed_graphs,
-            processed_graphs / epoch_time,
-            processed_nodes / epoch_time,
-            processed_edges / epoch_time,
-        )
+        return self._epoch_result(data_fold, run, device_metrics, start_time)
 
     def _scanned_step(self, data_fold: DataFold, i: int, batch: TaskBatch):
         """Cached batch `i` of `data_fold`'s step in a scanned epoch: a
@@ -768,18 +859,25 @@ class SparseGraphModel(ABC):
         it replays the batch's CUDA graph, captured at its first use; a
         capture or replay error raises. Returns the step's metrics (on the
         card, the graph's static tensors, which its next replay
-        overwrites)."""
+        overwrites). A data-parallel train step replays the rank's two
+        graphs around the eager all_reduce of the reduction buffer."""
         train = data_fold == DataFold.TRAIN
         self.batches_run[data_fold] += 1
         if self.device.type != "cuda":
-            return (self._train_step_body(batch) if train
-                    else self._eval_step(batch))
+            if not train:
+                return self._eval_step(batch)
+            if self._replicas > 1:
+                return dp.dp_train_step(self, batch)
+            return self._train_step_body(batch)
         graphs = self._graphs.setdefault(data_fold, {})
         replay = graphs.get(i)
         if replay is None:
             replay = graphs[i] = self._capture(
                 train, batch, self._scan_outs[data_fold][i])
         replay.graph.replay()
+        if replay.update is not None:
+            torch.distributed.all_reduce(self._dp_buffer)
+            replay.update.replay()
         for counts, delta in ((rs.LAUNCHES, replay.launches),
                               (rs.FORM_LAUNCHES, replay.form_launches)):
             for k, n in delta.items():
@@ -800,7 +898,11 @@ class SparseGraphModel(ABC):
         counters are left as they were, and the launches the capture
         counted are returned for its replays to add. A train step's graph
         registers _dropout_gen, so that each replay draws fresh masks from
-        the generator's state at that replay."""
+        the generator's state at that replay. A data-parallel train step is
+        captured as its two halves (parallel/data_parallel.py local_grads
+        into the model's reduction buffer, allocated outside the pool, and
+        apply_reduced from it): gloo's collectives cannot be captured, so
+        the all_reduce between them runs eagerly at each replay."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         if self._scan_stream is None:
@@ -808,16 +910,31 @@ class SparseGraphModel(ABC):
         graph = torch.cuda.CUDAGraph()
         if train:
             graph.register_generator_state(self._dropout_gen)
+        split = train and self._replicas > 1
+        if split and self._dp_buffer is None:
+            self._dp_buffer = torch.empty(
+                sum(p.numel() for p in self._leaves()) + 1,
+                device=self.device)
+        update = torch.cuda.CUDAGraph() if split else None
         counts = (dict(rs.LAUNCHES), dict(rs.FORM_LAUNCHES))
         step = self.opt_state.step
         try:
             with torch.cuda.graph(graph, pool=self._graph_pool,
                                   stream=self._scan_stream):
-                metrics = (self._train_step_body(batch) if train
-                           else self._eval_step(batch))
+                if split:
+                    metrics = dp.local_grads(self, batch, self._dropout_gen,
+                                             out=self._dp_buffer)[1]
+                elif train:
+                    metrics = self._train_step_body(batch)
+                else:
+                    metrics = self._eval_step(batch)
                 for k, v in metrics.items():
                     outs[k].copy_(v)
                 del metrics
+            if split:
+                with torch.cuda.graph(update, pool=self._graph_pool,
+                                      stream=self._scan_stream):
+                    dp.apply_reduced(self, self._dp_buffer)
         finally:
             self.opt_state = self.opt_state._replace(step=step)
             deltas = []
@@ -827,7 +944,7 @@ class SparseGraphModel(ABC):
                                if n != before.get(k, 0)})
                 live.clear()
                 live.update(before)
-        return _Replay(graph, outs, *deltas)
+        return _Replay(graph, outs, *deltas, update=update)
 
     def train(self, quiet: bool = False, tf_summary_path: Optional[str] = None,
               resume_from: Optional[str] = None):
@@ -843,7 +960,7 @@ class SparseGraphModel(ABC):
         `training_state_file`."""
         total_time_start = time.time()
         metrics_writer = None
-        if tf_summary_path is not None:
+        if tf_summary_path is not None and not dp.world()[0]:
             metrics_writer = _Fanout([
                 MetricsWriter(tf_summary_path),
                 FoldedTensorBoardWriter(tf_summary_path, self.run_id),
@@ -1106,11 +1223,6 @@ class RGCN_Model(SparseGraphModel):
             "activation_function": self.params["graph_activation_function"],
             "message_aggregation_function": self.params["message_aggregation_function"],
             "aggregation_strategy": self.params.get("aggregation_strategy", "auto"),
-            # The layer's option of messages from [source; target] states
-            # (both packages' rgcn_apply), read with params.get, default
-            # off; the JAX package's model does not pass it.
-            "use_both_source_and_target": bool(
-                self.params.get("use_both_source_and_target", False)),
         }
 
 

@@ -12,6 +12,8 @@ import argparse
 import json
 from typing import Optional
 
+import torch.distributed as dist
+
 from .utils.registry import restore
 
 
@@ -20,6 +22,12 @@ def test(model_path: str, test_data_path: Optional[str], result_dir: str,
     model = restore(model_path, result_dir, run_id, device=device)
     # Larger batches are fine without training state (reference test.py:27).
     model.params["max_nodes_in_batch"] = 2 * model.params["max_nodes_in_batch"]
+    replicas = int(model.params.get("num_model_replicas") or 1)
+    if replicas > 1 and not dist.is_initialized():
+        # The train CLI's ranks evaluate together; this CLI is one process.
+        model.log_line("Evaluating on one process: the model was trained "
+                       "with num_model_replicas=%d." % replicas)
+        model.params["num_model_replicas"] = 1
     test_data_path = test_data_path or model.task.default_data_path()
     model.log_line(" Using the following task params: %s" % json.dumps(model.task.params))
     model.log_line(" Using the following model params: %s" % json.dumps(model.params))

@@ -4,9 +4,10 @@
 default_hypers/{TASK}_{MODEL}.json -> CLI JSON overrides), data loaded
 once and shared across a (possibly list-valued) random_seed sweep, per-run
 log files whose format the bench scripts regex, optional --run-test,
-full-state --resume, --tensorboard metric files, a --profile-dir trace and
-azure:// data paths (--azure-info). Runs on CUDA unless --device cpu is
-given.
+full-state --resume, --tensorboard metric files, a --profile-dir trace,
+azure:// data paths (--azure-info) and multi-process data parallelism
+(--coordinator, --num-hosts, --host-id: one process a model replica,
+parallel/multihost.py). Runs on CUDA unless --device cpu is given.
 
 Usage:
     python -m tf_gnn_samples_torch.train [options] MODEL_NAME TASK_NAME
@@ -21,6 +22,9 @@ import sys
 import time
 import traceback
 
+import torch.distributed as dist
+
+from .parallel.multihost import ENV_COORDINATOR, initialize, shutdown
 from .test import test
 from .utils.paths import localize_path
 from .utils.profiling import trace_if
@@ -56,6 +60,15 @@ def get_train_args(argv=None):
                         help="dpu_utils-style auth JSON for azure:// data "
                              "paths (downloaded to a local cache up front; "
                              "needs the azure-storage-blob package).")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="Multi-host training: torch.distributed "
+                             "coordinator address (process 0's). All hosts "
+                             "run the same command with their own "
+                             "--host-id; see parallel/multihost.py.")
+    parser.add_argument("--num-hosts", type=int, default=None,
+                        help="Multi-host training: total process count.")
+    parser.add_argument("--host-id", type=int, default=None,
+                        help="Multi-host training: this process's id.")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu.")
@@ -63,7 +76,25 @@ def get_train_args(argv=None):
 
 
 def run(args):
-    """Train one model per random seed; returns the trained models."""
+    """Train one model per random seed; returns the trained models. With
+    --coordinator / --num-hosts (or GRAFT_COORDINATOR) this process joins
+    the run's process group first; every process then runs the same
+    seeds, and rank 0 alone writes the run's files (its run id is
+    every rank's)."""
+    device = args.device
+    joined = bool(args.coordinator or args.num_hosts
+                  or os.environ.get(ENV_COORDINATOR))
+    if joined:
+        device = str(initialize(args.coordinator, args.num_hosts,
+                                args.host_id, device=args.device))
+    try:
+        return _run(args, device)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _run(args, device):
     model_cls, additional_model_params = name_to_model_class(args.MODEL_NAME)
     task_cls, additional_task_params = name_to_task_class(args.TASK_NAME)
 
@@ -108,8 +139,12 @@ def run(args):
             time.strftime("%Y-%m-%d-%H-%M-%S"),
             str(os.getpid()),
         ])
+        if dist.is_initialized():
+            shared = [run_id]
+            dist.broadcast_object_list(shared, src=0)
+            run_id = shared[0]
         model = model_cls(dict(model_params), task, run_id, result_dir,
-                          device=args.device)
+                          device=device)
         model.log_line("Run %s starting." % run_id)
         model.log_line(" Using the following task params: %s" % json.dumps(task_params))
         model.log_line(" Using the following model params: %s" % json.dumps(model_params))
@@ -135,8 +170,10 @@ def run(args):
             model.train(quiet=args.quiet, tf_summary_path=args.tensorboard,
                         resume_from=args.resume)
         if args.run_test:
+            if dist.is_initialized():
+                dist.barrier()  # rank 0's best-model file is written
             test(model.best_model_file, data_path, result_dir,
-                 quiet=args.quiet, run_id=run_id, device=args.device)
+                 quiet=args.quiet, run_id=run_id, device=device)
         models.append(model)
     return models
 
