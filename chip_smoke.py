@@ -154,7 +154,8 @@ Phases, each of which raises on failure (no phase's failure is caught):
     whole scanned train epoch in an order unlike the capture order, each
     tensor within twice the spread of four eager runs in norm
     (replay_eager_check, replay_epoch_check), and two replays with
-    dropout on differing, with it off not (fresh_masks_check); the
+    dropout on differing in the loss or the parameters, with it off in
+    neither (fresh_masks_check); the
     scanned against the eager-cached graphs/s (PPI: edges/s), the
     replayed step's timeline, host and busy ms beside the eager step's,
     each run's peak device memory allocated and reserved, the scanned
@@ -181,7 +182,21 @@ Phases, each of which raises on failure (no phase's failure is caught):
     and a scanned dp epoch each held against eager dp steps in its
     order; the dp step's and a single-process step's ms, the all_reduce's
     ms and bytes, the epochs' train graphs/s;
-14. a reference check per path: loss and gradients of the full-width
+14. the gp phase (`gp_phase`): graph_parallel 2 as two spawned ranks
+    over gloo sharing the card (gloo moves the collectives' CUDA tensors
+    through host memory), GNN-FiLM at its tuned QM9 config, dropout off, the f32
+    segment branch: on the first 50,000-node TRAIN batch (both ranks hold
+    it, their batch keys compared), the gp eval loss within rtol 1e-4 of
+    one process's on the whole batch, the gp gradients within 1e-4 of
+    its in norm, the weights after a gp step per class of tensors in norm
+    against four runs of that process's step (the kernel branch's step
+    printed beside it, not held), both ranks' weights bit for bit, with dropout on the
+    replicated models' generator in one state on both ranks and the loss
+    the same; a packing and a cached gp epoch over the whole TRAIN fold,
+    the ranks' losses the same; every hand-kernel launch counter at 0;
+    the gp step's, a single step's, one all-gather's and one
+    reduce-scatter's ms, the bytes a step moves, each rank's peak memory;
+15. a reference check per path: loss and gradients of the full-width
     model on a small batch on the card (kernels) against the same model
     on the CPU (the kernels' plain versions): QM9 (a 600-node pack, the
     same gates forced), PPI (one 400-node graph of PPI's degree; RGCN
@@ -696,8 +711,8 @@ def kernel_order_products(torch, a, w, types):
 # version's by no more than the same math in the kernel's order does:
 # entry by entry that is 0 for all but the few entries the two orders
 # round apart, and a dropped, doubled or misplaced term of any product
-# shows at once (tests/test_torch_chip_checks.py plants such faults). A
-# kernel that changes its order of the products changes
+# shows at once (tests/test_torch_chip_checks_kernels.py plants such
+# faults). A kernel that changes its order of the products changes
 # kernel_order_products with it. K10a, K10b and K14 sum their products on
 # the tensor cores, in an order of their own: they are held by an
 # order-free bound instead (typed_dense_agg_tc_check,
@@ -4120,20 +4135,32 @@ def replay_eager_check(label, eager, replayed):
     return spreads
 
 
-def fresh_masks_check(label, on, off, limit):
-    """Two replays of one batch's train graph from one state: with dropout
-    on (`on`, their losses) they must differ by more than `limit` (the
-    eager steps' loss noise, from replay_eager_check), as masks drawn
+def fresh_masks_check(label, on, off, noise):
+    """Two replays of one batch's train graph from one state, each a
+    train_step_result: with dropout on (`on`) they must differ by more
+    than `noise` (by class, the eager steps' noise from
+    replay_eager_check) in the loss or in the parameters, as masks drawn
     fresh at each replay make them; with dropout off (`off`) by at most
-    `limit`."""
-    print("  %s: losses of two replays from one state: dropout on %r, off "
-          "%r (limit %.3e)" % (label, on, off, limit))
-    if abs(on[0] - on[1]) <= limit:
+    the noise in both. The parameters as well as the loss: in the basin
+    where QM9's GNN-FiLM sits after a few epochs (a constant predictor)
+    the masks move the loss by 1-3 f32 ulps, and two draws can round to
+    one loss, while the update moves every layer's weights."""
+    dist = {side: {cls: class_distance(runs[0][cls], runs[1][cls])
+                   for cls in ("loss", "parameters")}
+            for side, runs in (("on", on), ("off", off))}
+    print("  %s: two replays from one state: losses with dropout on %r, off "
+          "%r; |difference| on %s, off %s (noise %s)" % (
+              label, [float(r["loss"][0]) for r in on],
+              [float(r["loss"][0]) for r in off], dist["on"], dist["off"],
+              {c: noise[c] for c in ("loss", "parameters")}))
+    if all(dist["on"][c] <= noise[c] for c in ("loss", "parameters")):
         raise AssertionError("%s: two replays drew the same dropout masks "
-                             "(losses %r)" % (label, on))
-    if abs(off[0] - off[1]) > limit:
-        raise AssertionError("%s: two replays without dropout differ "
-                             "(losses %r)" % (label, off))
+                             "(losses %r, parameters %.3e apart)" % (
+                                 label, [float(r["loss"][0]) for r in on],
+                                 dist["on"]["parameters"]))
+    if any(dist["off"][c] > noise[c] for c in ("loss", "parameters")):
+        raise AssertionError("%s: two replays without dropout differ (%s)"
+                             % (label, dist["off"]))
 
 
 def clamped_exp_check(torch, edge_ops, device):
@@ -4430,15 +4457,13 @@ def replay_checks(torch, model, label):
              for _ in range(EAGER_STEPS)]
     replay_eager_check(label + " eval step", eager,
                        evaluate(lambda: model._scanned_step(valid, 0, vb)))
-    off = [float(run(lambda: model._scanned_step(train, 0, tb))["loss"][0])
-           for _ in range(2)]
+    off = [run(lambda: model._scanned_step(train, 0, tb)) for _ in range(2)]
     replay_epoch_check(torch, model, label, state)
     model.params[key] = keep
     model._drop_graphs()
     model._dropout_gen.manual_seed(1)
-    on = [float(run(lambda: model._scanned_step(train, 0, tb))["loss"][0])
-          for _ in range(2)]
-    fresh_masks_check(label, on, off, noise["loss"])
+    on = [run(lambda: model._scanned_step(train, 0, tb)) for _ in range(2)]
+    fresh_masks_check(label, on, off, noise)
     load_model_state(torch, model, state)
 
 
@@ -4886,6 +4911,345 @@ def dp_phase(data=DATA, out=OUT, device="cuda", overrides=None, card="",
     return dict(total)
 
 
+# The gp phase: graph_parallel 2 as two ranks over gloo on the one card,
+# GNN-FiLM at its tuned QM9 config, dropout off, the f32 "segment" branch
+# (the gp layers are f32, as the JAX package's; its reference step takes
+# the same branch), the cache on for its epochs.
+GP_RANKS = 2
+GP_OVERRIDES = {"graph_parallel": GP_RANKS,
+                "graph_layer_input_dropout_keep_prob": 1.0,
+                "aggregation_strategy": "segment",
+                "cache_batches_on_device": True}
+# Seconds a gp rank waits in a collective before it fails (a desynced rank
+# fails in that time, not in gloo's default 30 minutes).
+GP_TIMEOUT = 60.0
+# Host-clock repetitions of a timed collective (median).
+GP_TIMED = 3
+# The gp gradients' bar against the single process's: relative, in norm
+# per class (the JAX gp checks' 1e-4). The atomics of index_add spread the
+# single process's own gradients by 0.1 % of that on the card.
+GP_GRAD_RTOL = 1e-4
+# The keep probabilities of the dropout check (graph layers, QM9's head).
+GP_DROPOUT = 0.9
+
+
+def gp_batch(task, params, which=0):
+    """The TRAIN fold's `which`-th batch, packed in order (as a validation
+    fold is: no shuffle)."""
+    from tf_gnn_samples_torch.tasks.base import DataFold
+
+    return next(itertools.islice(task.make_minibatch_iterator(
+        task._loaded_data[DataFold.TRAIN], DataFold.VALIDATION,
+        params["max_nodes_in_batch"]), which, None))
+
+
+def gp_ranks_equal(torch, label, tensors):
+    """Raise unless rank 0's `tensors` (one flat copy, broadcast) equal this
+    rank's bit for bit."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1).float().cpu() for t in tensors])
+    theirs = flat.clone()
+    dist.broadcast(theirs, 0)
+    if not torch.equal(flat, theirs):
+        raise AssertionError("%s: rank %d differs from rank 0's (largest "
+                             "difference %.3e)" % (
+                                 label, dist.get_rank(),
+                                 float((flat - theirs).abs().max())))
+
+
+def gp_generator_states(torch, model):
+    """Every rank's state of the replicated models' dropout generator and
+    of its propagation's (bytes, rank order)."""
+    import torch.distributed as dist
+
+    states = []
+    for gen in (model._dropout_gen, model._gp_prop_gen):
+        every = [None] * GP_RANKS
+        dist.all_gather_object(every, bytes(gen.get_state().tolist()))
+        states.append(every)
+    return states
+
+
+def gp_launch_check(rs, label):
+    """The gp path runs no hand kernel: every launch counter reads 0
+    (a change that routes gp through a kernel is seen here)."""
+    launched = {k: n for k, n in rs.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError("%s: hand kernels launched on the gp path %s"
+                             % (label, launched))
+
+
+def gp_rank(rank, cfg):
+    """One rank of the gp phase (see gp_phase); raises on a failed check.
+    Writes its numbers to cfg["result"] % rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tf_gnn_samples_torch.ops import ranked_segment as rs
+    from tf_gnn_samples_torch.parallel import graph_parallel as gp
+    from tf_gnn_samples_torch.parallel import multihost
+    from tf_gnn_samples_torch.runtime.model import batch_to_device
+    from tf_gnn_samples_torch.tasks.base import DataFold
+    from tf_gnn_samples_torch.train import HYPERS_DIR
+    from tf_gnn_samples_torch.utils.registry import (name_to_model_class,
+                                                     name_to_task_class)
+
+    if cfg["device"] == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    device = multihost.initialize("file://" + cfg["store"], GP_RANKS, rank,
+                                  device=cfg["device"], backend="gloo",
+                                  timeout=GP_TIMEOUT)
+    task_cls, extra = name_to_task_class("QM9")
+    task = task_cls({**task_cls.default_params(), **extra})
+    task.load_data(cfg["data"])
+    cls, extra = name_to_model_class("GNN-FiLM")
+    params = {**cls.default_params(), **extra}
+    with open(os.path.join(HYPERS_DIR, "QM9_GNN-FiLM.json")) as f:
+        params.update(json.load(f)["model_params"])
+    params.update(GP_OVERRIDES)
+    params.update(cfg["overrides"])
+    model = cls(params, task, "gp%d" % rank, cfg["out"], device=device)
+    label = "gp rank %d" % rank
+    res = {"rank": rank}
+
+    # 1. The first TRAIN batch, this rank's partition of it; every rank
+    # must hold the same batch.
+    batch = gp_batch(task, params, cfg.get("batch_of_rank", {}).get(rank, 0))
+    dev_batch = batch_to_device(batch, device)
+    (shard,), n_local, _ = gp.partition_task_batch(
+        batch, GP_RANKS, batch.graph.n_pad, gp.batch_edge_budget(batch),
+        parts=[rank])
+    shard = gp.shard_to_device(shard, device)
+    model._gp_agree([model._gp_batch_key(dev_batch, shard)],
+                    "the gp phase's batch")
+    res.update(nodes=int(batch.num_nodes), n_pad=int(batch.graph.n_pad),
+               n_local=n_local, edges=int(shard.flat.src_flat.shape[0]),
+               real_edges=int(shard.flat.mask.sum()))
+    steps = gp.make_gp_task_steps(model)
+    state = model_state(model)
+
+    # 2. The gp eval loss and a gp train step's gradients and weights
+    # against one process on the whole batch (the f32 segment branch),
+    # EAGER_STEPS runs of it from the same state; K1-K3 pinned at 0.
+    rs.reset_launches()
+    gp_eval = float(steps.eval(dev_batch, shard)["loss"])
+    gp.reset_traffic()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    grads = []
+    metrics = steps.train(dev_batch, shard, grads_out=grads)
+    got = train_step_result(model, metrics)
+    res["traffic"] = dict(gp.TRAFFIC)
+    res["peak_gb"] = device_memory_gb(torch, device.type)
+    gp_launch_check(rs, "%s gp step" % label)
+    gp_ranks_equal(torch, "%s: weights after the gp step" % label,
+                   got["parameters"] + got["slots"])
+    single = cls(dict(params, graph_parallel=1), task, "gp_single%d" % rank,
+                 cfg["out"], device=device)
+    ref_grads, ref_steps = [], []
+    for _ in range(EAGER_STEPS):
+        load_model_state(torch, single, state)
+        loss, _ = single._forward(single.model_params_tree, dev_batch, None)
+        ref_grads.append({"gradients": list(
+            torch.autograd.grad(loss, single._leaves()))})
+        load_model_state(torch, single, state)
+        ref_steps.append(train_step_result(
+            single, single._train_step_body(dev_batch)))
+    load_model_state(torch, single, state)
+    single_eval = float(single._eval_step(dev_batch)["loss"])
+    res["eval"] = (gp_eval, single_eval)
+    print("%s: gp eval loss %.7f, the single process's %.7f (rtol 1e-4)"
+          % (label, gp_eval, single_eval))
+    if not math.isclose(gp_eval, single_eval, rel_tol=1e-4):
+        raise AssertionError("%s: gp eval loss %.7f, the single process's "
+                             "%.7f: over rtol 1e-4" % (label, gp_eval,
+                                                       single_eval))
+    off = class_distance(grads[0], ref_grads[0]["gradients"])
+    size = class_distance(ref_grads[0]["gradients"],
+                          [torch.zeros_like(g) for g in grads[0]])
+    spread = max(class_distance(a["gradients"], b["gradients"])
+                 for i, a in enumerate(ref_grads) for b in ref_grads[i + 1:])
+    print("  %s: gp gradients (averaged over the ranks) against the single "
+          "process's: |gp - single| %.3e, limit %.3e (rtol %.0e of |single| "
+          "%.3e in norm); the single runs' spread %.3e" % (
+              label, off, GP_GRAD_RTOL * size, GP_GRAD_RTOL, size, spread))
+    if off > GP_GRAD_RTOL * size:
+        raise AssertionError("%s: the gp gradients against the single "
+                             "process's: |gp - single| %.3e over rtol %.0e of "
+                             "%.3e" % (label, off, GP_GRAD_RTOL, size))
+    replay_eager_check("%s gp step against the single process's" % label,
+                       ref_steps, got)
+    # The kernel branch's step on the same batch ("auto": K1-K3, bf16
+    # streams), printed beside the f32 one: not held.
+    load_model_state(torch, single, state)
+    single.params["aggregation_strategy"] = "auto"
+    kernel = train_step_result(single, single._train_step_body(dev_batch))
+    single.params["aggregation_strategy"] = "segment"
+    res["kernel_branch_gap"] = {c: class_distance(kernel[c], got[c])
+                                for c in ("parameters", "slots")}
+    res["segment_spread"] = {c: class_distance(ref_steps[0][c], got[c])
+                             for c in ("parameters", "slots")}
+    print("%s: |gp - single| in norm, against the f32 branch %s, against "
+          "the kernel branch (K1-K3, bf16 streams; not held) %s" % (
+              label, res["segment_spread"], res["kernel_branch_gap"]))
+
+    # 3. With dropout on (graph layers and QM9's head at GP_DROPOUT): the
+    # replicated models' generator is in the same state on every rank
+    # before and after a step (QM9's head has no hidden layer, so it draws
+    # no mask: the state says what a head with one would draw), the
+    # propagation's differs, every rank's loss is the same, and the
+    # propagation's masks were drawn.
+    load_model_state(torch, model, state)
+    task.params["out_layer_dropout_keep_prob"] = GP_DROPOUT
+    model.params["graph_layer_input_dropout_keep_prob"] = GP_DROPOUT
+    model._seed_gp_dropout(12345)
+    gens = [gp_generator_states(torch, model)]
+    dropped = steps.train(dev_batch, shard)["loss"]
+    gens.append(gp_generator_states(torch, model))
+    task.params["out_layer_dropout_keep_prob"] = 1.0
+    model.params["graph_layer_input_dropout_keep_prob"] = 1.0
+    for when, (shared, prop) in zip(("before", "after"), gens):
+        if any(g != shared[0] for g in shared):
+            raise AssertionError("%s: the replicated models' dropout "
+                                 "generator differs across the ranks %s the "
+                                 "step" % (label, when))
+        if len(set(prop)) != GP_RANKS:
+            raise AssertionError("%s: the ranks draw the same propagation "
+                                 "masks" % label)
+    gp_ranks_equal(torch, "%s: the train loss with dropout on" % label,
+                   [dropped])
+    if float(dropped) == float(got["loss"][0]):
+        raise AssertionError("%s: dropout on drew no mask" % label)
+
+    # 4. Epochs: one packing the whole TRAIN fold (cache on), one over the
+    # cache; every rank's per-batch losses the same, finite, no kernel.
+    load_model_state(torch, model, state)
+    rs.reset_launches()
+    epochs = []
+    for name in ("packing", "cached"):
+        t0 = time.perf_counter()
+        out = model._run_epoch("gp " + name, task._loaded_data[
+            DataFold.TRAIN], DataFold.TRAIN, quiet=True)
+        losses = [float(m["loss"]) for m in out[1]]
+        every = [None] * GP_RANKS
+        dist.all_gather_object(every, losses)
+        if any(e != losses for e in every) or not (
+                math.isfinite(out[0]) and np.isfinite(losses).all()):
+            raise AssertionError("%s %s epoch: losses %s on the ranks, "
+                                 "epoch loss %s" % (label, name, every,
+                                                    out[0]))
+        epochs.append({"name": name, "loss": out[0], "graphs": out[2],
+                       "graphs_per_s": out[3], "steps": len(losses),
+                       "s": time.perf_counter() - t0})
+    if DataFold.TRAIN not in model._gp_batch_cache:
+        raise AssertionError("%s: the gp epoch cached nothing" % label)
+    gp_launch_check(rs, "%s gp epochs" % label)
+    res["epochs"] = epochs
+
+    # 5. Times (the card only): a gp step (the cached epoch's mean, both
+    # ranks stepping), one all-gather of a layer's table and one
+    # reduce-scatter of its cotangent alone; then, rank 1 waiting, one
+    # single-process step on the whole batch (both branches).
+    if cfg["timed"]:
+        res["gp_step_ms"] = 1e3 * epochs[1]["s"] / epochs[1]["steps"]
+        table = torch.randn(5, n_local, params["hidden_size"], device=device)
+        table.requires_grad_(True)
+        res["table_bytes"] = GP_RANKS * table.numel() * 4
+        res["all_gather_ms"] = wall_ms(torch, lambda: gp.all_gather(
+            table, 1), device.type, GP_TIMED)
+        gathered = gp.all_gather(table, 1)
+        res["reduce_scatter_ms"] = wall_ms(torch, lambda: torch.autograd.grad(
+            gathered, table, torch.ones_like(gathered), retain_graph=True),
+            device.type, GP_TIMED)
+        dist.barrier()
+        if rank == 0:
+            res["single_step_ms"] = wall_ms(
+                torch, lambda: single._train_step_body(dev_batch),
+                device.type, GP_TIMED)
+            single.params["aggregation_strategy"] = "auto"
+            res["kernel_step_ms"] = wall_ms(
+                torch, lambda: single._train_step_body(dev_batch),
+                device.type, GP_TIMED)
+        dist.barrier()
+    with open(cfg["result"] % rank, "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+
+
+def gp_phase(data=DATA, out=OUT, device="cuda", overrides=None, card="",
+             worker=gp_rank, timed=True, batch_of_rank=None):
+    """graph_parallel 2: two ranks (torch.multiprocessing, spawned) over
+    gloo on the one card (NCCL refuses two ranks on one device; gloo
+    moves the CUDA tensors of each collective through host memory),
+    joined at a file:// rendezvous under `out` with a GP_TIMEOUT-second
+    timeout, each running `worker` (gp_rank): GNN-FiLM at its tuned QM9
+    config (`overrides` on top), dropout off, the f32 segment branch. On
+    the first TRAIN batch (both ranks hold it; `batch_of_rank` plants
+    another), each rank holds the gp eval loss within rtol 1e-4 of one
+    process's on the whole batch, the gp gradients (averaged over the
+    ranks) within GP_GRAD_RTOL of that process's in norm, the weights and
+    slots after one gp step per class of tensors in norm against
+    EAGER_STEPS runs of that process's step (replay_eager_check), both
+    ranks' weights equal bit for bit, with dropout on the replicated
+    models' generator in one state on both ranks, the propagation's in
+    another a rank, and the train loss the same on both; then a packing and
+    a cached gp epoch over the whole TRAIN fold, every rank's per-batch
+    losses the same and finite; every hand-kernel launch counter at 0
+    throughout. Prints the gp step's (the cached epoch's mean) and the
+    single step's ms, one all-gather's and one reduce-scatter's ms, the
+    bytes a step moves and each rank's peak memory beside `card`. A rank's failure fails the
+    phase. Returns rank 0's numbers."""
+    import torch
+    import torch.multiprocessing as mp
+
+    root = os.path.join(out, "gp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = {"data": data, "out": root, "device": device,
+           "overrides": dict(overrides or {}), "timed": timed,
+           "store": os.path.join(root, "store"),
+           "result": os.path.join(root, "rank%d.json"),
+           "batch_of_rank": dict(batch_of_rank or {})}
+    if device == "cuda":
+        release_device_memory(torch, device)
+    mp.spawn(worker, args=(cfg,), nprocs=GP_RANKS, join=True)
+    res = []
+    for r in range(GP_RANKS):
+        with open(cfg["result"] % r) as f:
+            res.append(json.load(f))
+    r0 = res[0]
+    t = r0["traffic"]
+    print("gp phase: %d ranks over gloo on one card (they share it: numbers "
+          "of correctness and of the collectives' cost, not of scaling); "
+          "the first TRAIN batch, %d nodes (n_pad %d, %d a rank), %d edge "
+          "slots a rank (%s real); a train step gathers %d bytes in %d "
+          "all-gathers and reduce-scatters %d bytes in %d, a rank; peak "
+          "memory a rank (GB allocated, reserved) %s; %s" % (
+              GP_RANKS, r0["nodes"], r0["n_pad"], r0["n_local"], r0["edges"],
+              [r["real_edges"] for r in res], t["all_gather_bytes"],
+              t["all_gather_calls"], t["reduce_scatter_bytes"],
+              t["reduce_scatter_calls"], [r["peak_gb"] for r in res], card))
+    if timed:
+        print("gp phase: a gp train step %.2f ms (rank 0's host clock, the "
+              "cached epoch's mean), one process's step on the whole batch %.2f "
+              "ms (f32 segment branch) and %.2f ms (kernel branch), one "
+              "all-gather of a layer's [5, %d, D] table (%d bytes gathered) "
+              "%.2f ms and its reduce-scatter %.2f ms (ranks' medians %s); "
+              "%s" % (r0["gp_step_ms"], r0["single_step_ms"],
+                      r0["kernel_step_ms"], r0["n_local"], r0["table_bytes"],
+                      r0["all_gather_ms"], r0["reduce_scatter_ms"],
+                      [(round(r["all_gather_ms"], 3),
+                        round(r["reduce_scatter_ms"], 3)) for r in res],
+                      card))
+    print("gp phase: epochs %s; %s" % (
+        [(e["name"], round(e["loss"], 5), e["steps"],
+          round(e["graphs_per_s"], 2)) for e in r0["epochs"]], card))
+    return r0
+
+
 def report_hand_kernels(label, times):
     """Print the hand kernels' profiled device time in one train step
     (step_times) beside the card's busy time."""
@@ -5052,6 +5416,9 @@ def main() -> int:
     for name, n in dp_phase(card=card).items():
         total[name] += n
     print("dp phase: %.1f s" % (time.time() - t0))
+    t0 = time.time()
+    gp_phase(card=card)
+    print("gp phase: %.1f s" % (time.time() - t0))
     print("train step, the host's ms to enqueue it / the card's busy ms in "
           "it (for information): %s" % ", ".join(
               "%s %.2f / %.2f" % (label, t["train_step_host_ms"],

@@ -26,8 +26,8 @@ from chip_smoke import (check_exact, check_kernel, emlp1_src_bwd_bounds,
                         typed_dense_agg_bounds, typed_dense_agg_bwd_check,
                         typed_dense_agg_bwd_tc_check,
                         typed_dense_agg_tc_check)
-from test_torch_chip_checks import (k10_tc_emulated, k14_emulated,
-                                    k14_tc_emulated)
+from test_torch_chip_checks_kernels import (k10_tc_emulated, k14_emulated,
+                                            k14_tc_emulated)
 from tf_gnn_samples_torch.tools import earlier_designs
 from tf_gnn_samples_torch.nn import layers
 from tf_gnn_samples_torch.ops import ranked_segment as rs

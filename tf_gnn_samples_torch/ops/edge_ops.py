@@ -160,15 +160,22 @@ def _per_node(count, like):
     return count.reshape(count.shape + (1,) * (like.dim() - 1))
 
 
+def aggregate_flat_sum(messages, flat, n_pad: int):
+    """Sum per-edge messages [E, ...] into receiver rows [n_pad, ...] over
+    the WHOLE edge stream, every edge type in one segment-sum; the dump row
+    n_pad (padded edges) is sliced off."""
+    return segment_sum(messages, flat.receivers, n_pad + 1)[:n_pad]
+
+
 def aggregate_flat(messages, flat, n_pad: int, aggregation: str):
     """Named aggregation (reference utils/utils.py:23-33) of per-edge
     messages into receiver rows over the whole stream; the dump row n_pad
     (padded edges) is sliced off."""
     if aggregation in ("sum", "unsorted_segment_sum"):
-        return segment_sum(messages, flat.receivers, n_pad + 1)[:n_pad]
+        return aggregate_flat_sum(messages, flat, n_pad)
     if aggregation in ("mean", "unsorted_segment_mean",
                        "sqrt_n", "unsorted_segment_sqrt_n"):
-        total = segment_sum(messages, flat.receivers, n_pad + 1)[:n_pad]
+        total = aggregate_flat_sum(messages, flat, n_pad)
         count = segment_sum(flat.mask, flat.receivers, n_pad + 1)[:n_pad]
         count = count.clamp(min=1.0)
         if aggregation.endswith("sqrt_n"):

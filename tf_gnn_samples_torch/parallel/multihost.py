@@ -1,11 +1,14 @@
-"""Several processes, one replica each (counterpart of
-tf_gnn_samples_tpu/parallel/multihost.py, its data-parallel part).
+"""Several processes, one replica or one graph partition each
+(counterpart of tf_gnn_samples_tpu/parallel/multihost.py, its
+data-parallel part).
 
 The JAX package drives a mesh of devices from one controller per host;
 PyTorch's idiom is one process per replica over `torch.distributed`. So a
 run of `num_model_replicas = N` is N processes (ranks), each stepping its
-own batch of every replica group (parallel/data_parallel.py), on its own
-card or on the CPU. `initialize` joins them:
+own batch of every replica group (parallel/data_parallel.py), and a run
+of `graph_parallel = P` is P ranks, each stepping its partition of every
+batch (parallel/graph_parallel.py), on its own card or on the CPU.
+`initialize` joins them:
 
 * the rendezvous is a coordinator "HOST:PORT" (a TCP store served by rank
   0 there, what init_method="tcp://HOST:PORT" builds) or a "file://PATH"
@@ -27,6 +30,7 @@ Launch (2 hosts, one GPU each):
     # host 1: the same with --host-id 1
 """
 
+import datetime
 import os
 import socket
 from typing import Optional
@@ -56,14 +60,18 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                device: Optional[str] = None,
-               backend: Optional[str] = None) -> torch.device:
+               backend: Optional[str] = None,
+               timeout: Optional[float] = None) -> torch.device:
     """Join this process to the run's process group (the default group of
     torch.distributed) and return the device its replica runs on.
 
     Arguments left out are read from GRAFT_COORDINATOR,
     GRAFT_NUM_PROCESSES, GRAFT_PROCESS_ID and GRAFT_DIST_BACKEND. `device`
     is "cuda" (the default) or "cpu"; `backend` defaults to "nccl" for
-    CUDA and "gloo" for the CPU."""
+    CUDA and "gloo" for the CPU. `timeout` (seconds; default the
+    backend's own) bounds the rendezvous and every collective, so that a
+    rank whose peers stepped elsewhere fails in that time instead of
+    waiting out the backend's default."""
     coordinator_address = coordinator_address or os.environ.get(
         ENV_COORDINATOR)
     if num_processes is None and os.environ.get(ENV_NUM_PROCESSES):
@@ -95,6 +103,10 @@ def initialize(coordinator_address: Optional[str] = None,
                            "(--device cpu) to run on the CPU.")
 
     store = _store(coordinator_address, num_processes, process_id)
+    limit = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
+    if limit:
+        store.set_timeout(limit["timeout"])
     # The ranks on this host, from every rank's host name.
     host = socket.gethostname()
     store.set("host/%d" % process_id, host)
@@ -111,7 +123,7 @@ def initialize(coordinator_address: Optional[str] = None,
     else:
         device = torch.device("cpu")
     dist.init_process_group(backend, store=store, rank=process_id,
-                            world_size=num_processes)
+                            world_size=num_processes, **limit)
     return device
 
 

@@ -112,27 +112,39 @@ class _Replay(NamedTuple):
     update: Any = None
 
 
-def _check_parallel_options(params: Dict[str, Any]) -> None:
-    """num_model_replicas, held to the JAX package's checks (its
-    runtime/model.py _run_epoch) with ranks in place of devices: the two
-    parallel options exclude each other, and N replicas are the N ranks of
-    a torch.distributed process group, one a replica (never one process
-    standing in for several)."""
+def _check_parallel_options(params: Dict[str, Any],
+                            ranks_too: bool = True) -> None:
+    """num_model_replicas and graph_parallel, held to the JAX package's
+    checks (its runtime/model.py _run_epoch) with ranks in place of
+    devices: the two options exclude each other, N replicas or P
+    partitions are the N (P) ranks of a torch.distributed process group,
+    one a replica (a partition), never one process standing in for
+    several. The halo exchange is not ported yet. ranks_too=False checks
+    the options alone (a model may be built before its process group)."""
     replicas = int(params.get("num_model_replicas") or 1)
     gp = int(params.get("graph_parallel") or 1)
     if gp > 1 and replicas > 1:
         raise ValueError("graph_parallel and num_model_replicas are mutually "
                          "exclusive (got %d and %d)" % (gp, replicas))
-    ranks = dp.world()[1]
-    if replicas > 1 and not torch.distributed.is_initialized():
+    if gp > 1 and params.get("graph_parallel_halo"):
+        raise NotImplementedError(
+            "graph_parallel_halo (the halo exchange, ROADMAP Queue 1 item "
+            "8c) is not yet ported to the PyTorch package; graph_parallel "
+            "runs by all-gather without it.")
+    if not ranks_too:
+        return
+    name, want, one = (("graph_parallel", gp, "partition") if gp > 1
+                       else ("num_model_replicas", replicas, "replica"))
+    if want > 1 and not torch.distributed.is_initialized():
         raise ValueError(
-            "num_model_replicas=%d runs one process a replica in a "
-            "torch.distributed process group, and none was initialized: "
-            "launch %d processes with %s (parallel/multihost.py "
-            "initialize)" % (replicas, replicas, LAUNCH_FLAGS))
-    if ranks != replicas:
-        raise ValueError("num_model_replicas=%d but the process group has %d "
-                         "ranks (one rank a replica)" % (replicas, ranks))
+            "%s=%d runs one process a %s in a torch.distributed process "
+            "group, and none was initialized: launch %d processes with %s "
+            "(parallel/multihost.py initialize)"
+            % (name, want, one, want, LAUNCH_FLAGS))
+    ranks = dp.world()[1]
+    if ranks != want:
+        raise ValueError("%s=%d but the process group has %d ranks (one "
+                         "rank a %s)" % (name, want, ranks, one))
 
 
 def flatten_params(tree, prefix: str = "") -> Dict[str, Any]:
@@ -315,11 +327,7 @@ class SparseGraphModel(ABC):
         result_dir: str,
         device=None,
     ) -> None:
-        if int(params.get("graph_parallel") or 1) > 1:
-            _check_parallel_options(params)
-            raise NotImplementedError(
-                "graph_parallel > 1 (ROADMAP Queue 1 item 8) is not yet "
-                "ported to the PyTorch package.")
+        _check_parallel_options(params, ranks_too=False)
         self.params = params
         self.task = task
         self.run_id = run_id
@@ -336,6 +344,9 @@ class SparseGraphModel(ABC):
         np.random.seed(seed)
         self._init_gen = torch.Generator().manual_seed(seed)
         self._dropout_gen = torch.Generator(device=self.device)
+        # graph_parallel: this rank's propagation dropout stream (the
+        # replicated input and output models draw from _dropout_gen).
+        self._gp_prop_gen = torch.Generator(device=self.device)
         self._optimizer = make_optimizer(params)
         self._step_rng = np.random.RandomState(seed)
 
@@ -373,6 +384,12 @@ class SparseGraphModel(ABC):
                                               Tuple[int, int, int]]] = {}
         self._dp_synced = False
         self._dp_buffer = None
+        # graph_parallel: the steps (parallel/graph_parallel.py
+        # make_gp_task_steps) and, per fold, the cached (batch, this
+        # rank's shard, num_graphs) entries and the fold's totals.
+        self._gp_steps = None
+        self._gp_batch_cache: Dict[DataFold, Tuple[List[Any],
+                                                   Tuple[int, int, int]]] = {}
 
     def initialize_model(self) -> None:
         """Kept for API parity with the JAX package (reference
@@ -461,6 +478,10 @@ class SparseGraphModel(ABC):
     @property
     def _replicas(self) -> int:
         return int(self.params.get("num_model_replicas") or 1)
+
+    @property
+    def _partitions(self) -> int:
+        return int(self.params.get("graph_parallel") or 1)
 
     def _seed_dropout(self, seed: int) -> None:
         """Seed the dropout generator from a step seed drawn from _step_rng,
@@ -637,6 +658,7 @@ class SparseGraphModel(ABC):
         self._scan_outs.pop(data_fold, None)
         self._graphs.pop(data_fold, None)
         self._fold_counts.pop(data_fold, None)
+        self._gp_batch_cache.pop(data_fold, None)
 
     def _drop_graphs(self) -> None:
         """Drop every captured step (they update the tensors they were
@@ -653,6 +675,9 @@ class SparseGraphModel(ABC):
         quiet: bool = False,
     ) -> Tuple[float, List[Dict[str, Any]], int, float, float, float]:
         _check_parallel_options(self.params)
+        if self._partitions > 1:
+            return self._run_epoch_graph_parallel(epoch_name, data,
+                                                  data_fold, quiet)
         if self.params.get("scan_epochs") and self.device.type == "cuda":
             # Every step of a scanning model runs on the side stream its
             # graphs are captured on: the eager epochs warm it up (cuBLAS
@@ -666,6 +691,21 @@ class SparseGraphModel(ABC):
             torch.cuda.current_stream().wait_stream(self._scan_stream)
             return result
         return self._run_epoch_on_stream(epoch_name, data, data_fold, quiet)
+
+    def _count_epoch(self, data_fold: DataFold, cache_on_device) -> None:
+        """Count a TRAIN epoch and drop the fold's cache where it is due to
+        be re-packed: the reference re-shuffles graphs into fresh packs
+        every epoch (ppi_task.py:204); frozen packs only reshuffle batch
+        order. repack_cached_every=K re-packs (and re-uploads) every K
+        epochs as a middle ground; 0/None keeps packs frozen."""
+        if data_fold != DataFold.TRAIN:
+            return
+        self._train_epochs_seen += 1
+        repack_every = int(self.params.get("repack_cached_every") or 0)
+        if (cache_on_device and repack_every > 0
+                and self._train_epochs_seen > 1
+                and (self._train_epochs_seen - 1) % repack_every == 0):
+            self._invalidate_fold_cache(data_fold)
 
     def _run_epoch_on_stream(self, epoch_name, data, data_fold, quiet):
         """One epoch over `data_fold`, one rank a replica (the JAX
@@ -695,18 +735,7 @@ class SparseGraphModel(ABC):
                     "WARNING: cache_batches_on_device is ignored for a "
                     "streamed data fold (streaming_train_data).")
             cache_on_device = False
-        if data_fold == DataFold.TRAIN:
-            # Periodic re-packing of the device-resident TRAIN cache: the
-            # reference re-shuffles graphs into fresh packs every epoch
-            # (ppi_task.py:204); frozen packs only reshuffle batch order.
-            # repack_cached_every=K re-packs (and re-uploads) every K
-            # epochs as a middle ground; 0/None keeps packs frozen.
-            self._train_epochs_seen += 1
-            repack_every = int(self.params.get("repack_cached_every") or 0)
-            if (cache_on_device and repack_every > 0
-                    and self._train_epochs_seen > 1
-                    and (self._train_epochs_seen - 1) % repack_every == 0):
-                self._invalidate_fold_cache(data_fold)
+        self._count_epoch(data_fold, cache_on_device)
         rank, replicas = dp.world()
         if replicas > 1 and not self._dp_synced:
             dp.broadcast_state(self)
@@ -810,6 +839,127 @@ class SparseGraphModel(ABC):
         epoch_loss = float(sum(
             float(m["loss"]) * n
             for m, n in zip(task_metric_results, batch_graph_counts)))
+        return (epoch_loss / graphs, task_metric_results, graphs,
+                graphs / seconds, nodes / seconds, edges / seconds)
+
+    def _seed_gp_dropout(self, seed: int) -> None:
+        """graph_parallel: seed the replicated models' generator alike on
+        every rank (the JAX step's shared rng_in / rng_out) and the
+        propagation's with the rank folded in (fold_in(rng, axis_index))."""
+        self._dropout_gen.manual_seed(seed)
+        self._gp_prop_gen.manual_seed(seed + (dp.world()[0] + 1) * 2**31)
+
+    def _gp_pack(self, data, data_fold: DataFold):
+        """(batch on the device, this rank's shard on the device, host
+        batch) for each batch of the fold, packed and partitioned here (on
+        the prefetch thread): each rank partitions every batch the same
+        way and keeps its own piece."""
+        from ..parallel import graph_parallel as gp
+
+        rank, size = dp.world()
+        for batch in self.task.make_minibatch_iterator(
+                data, data_fold, self.params["max_nodes_in_batch"]):
+            (shard,), _, _ = gp.partition_task_batch(
+                batch, size, batch.graph.n_pad, gp.batch_edge_budget(batch),
+                parts=[rank])
+            yield (batch_to_device(batch, self.device),
+                   gp.shard_to_device(shard, self.device), batch)
+
+    @staticmethod
+    def _gp_batch_key(batch: TaskBatch, shard) -> Tuple[int, ...]:
+        """What every rank's step must agree on: (n_pad, the edge budget,
+        num_graphs, num_nodes, num_edges)."""
+        return (int(batch.graph.n_pad), int(shard.flat.src_flat.shape[0]),
+                int(batch.num_graphs), int(batch.num_nodes),
+                int(batch.num_edges))
+
+    def _gp_agree(self, keys: List[Tuple[int, ...]], what: str) -> None:
+        """Raise unless every rank holds the same `keys` (its batches'
+        _gp_batch_key): a rank that steps another batch does not fail, it
+        hangs in a collective or gathers mismatched shapes."""
+        every = [None] * dp.world()[1]
+        torch.distributed.all_gather_object(every, keys)
+        for r, theirs in enumerate(every):
+            if theirs != keys:
+                raise RuntimeError(
+                    "graph_parallel ranks out of step at %s: rank %d has "
+                    "(n_pad, edge budget, graphs, nodes, edges) %s, this "
+                    "rank %s"
+                    % (what, r, theirs[:4], keys[:4]))
+
+    def _run_epoch_graph_parallel(self, epoch_name, data, data_fold, quiet):
+        """A graph-parallel epoch (the JAX package's
+        _run_epoch_graph_parallel): every rank packs every batch, and
+        partitions it across the ranks (parallel/graph_parallel.py), and
+        steps its own partition with the whole padded batch for the
+        replicated task models. With the cache, the (batch, shard) entries
+        stay on the device, TRAIN reshuffles their order and
+        repack_cached_every re-packs; scan_epochs does not apply (eager
+        steps, as in the JAX package). Every rank draws the same host
+        random numbers (the fold's shuffle, the cached order, one _step_rng
+        seed a step), and the ranks' batch keys are compared at the first
+        step and over the whole epoch at its end. Returns what _run_epoch
+        returns; every rank computes the same replicated metrics."""
+        from ..parallel import graph_parallel as gp
+
+        cache_on = bool(self.params.get("cache_batches_on_device")) and (
+            not getattr(data, "is_streaming", False))
+        self._count_epoch(data_fold, cache_on)
+        if not self._dp_synced:
+            dp.broadcast_state(self)
+            self._dp_synced = True
+        if self._gp_steps is None:
+            self._gp_steps = gp.make_gp_task_steps(self)
+        train = data_fold == DataFold.TRAIN
+        start_time = time.time()
+        device_metrics: List[Dict[str, Any]] = []
+        keys: List[Tuple[int, ...]] = []
+
+        def step(i, dev_batch, shard):
+            keys.append(self._gp_batch_key(dev_batch, shard))
+            if i == 0:
+                self._gp_agree(keys, "%s's first step" % epoch_name)
+            self.batches_run[data_fold] += 1
+            if train:
+                self._seed_gp_dropout(int(self._step_rng.randint(0,
+                                                                 2**31 - 1)))
+                device_metrics.append(self._gp_steps.train(dev_batch, shard))
+            else:
+                device_metrics.append(self._gp_steps.eval(dev_batch, shard))
+            if not quiet and i % 16 == 0:
+                print("Running %s, batch %i (has %i graphs)."
+                      % (epoch_name, i, dev_batch.num_graphs), end="\r")
+
+        cached = self._gp_batch_cache.get(data_fold) if cache_on else None
+        if cached is not None:
+            entries, totals = cached
+            order = np.arange(len(entries))
+            if train:
+                np.random.shuffle(order)
+            for i, e in enumerate(order):
+                step(i, *entries[e][:2])
+            counts = [entries[e][2] for e in order]
+        else:
+            entries, counts, totals = [], [], [0, 0, 0]
+            with ThreadedIterator(self._gp_pack(data, data_fold),
+                                  max_queue_size=5) as packed:
+                for i, (dev_batch, shard, batch) in enumerate(packed):
+                    for j, n in enumerate((batch.num_graphs, batch.num_nodes,
+                                           batch.num_edges)):
+                        totals[j] += int(n)
+                    counts.append(int(batch.num_graphs))
+                    if cache_on:
+                        entries.append((dev_batch, shard, counts[-1]))
+                    step(i, dev_batch, shard)
+            if cache_on:
+                self._gp_batch_cache[data_fold] = (entries, tuple(totals))
+        graphs, nodes, edges = totals
+        assert graphs > 0, "Can't run epoch over empty dataset."
+        self._gp_agree(keys, "the end of %s" % epoch_name)
+        per_rank, seconds = dp.gather_epoch(device_metrics, start_time)
+        task_metric_results = per_rank[0]
+        epoch_loss = float(sum(float(m["loss"]) * n
+                               for m, n in zip(task_metric_results, counts)))
         return (epoch_loss / graphs, task_metric_results, graphs,
                 graphs / seconds, nodes / seconds, edges / seconds)
 

@@ -7,7 +7,9 @@ log files whose format the bench scripts regex, optional --run-test,
 full-state --resume, --tensorboard metric files, a --profile-dir trace,
 azure:// data paths (--azure-info) and multi-process data parallelism
 (--coordinator, --num-hosts, --host-id: one process a model replica,
-parallel/multihost.py). Runs on CUDA unless --device cpu is given.
+parallel/multihost.py) and graph parallelism (the same flags with
+"graph_parallel": P, one process a partition of every batch,
+parallel/graph_parallel.py). Runs on CUDA unless --device cpu is given.
 
 Usage:
     python -m tf_gnn_samples_torch.train [options] MODEL_NAME TASK_NAME
