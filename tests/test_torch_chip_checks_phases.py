@@ -24,7 +24,8 @@ import torch
 
 from chip_smoke import (CACHE_OVERRIDES, Path, batch_branch, cache_phase,
                         clamped_exp_check, fresh_masks_check,
-                        replay_eager_check, replay_launch_check,
+                        replay_eager_check, replay_eager_redrawn,
+                        replay_launch_check, EAGER_STEPS, REPLAY_DRAWS,
                         scanned_epochs_phase, REPLAY_CHECKED, ppi_headline,
                         reference_agrees, task_phase, ACCURACY, MICRO_F1,
                         PPI_PATHS, expected_launches)
@@ -563,6 +564,41 @@ def test_replay_checks_reject_planted_faults():
     replay_launch_check("t", {"segsum": 8}, {"segsum": 8})
     with pytest.raises(AssertionError, match="replayed step counts"):
         replay_launch_check("t", {"segsum": 8}, {})
+
+
+@pytest.mark.parametrize("fault", ["one_draw_off", "every_draw_off"])
+def test_replay_eager_redrawn_fails_only_where_every_draw_is_off(fault):
+    """replay_eager_redrawn: a replay off its limit at the first draw and
+    on it at the second (a rare rounding the eager runs did not draw)
+    passes after two draws; a replay 1% off in one entry at every draw
+    (a fault in the captured graph) fails after REPLAY_DRAWS draws, each
+    of EAGER_STEPS fresh eager runs, with replay_eager_check's message."""
+    rng = np.random.RandomState(0)
+    base = torch.from_numpy(rng.uniform(0.05, 0.2, 4096).astype(np.float32))
+    calls = {"eager": 0, "replay": 0}
+
+    def eager_run():
+        calls["eager"] += 1
+        return {"parameters": [base.clone()]}
+
+    def replay_run():
+        calls["replay"] += 1
+        x = base.clone()
+        if fault == "every_draw_off" or calls["replay"] == 1:
+            x[7] *= 1.01
+        return {"parameters": [x]}
+
+    if fault == "one_draw_off":
+        noise = replay_eager_redrawn("t", eager_run, replay_run)
+        assert noise == {"parameters": 0.0}
+        assert calls == {"eager": 2 * EAGER_STEPS, "replay": 2}
+        return
+    with pytest.raises(AssertionError,
+                       match="t, draw %d: the replayed run's parameters "
+                             "differ" % REPLAY_DRAWS):
+        replay_eager_redrawn("t", eager_run, replay_run)
+    assert calls == {"eager": REPLAY_DRAWS * EAGER_STEPS,
+                     "replay": REPLAY_DRAWS}
 
 
 @pytest.mark.parametrize("fault", ["none", "derivative_one_at_clamp"])

@@ -187,11 +187,9 @@ def test_option_checks_raise_with_their_messages(case, ranks, tmp_path):
     params = check.model_params(t_model.RGCN_Model, graph_parallel=2,
                                 **check.STEP_OVERRIDES)
     if case == "halo":
+        # The halo exchange builds, and an epoch without a process group
+        # raises as the all-gather's does.
         params["graph_parallel_halo"] = True
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
-            t_model.RGCN_Model(params, task, "t", str(tmp_path),
-                               device="cpu")
-        return
     if case == "both_options":
         params["num_model_replicas"] = 2
         with pytest.raises(ValueError, match="graph_parallel and "

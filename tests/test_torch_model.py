@@ -318,17 +318,15 @@ def test_same_overrides_build_the_same_parameters(qm9, tmp_path, name,
 def test_graph_parallel_alone_is_refused(qm9, tmp_path):
     """graph_parallel > 1 runs one process a partition of a process group:
     a single process refuses to run an epoch with it, naming the launch
-    flags; the halo exchange is not ported yet, and the port's model
-    refuses it at construction, naming the roadmap item."""
+    flags, by all-gather and with the halo exchange alike (both build)."""
     from tf_gnn_samples_torch.tasks.base import DataFold
 
     _, tt, _, _ = qm9
     cls, additional = t_registry.name_to_model_class("RGCN")
     params = {**cls.default_params(), **additional, "hidden_size": 16,
               "graph_num_layers": 2, "graph_parallel": 2}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
-        cls(dict(params, graph_parallel_halo=True), tt, "m", str(tmp_path),
-            device="cpu")
-    model = cls(params, tt, "m", str(tmp_path), device="cpu")
-    with pytest.raises(ValueError, match="--coordinator HOST:PORT"):
-        model._run_epoch("x", [], DataFold.TRAIN, quiet=True)
+    for halo in (True, False):
+        model = cls(dict(params, graph_parallel_halo=halo), tt, "m",
+                    str(tmp_path), device="cpu")
+        with pytest.raises(ValueError, match="--coordinator HOST:PORT"):
+            model._run_epoch("x", [], DataFold.TRAIN, quiet=True)

@@ -1,7 +1,5 @@
-"""Data- and graph-parallel checks across real process boundaries
-(counterpart of tf_gnn_samples_tpu/parallel/_multihost_check.py, its dp
-part and the all-gather gp part; the hybrid dp x gp part waits for the
-halo exchange and the hybrid mesh, ROADMAP Queue 1 item 8c).
+"""Data-, graph- and hybrid-parallel checks across real process boundaries
+(counterpart of tf_gnn_samples_tpu/parallel/_multihost_check.py).
 
 `run_multihost_check(N, kind=...)` starts N local processes (ranks) on
 the CPU over gloo, or with device "cuda" one a GPU over NCCL, joined at a
@@ -29,10 +27,19 @@ Kind "gp" (gp_main): graph_parallel N on the first TRAIN batch, RGCN and
 GNN-FiLM, each with plain SGD (clipping off) and the tuned optimizer: a
 gp train step and the gp eval against one process on the whole batch
 (rank 0; parameters within 1e-4), then cached gp epochs and a process
-group of the wrong size. Kind "gp_layers" (gp_layers_main): the seven
+group of the wrong size; kind "halo" the same with graph_parallel_halo
+(the halo shards and layers). Kind "gp_layers" (gp_layers_main): the seven
 families' gp layers on a random graph's uneven partitions, split, merged
 and with the gathers held until their wait, their gradients, and the
-single-process layers (rank 0); the bare PPI-style gp step.
+single-process layers (rank 0); the bare PPI-style gp step. Kind
+"halo_layers" (halo_layers_main): the same for the seven families' halo
+layers (GP_HALO_LAYERS) and the two bare ones, with every all-to-all's
+receive buffer held NaN until its wait, and with an edge planted on a
+padded halo slot. Kind "hybrid" (hybrid_main, 4 ranks): dp 2 x gp 2
+(make_hybrid_mesh), RGCN and GNN-FiLM, SGD unclipped and tuned, by
+all-gather and by halo exchange: one hybrid step, row r stepping batch r
+partitioned over its two ranks, against one process stepping the
+graph-weighted union of the two batches (rank 0; parameters within 1e-4).
 
 Each rank writes what it saw to OUT/rank<r>.pt (numpy arrays and lists;
 tests/test_torch_data_parallel.py and tests/test_torch_graph_parallel*.py
@@ -44,11 +51,14 @@ rank 0's (the kind's agree function).
     python -m tf_gnn_samples_torch.parallel._multihost_check --check 2 \
         --kind gp
     python -m tf_gnn_samples_torch.parallel._multihost_check --check 4 \
+        --kind hybrid    # or --kind halo_layers
+    python -m tf_gnn_samples_torch.parallel._multihost_check --check 4 \
         --device cuda [--kind gp]    # four GPUs, NCCL
 """
 
 import argparse
 import contextlib
+import functools
 import os
 import subprocess
 import sys
@@ -108,7 +118,7 @@ def step_batches(task, base_mod, count: int):
     return batches[:count]
 
 
-def union_step(model, batches):
+def union_step(model, batches, weight_first: bool = False):
     """One process stepping the graph-weighted union of `batches`
     (TaskBatches on the model's device), as a data-parallel step over them
     computes it: each batch's loss gradient (dropout from
@@ -118,20 +128,26 @@ def union_step(model, batches):
     backward of the weighted loss: the fused FiLM kernels round the
     cotangent to bf16, and a cotangent scaled by n_i / n before that
     rounding lands on other bf16 numbers, a difference of form and not of
-    arithmetic. Returns the batches' losses."""
+    arithmetic. With `weight_first` a gradient is scaled by its share
+    n_i / n before the sum (the hybrid step's order), else by n_i and the
+    sum divided by n: the two round differently in f32. Returns the
+    batches' losses."""
     from ..runtime.optimizers import clip_grads_per_tensor
 
     leaves = model._leaves()
     total = sum(int(b.num_graphs) for b in batches)
+    total_t = torch.tensor(float(total), device=leaves[0].device)
     acc, losses = None, []
     for b in batches:
         loss, _ = model._forward(model.model_params_tree, b,
                                  model._dropout_gen)
         grads = torch.autograd.grad(loss, leaves)
-        flat = torch.cat([g.reshape(-1) for g in grads]) * float(b.num_graphs)
+        n = float(b.num_graphs)
+        flat = torch.cat([g.reshape(-1) for g in grads]) * (
+            n / total_t if weight_first else n)
         acc = flat if acc is None else acc + flat
         losses.append(loss.detach().clone())
-    flat = acc / float(total)
+    flat = acc if weight_first else acc / float(total)
     grads = [g.view_as(p) for g, p in zip(
         flat.split([p.numel() for p in leaves]), leaves)]
     grads = clip_grads_per_tensor(grads, model.params["clamp_gradient_norm"])
@@ -162,7 +178,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--kind", default="dp", choices=sorted(KINDS))
     ap.add_argument("--init", default=None,
-                    help="gp: a pickle of {model name: flatten_params "
+                    help="gp, halo, hybrid: a pickle of {model name: "
+                         "flatten_params "
                          "weights} to start the step checks from")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
@@ -367,12 +384,14 @@ def gp_model(name, task, device, out_dir, nproc, optimizer="tuned",
     return cls(params, task, "gp", out_dir, device=device)
 
 
-def gp_main(args, device):
+def gp_main(args, device, halo=False):
     """The gp check's rank: for RGCN and GNN-FiLM, each optimizer variant,
     one gp train step and the gp eval on the first TRAIN batch (this rank
     stepping its partition), against one process stepping the whole
     batch (rank 0; parameters within 1e-4); then cached gp epochs of
-    GNN-FiLM with dropout on, and a process group of the wrong size."""
+    GNN-FiLM with dropout on, and a process group of the wrong size. With
+    `halo` (kind "halo") all of it with graph_parallel_halo: GPHaloShards,
+    the halo layers."""
     import pickle
 
     from . import graph_parallel as gp
@@ -388,16 +407,20 @@ def gp_main(args, device):
     task = qm9_task(t_qm9, t_base, buckets=1)
     batch = step_batches(task, t_base, 1)[0]
     dev_batch = t_model.batch_to_device(batch, device)
-    (shard,), n_local, _ = gp.partition_task_batch(
-        batch, nproc, batch.graph.n_pad, gp.batch_edge_budget(batch),
-        parts=[rank])
+    partition = gp.partition_task_batch_halo if halo else (
+        gp.partition_task_batch)
+    parted = partition(batch, nproc, batch.graph.n_pad,
+                       gp.batch_edge_budget(batch), parts=[rank])
+    (shard,), n_local = parted[0], parted[1]
     shard = gp.shard_to_device(shard, device)
     out = {"num_nodes": int(batch.num_nodes), "n_pad": batch.graph.n_pad,
-           "n_local": n_local, "steps": {}}
+           "n_local": n_local, "steps": {},
+           "halo_pad": parted[3] if halo else None}
     max_diff = 0.0
     for name in GP_MODELS:
         for opt in GP_OPTIMIZERS:
-            model = gp_model(name, task, device, args.out, nproc, opt)
+            model = gp_model(name, task, device, args.out, nproc, opt,
+                             graph_parallel_halo=halo)
             if init is not None:
                 model.load_weights(init[name])
             rec = {"init": _weights(model)}
@@ -425,7 +448,7 @@ def gp_main(args, device):
     # per-batch losses the same.
     etask = qm9_task(t_qm9, t_base)
     emodel = gp_model("GNN-FiLM", etask, device, args.out, nproc,
-                      **GP_EPOCH_OVERRIDES)
+                      graph_parallel_halo=halo, **GP_EPOCH_OVERRIDES)
     epochs = []
     for _ in range(EPOCHS):
         for fold in (t_base.DataFold.TRAIN, t_base.DataFold.VALIDATION):
@@ -449,10 +472,11 @@ def gp_main(args, device):
                              % (nproc + 1, nproc))
     torch.save(out, os.path.join(args.out, "rank%d.pt" % rank))
     train = [e["loss"] for e in epochs if e["fold"] == "TRAIN"]
-    print("MULTIHOST_OK processes=%d device=%s backend=%s kind=gp "
+    print("MULTIHOST_OK processes=%d device=%s backend=%s kind=%s "
           "max_param_diff=%g epoch_losses=%.5f->%.5f" % (
-              nproc, device.type, torch.distributed.get_backend(), max_diff,
-              train[0], train[-1]), flush=True)
+              nproc, device.type, torch.distributed.get_backend(),
+              "halo" if halo else "gp", max_diff, train[0], train[-1]),
+          flush=True)
 
 
 def _gp_agree(ranks) -> None:
@@ -689,9 +713,314 @@ def _gp_layers_agree(ranks) -> None:
                                  "rank 0's" % r)
 
 
+# ---- the halo exchange and the hybrid step --------------------------------
+
+# (case, layer, init kwargs, apply kwargs): tests/test_graph_parallel.py's
+# nine halo cases.
+HALO_LAYER_CASES = (
+    ("rgcn", "rgcn", {}, dict(activation_function="relu")),
+    ("rgcn src and tgt", "rgcn", {"use_both_source_and_target": True},
+     dict(activation_function="relu", use_both_source_and_target=True)),
+    ("ggnn", "ggnn", {}, dict(gated_unit_type="gru",
+                              activation_function="tanh")),
+    ("rgat", "rgat", dict(num_heads=4),
+     dict(num_heads=4, activation_function="tanh")),
+    ("gnn_film", "gnn_film", {}, dict(activation_function="relu")),
+    ("rgin target", "rgin", dict(use_target_state_as_input=True,
+                                 num_edge_MLP_hidden_layers=1),
+     dict(activation_function="relu", use_target_state_as_input=True,
+          num_edge_MLP_hidden_layers=1)),
+    ("rgin no mlp", "rgin", dict(num_edge_MLP_hidden_layers=None),
+     dict(activation_function="relu", num_edge_MLP_hidden_layers=None)),
+    ("gnn_edge_mlp normalize", "gnn_edge_mlp",
+     dict(use_target_state_as_input=True, num_edge_hidden_layers=1),
+     dict(activation_function="gelu", use_target_state_as_input=True,
+          num_edge_hidden_layers=1, normalize_by_num_incoming=True)),
+    ("rgdcn", "rgdcn", dict(num_channels=4),
+     dict(num_channels=4, activation_function="relu")),
+)
+# The bare layers over the merged src_ext stream, and the single-process
+# layer each is held to: (case, layer, its apply kwargs).
+HALO_BARE_CASES = (("bare rgcn", "rgcn", dict(activation_function="relu")),
+                   ("bare gnn_film", "gnn_film",
+                    dict(activation_function="relu")))
+
+
+def halo_layer_fn(case):
+    """(params, shard, h_local, group) -> the case's halo layer output."""
+    from . import graph_parallel as gp
+
+    if case == "bare rgcn":
+        return lambda p, sh, h, g: gp.gp_halo_rgcn_layer(p["W"], sh, h, g,
+                                                         torch.relu)
+    if case == "bare gnn_film":
+        return lambda p, sh, h, g: gp.gp_film_halo_layer(
+            p, sh, h, g, activation_function="relu")
+    _, layer, _, apply_kw = next(c for c in HALO_LAYER_CASES if c[0] == case)
+    return lambda p, sh, h, g: gp.GP_HALO_LAYERS[layer](p, sh, h, g,
+                                                        **apply_kw)
+
+
+def halo_case_spec(case):
+    """(layer, init kwargs, single-process apply kwargs, graph seed)."""
+    names = [c[0] for c in HALO_LAYER_CASES + HALO_BARE_CASES]
+    for c in HALO_LAYER_CASES:
+        if c[0] == case:
+            return c[1], c[2], c[3], names.index(case)
+    _, layer, apply_kw = next(c for c in HALO_BARE_CASES if c[0] == case)
+    return layer, {}, apply_kw, names.index(case)
+
+
+def plant_padded_slot_edge(shard):
+    """The shard with its first real remote edge moved onto a padded slot
+    of the same type and source rank (a slot no real edge reads, filled
+    from the sender's row 0), or None where the rank has no remote edge or
+    that chunk no padded slot."""
+    fr = shard.flat_remote
+    halo_pad = shard.send_idx.shape[1]
+    n_halo = shard.send_idx.shape[0] * halo_pad
+    real = np.flatnonzero(fr.mask > 0)
+    if not real.size:
+        return None
+    i = real[0]
+    l, slot = divmod(int(fr.src_flat[i]), n_halo)
+    chunk = slot // halo_pad
+    read = {int(s) % n_halo for s in fr.src_flat[real]}
+    free = [c * halo_pad + j for c in [chunk] for j in range(halo_pad)
+            if c * halo_pad + j not in read]
+    if not free:
+        return None
+    src = fr.src_flat.copy()
+    src[i] = l * n_halo + free[-1]
+    return shard._replace(flat_remote=fr._replace(
+        src_flat=src,
+        perm_by_src=np.argsort(src, kind="stable").astype(np.int32)))
+
+
+@contextlib.contextmanager
+def halo_held_until_wait():
+    """Every asynchronous all_to_all_single leaves its output NaN until its
+    wait(), which exchanges then: work computed before the wait that
+    reads the receive buffer comes out NaN."""
+    import torch.distributed as dist
+
+    real = dist.all_to_all_single
+
+    class Held:
+        def __init__(self, out, src, group):
+            self.out, self.src, self.group = out, src, group
+
+        def wait(self):
+            with torch.no_grad():
+                real(self.out.detach(), self.src, group=self.group)
+            return True
+
+    def held(out, x, *args, group=None, async_op=False, **kwargs):
+        if not async_op:
+            return real(out, x, *args, group=group, **kwargs)
+        out.fill_(float("nan"))
+        return Held(out, x.detach().clone(), group)
+
+    dist.all_to_all_single = held
+    try:
+        yield
+    finally:
+        dist.all_to_all_single = real
+
+
+def halo_layers_main(args, device):
+    """The halo layer checks' rank: each HALO_LAYER_CASES and
+    HALO_BARE_CASES layer on this rank's halo partition of a random typed
+    graph (uneven partitions), as gp_layers_main runs the gp layers: its
+    output all-gathered and the gradients of sum(output * R) summed over
+    the ranks, as it runs ("split"), with every all-to-all's receive
+    buffer NaN until its wait ("held"), and ("padded_slot") with this
+    rank's first remote edge planted on a padded halo slot; rank 0 also
+    the port's single-process layer on the whole graph."""
+    from . import graph_parallel as gp
+    from ..nn.layers import LAYERS
+    from ..ops.graph import graph_to_device, pad_graph_batch
+    from ..runtime.model import flatten_params
+
+    rank, nproc = args.process_id, args.num_processes
+    out = {"layers": {}}
+    for case in [c[0] for c in HALO_LAYER_CASES + HALO_BARE_CASES]:
+        layer, init_kw, apply_kw, seed = halo_case_spec(case)
+        fn = halo_layer_fn(case)
+        feats, adj = random_typed_graph(GP_LAYER_NODES, seed=seed)
+        n, d = feats.shape
+        params = LAYERS[layer][0](torch.Generator().manual_seed(seed),
+                                  len(adj), d, **init_kw)
+        params = _unflatten_to(params, device)
+        leaves = list(flatten_params(params).values())
+        (host_shard,), n_local, n_global, halo_pad = gp.partition_graph_halo(
+            feats, adj, nproc, parts=[rank])
+        r_full = torch.tensor(np.random.RandomState(100 + seed).randn(
+            n_global, d).astype(np.float32), device=device)
+        r_full[n:] = 0.0
+        r_local = r_full[rank * n_local:(rank + 1) * n_local]
+        rec = {"params": {k: v.detach().cpu().numpy()
+                          for k, v in flatten_params(params).items()},
+               "halo_pad": halo_pad, "n_local": n_local}
+
+        def run(host):
+            planted = host is not None
+            sh = gp.shard_to_device(host if planted else host_shard, device)
+            h = sh.node_features.clone().requires_grad_(True)
+            o = fn(params, sh, h, None)
+            grads = torch.autograd.grad((o * r_local).sum(), leaves + [h])
+            g_par = gp._reduce_grads(list(grads[:-1]), mean=False)
+            return {"out": gp.all_gather(o.detach(), 0)[:n].cpu().numpy(),
+                    "grads": [g.cpu().numpy() for g in g_par],
+                    "grad_h": gp.all_gather(grads[-1], 0)[:n].cpu().numpy(),
+                    "planted": planted}
+
+        rec["split"] = run(None)
+        with halo_held_until_wait():
+            rec["held"] = run(None)
+        if case == "rgcn":
+            rec["padded_slot"] = run(plant_padded_slot_edge(host_shard))
+        if rank == 0:
+            graph = graph_to_device(pad_graph_batch(
+                feats, adj, np.zeros(n, np.int32), 1, n_pad=128), device)
+            h = graph.node_features.clone().requires_grad_(True)
+            o = LAYERS[layer][1](params, graph, h,
+                                 aggregation_strategy="segment",
+                                 typed_edge_scan="unroll", **apply_kw)
+            r_pad = torch.zeros_like(o)
+            r_pad[:n] = r_full[:n]
+            grads = torch.autograd.grad((o * r_pad).sum(), leaves + [h])
+            rec["single"] = {"out": o.detach()[:n].cpu().numpy(),
+                             "grads": [g.cpu().numpy() for g in grads[:-1]],
+                             "grad_h": grads[-1][:n].cpu().numpy()}
+        out["layers"][case] = rec
+    torch.save(out, os.path.join(args.out, "rank%d.pt" % rank))
+    print("MULTIHOST_OK processes=%d device=%s backend=%s kind=halo_layers "
+          "cases=%d" % (nproc, device.type, torch.distributed.get_backend(),
+                        len(out["layers"])), flush=True)
+
+
+def _halo_layers_agree(ranks) -> None:
+    """Every rank's gathered outputs and summed gradients equal to rank
+    0's."""
+    for r, got in enumerate(ranks[1:], 1):
+        for case, rec in ranks[0]["layers"].items():
+            for variant in ("split", "held", "padded_slot"):
+                if variant not in rec:
+                    continue
+                want, have = rec[variant], got["layers"][case][variant]
+                same = (np.array_equal(have["out"], want["out"])
+                        and np.array_equal(have["grad_h"], want["grad_h"])
+                        and all(np.array_equal(a, b) for a, b in
+                                zip(have["grads"], want["grads"])))
+                if not same:
+                    raise AssertionError("rank %d's %s halo layer (%s) "
+                                         "differs from rank 0's"
+                                         % (r, case, variant))
+
+
+# The hybrid check's layout: dp rows of gp ranks each.
+HYBRID_GP = 2
+HYBRID_STRATEGIES = ("allgather", "halo")
+
+
+def hybrid_main(args, device):
+    """The hybrid check's rank: make_hybrid_mesh(gp=2) over the ranks,
+    then for RGCN and GNN-FiLM, each optimizer variant and each strategy,
+    one hybrid step from one state, row r stepping the r-th batch of the
+    train graphs partitioned over its ranks; rank 0 steps the
+    graph-weighted union of the rows' batches in one process from the same
+    state (union_step; parameters within 1e-4, the loss within 1e-5).
+    `args.init`, where given, holds the weights each model starts from."""
+    import pickle
+
+    from . import graph_parallel as gp
+    from . import multihost
+    from ..runtime import model as t_model
+    from ..tasks import base as t_base
+    from ..tasks import qm9 as t_qm9
+
+    rank, nproc = args.process_id, args.num_processes
+    init = None
+    if args.init:
+        with open(args.init, "rb") as f:
+            init = pickle.load(f)
+    groups = multihost.make_hybrid_mesh(gp=HYBRID_GP)
+    task = qm9_task(t_qm9, t_base, buckets=1)
+    batches = step_batches(task, t_base, groups.dp_size)
+    mine = batches[groups.row]
+    dev_batch = t_model.batch_to_device(mine, device)
+    out = {"row": groups.row, "gp_rank": groups.gp_rank,
+           "num_graphs": [int(b.num_graphs) for b in batches], "steps": {}}
+    shards = {}
+    (shards["allgather"],), _, _ = gp.partition_task_batch(
+        mine, HYBRID_GP, mine.graph.n_pad, gp.batch_edge_budget(mine),
+        parts=[groups.gp_rank])
+    (shards["halo"],), _, _, out["halo_pad"] = gp.partition_task_batch_halo(
+        mine, HYBRID_GP, mine.graph.n_pad, gp.batch_edge_budget(mine),
+        parts=[groups.gp_rank])
+    max_diff = 0.0
+    for name in GP_MODELS:
+        for opt in GP_OPTIMIZERS:
+            single = None
+            for strategy in HYBRID_STRATEGIES:
+                model = gp_model(name, task, device, args.out, HYBRID_GP, opt)
+                if init is not None:
+                    model.load_weights(init[name])
+                rec = {"init": _weights(model)}
+                step = multihost.make_hybrid_gp_train_step(model, groups)
+                metrics = step(dev_batch, gp.shard_to_device(
+                    shards[strategy], device))
+                rec["metrics"] = _host(metrics)
+                rec["train"] = _weights(model)
+                if rank == 0:
+                    if single is None:
+                        single = gp_model(name, task, device, args.out,
+                                          HYBRID_GP, opt, graph_parallel=1)
+                        single.load_weights(rec["init"])
+                        losses = union_step(single, [
+                            t_model.batch_to_device(b, device)
+                            for b in batches])
+                        n = [float(b.num_graphs) for b in batches]
+                        out["union_loss_%s %s" % (name, opt)] = sum(
+                            float(x) * c for x, c in zip(losses, n)) / sum(n)
+                        rec_union = _weights(single)
+                    rec["union"] = rec_union
+                    diff = max(float(np.max(np.abs(rec["train"][k]
+                                                   - rec_union[k])))
+                               for k in rec_union)
+                    assert diff < 1e-4, (
+                        "hybrid (dp=%d, gp=%d) %s %s %s diverged: max diff %g"
+                        % (groups.dp_size, HYBRID_GP, name, opt, strategy,
+                           diff))
+                    max_diff = max(max_diff, diff)
+                out["steps"]["%s %s %s" % (name, opt, strategy)] = rec
+    torch.save(out, os.path.join(args.out, "rank%d.pt" % rank))
+    print("MULTIHOST_OK processes=%d device=%s backend=%s kind=hybrid "
+          "dp=%d gp=%d max_param_diff=%g" % (
+              nproc, device.type, torch.distributed.get_backend(),
+              groups.dp_size, HYBRID_GP, max_diff), flush=True)
+
+
+def _hybrid_agree(ranks) -> None:
+    """The ranks of each row hold the same weights and metrics bit for
+    bit, and every rank rank 0's (the dp sum reaches every rank alike)."""
+    for r, got in enumerate(ranks[1:], 1):
+        for case, rec in ranks[0]["steps"].items():
+            for key in ("train", "metrics"):
+                for name, v in rec[key].items():
+                    if not np.array_equal(got["steps"][case][key][name], v):
+                        raise AssertionError(
+                            "rank %d (row %d) %s %s %s differs from rank 0's"
+                            % (r, got["row"], case, key, name))
+
+
 # kind -> (a rank's main, the launcher's check over every rank's record)
 KINDS = {"dp": (dp_main, _dp_agree), "gp": (gp_main, _gp_agree),
-         "gp_layers": (gp_layers_main, _gp_layers_agree)}
+         "gp_layers": (gp_layers_main, _gp_layers_agree),
+         "halo": (functools.partial(gp_main, halo=True), _gp_agree),
+         "halo_layers": (halo_layers_main, _halo_layers_agree),
+         "hybrid": (hybrid_main, _hybrid_agree)}
 
 
 def run_multihost_check(num_processes: int = 2, out_dir: Optional[str] = None,
@@ -700,11 +1029,12 @@ def run_multihost_check(num_processes: int = 2, out_dir: Optional[str] = None,
                         kind: str = "dp", init: Optional[str] = None) -> str:
     """Start `num_processes` local ranks of `main` on `device` (a file://
     rendezvous under `out_dir` unless a `coordinator` HOST:PORT is given)
-    running the `kind` check (dp, gp or gp_layers), wait for them, hold
-    the ranks to each other (the kind's agree) and return rank 0's
-    MULTIHOST_OK line; raise on any failure. `out_dir` (default: a
-    temporary directory) receives the ranks' rank<r>.pt files; `init`
-    (gp) the weights the step checks start from."""
+    running the `kind` check (dp, gp, halo, gp_layers, halo_layers or
+    hybrid), wait for them, hold the ranks to each other (the kind's
+    agree) and return rank 0's MULTIHOST_OK line; raise on any failure.
+    `out_dir` (default: a temporary directory) receives the ranks'
+    rank<r>.pt files; `init` (gp, halo, hybrid) the weights the step
+    checks start from."""
     out_dir = out_dir or tempfile.mkdtemp(prefix="multihost_check_")
     os.makedirs(out_dir, exist_ok=True)
     if device == "cuda":

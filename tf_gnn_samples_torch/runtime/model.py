@@ -119,18 +119,13 @@ def _check_parallel_options(params: Dict[str, Any],
     devices: the two options exclude each other, N replicas or P
     partitions are the N (P) ranks of a torch.distributed process group,
     one a replica (a partition), never one process standing in for
-    several. The halo exchange is not ported yet. ranks_too=False checks
-    the options alone (a model may be built before its process group)."""
+    several. ranks_too=False checks the options alone (a model may be
+    built before its process group)."""
     replicas = int(params.get("num_model_replicas") or 1)
     gp = int(params.get("graph_parallel") or 1)
     if gp > 1 and replicas > 1:
         raise ValueError("graph_parallel and num_model_replicas are mutually "
                          "exclusive (got %d and %d)" % (gp, replicas))
-    if gp > 1 and params.get("graph_parallel_halo"):
-        raise NotImplementedError(
-            "graph_parallel_halo (the halo exchange, ROADMAP Queue 1 item "
-            "8c) is not yet ported to the PyTorch package; graph_parallel "
-            "runs by all-gather without it.")
     if not ranks_too:
         return
     name, want, one = (("graph_parallel", gp, "partition") if gp > 1
@@ -853,25 +848,35 @@ class SparseGraphModel(ABC):
         """(batch on the device, this rank's shard on the device, host
         batch) for each batch of the fold, packed and partitioned here (on
         the prefetch thread): each rank partitions every batch the same
-        way and keeps its own piece."""
+        way and keeps its own piece; with graph_parallel_halo a
+        GPHaloShard, its halo_pad measured on the batch, as in the JAX
+        package."""
         from ..parallel import graph_parallel as gp
 
         rank, size = dp.world()
+        partition = (gp.partition_task_batch_halo
+                     if self.params.get("graph_parallel_halo")
+                     else gp.partition_task_batch)
         for batch in self.task.make_minibatch_iterator(
                 data, data_fold, self.params["max_nodes_in_batch"]):
-            (shard,), _, _ = gp.partition_task_batch(
-                batch, size, batch.graph.n_pad, gp.batch_edge_budget(batch),
-                parts=[rank])
+            (shard,) = partition(batch, size, batch.graph.n_pad,
+                                 gp.batch_edge_budget(batch),
+                                 parts=[rank])[0]
             yield (batch_to_device(batch, self.device),
                    gp.shard_to_device(shard, self.device), batch)
 
     @staticmethod
     def _gp_batch_key(batch: TaskBatch, shard) -> Tuple[int, ...]:
         """What every rank's step must agree on: (n_pad, the edge budget,
-        num_graphs, num_nodes, num_edges)."""
-        return (int(batch.graph.n_pad), int(shard.flat.src_flat.shape[0]),
+        num_graphs, num_nodes, num_edges, halo_pad (0 without the halo
+        exchange))."""
+        from ..parallel import graph_parallel as gp
+
+        send_idx = getattr(shard, "send_idx", None)
+        return (int(batch.graph.n_pad), gp.shard_edge_slots(shard),
                 int(batch.num_graphs), int(batch.num_nodes),
-                int(batch.num_edges))
+                int(batch.num_edges),
+                0 if send_idx is None else int(send_idx.shape[1]))
 
     def _gp_agree(self, keys: List[Tuple[int, ...]], what: str) -> None:
         """Raise unless every rank holds the same `keys` (its batches'
@@ -883,8 +888,8 @@ class SparseGraphModel(ABC):
             if theirs != keys:
                 raise RuntimeError(
                     "graph_parallel ranks out of step at %s: rank %d has "
-                    "(n_pad, edge budget, graphs, nodes, edges) %s, this "
-                    "rank %s"
+                    "(n_pad, edge budget, graphs, nodes, edges, halo_pad) "
+                    "%s, this rank %s"
                     % (what, r, theirs[:4], keys[:4]))
 
     def _run_epoch_graph_parallel(self, epoch_name, data, data_fold, quiet):
